@@ -1,0 +1,130 @@
+"""Linear layers, the depthwise conv, SwiGLU and the FiLM-gated stack.
+
+Counterparts of flax ``nn.Dense`` and osu_dreamer_tpu/nn/blocks.py
+(``DepthwiseConv``, ``SwiGLU``, ``FilmStack``). Parameter names and layouts
+follow the flax modules (Dense kernels are (in, out)), so a flax parameter
+tree maps onto ``state_dict()`` key for key
+(models/inference/artifact.py). Parameters are f32; every module computes in
+its ``dtype`` and casts each parameter at use.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.film_layer import film_layer
+from ..ops.swiglu import swiglu
+from .norm import RMSNorm
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` in ``dtype``, the product
+    rounded to ``dtype`` before the bias is added"""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class MLP(nn.Module):
+    """flax ``nn.Sequential([Dense, silu, Dense])``: children named
+    ``layers_0`` and ``layers_2`` as flax names them"""
+
+    def __init__(self, in_features: int, hidden: int, out_features: int, dtype: torch.dtype):
+        super().__init__()
+        self.layers_0 = Dense(in_features, hidden, dtype)
+        self.layers_2 = Dense(hidden, out_features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers_2(F.silu(self.layers_0(x)))
+
+
+class DepthwiseConv(nn.Module):
+    """width-K SAME depthwise conv over (B, L, C) as a K-tap shifted sum;
+    kernel (K, 1, C) and bias (C,) as in the JAX package"""
+
+    def __init__(self, features: int, width: int, dtype: torch.dtype):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(width, 1, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        K, L = self.kernel.shape[0], x.shape[1]
+        lo = (K - 1) // 2
+        xp = F.pad(x.to(dt), (0, 0, lo, K - 1 - lo))
+        k = self.kernel.to(dt)
+        return sum(xp[:, i : i + L] * k[i, 0] for i in range(K)) + self.bias.to(dt)
+
+
+class SwiGLU(nn.Module):
+    """depthwise-conv gated FFN (ops/swiglu.py) with hidden width
+    int(dim * expand * 2 / 3)"""
+
+    def __init__(self, dim: int, expand: int, radius: int, dtype: torch.dtype):
+        super().__init__()
+        if radius < 1:
+            raise ValueError("SwiGLU without its depthwise conv (radius 0) is not ported")
+        h = int(dim * expand * 2 / 3)
+        K = 1 + 2 * radius
+        self.dw_kernel = nn.Parameter(torch.zeros(K, dim))
+        self.dw_bias = nn.Parameter(torch.zeros(dim))
+        self.vg_kernel = nn.Parameter(torch.zeros(dim, 2 * h))
+        self.vg_bias = nn.Parameter(torch.zeros(2 * h))
+        self.out_kernel = nn.Parameter(torch.zeros(h, dim))
+        self.out_bias = nn.Parameter(torch.zeros(dim))
+        self.dtype = dtype
+
+    def weights(self) -> tuple[torch.Tensor, ...]:
+        return (self.dw_kernel, self.dw_bias, self.vg_kernel, self.vg_bias,
+                self.out_kernel, self.out_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(x.to(self.dtype), *self.weights())
+
+
+class FilmStack(nn.Module):
+    """n pre-norm residual SwiGLU layers, each FiLM-modulated by a per-row
+    conditioning vector when ``cond_dim`` > 0 (ops/film_layer.py):
+
+        x <- x + blocknorm(SwiGLU(norm(x) * (1 + scale) + shift)) * (1 + gate)
+
+    then an output norm. Unconditioned stacks pass zero scale/shift/gate."""
+
+    def __init__(self, dim: int, cond_dim: int, n_layers: int, expand: int, radius: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dim, self.n_layers, self.dtype = dim, n_layers, dtype
+        for i in range(n_layers):
+            if cond_dim > 0:
+                self.add_module(f"film{i}", Dense(cond_dim, 3 * dim, dtype))
+            self.add_module(f"norm{i}", RMSNorm(dim))
+            self.add_module(f"ffn{i}", SwiGLU(dim, expand, radius, dtype))
+            self.add_module(f"blocknorm{i}", RMSNorm(dim, gain=1e-3))
+        self.out_norm = RMSNorm(dim)
+        self.cond_dim = cond_dim
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor | None = None) -> torch.Tensor:
+        if (cond is not None) != (self.cond_dim > 0):
+            raise ValueError("cond must be given exactly when cond_dim > 0")
+        x = x.to(self.dtype)
+        zero = x.new_zeros(x.shape[0], self.dim)
+        for i in range(self.n_layers):
+            if cond is None:
+                scale = shift = gate = zero
+            else:
+                scale, shift, gate = getattr(self, f"film{i}")(cond).chunk(3, dim=-1)
+            x = film_layer(
+                x, scale, shift, gate,
+                getattr(self, f"norm{i}").gamma, getattr(self, f"blocknorm{i}").gamma,
+                *getattr(self, f"ffn{i}").weights(),
+            )
+        return self.out_norm(x)

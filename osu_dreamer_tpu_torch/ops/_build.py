@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at the first CUDA call (never at import: machines without ``nvcc`` import
+this package and run the plain PyTorch versions on CPU tensors). The library
+lands in ``build/kernels/`` at the root of the checkout, named by a hash of
+the sources, so an edited source is rebuilt and a stale library is never
+loaded.
+
+Each kernel wrapper adds one to its entry of ``launches`` when it launches its
+kernel, so a run can show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from functools import cache
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
+launches: dict[str, int] = {name: 0 for name in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "odt_resonate": [_P] * 8 + [_I, _I, _P],
+    "odt_film_layer_fwd": [_P] * 13 + [_I] * 6 + [_P],
+    "odt_swiglu_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    "odt_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, ctypes.c_float, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libodt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """compile the kernels unless an up-to-date library exists (the
+    compiler's output goes to build.log beside it);
+    -> (library path, build seconds, 0 when cached)"""
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    units = sorted(CSRC.glob("*.cu"))
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, units)],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    (BUILD_DIR / "build.log").write_text(log)
+    return lib, seconds
+
+
+@cache
+def library() -> ctypes.CDLL:
+    """the loaded kernel library (built on first use)"""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    """raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and rank
+    ``ndim`` whose data pointer is 16-byte aligned"""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected rank {ndim}, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+
+
+def run(fn_name: str, kernel: str, device: torch.device, *args) -> None:
+    """call a C entry point on ``device``'s current stream, raise on a
+    nonzero cudaGetLastError(), count the launch"""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+    launches[kernel] += 1

@@ -1,0 +1,55 @@
+"""Softmax attention forward over normed and rotated q/k/v: the plain
+PyTorch version and the CUDA flash kernel.
+
+Counterpart of osu_dreamer_tpu/ops/long_attention.py
+(``long_flash_attention`` and its XLA reference ``_xla_reference``): inputs
+(B, L, H, D), output packed (B, L, H*D); logits and softmax in f32, the
+probability matmul in the input dtype.
+
+``long_flash_attention`` dispatches by device: a CUDA tensor goes to the
+kernel in ``csrc/flash_attention.cu`` (bf16, head dim 64; anything else
+raises), a CPU tensor to ``attention_plain``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import check_cuda, run
+
+HEAD_DIM = 64  # the kernel's compiled head width
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, D) -> (B, L, H*D); f32 logits and softmax, P @ V in q's dtype"""
+    B, L, H, D = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / D**0.5
+    p = s.softmax(dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, L, H * D)
+
+
+def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """the csrc/flash_attention.cu kernel"""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda(name, t, torch.bfloat16, 4)
+    if not q.shape == k.shape == v.shape or not q.device == k.device == v.device:
+        raise ValueError(f"q/k/v differ: shapes {q.shape}, {k.shape}, {v.shape}, "
+                         f"devices {q.device}, {k.device}, {v.device}")
+    B, L, H, D = q.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"head dim {D} unsupported: the kernel is built for {HEAD_DIM}")
+    out = torch.empty(B, L, H * D, dtype=q.dtype, device=q.device)
+    run(
+        "odt_flash_attention_fwd", "flash_attention", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D**-0.5,
+    )
+    return out
+
+
+def long_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """attention forward: kernel for CUDA tensors, plain version for CPU tensors"""
+    if q.is_cuda:
+        return attention_cuda(q, k, v)
+    if q.device.type != "cpu":
+        raise ValueError(f"long_flash_attention: no implementation for device {q.device}")
+    return attention_plain(q, k, v)

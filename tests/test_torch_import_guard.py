@@ -1,0 +1,77 @@
+"""The port runs where the machine with the card runs it: without jax, flax,
+jaxtyping, click, msgpack, yaml or the JAX package.
+
+A subprocess makes each of those unimportable, imports every module of
+osu_dreamer_tpu_torch, and drives a tiny slice (init_random weights, two
+songs x two difficulties, CFG on) through ``build_batch_sampler`` on the CPU.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+BLOCKED = ("jax", "flax", "jaxtyping", "click", "msgpack", "yaml", "osu_dreamer_tpu")
+
+SCRIPT = textwrap.dedent(
+    f"""
+    import sys
+    for name in {BLOCKED!r}:
+        sys.modules[name] = None  # any import of it now raises ImportError
+
+    import importlib, pkgutil
+    import numpy as np
+    import torch
+    import osu_dreamer_tpu_torch
+
+    torch.set_num_threads(1)
+    names = [m.name for m in pkgutil.walk_packages(
+        osu_dreamer_tpu_torch.__path__, "osu_dreamer_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+
+    from osu_dreamer_tpu_torch.audio.spectrogram import prep_wave_for_model
+    from osu_dreamer_tpu_torch.models.inference.artifact import init_random
+    from osu_dreamer_tpu_torch.models.inference.model import LDMArgs
+    from osu_dreamer_tpu_torch.models.inference.sampler import build_batch_sampler
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    args = dataclass_from_dict(LDMArgs, {{
+        "latent": {{"emb_dim": 4, "style_dim": 8, "n_downs": 2, "h_dim": 16,
+                    "stack": {{"n_layers": 1, "expand": 2, "radius": 1}}}},
+        "style": {{"style_dim": 8, "label_features": 16, "h_dim": 16, "depth": 1, "expand": 2}},
+        "diffusion": {{"emb_dim": 4, "a_dim": 16, "style_dim": 8, "global_cond_dim": 16,
+                       "backbone_dim": 16, "u_head_dim": 8,
+                       "backbone": {{"depth": 1, "expand": 2, "head_dim": 8, "n_heads": 2,
+                                     "radius": 1}}}},
+    }})
+    gen = torch.Generator().manual_seed(0)
+    model = init_random(args, gen, "cpu")
+    rng = np.random.default_rng(0)
+    preps = [prep_wave_for_model(rng.normal(size=n).astype(np.float32) * 0.3, 9)
+             for n in (30000, 60000)]
+    waves = torch.from_numpy(np.stack([p[0] for p in preps]))
+    real = torch.tensor([p[1] for p in preps])
+    labels = torch.tensor([[5.0, 9, 8, 4, 6], [3, 5, 5, 4, 4]])
+    hit, xy, lab = build_batch_sampler(model)(
+        waves, real, labels, gen, preps[0][2], preps[0][3], 2, 2.0)
+    assert hit.shape == (4, preps[0][3], 7) and hit.dtype == torch.uint8
+    assert xy.shape == (4, preps[0][3], 2) and xy.dtype == torch.int16
+    assert lab.shape == (4, 5) and bool(torch.isfinite(lab).all())
+    blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
+    assert not blocked, blocked
+    print("imported", len(names), "modules")
+    """
+)
+
+
+def test_port_runs_without_jax_stack():
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported" in proc.stdout
