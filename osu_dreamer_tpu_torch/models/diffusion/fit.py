@@ -1,0 +1,145 @@
+"""fit-denoiser: config -> cached-latent streams -> train loop, on one device.
+
+Counterpart of osu_dreamer_tpu/models/diffusion/fit.py. Validation parity:
+each held-out full map is cut into ``val_batches`` equal segments (padded or
+cut to the training window), stacked as a batch and scored with the
+distance-marching losses on the EMA weights; the checkpoint monitor is
+val/loss. Out of scope, raising: data/tensor/sequence parallelism (a
+``parallel`` block other than one device), ``backbone.dropout > 0``, and
+windows where ``fused_attention_fits`` fails (no attention backward kernel
+there, as in the JAX package).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ...data.pipeline import batched, hold_out_mapsets, latent_windows, prefetch
+from ...nn.schedule import lr_at
+from ...ops.fused_attention import fused_attention_fits
+from ...train.loop import FitArgs, Stage, fit
+from ...train.state import TrainState
+from ...utils import dataclass_from_dict, load_yaml_config
+from .model import DiffusionModelArgs
+from .train import DiffusionTrainArgs, LatentBatch, diffusion_loss, init_diffusion_training
+
+CONFIG = Path(__file__).parent / "config.yml"
+
+
+@dataclass
+class DiffusionDataArgs:
+    data_dir: str = "./data"
+    seq_len: int = 152
+    batch_size: int = 128
+    max_val_count: int = 128
+    max_val_frac: float = 0.3
+    max_per_map: int = 1
+    shuffle_buffer: int = 512
+
+
+def check_single_device(parallel: dict) -> None:
+    """accept only a ``parallel`` block that means one device"""
+    unsupported = {
+        key: value for key, value in parallel.items()
+        if not ((key == "dp" and value in (-1, 1)) or (key in ("tp", "sp") and value == 1)
+                or (key in ("coordinator", "process_id") and value is None)
+                or (key == "num_processes" and value in (None, 1)))
+    }
+    if unsupported:
+        raise NotImplementedError(
+            f"parallel training is not ported (this port trains on one device): {unsupported}"
+        )
+
+
+def run(
+    config: str | Path | dict | None = None,
+    resume_from: str | None = None,
+    device: torch.device | str = "cuda",
+    on_step: Optional[Callable[[int, dict], None]] = None,
+) -> TrainState:
+    """train the denoiser as ``config`` (a YAML file, by default the
+    package's config.yml, or the parsed dict) says, on ``device`` (a CUDA
+    card unless ``cpu`` is asked for); ``on_step(step, metrics)`` runs after
+    every step"""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    cfg = config if isinstance(config, dict) else load_yaml_config(config or CONFIG)
+    model_args = dataclass_from_dict(DiffusionModelArgs, cfg.get("model", {}))
+    train_args = dataclass_from_dict(DiffusionTrainArgs, cfg.get("train", {}))
+    data_args = dataclass_from_dict(DiffusionDataArgs, cfg.get("data", {}))
+    fit_args = dataclass_from_dict(FitArgs, cfg.get("fit", {}))
+    check_single_device(cfg.get("parallel") or {})
+    bb = model_args.backbone
+    if bb.seq_axis is not None:
+        raise NotImplementedError("sequence parallelism (backbone.seq_axis) is not ported")
+    if bb.dropout > 0:
+        raise NotImplementedError("backbone.dropout > 0 is not ported")
+    if not fused_attention_fits(data_args.seq_len, bb.n_heads, bb.head_dim):
+        raise NotImplementedError(
+            f"seq_len {data_args.seq_len} with {bb.n_heads} x {bb.head_dim} heads is beyond "
+            "fused_attention_fits: there is no attention backward at that length"
+        )
+
+    train_sets, val_sets = hold_out_mapsets(
+        Path(data_args.data_dir), "*.latent.npz", data_args.max_val_count,
+        data_args.max_val_frac,
+    )
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    state, train_step = init_diffusion_training(model_args, train_args, fit_args.seed, device,
+                                                dtype)
+
+    def to_device(b) -> LatentBatch:
+        return LatentBatch(*(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in b))
+
+    def train_stream(epoch: int) -> Iterator[LatentBatch]:
+        stream = latent_windows(
+            train_sets, data_args.seq_len, shuffle_buffer=data_args.shuffle_buffer,
+            max_per_map=data_args.max_per_map, seed=fit_args.seed + epoch,
+        )
+        for b in prefetch(batched(stream, data_args.batch_size)):
+            yield to_device(b)
+
+    val_seg, vb = data_args.seq_len, train_args.val_batches
+
+    @torch.no_grad()
+    def validate(state: TrainState) -> dict[str, float]:
+        generator = torch.Generator(device=device).manual_seed(0)
+        totals: dict[str, torch.Tensor] = {}
+        n = 0
+        for sample in latent_windows(val_sets, None):
+            seg = sample.z.shape[0] // vb
+            if seg == 0:
+                continue
+            take = vb * seg
+            h = sample.h[:take].reshape(vb, seg, -1)
+            z = sample.z[:take].reshape(vb, seg, -1)
+            if seg < val_seg:  # pad segments to the training window
+                pad = ((0, 0), (0, val_seg - seg), (0, 0))
+                h, z = np.pad(h, pad, mode="edge"), np.pad(z, pad, mode="edge")
+            else:
+                h, z = h[:, :val_seg], z[:, :val_seg]
+            batch = to_device((h, z, np.broadcast_to(sample.s, (vb, *sample.s.shape)),
+                               np.broadcast_to(sample.labels, (vb, *sample.labels.shape))))
+            _, aux = diffusion_loss(state.ema_model, batch, train_args, generator, train=False)
+            for name, v in aux.items():
+                totals[name] = totals.get(name, 0.0) + v
+            n += 1
+        return {f"val/{k}": float(v) / n for k, v in totals.items()} if n else {}
+
+    stage = Stage(
+        name="denoiser",
+        hparams={"model": cfg.get("model", {}), "train": cfg.get("train", {})},
+        state=state,
+        train_step=train_step,
+        train_stream=train_stream,
+        validate=validate,
+        lr_schedule=lambda step: lr_at(step, train_args.opt.lr, train_args.opt.schedule),
+        on_step=on_step,
+    )
+    return fit(stage, fit_args, resume_from)

@@ -5,8 +5,9 @@ Counterpart of osu_dreamer_tpu/models/diffusion/model.py (``BackboneLayer``,
 ``Backbone``, ``DiffusionModel.precompute_cond/predict/sample``). For a noised
 latent x_t the model predicts the distance u to the data manifold and the
 direction field v; sampling steps ``x <- x - eta * u * v`` with eta
-calibrated on the device from the first prediction. The sequence-parallel
-branches of the JAX module are not ported.
+calibrated on the device from the first prediction. ``forward`` is the
+training call; ``init_params`` draws flax's initialisation. The
+sequence-parallel branches and dropout of the JAX module are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from ...nn.blocks import Dense, DepthwiseConv, SwiGLU
 from ...nn.norm import rms_norm
 
 _T99 = 0.9110007125548362
+# softplus(bias) = .5  =>  u starts at its marginal mean E[1-t]*u_scale
+_U_BIAS_INIT = -0.4328
 
 
 @dataclass
@@ -70,10 +73,10 @@ class BackboneLayer(nn.Module):
     def __init__(self, dim: int, a_dim: int, cond_dim: int, args: BackboneArgs,
                  dtype: torch.dtype):
         super().__init__()
-        self.film_attn = Dense(cond_dim, 3 * dim, dtype)
+        self.film_attn = Dense(cond_dim, 3 * dim, dtype, zero_init=True)
         self.attn = RoPEAttention(dim, args.n_heads, args.head_dim, dim, dtype)
         self.audio_proj = Dense(a_dim, dim, dtype)
-        self.film_ffn = Dense(cond_dim, 3 * dim, dtype)
+        self.film_ffn = Dense(cond_dim, 3 * dim, dtype, zero_init=True)
         self.ffn = SwiGLU(dim, args.expand, args.radius, dtype)
 
     def forward(self, x: torch.Tensor, audio: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
@@ -121,16 +124,35 @@ class DiffusionModel(nn.Module):
         super().__init__()
         a = args
         if a.backbone.seq_axis is not None:
-            raise ValueError("sequence-parallel sampling is not ported")
+            raise ValueError("sequence parallelism (backbone.seq_axis) is not ported")
         self.args = args
         self.audio_in = Dense(a.a_dim, a.a_dim, dtype)
         self.style_in = Dense(a.style_dim, a.global_cond_dim, dtype)
         self.proj_in = Dense(a.emb_dim, a.backbone_dim, dtype)
         self.net = Backbone(a.backbone_dim, a.a_dim, a.global_cond_dim, a.backbone, dtype)
-        self.proj_out = Dense(a.backbone_dim, a.emb_dim, dtype)
+        self.proj_out = Dense(a.backbone_dim, a.emb_dim, dtype, zero_init=True)
         self.u_convs = UConvs(a.emb_dim, a.u_head_dim, dtype)
-        self.u_film = Dense(a.global_cond_dim, 2 * a.u_head_dim, dtype)
-        self.u_out = Dense(a.u_head_dim, 1, dtype)
+        self.u_film = Dense(a.global_cond_dim, 2 * a.u_head_dim, dtype, zero_init=True)
+        self.u_out = Dense(a.u_head_dim, 1, dtype, zero_init=True, bias_init=_U_BIAS_INIT)
+
+    def init_params(self, generator: torch.Generator) -> "DiffusionModel":
+        """flax's initialisation of ``DiffusionModel.init``: lecun_normal
+        kernels, zero biases, zero FiLM/proj_out/u_film/u_out kernels, the
+        u_out bias at -0.4328, unit q/k gains; drawn from ``generator`` in
+        module order"""
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self
+
+    def forward(self, audio: torch.Tensor, style: torch.Tensor, xt: torch.Tensor,
+                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """the training call: -> (u (B,) f32, v (B, l, E)). ``train`` only
+        guards dropout, which is not ported: with backbone.dropout > 0 a
+        training call raises (at dropout 0 both modes compute the same)"""
+        if train and self.args.backbone.dropout > 0:
+            raise NotImplementedError("training with backbone.dropout > 0 is not ported")
+        return self.predict(*self.precompute_cond(audio, style), xt)
 
     def precompute_cond(self, audio: torch.Tensor, style: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -3,7 +3,11 @@
 Counterpart of osu_dreamer_tpu/nn/attention.py (``rope``, ``RoPEAttention``):
 packed qkv projection (optionally after a pre-norm FiLM and an added
 stream), per-head RMS norm of q and k with learned gains, rotary position
-embedding, softmax attention (ops/long_attention.py), output projection.
+embedding, softmax attention, output projection. As in the JAX package,
+lengths where ``fused_attention_fits`` holds go straight off the packed
+projection through ``fused_norm_rope_attention`` (ops/fused_attention.py,
+forward and backward kernels); longer ones normalise and rotate here and take
+the forward-only ``long_flash_attention`` (ops/long_attention.py).
 """
 
 from __future__ import annotations
@@ -11,23 +15,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.fused_attention import fused_attention_fits, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
 from .blocks import Dense
 from .norm import rms_norm
-
-
-def rope(x: torch.Tensor) -> torch.Tensor:
-    """rotary position embedding over (B, L, H, D) with even D"""
-    _, L, _, D = x.shape
-    if D % 2:
-        raise ValueError("head_dim must be even")
-    inv_freq = 10000.0 ** (torch.arange(0, D, 2, dtype=torch.float32, device=x.device) / -D)
-    positions = torch.arange(L, dtype=torch.float32, device=x.device)
-    angles = positions[:, None] * inv_freq[None, :]  # (L, D/2)
-    cos = angles.cos().to(x.dtype)[None, :, None, :]
-    sin = angles.sin().to(x.dtype)[None, :, None, :]
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
 class RoPEAttention(nn.Module):
@@ -41,6 +32,12 @@ class RoPEAttention(nn.Module):
         self.q_gamma = nn.Parameter(torch.ones(head_dim))
         self.k_gamma = nn.Parameter(torch.ones(head_dim))
         self.out = Dense(n_heads * head_dim, out_dim, dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's init of the gains (ones); the Dense children reset themselves"""
+        with torch.no_grad():
+            self.q_gamma.fill_(1.0)
+            self.k_gamma.fill_(1.0)
 
     def forward(
         self,
@@ -61,7 +58,10 @@ class RoPEAttention(nn.Module):
             h = rms_norm(x) * (1 + scale[:, None, :].to(dt)) + shift[:, None, :].to(dt)
         if add is not None:
             h = h + add.to(dt)
-        q, k, v = self.qkv(h).split(H * D, dim=-1)
+        qkv = self.qkv(h)
+        if fused_attention_fits(L, H, D):
+            return self.out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
+        q, k, v = qkv.split(H * D, dim=-1)
         q = rope(rms_norm(q.reshape(B, L, H, D), self.q_gamma))
         k = rope(rms_norm(k.reshape(B, L, H, D), self.k_gamma))
         y = long_flash_attention(q, k, v.reshape(B, L, H, D).contiguous())

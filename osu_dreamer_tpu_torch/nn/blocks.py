@@ -5,7 +5,10 @@ Counterparts of flax ``nn.Dense`` and osu_dreamer_tpu/nn/blocks.py
 follow the flax modules (Dense kernels are (in, out)), so a flax parameter
 tree maps onto ``state_dict()`` key for key
 (models/inference/artifact.py). Parameters are f32; every module computes in
-its ``dtype`` and casts each parameter at use.
+its ``dtype`` and casts each parameter at use (a differentiable cast, so
+gradients reach the f32 parameters). ``reset_parameters(generator)``
+initialises a module as its flax counterpart does: ``lecun_normal`` kernels,
+zero biases, the layers flax zero-initialises at zero.
 """
 
 from __future__ import annotations
@@ -18,16 +21,36 @@ from ..ops.film_layer import film_layer
 from ..ops.swiglu import swiglu
 from .norm import RMSNorm
 
+# the standard deviation of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: a normal truncated at two standard deviations,
+    scaled to variance 1 / fan_in"""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``x @ kernel + bias`` in ``dtype``, the product
-    rounded to ``dtype`` before the bias is added"""
+    rounded to ``dtype`` before the bias is added. ``zero_init`` is flax's
+    ``kernel_init=zeros``; ``bias_init`` the bias's constant"""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 zero_init: bool = False, bias_init: float = 0.0):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
-        self.dtype = dtype
+        self.dtype, self.zero_init, self.bias_init = dtype, zero_init, bias_init
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            if self.zero_init:
+                self.kernel.zero_()
+            else:
+                lecun_normal_(self.kernel, self.kernel.shape[0], generator)
+            self.bias.fill_(self.bias_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
@@ -56,6 +79,12 @@ class DepthwiseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's fans of a (K, 1, C) kernel: fan_in = 1 * K"""
+        with torch.no_grad():
+            lecun_normal_(self.kernel, self.kernel.shape[0], generator)
+            self.bias.zero_()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         K, L = self.kernel.shape[0], x.shape[1]
@@ -83,6 +112,14 @@ class SwiGLU(nn.Module):
         self.out_bias = nn.Parameter(torch.zeros(dim))
         self.dtype = dtype
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """lecun_normal kernels (a (K, C) conv kernel has fan_in K), zero biases"""
+        with torch.no_grad():
+            for kernel in (self.dw_kernel, self.vg_kernel, self.out_kernel):
+                lecun_normal_(kernel, kernel.shape[0], generator)
+            for bias in (self.dw_bias, self.vg_bias, self.out_bias):
+                bias.zero_()
+
     def weights(self) -> tuple[torch.Tensor, ...]:
         return (self.dw_kernel, self.dw_bias, self.vg_kernel, self.vg_bias,
                 self.out_kernel, self.out_bias)
@@ -105,7 +142,7 @@ class FilmStack(nn.Module):
         self.dim, self.n_layers, self.dtype = dim, n_layers, dtype
         for i in range(n_layers):
             if cond_dim > 0:
-                self.add_module(f"film{i}", Dense(cond_dim, 3 * dim, dtype))
+                self.add_module(f"film{i}", Dense(cond_dim, 3 * dim, dtype, zero_init=True))
             self.add_module(f"norm{i}", RMSNorm(dim))
             self.add_module(f"ffn{i}", SwiGLU(dim, expand, radius, dtype))
             self.add_module(f"blocknorm{i}", RMSNorm(dim, gain=1e-3))

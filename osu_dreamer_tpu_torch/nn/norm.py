@@ -25,7 +25,12 @@ class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, gain: float = 1.0):
         super().__init__()
-        self.gamma = nn.Parameter(torch.full((dim,), float(gain)))
+        self.gain = float(gain)
+        self.gamma = nn.Parameter(torch.full((dim,), self.gain))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.gamma.fill_(self.gain)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.gamma)

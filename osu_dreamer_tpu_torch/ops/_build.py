@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The build
 runs at the first CUDA call (never at import: machines without ``nvcc`` import
 this package and run the plain PyTorch versions on CPU tensors). The library
 lands in ``build/kernels/`` at the root of the checkout, named by a hash of
@@ -30,10 +31,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
+KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
+           "fused_attention_fwd", "fused_attention_bwd")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -43,6 +45,9 @@ _SIGNATURES = {
     "odt_film_layer_fwd": [_P] * 13 + [_I] * 6 + [_P],
     "odt_swiglu_fwd": [_P] * 8 + [_I] * 6 + [_P],
     "odt_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_swiglu_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    "odt_fused_attention_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_fused_attention_bwd": [_P] * 15 + [_I, _I, _I, ctypes.c_float, _P],
 }
 
 
@@ -72,29 +77,37 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """compile the kernels unless an up-to-date library exists (the
-    compiler's output goes to build.log beside it);
-    -> (library path, build seconds, 0 when cached)"""
+    """compile the kernels unless an up-to-date library exists: one nvcc per
+    source, all in parallel, then one link (the compilers' output goes to
+    build.log beside it); -> (library path, build seconds, 0 when cached)"""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = sorted(CSRC.glob("*.cu"))
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, units)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    (BUILD_DIR / "build.log").write_text(log)
-    return lib, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                 str(CSRC / f"{obj.stem}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for obj in objs
+        ]
+        logs = [f"== {obj.stem}.cu\n{proc.communicate()[0]}" for obj, proc in zip(objs, procs)]
+        failed = [obj.stem for obj, proc in zip(objs, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp = Path(tmpdir) / lib.name
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    return lib, time.perf_counter() - t0
 
 
 @cache

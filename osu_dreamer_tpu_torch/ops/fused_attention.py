@@ -1,0 +1,187 @@
+"""Fused per-head RMS norm + RoPE + softmax attention straight off the packed
+qkv projection, forward and backward: the plain PyTorch version and the CUDA
+kernels.
+
+Counterpart of osu_dreamer_tpu/ops/fused_attention.py
+(``fused_attention_fits``, ``rope_attention_reference`` and the Pallas
+``_fwd_kernel``/``_bwd_kernel``): packed (B, L, 3*H*D) -> (B, L, H*D). The
+numerics are the plain path's: f32 norm statistics (eps 1e-6), bf16
+normalised values times bf16 gamma, bf16 rotary multiplies, f32 logits and
+softmax, the probability matmul in the input dtype.
+
+``fused_norm_rope_attention`` dispatches by device: a CUDA tensor goes to the
+``torch.autograd.Function`` whose forward is csrc/fused_attention.cu
+``fused_attention_fwd_kernel`` (K9) and whose backward is
+``fused_attention_bwd_kernel`` (K10), bf16 and head dim 64 only (anything else
+raises); a CPU tensor to ``rope_attention_plain``, differentiated by autograd.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..nn.norm import rms_norm
+from ._build import check_cuda, run
+from .long_attention import HEAD_DIM, attention_plain
+
+# the JAX package's gate (its backward's VMEM budget), kept so both packages
+# take the fused path at the same shapes
+MAX_FUSED_LEN = 256
+# what the CUDA kernels' shared memory holds: a head's L rotated keys, values
+# and score rows (csrc/fused_attention.cu)
+MAX_KERNEL_LEN = 256
+
+
+def fused_attention_fits(L: int, n_heads: int, head_dim: int) -> bool:
+    """the JAX package's shape gate (copied): working set bounded by
+    L * H * D, even rotary halves, packed head dim a multiple of 128"""
+    HD = n_heads * head_dim
+    return HD > 0 and L * HD <= MAX_FUSED_LEN * 1024 and head_dim % 2 == 0 and HD % 128 == 0
+
+
+def rope_tables(L: int, D: int, device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (L, D/2) in ``dtype``: f32 angles rounded once"""
+    inv_freq = 10000.0 ** (torch.arange(0, D, 2, dtype=torch.float32, device=device) / -D)
+    angles = torch.arange(L, dtype=torch.float32, device=device)[:, None] * inv_freq[None, :]
+    return angles.cos().to(dtype), angles.sin().to(dtype)
+
+
+def rope(x: torch.Tensor) -> torch.Tensor:
+    """rotary position embedding over (B, L, H, D) with even D"""
+    _, L, _, D = x.shape
+    if D % 2:
+        raise ValueError("head_dim must be even")
+    cos, sin = rope_tables(L, D, x.device, x.dtype)
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _split_heads(qkv: torch.Tensor, n_heads: int):
+    B, L, three_hd = qkv.shape
+    HD = three_hd // 3
+    if 3 * HD != three_hd or HD % n_heads:
+        raise ValueError(f"packed width {three_hd} does not split into 3 x {n_heads} heads")
+    return (t.reshape(B, L, n_heads, HD // n_heads) for t in qkv.split(HD, dim=-1))
+
+
+def rope_attention_plain(qkv: torch.Tensor, q_gamma: torch.Tensor, k_gamma: torch.Tensor,
+                         n_heads: int) -> torch.Tensor:
+    """(B, L, 3*H*D) -> (B, L, H*D), the JAX ``rope_attention_reference``
+    composition in qkv's dtype"""
+    q, k, v = _split_heads(qkv, n_heads)
+    return attention_plain(rope(rms_norm(q, q_gamma)), rope(rms_norm(k, k_gamma)), v)
+
+
+def fused_attention_fwd_plain(qkv, q_gamma, k_gamma, n_heads):
+    """the forward kernel's outputs in plain PyTorch: (out, lse, rq, rk, iq,
+    ik) with lse (B, H, L) the f32 log-sum-exp of each query's scaled logits,
+    rq/rk (B, L, H*D) the rotated q/k, iq/ik (B, L, H) the f32 1/rms"""
+    q, k, _ = _split_heads(qkv, n_heads)
+    B, L, H, D = q.shape
+    rq, rk = rope(rms_norm(q, q_gamma)), rope(rms_norm(k, k_gamma))
+    s = torch.einsum("bqhd,bkhd->bhqk", rq.float(), rk.float()) / D**0.5
+    inv = [torch.rsqrt(t.float().square().mean(-1) + 1e-6) for t in (q, k)]
+    return (rope_attention_plain(qkv, q_gamma, k_gamma, n_heads), s.logsumexp(-1),
+            rq.reshape(B, L, H * D), rk.reshape(B, L, H * D), *inv)
+
+
+def fused_attention_bwd_plain(qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gamma, n_heads):
+    """the backward kernel's outputs (dqkv, dq_gamma, dk_gamma) in plain
+    PyTorch: autograd through ``rope_attention_plain`` (the residuals are
+    accepted for the kernel's signature and not read)"""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (qkv, q_gamma, k_gamma)]
+        y = rope_attention_plain(*leaves, n_heads)
+        return torch.autograd.grad(y, leaves, grad)
+
+
+def _check_kernel_shapes(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int, int]:
+    check_cuda("qkv", qkv, torch.bfloat16, 3)
+    B, L, three_hd = qkv.shape
+    if three_hd % (3 * n_heads) or three_hd // (3 * n_heads) != HEAD_DIM:
+        raise ValueError(f"packed width {three_hd} is not 3 x {n_heads} heads x {HEAD_DIM}: "
+                         f"the kernels are built for head dim {HEAD_DIM}")
+    if not 0 < L <= MAX_KERNEL_LEN:
+        raise ValueError(f"length {L} outside the kernels' range 1..{MAX_KERNEL_LEN}")
+    return B, L, n_heads, HEAD_DIM
+
+
+def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads):
+    """K9, csrc/fused_attention.cu: bf16 packed qkv -> (out, lse, rq, rk, iq,
+    ik) as ``fused_attention_fwd_plain`` returns them"""
+    B, L, H, D = _check_kernel_shapes(qkv, n_heads)
+    dev = qkv.device
+    cos, sin = rope_tables(L, D, dev, torch.bfloat16)
+    gq, gk = (g.to(device=dev, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma))
+    if gq.shape != (D,) or gk.shape != (D,):
+        raise ValueError(f"gammas must be ({D},), got {tuple(q_gamma.shape)}, {tuple(k_gamma.shape)}")
+    out, rq, rk = (torch.empty(B, L, H * D, dtype=torch.bfloat16, device=dev) for _ in range(3))
+    iq, ik = (torch.empty(B, L, H, dtype=torch.float32, device=dev) for _ in range(2))
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=dev)
+    run(
+        "odt_fused_attention_fwd", "fused_attention_fwd", dev,
+        *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, out, lse, rq, rk, iq, ik)),
+        B, L, H, D**-0.5,
+    )
+    return out, lse, rq, rk, iq, ik
+
+
+def fused_attention_bwd_cuda(qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gamma, n_heads):
+    """K10, csrc/fused_attention.cu: -> (dqkv bf16, dq_gamma f32, dk_gamma
+    f32); the per-(batch, head) gamma partials are summed here"""
+    B, L, H, D = _check_kernel_shapes(qkv, n_heads)
+    dev = qkv.device
+    grad = grad.to(torch.bfloat16).contiguous()
+    for name, t, dtype, shape in (("grad", grad, torch.bfloat16, (B, L, H * D)),
+                                  ("out", out, torch.bfloat16, (B, L, H * D)),
+                                  ("lse", lse, torch.float32, (B, H, L)),
+                                  ("rq", rq, torch.bfloat16, (B, L, H * D)),
+                                  ("rk", rk, torch.bfloat16, (B, L, H * D)),
+                                  ("iq", iq, torch.float32, (B, L, H)),
+                                  ("ik", ik, torch.float32, (B, L, H))):
+        check_cuda(name, t, dtype, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    cos, sin = rope_tables(L, D, dev, torch.bfloat16)
+    gq, gk = (g.to(device=dev, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma))
+    dqkv = torch.empty_like(qkv)
+    dgq, dgk = (torch.empty(B * H, D, dtype=torch.float32, device=dev) for _ in range(2))
+    run(
+        "odt_fused_attention_bwd", "fused_attention_bwd", dev,
+        *(t.data_ptr() for t in (qkv, grad, out, lse, rq, rk, iq, ik, gq, gk, cos, sin,
+                                 dqkv, dgq, dgk)),
+        B, L, H, D**-0.5,
+    )
+    return dqkv, dgq.sum(0), dgk.sum(0)
+
+
+class FusedNormRopeAttention(torch.autograd.Function):
+    """K9 forward, K10 backward; the residuals of the forward (lse, rq, rk,
+    iq, ik) and its output feed the backward"""
+
+    @staticmethod
+    def forward(ctx, qkv, q_gamma, k_gamma, n_heads):
+        out, *res = fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads)
+        ctx.save_for_backward(qkv, q_gamma, k_gamma, out, *res)
+        ctx.n_heads = n_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, q_gamma, k_gamma, out, lse, rq, rk, iq, ik = ctx.saved_tensors
+        dqkv, dgq, dgk = fused_attention_bwd_cuda(
+            qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gamma, ctx.n_heads
+        )
+        return dqkv.to(qkv.dtype), dgq.to(q_gamma.dtype), dgk.to(k_gamma.dtype), None
+
+
+def fused_norm_rope_attention(qkv: torch.Tensor, q_gamma: torch.Tensor, k_gamma: torch.Tensor,
+                              n_heads: int) -> torch.Tensor:
+    """packed (B, L, 3*H*D) -> (B, L, H*D): kernels for CUDA tensors, the
+    plain version (autograd) for CPU tensors"""
+    if qkv.is_cuda:
+        return FusedNormRopeAttention.apply(qkv, q_gamma, k_gamma, n_heads)
+    if qkv.device.type != "cpu":
+        raise ValueError(f"fused_norm_rope_attention: no implementation for device {qkv.device}")
+    return rope_attention_plain(qkv, q_gamma, k_gamma, n_heads)

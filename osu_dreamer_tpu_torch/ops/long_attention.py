@@ -49,6 +49,11 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
 def long_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """attention forward: kernel for CUDA tensors, plain version for CPU tensors"""
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "long_flash_attention has no backward kernel: training runs only at lengths "
+                "where ops.fused_attention.fused_attention_fits holds"
+            )
         return attention_cuda(q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"long_flash_attention: no implementation for device {q.device}")

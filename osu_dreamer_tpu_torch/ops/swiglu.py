@@ -1,14 +1,18 @@
-"""SwiGLU conv-FFN forward: the plain PyTorch version and the CUDA kernel.
+"""SwiGLU conv-FFN forward and backward: the plain PyTorch versions and the
+CUDA kernels.
 
-Counterpart of osu_dreamer_tpu/ops/swiglu.py (``swiglu_reference`` and the
-Pallas forward ``_kernel``). The block is
+Counterpart of osu_dreamer_tpu/ops/swiglu.py (``swiglu_reference``, the
+Pallas forward ``_kernel`` and the partial backward ``_partial_bwd_kernel``,
+the one the JAX dispatch takes at the denoiser's dims). The block is
 
     x -> depthwise conv (2r+1 taps, zero SAME padding) -> (C, 2H) projection
       -> v * silu(g) -> RMS norm over H (f32 statistics) -> (H, C) projection
 
-``swiglu`` dispatches by device: a CUDA tensor goes to the kernel in
-``csrc/swiglu.cu`` (bf16 only; anything else raises), a CPU tensor to
-``swiglu_plain``.
+``swiglu`` dispatches by device: a CUDA tensor goes to a
+``torch.autograd.Function`` whose forward is the kernel in ``csrc/swiglu.cu``
+(K4) and whose backward is ``csrc/swiglu_bwd.cu`` (K6) plus the two big
+weight products as torch matmuls (bf16 only; anything else raises); a CPU
+tensor to ``swiglu_plain``, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -18,6 +22,10 @@ import torch.nn.functional as F
 
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
+
+# extended rows per block of the backward kernel (csrc/swiglu_bwd.cu kSbE):
+# each block owns BWD_ROWS - 2r core rows
+BWD_ROWS = 80
 
 
 def swiglu_plain(
@@ -104,10 +112,81 @@ def swiglu_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
     return out
 
 
-def swiglu(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias) -> torch.Tensor:
-    """SwiGLU forward: kernel for CUDA tensors, plain version for CPU tensors"""
-    if x.is_cuda:
+def swiglu_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
+    """autograd of ``swiglu_plain`` -> (dx, d dw_kernel, d dw_bias,
+    d vg_kernel, d vg_bias, d out_kernel, d out_bias), the tuple the JAX
+    ``_fused_swiglu_partial_bwd_impl`` returns"""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in
+                  (x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel)]
+        out_bias = out_kernel.new_zeros(out_kernel.shape[1]).requires_grad_()
+        y = swiglu_plain(*leaves, out_bias)
+        return torch.autograd.grad(y, [*leaves, out_bias], grad_out)
+
+
+def swiglu_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
+    """K6, csrc/swiglu_bwd.cu: dx (bf16) and the small gradients (f32) from
+    the kernel; dW_vg = y^T dvg and dW_out = hn^T go as f32-accumulated
+    torch matmuls over all B*L rows. -> the tuple of ``swiglu_bwd_plain``,
+    weight gradients f32"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    out_bias = vg_kernel.new_zeros(x.shape[-1])
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    go = grad_out.to(torch.bfloat16).contiguous()
+    if x.shape[-1] % 32:
+        raise ValueError(f"channels {x.shape[-1]} must be a multiple of 32 for the backward kernel")
+    if go.shape != x.shape:
+        raise ValueError(f"grad_out must be {tuple(x.shape)}, got {tuple(go.shape)}")
+    B, L, C = x.shape
+    K = dw_kernel.shape[0]
+    weights, H, Hp = pack_ffn_weights(
+        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
+    )
+    rows = BWD_ROWS - 2 * (K // 2)
+    nblk = B * -(-L // rows)
+    dev = x.device
+    dx, y = torch.empty_like(x), torch.empty_like(x)
+    dvg = torch.empty(B, L, 2 * H, dtype=x.dtype, device=dev)
+    hn = torch.empty(B, L, H, dtype=x.dtype, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ddw, ddwb = torch.empty(nblk, K, C, **f32), torch.empty(nblk, C, **f32)
+    dbvg, dbout = torch.empty(nblk, 2 * Hp, **f32), torch.empty(nblk, C, **f32)
+    scratch = torch.empty(nblk, BWD_ROWS, 2 * Hp, dtype=x.dtype, device=dev)  # dvg of each block
+    run(
+        "odt_swiglu_bwd", "swiglu_bwd", dev,
+        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights[:5]),
+        *(t.data_ptr() for t in (dx, dvg, hn, y, ddw, ddwb, dbvg, dbout, scratch)),
+        B, L, C, H, Hp, K,
+    )
+    dwvg = torch.mm(y.reshape(-1, C).t(), dvg.reshape(-1, 2 * H), out_dtype=torch.float32)
+    dwout = torch.mm(hn.reshape(-1, H).t(), go.reshape(-1, C), out_dtype=torch.float32)
+    dbvg = dbvg.sum(0)
+    return (dx, ddw.sum(0), ddwb.sum(0), dwvg, torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout,
+            dbout.sum(0))
+
+
+class SwiGLUFunction(torch.autograd.Function):
+    """K4 forward, K6 backward"""
+
+    @staticmethod
+    def forward(ctx, x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias):
+        ctx.save_for_backward(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel)
         return swiglu_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *weights = ctx.saved_tensors
+        grads = swiglu_bwd_cuda(x, *weights, grad_out)
+        return (grads[0].to(x.dtype),
+                *(g.to(w.dtype) for g, w in zip(grads[1:], (*weights, weights[-1]))))
+
+
+def swiglu(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias) -> torch.Tensor:
+    """SwiGLU: kernels (forward and backward) for CUDA tensors, the plain
+    version (autograd) for CPU tensors"""
+    if x.is_cuda:
+        return SwiGLUFunction.apply(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                                    out_bias)
     if x.device.type != "cpu":
         raise ValueError(f"swiglu: no implementation for device {x.device}")
     return swiglu_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)

@@ -1,0 +1,38 @@
+"""Metrics logging: TensorBoard scalars through tensorboardX when it can be
+imported, else lines on stderr (counterpart of
+osu_dreamer_tpu/train/logging.py)."""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from typing import Any, Mapping
+
+
+class MetricsLogger:
+    def __init__(self, run_dir: str | Path):
+        self.run_dir = Path(run_dir)
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        try:
+            from tensorboardX import SummaryWriter
+
+            self._writer = SummaryWriter(logdir=str(self.run_dir))
+        except ImportError:
+            self._writer = None
+
+    def scalars(self, values: Mapping[str, Any], step: int, prefix: str = "") -> None:
+        for name, value in values.items():
+            tag = f"{prefix}{name}" if prefix else name
+            v = float(value)
+            if self._writer is not None:
+                self._writer.add_scalar(tag, v, step)
+            else:
+                print(f"[{step}] {tag} = {v:.5f}", file=sys.stderr)
+
+    def flush(self) -> None:
+        if self._writer is not None:
+            self._writer.flush()
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()

@@ -1,0 +1,164 @@
+"""Generic fit loop: epochs of steps, validation, checkpoints, early stop.
+
+Counterpart of osu_dreamer_tpu/train/loop.py on one device: per-step
+logging (train/ prefix), validation every ``val_every`` epochs (and on the
+final one), best-by-metric checkpointing with a rolling ``last``, early
+stopping, exact resume from the stored stream position. ``max_steps`` stops
+a run after that many steps.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from contextlib import nullcontext
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, Callable, Iterable, Optional
+
+from .checkpoint import BestCheckpointKeeper, read_progress, restore_train_state
+from .logging import MetricsLogger
+from .profiling import StepTimer, device_trace
+from .state import TrainState
+
+
+@dataclass
+class FitArgs:
+    run_dir: str = "runs/run"
+    max_epochs: int = -1          # -1: until early stopping / max_steps / interrupt
+    max_steps: int = -1
+    log_every: int = 10
+    monitor: str = "val/loss"
+    monitor_mode: str = "min"
+    early_stop_patience: int = 0  # 0: disabled
+    early_stop_min_delta: float = 0.0
+    val_every: int = 1
+    # record a torch.profiler trace of this epoch into <run_dir>/trace; -1 off
+    trace_epoch: int = -1
+    save_last_every_s: float = 60.0
+    seed: int = 0
+
+
+@dataclass
+class Stage:
+    """everything the loop needs to train one model stage"""
+
+    name: str
+    hparams: dict[str, Any]
+    state: TrainState
+    train_step: Callable[[TrainState, Any], dict]   # updates the state in place
+    train_stream: Callable[[int], Iterable]          # epoch -> batches
+    validate: Optional[Callable[[TrainState], dict[str, float]]] = None
+    lr_schedule: Optional[Callable[[int], float]] = None
+    # (step, metrics) after every train step, e.g. for a caller's timing
+    on_step: Optional[Callable[[int, dict], None]] = None
+
+
+def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> TrainState:
+    run_dir = Path(args.run_dir)
+    logger = MetricsLogger(run_dir / "tb")
+    keeper = BestCheckpointKeeper(run_dir, args.monitor, args.monitor_mode,
+                                  args.save_last_every_s)
+    state = stage.state
+    start_epoch = skip_batches = 0
+    if resume_from:
+        restore_train_state(resume_from, state)
+        prog = read_progress(resume_from)
+        start_epoch = int(prog.get("epoch", 0))
+        skip_batches = int(prog.get("batch_in_epoch", 0))
+        print(f"resumed from {resume_from} at step {state.step}"
+              + (f" (epoch {start_epoch}, {skip_batches} batches in)" if prog else ""))
+
+    best = keeper.best_metric
+    stale_epochs = 0
+    epoch = start_epoch
+    stop = False
+    timer = StepTimer()
+    progress = {"epoch": epoch, "batch_in_epoch": skip_batches}
+    try:
+        while not stop and (args.max_epochs < 0 or epoch < args.max_epochs):
+            epoch_t0 = time.time()
+            n_batches = skip_batches
+            progress = {"epoch": epoch, "batch_in_epoch": n_batches}
+            trace = device_trace(run_dir / "trace") if epoch == args.trace_epoch else nullcontext()
+            with trace:
+                stream = stage.train_stream(epoch)
+                if skip_batches:
+                    stream = itertools.islice(stream, skip_batches, None)
+                    skip_batches = 0
+                stream_it = iter(stream)
+                epoch_complete = True
+                for batch in stream_it:
+                    metrics = stage.train_step(state, batch)
+                    n_batches += 1
+                    progress["batch_in_epoch"] = n_batches
+                    timer.tick()
+                    step = state.step
+                    if stage.on_step is not None:
+                        stage.on_step(step, metrics)
+                    if step % args.log_every == 0:
+                        scalars = dict(metrics)
+                        if stage.lr_schedule is not None:
+                            # the update that produced `step` read the schedule
+                            # at the count before it
+                            scalars["lr"] = stage.lr_schedule(step - 1)
+                        logger.scalars(scalars, step, prefix="train/")
+                        if timer.steps_per_sec > 0:
+                            logger.scalars({"steps_per_sec": timer.steps_per_sec}, step,
+                                           prefix="perf/")
+                    if args.max_steps > 0 and step >= args.max_steps:
+                        stop = True
+                        # a stop on the epoch's last batch completed the epoch:
+                        # peek one batch to tell (the peeked batch is dropped;
+                        # a resume regenerates the deterministic stream)
+                        sentinel = object()
+                        epoch_complete = next(stream_it, sentinel) is sentinel
+                        break
+            if n_batches == 0:
+                raise RuntimeError(
+                    "training stream yielded no batches: most often the dataset has fewer "
+                    "windows than data.batch_size (partial batches are dropped); lower "
+                    "batch_size or raise max_per_map"
+                )
+
+            is_final = (args.max_epochs >= 0 and epoch == args.max_epochs - 1) or stop
+            run_val = (epoch + 1) % max(1, args.val_every) == 0 or is_final
+            val_metrics: dict[str, float] = {}
+            if run_val and stage.validate is not None:
+                val_metrics = stage.validate(state)
+                logger.scalars(val_metrics, state.step)
+            # after a completed epoch e a restart begins cleanly at epoch e+1;
+            # a max_steps stop mid-epoch keeps the mid-epoch position
+            if epoch_complete:
+                progress = {"epoch": epoch + 1, "batch_in_epoch": 0}
+            improved = keeper.update(state, stage.hparams, val_metrics, progress)
+            logger.flush()
+            monitored = val_metrics.get(args.monitor)
+            print(f"[{stage.name}] epoch {epoch}: {n_batches} steps in "
+                  f"{time.time() - epoch_t0:.1f}s"
+                  + (f" | {args.monitor}={monitored:.5f}" if monitored is not None else "")
+                  + (" *best*" if improved else ""))
+
+            if args.early_stop_patience > 0 and monitored is not None:
+                better = (best is None
+                          or (args.monitor_mode == "min"
+                              and monitored < best - args.early_stop_min_delta)
+                          or (args.monitor_mode == "max"
+                              and monitored > best + args.early_stop_min_delta))
+                if better:
+                    best, stale_epochs = monitored, 0
+                else:
+                    stale_epochs += 1
+                    if stale_epochs >= args.early_stop_patience:
+                        print(f"[{stage.name}] early stop: {args.monitor} stale for "
+                              f"{stale_epochs} epochs")
+                        stop = True
+            epoch += 1
+    except KeyboardInterrupt:
+        print(f"[{stage.name}] interrupted at step {state.step}; last checkpoint kept")
+    finally:
+        # always leave a current `last` with the exact stream position
+        keeper.min_save_interval_s = 0.0
+        keeper.update(state, stage.hparams, {}, progress)
+        logger.close()
+    return state

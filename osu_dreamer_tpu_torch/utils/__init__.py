@@ -1,3 +1,3 @@
-from .config import dataclass_from_dict
+from .config import dataclass_from_dict, load_yaml_config
 
-__all__ = ["dataclass_from_dict"]
+__all__ = ["dataclass_from_dict", "load_yaml_config"]

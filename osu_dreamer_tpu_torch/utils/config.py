@@ -1,11 +1,11 @@
-"""Nested dataclasses from plain dicts (counterpart of
-osu_dreamer_tpu/utils/config.py ``dataclass_from_dict``; the YAML loader
-beside it waits for the training commands: inference reads its config from
-an artifact's JSON)."""
+"""Config plumbing: YAML -> nested dataclasses (counterpart of
+osu_dreamer_tpu/utils/config.py ``dataclass_from_dict`` and
+``load_yaml_config``; yaml is imported only when a config file is read)."""
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, TypeVar, get_type_hints
 
 T = TypeVar("T")
@@ -28,3 +28,10 @@ def dataclass_from_dict(cls: type[T], data: dict[str, Any]) -> T:
         else:
             kwargs[key] = value
     return cls(**kwargs)
+
+
+def load_yaml_config(path: str | Path) -> dict[str, Any]:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f) or {}

@@ -2,8 +2,11 @@
 jaxtyping, click, msgpack, yaml or the JAX package.
 
 A subprocess makes each of those unimportable, imports every module of
-osu_dreamer_tpu_torch, and drives a tiny slice (init_random weights, two
-songs x two difficulties, CFG on) through ``build_batch_sampler`` on the CPU.
+osu_dreamer_tpu_torch (the inference slice and the training modules:
+train/, data/, ops/, models/diffusion/, cli), drives a tiny slice
+(init_random weights, two songs x two difficulties, CFG on) through
+``build_batch_sampler`` on the CPU, and trains a tiny denoiser for two steps
+through ``fit.run`` (config as a dict: reading YAML needs yaml).
 """
 
 from __future__ import annotations
@@ -62,6 +65,24 @@ SCRIPT = textwrap.dedent(
     assert hit.shape == (4, preps[0][3], 7) and hit.dtype == torch.uint8
     assert xy.shape == (4, preps[0][3], 2) and xy.dtype == torch.int16
     assert lab.shape == (4, 5) and bool(torch.isfinite(lab).all())
+    import tempfile
+    from pathlib import Path
+    from osu_dreamer_tpu_torch.data.synth import write_latent_corpus
+    from osu_dreamer_tpu_torch.models.diffusion.fit import run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_latent_corpus(Path(tmp) / "data", 3, 2, 60, 16, 4, 8)
+        state = run({{
+            "data": {{"data_dir": str(Path(tmp) / "data"), "seq_len": 24, "batch_size": 2,
+                      "max_per_map": -1}},
+            "fit": {{"run_dir": str(Path(tmp) / "runs"), "max_steps": 2}},
+            "train": {{"val_batches": 2}},
+            "model": {{"emb_dim": 4, "a_dim": 16, "style_dim": 8, "global_cond_dim": 16,
+                       "backbone_dim": 128, "u_head_dim": 8,
+                       "backbone": {{"depth": 1, "expand": 2, "head_dim": 64, "n_heads": 2,
+                                     "radius": 1}}}},
+        }}, device="cpu")
+        assert state.step == 2 and (Path(tmp) / "runs" / "last" / "state.pt").exists()
     blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
     assert not blocked, blocked
     print("imported", len(names), "modules")

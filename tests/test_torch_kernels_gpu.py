@@ -15,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from osu_dreamer_tpu_torch.ops import film_layer, long_attention, resonator, swiglu
+from osu_dreamer_tpu_torch.ops import fused_attention, film_layer, long_attention, resonator, swiglu
 
 BF16_ULPS = 4
+# training kernels: max abs error against autograd of the plain version in
+# f32 on the same inputs, relative to the largest f32 magnitude (the
+# kernels differentiate the bf16 forward; chip_smoke.py states the same)
+GRAD_REL = 0.03
 
 
 def _case(kernel: str, dev: str):
@@ -56,3 +60,49 @@ def test_kernel_matches_plain_on_gpu(kernel):
     else:
         tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
     assert (got - want).abs().max().item() <= tol
+
+
+def _grads_close(got, want) -> None:
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert (g - w).abs().max().item() <= GRAD_REL * w.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H", [(2, 77, 2), (1, 20, 4), (2, 256, 2)])
+def test_fused_attention_kernels_match_plain_on_gpu(B, L, H):
+    """K9 forward (4 ulp) and K10 gradients (GRAD_REL) at ragged lengths and
+    the longest the kernels take"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = (torch.randn(B, L, 3 * H * 64, generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
+    qg, kg = (1 + 0.2 * torch.randn(64, generator=gen, device="cuda") for _ in range(2))
+    res = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, H)
+    want = fused_attention.rope_attention_plain(qkv, qg, kg, H).float()
+    torch.cuda.synchronize()
+    tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert (res[0].float() - want).abs().max().item() <= tol
+    grad = torch.randn(B, L, H * 64, generator=gen, device="cuda").to(torch.bfloat16)
+    _grads_close(fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H),
+                 fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg,
+                                                           kg, H))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,C,H,K", [(2, 45, 64, 40, 5), (1, 70, 32, 20, 3)])
+def test_swiglu_bwd_kernel_matches_plain_on_gpu(B, L, C, H, K):
+    """K6: dx and the six weight gradients (GRAD_REL), ragged L, odd H"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x, go = rnd(B, L, C).to(torch.bfloat16), rnd(B, L, C).to(torch.bfloat16)
+    w = [rnd(K, C, scale=0.4), rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5),
+         rnd(2 * H, scale=0.1), rnd(H, C, scale=H**-0.5)]
+    _grads_close(swiglu.swiglu_bwd_cuda(x, *w, go),
+                 swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))

@@ -113,23 +113,34 @@ def test_spec_for_model_batch_matches_jax():
 
 def _cuda_wrappers():
     from osu_dreamer_tpu_torch.ops.film_layer import film_layer_cuda
+    from osu_dreamer_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_cuda, fused_attention_fwd_cuda,
+    )
     from osu_dreamer_tpu_torch.ops.long_attention import attention_cuda
     from osu_dreamer_tpu_torch.ops.resonator import resonate_cuda
-    from osu_dreamer_tpu_torch.ops.swiglu import swiglu_cuda
+    from osu_dreamer_tpu_torch.ops.swiglu import swiglu_bwd_cuda, swiglu_cuda
 
     w = [T(a) for a in ffn_weights(16, 20, 3, 0)]
     x = torch.zeros(1, 8, 16, dtype=torch.bfloat16)
     z = torch.zeros(1, 16, dtype=torch.bfloat16)
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    qkv = torch.zeros(1, 8, 384, dtype=torch.bfloat16)
+    g, lse, inv = torch.ones(64), torch.zeros(1, 2, 8), torch.ones(1, 8, 2)
+    o = qkv[..., :128].contiguous()
     return {
         "swiglu": lambda: swiglu_cuda(x, *w),
         "film_layer": lambda: film_layer_cuda(x, z, z, z, z[0], z[0], *w),
         "flash_attention": lambda: attention_cuda(q, q, q),
         "resonator": lambda: resonate_cuda(torch.zeros(1, 8, 98)),
+        "swiglu_bwd": lambda: swiglu_bwd_cuda(x, *w[:5], x),
+        "fused_attention_fwd": lambda: fused_attention_fwd_cuda(qkv, g, g, 2),
+        "fused_attention_bwd": lambda: fused_attention_bwd_cuda(qkv, o, o, lse, o, o, inv, inv,
+                                                                g, g, 2),
     }
 
 
-@pytest.mark.parametrize("kernel", ["swiglu", "film_layer", "flash_attention", "resonator"])
+@pytest.mark.parametrize("kernel", ["swiglu", "film_layer", "flash_attention", "resonator",
+                                    "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd"])
 def test_cuda_wrapper_refuses_cpu_tensors(kernel):
     """a kernel wrapper never falls back: given a CPU tensor it raises
     before building or launching anything, and counts no launch"""
@@ -139,3 +150,136 @@ def test_cuda_wrapper_refuses_cpu_tensors(kernel):
     with pytest.raises(ValueError, match="CUDA"):
         _cuda_wrappers()[kernel]()
     assert _build.launches == before
+
+
+# ------------------------------------------------------ training kernels ----
+
+
+def _qkv_inputs(B: int, L: int, H: int, seed: int = 0):
+    D = 64
+    return (randn(seed, B, L, 3 * H * D, scale=0.7), 1 + randn(seed + 1, D, scale=0.2),
+            1 + randn(seed + 2, D, scale=0.2))
+
+
+def test_fused_attention_gate_matches_jax():
+    from osu_dreamer_tpu.ops.fused_attention import MAX_FUSED_LEN
+    from osu_dreamer_tpu.ops.fused_attention import fused_attention_fits as jfits
+    from osu_dreamer_tpu_torch.ops import fused_attention as tfa
+
+    assert tfa.MAX_FUSED_LEN == MAX_FUSED_LEN
+    for L in (1, 152, 256, 257, 512, 513, 759):
+        for H, D in ((16, 64), (8, 64), (2, 64), (2, 8), (4, 32), (3, 33)):
+            assert tfa.fused_attention_fits(L, H, D) == jfits(L, H, D), (L, H, D)
+
+
+def test_fused_attention_plain_matches_jax_reference():
+    """the plain forward (K9's) and its autograd gradients (K10's) against
+    ``rope_attention_reference`` and its ``jax.vjp``, f32, ragged L = 77
+    (1e-5: f32 on both sides, products summed in other orders)"""
+    from osu_dreamer_tpu.ops.fused_attention import rope_attention_reference
+    from osu_dreamer_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_plain, fused_attention_fwd_plain, fused_norm_rope_attention,
+    )
+
+    qkv, qg, kg = _qkv_inputs(2, 77, 2)
+    go = randn(9, 2, 77, 128)
+    want, vjp = jax.vjp(lambda a, b, c: rope_attention_reference(a, b, c, 2), qkv, qg, kg)
+    got = fused_norm_rope_attention(T(qkv), T(qg), T(kg), 2)
+    np.testing.assert_allclose(N(got), np.asarray(want), atol=1e-5)
+    out, lse, rq, rk, iq, ik = fused_attention_fwd_plain(T(qkv), T(qg), T(kg), 2)
+    np.testing.assert_array_equal(N(out), N(got))
+    assert lse.shape == (2, 2, 77) and rq.shape == rk.shape == (2, 77, 128)
+    assert iq.shape == ik.shape == (2, 77, 2)
+    grads = fused_attention_bwd_plain(T(qkv), T(go), out, lse, rq, rk, iq, ik, T(qg), T(kg), 2)
+    for name, g, w in zip(("dqkv", "dq_gamma", "dk_gamma"), grads, vjp(go)):
+        np.testing.assert_allclose(N(g), np.asarray(w), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_fused_attention_plain_matches_pallas_interpret():
+    """the Pallas forward and backward kernels in interpret mode at a ragged
+    length (21: padded to 24 inside the kernel) and the smallest shape that
+    keeps tier 1 fast (f32; 1e-4: the kernel forms the rotation and the
+    head statistics as matrix products)"""
+    from osu_dreamer_tpu.ops.fused_attention import fused_norm_rope_attention as jfused
+    from osu_dreamer_tpu_torch.ops.fused_attention import (
+        fused_attention_bwd_plain, fused_attention_fwd_plain,
+    )
+
+    qkv, qg, kg = _qkv_inputs(1, 21, 2, seed=4)
+    go = randn(11, 1, 21, 128)
+    want, vjp = jax.vjp(lambda a, b, c: jfused(a, b, c, 2, True), qkv, qg, kg)
+    res = fused_attention_fwd_plain(T(qkv), T(qg), T(kg), 2)
+    np.testing.assert_allclose(N(res[0]), np.asarray(want), atol=1e-4)
+    grads = fused_attention_bwd_plain(T(qkv), T(go), *res, T(qg), T(kg), 2)
+    for name, g, w in zip(("dqkv", "dq_gamma", "dk_gamma"), grads, vjp(go)):
+        np.testing.assert_allclose(N(g), np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+SWIGLU_GRADS = ("dx", "d_dw_kernel", "d_dw_bias", "d_vg_kernel", "d_vg_bias", "d_out_kernel",
+                "d_out_bias")
+
+
+@pytest.mark.parametrize("B,L,C,H,K", [(2, 70, 16, 20, 5), (1, 33, 8, 13, 3)])
+def test_swiglu_bwd_plain_matches_jax_vjp(B, L, C, H, K):
+    """``swiglu_bwd_plain`` (K6's plain version) against ``jax.vjp`` of
+    ``swiglu_reference``: every gradient, f32, ragged L and odd H (1e-5)"""
+    from osu_dreamer_tpu.ops.swiglu import swiglu_reference
+    from osu_dreamer_tpu_torch.ops.swiglu import swiglu_bwd_plain
+
+    x, w, go = randn(0, B, L, C), ffn_weights(C, H, K, 1), randn(9, B, L, C)
+    _, vjp = jax.vjp(swiglu_reference, x, *w)
+    got = swiglu_bwd_plain(T(x), *map(T, w[:5]), T(go))
+    for name, g, want in zip(SWIGLU_GRADS, got, vjp(go)):
+        np.testing.assert_allclose(N(g), np.asarray(want), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_swiglu_bwd_plain_matches_pallas_partial_interpret():
+    """the JAX partial backward kernel (the one K6 replaces) in interpret
+    mode at the smallest shape of its own test (f32; 2e-4 as there: the
+    kernel keeps its recomputed forward in f32)"""
+    from osu_dreamer_tpu.ops.swiglu import _fused_swiglu_partial_bwd_impl
+    from osu_dreamer_tpu_torch.ops.swiglu import swiglu_bwd_plain
+
+    B, L, C, H, K = 1, 33, 8, 13, 3
+    x, w, go = randn(2, B, L, C), ffn_weights(C, H, K, 3), randn(4, B, L, C)
+    want = _fused_swiglu_partial_bwd_impl(
+        *map(jnp.asarray, (x, *w[:5], go)), tile=16, interpret=True
+    )
+    got = swiglu_bwd_plain(T(x), *map(T, w[:5]), T(go))
+    for name, g, ref in zip(SWIGLU_GRADS, got, want):
+        np.testing.assert_allclose(N(g), np.asarray(ref), atol=2e-4, rtol=2e-4, err_msg=name)
+
+
+def test_autograd_functions_route_through_their_kernels(monkeypatch):
+    """the two autograd Functions the CUDA path takes, wired on the CPU with
+    their kernels' plain stand-ins: each forward and backward goes through
+    the stand-in, and the gradients equal autograd of the plain version"""
+    from osu_dreamer_tpu_torch.ops import fused_attention as fa
+    from osu_dreamer_tpu_torch.ops import swiglu as sw
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls.append(name)
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(sw, "swiglu_cuda", spy("swiglu", sw.swiglu_plain))
+    monkeypatch.setattr(sw, "swiglu_bwd_cuda", spy("swiglu_bwd", sw.swiglu_bwd_plain))
+    monkeypatch.setattr(fa, "fused_attention_fwd_cuda", spy("fwd", fa.fused_attention_fwd_plain))
+    monkeypatch.setattr(fa, "fused_attention_bwd_cuda", spy("bwd", fa.fused_attention_bwd_plain))
+
+    x, w = randn(0, 2, 19, 16), ffn_weights(16, 20, 5, 1)
+    qkv, qg, kg = _qkv_inputs(2, 19, 2)
+    cases = [
+        (sw.SwiGLUFunction.apply, sw.swiglu_plain, [T(x), *map(T, w)], ()),
+        (fa.FusedNormRopeAttention.apply, fa.rope_attention_plain, [T(qkv), T(qg), T(kg)], (2,)),
+    ]
+    for fn, plain, leaves, extra in cases:
+        leaves = [t.requires_grad_() for t in leaves]
+        got = torch.autograd.grad(fn(*leaves, *extra).square().sum(), leaves)
+        want = torch.autograd.grad(plain(*leaves, *extra).square().sum(), leaves)
+        for g, r in zip(got, want):
+            np.testing.assert_allclose(N(g), N(r), atol=1e-5, rtol=1e-5)
+    assert calls == ["swiglu", "swiglu_bwd", "fwd", "bwd"]
