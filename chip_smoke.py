@@ -6,13 +6,15 @@
 from the root of a checkout. It needs one CUDA card, ``nvcc`` for sm_90a and
 nothing of JAX; without a card it exits nonzero and prints no result.
 
-1. Builds the seven CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
+1. Builds the eight CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
    per source, in parallel; printing the build seconds) and holds each
    against its plain PyTorch version on the card (bf16; f32 for the
    resonator; TF32 off), timing both with CUDA events: the inference kernels
-   at the inference slice's shapes, the training kernels (SwiGLU backward,
-   fused attention forward and backward) at the denoiser's training shape
-   B128 L152 and at a ragged length.
+   at the inference slice's shapes (the film layer also at latent training's
+   B64 L1026), the denoiser's training kernels (SwiGLU backward, fused
+   attention forward and backward) at its training shape B128 L152 and at a
+   ragged length, the film-layer backward at latent training's top and
+   bottom levels B64 L1026 and B64 L38, each with FiLM and with zero FiLM.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -31,6 +33,18 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    loss and gradients through the kernels (bf16) and through the plain
    versions (bf16) are each held to a plain f32 step on the same batch, t and
    x0 (random full-strength weights).
+5. Trains the chart autoencoder at full width (the port's
+   models/latent/config.yml: h_dim 128, 3 downs of stride 3, 8-layer stacks,
+   16 x 64 style heads, batch 32 x 2052 split into 64 x 1026 halves, bf16
+   compute, f32 parameters) through ``fit.run`` on a seeded synthetic
+   chart-signal corpus written under build/: 2 warm-up steps and 20 timed
+   steps, validation on two held-out mapsets and both checkpoints. Every
+   loss must be finite and the film layer's forward and backward kernels
+   must launch during the timed steps. Then one step's loss terms and
+   gradients through the kernels and through the plain versions (bf16) are
+   each held to a plain f32 step on the same batch and draws, as in 4; and
+   encode-latents runs on the card from the ``last`` checkpoint over the
+   corpus, its h, z and s checked and read back by the latent pipeline.
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -92,9 +106,15 @@ KERNEL_META = {
                             "osu_dreamer_tpu/ops/fused_attention.py:345"),
     "fused_attention_bwd": ("osu_dreamer_tpu_torch/csrc/fused_attention.cu",
                             "osu_dreamer_tpu/ops/fused_attention.py:399"),
+    "film_layer_bwd": ("osu_dreamer_tpu_torch/csrc/film_layer_bwd.cu",
+                       "osu_dreamer_tpu/ops/film_layer.py:443"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd")
+LATENT_KERNELS = ("film_layer", "film_layer_bwd")
+# the latent phase's corpus: 32 mapsets x 2 maps x 12 windows of 2052
+# frames; 2 mapsets held out, 30 x 2 x 12 = 720 training windows, 22 batches
+LATENT_CORPUS = (32, 2, 2052 * 12)
 
 
 def log(msg: str) -> None:
@@ -115,6 +135,215 @@ def synth_wave(seed: int, seconds: float, sr: int) -> np.ndarray:
         i = int(onset * sr)
         wave[i : i + 400] += 0.6 * burst
     return wave.astype(np.float32)
+
+
+def randomize_(model, gen) -> None:
+    """random full-strength weights in place: fan-in scaled normal kernels,
+    1 + 0.1 N gains, 0.1 N other vectors (flax's zero-initialised layers
+    would leave most gradients exactly zero)"""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            draw = torch.randn(p.shape, generator=gen, device=p.device)
+            if p.dim() >= 2:
+                draw = draw / float(np.prod(p.shape[:-1])) ** 0.5
+            elif name.endswith("gamma"):
+                draw = 1.0 + 0.1 * draw
+            else:
+                draw = 0.1 * draw
+            p.copy_(draw)
+
+
+def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False) -> None:
+    """one train step's (loss terms, flat gradients) through the kernels and
+    through the plain versions (bf16), each held to the plain f32 step: the
+    kernels' gradients within SLICE_MEAN_RATIO (mean) / SLICE_MAX_RATIO (max)
+    of the plain path's error; their loss terms each within SLICE_MAX_RATIO
+    of the plain path's error or LOSS_FLOOR of the f32 value, or with
+    ``pool_terms`` the terms' relative errors (floored at LOSS_FLOOR) pooled
+    under the gradients' mean / max rule"""
+    import torch
+
+    ref_terms, ref_grads = ref
+    (kt, kg), (pt, pg) = (((t - ref_terms).abs(), (g - ref_grads).abs()) for t, g in (kernels, plain))
+    if pool_terms:
+        kr, pr = ((e / ref_terms.abs()).clamp_min(LOSS_FLOOR) for e in (kt, pt))
+        terms_ok = bool(kr.mean() <= SLICE_MEAN_RATIO * pr.mean()
+                        and kr.max() <= SLICE_MAX_RATIO * pr.max())
+    else:
+        terms_ok = bool((kt <= torch.maximum(SLICE_MAX_RATIO * pt, LOSS_FLOOR * ref_terms.abs())).all())
+    log(f"{what}: one train step vs the f32 plain step: loss terms ({', '.join(names)}) f32 "
+        f"{ref_terms.tolist()}, |err| kernels {kt.tolist()} plain bf16 {pt.tolist()}; "
+        f"gradients ({ref_grads.numel()} values, max |f32| {ref_grads.abs().max().item():.4g}) "
+        f"kernels mean {kg.mean().item():.4g} max {kg.max().item():.4g}, plain bf16 mean "
+        f"{pg.mean().item():.4g} max {pg.max().item():.4g}")
+    if not terms_ok:
+        raise RuntimeError(f"{what}: the kernel path's loss is farther from the f32 step than "
+                           "the plain bf16 path's")
+    if not (kg.mean() <= SLICE_MEAN_RATIO * pg.mean() and kg.max() <= SLICE_MAX_RATIO * pg.max()):
+        raise RuntimeError(f"{what}: the kernel path's gradients are farther from the f32 step "
+                           "than the plain bf16 path's")
+
+
+def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: str,
+              kernels: tuple[str, ...], loss_keys: tuple[str, ...],
+              shown: tuple[str, ...]) -> dict[str, int]:
+    """``run`` (a stage's ``fit.run``) on ``cfg`` for TRAIN_WARMUP +
+    TRAIN_TIMED steps, checkpoints under ``workdir``; fails unless every step
+    ran, each of ``kernels`` launched during the timed steps, every loss of
+    ``loss_keys`` stayed finite and both checkpoints exist. Logs ms/step and
+    peak memory over the timed steps and the ``shown`` losses per step ->
+    the kernel launches of the whole run"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import _build
+
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    cfg["fit"].update(run_dir=str(workdir / "runs"), max_steps=steps, log_every=5)
+    marks: dict[int, tuple[float, dict]] = {}
+    step_metrics: list[dict] = []
+
+    def on_step(step: int, metrics: dict) -> None:
+        step_metrics.append(metrics)
+        if step in (TRAIN_WARMUP, steps):
+            torch.cuda.synchronize()
+            marks[step] = (time.perf_counter(), dict(_build.launches))
+            if step == TRAIN_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    state = run(cfg, device=dev, on_step=on_step)
+    launches = dict(_build.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"launches during {what}: {launches}")
+    if state.step != steps or len(step_metrics) != steps:
+        raise RuntimeError(f"{what} ran {state.step} steps, not {steps}")
+    del state
+    torch.cuda.empty_cache()
+    (ta, la), (tb, lb) = marks[TRAIN_WARMUP], marks[steps]
+    timed = {k: lb[k] - la[k] for k in kernels}
+    log(f"launches during the {TRAIN_TIMED} timed steps: {timed}")
+    missing = [k for k, n in timed.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"{what} never launched: {missing}")
+    losses = {k: [float(m[k]) for m in step_metrics] for k in loss_keys}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise RuntimeError(f"{what}: non-finite training loss: {losses}")
+    for ckpt in ("last", "best"):
+        if not (workdir / "runs" / ckpt / "state.pt").exists():
+            raise RuntimeError(f"{what} wrote no {ckpt} checkpoint")
+    ms_step = (tb - ta) / TRAIN_TIMED * 1e3
+    log(f"{what} ({shape}): {ms_step:.2f} ms/step, {1e3 / ms_step:.3f} steps/s over "
+        f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up; peak device memory "
+        f"{peak_gib:.2f} GiB [{smi}]")
+    log("losses per step: " + json.dumps({k: [round(x, 5) for x in losses[k]] for k in shown})
+        + f" [{smi}]")
+    return launches
+
+
+def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, int],
+                 workdir: Path) -> dict[str, int]:
+    """phase 5: ``cfg`` (the fit-latent config) trained through ``fit.run``
+    on a synthetic corpus of ``corpus`` = (mapsets, maps per set, frames)
+    under ``workdir``, the one-step check against f32, and encode-latents on
+    the card from the ``last`` checkpoint -> the kernel launches of the
+    training and encoding runs"""
+    import torch
+
+    from osu_dreamer_tpu_torch.data.pipeline import hold_out_mapsets, latent_windows
+    from osu_dreamer_tpu_torch.data.synth import write_signal_corpus
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.models.latent.encode import encode_latents
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModel, LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import (
+        LOSS_COMPONENTS, LOSS_WEIGHTS, Batch, LatentTrainArgs, draw_latent, latent_loss,
+    )
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    n_sets, maps_per_set, length = corpus
+    t0 = time.perf_counter()
+    write_signal_corpus(workdir / "data", n_sets, maps_per_set, length, SEED)
+    cfg["data"].update(data_dir=str(workdir / "data"), max_per_map=-1, max_val_count=2)
+    log(f"synthetic chart-signal corpus ({n_sets} mapsets x {maps_per_set} maps x {length} "
+        f"frames) written in {time.perf_counter() - t0:.1f} s")
+    data, model = cfg["data"], cfg["model"]
+    launches_train = fit_timed(
+        "fit-latent", latent_fit.run, cfg, dev, smi, workdir,
+        f"h_dim {model['h_dim']}, {model['n_downs']} downs, {model['stack']['n_layers']}-layer "
+        f"stacks, B{data['batch_size']} x L{data['seq_len']}, bf16",
+        LATENT_KERNELS, ("loss", *LOSS_COMPONENTS, "s_reg"),
+        ("loss", "hit/onset", "cursor/pos", "label", "s_reg"))
+
+    # one step through the kernels and through the plain versions (bf16),
+    # each against a plain f32 step on the same batch and draws, the
+    # components normalised by themselves as on the first step
+    model_args = dataclass_from_dict(LatentModelArgs, model)
+    train_args = dataclass_from_dict(LatentTrainArgs, cfg["train"])
+    bf16_model = LatentModel(model_args, torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    randomize_(bf16_model, gen)
+    f32_model = LatentModel(model_args, torch.float32).to(dev)
+    f32_model.load_state_dict(bf16_model.state_dict())
+    Bt, Lt = data["batch_size"], data["seq_len"]
+    batch = Batch(audio=torch.rand(Bt, Lt, 72, generator=gen, device=dev),
+                  chart=torch.rand(Bt, Lt, 9, generator=gen, device=dev),
+                  labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    draws = draw_latent(2 * Bt, model_args.style_dim, Lt // 2 // model_args.chunk_size,
+                        model_args.emb_dim, gen, dev)
+    weights = torch.from_numpy(LOSS_WEIGHTS).to(dev)
+
+    def loss_and_grads(model, plain: bool):
+        with plain_ops() if plain else nullcontext():
+            comps, _, s_reg = latent_loss(model, batch, train_args, draws=draws)
+            total = (weights * comps / comps.detach().clamp_min(1e-8)).sum()
+            total = total + train_args.s_reg_weight * s_reg
+            grads = torch.autograd.grad(total, list(model.parameters()), materialize_grads=True)
+        terms = torch.cat([comps.detach().float(), torch.stack([s_reg, total]).detach().float()])
+        return terms, torch.cat([g.flatten().float() for g in grads])
+
+    # 13 loss terms, each set by the forward alone (K2 here, the plain bf16
+    # forward there) through 64 film layers of random full-strength weights:
+    # each term's bf16 error is a draw of about 1 % of its value, so one
+    # term compared with one term is chance; they are pooled
+    check_step("fit-latent", (*LOSS_COMPONENTS, "s_reg", "loss"),
+               loss_and_grads(f32_model, True), loss_and_grads(bf16_model, False),
+               loss_and_grads(bf16_model, True), pool_terms=True)
+    del bf16_model, f32_model
+    torch.cuda.empty_cache()
+
+    # encode-latents on the card, read back by the latent pipeline
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    n_maps = encode_latents(workdir / "runs" / "last", workdir / "data", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_encode = dict(_build.launches)
+    log(f"encode-latents: {n_maps} maps in {wall:.2f} s; launches {launches_encode} [{smi}]")
+    if n_maps != n_sets * maps_per_set or launches_encode["film_layer"] == 0:
+        raise RuntimeError(f"encode-latents encoded {n_maps} maps, launches {launches_encode}")
+    sets, _ = hold_out_mapsets(workdir / "data", "*.latent.npz", 0, 0.0)
+    samples = list(latent_windows(sets, None))
+    n_latent = -(-length // model_args.chunk_size)
+    want = {"h": (n_latent, model_args.h_dim), "z": (n_latent, model_args.emb_dim),
+            "s": (model_args.style_dim,)}
+    for sample in samples:
+        for key, shape in want.items():
+            value = getattr(sample, key)
+            if value.shape != shape or not np.isfinite(value).all():
+                raise RuntimeError(f"encode-latents: bad {key} {value.shape}")
+        # z is RMS-normalised per frame (computed in bf16: within 1e-2)
+        rms = np.sqrt(np.square(sample.z.astype(np.float64)).mean(-1))
+        if np.abs(rms - 1).max() > 1e-2:
+            raise RuntimeError(f"encode-latents: z RMS per frame off 1 by {np.abs(rms - 1).max()}")
+    windows = sum(1 for _ in latent_windows(sets, 152, max_per_map=-1))
+    if len(samples) != n_maps or windows == 0:
+        raise RuntimeError(f"the latent pipeline read {len(samples)} maps, {windows} windows")
+    log(f"the latent pipeline read {len(samples)} encoded maps, {windows} windows of 152 latents")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {k: launches_train[k] + launches_encode[k] for k in _build.KERNELS}
 
 
 def main() -> int:
@@ -180,6 +409,7 @@ def main() -> int:
             ("B4 L20493 FiLM", film_args(B, 20493, False)),
             ("B2 L20493 zero FiLM", film_args(S, 20493, True)),
             ("B4 L2277 FiLM", film_args(B, 2277, False)),
+            ("B64 L1026 FiLM (latent training)", film_args(64, 1026, False)),
         ]),
         "swiglu": (swiglu.swiglu_cuda, swiglu.swiglu_plain, [
             ("B4 L759 C512", (rnd(B, 759, 512), *ffn(512, 1365))),
@@ -304,6 +534,30 @@ def main() -> int:
             results["swiglu_bwd"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst_bwd}
         results["swiglu_bwd"]["max_abs_err"] = max(results["swiglu_bwd"]["max_abs_err"], worst_bwd)
 
+    # ---- 1c. the film-layer backward at latent training's top and bottom levels ----
+    film_grads = ("dx", "dscale", "dshift", "dgate", "dg1", "dg2", "d_dw_kernel", "d_dw_bias",
+                  "d_vg_kernel", "d_vg_bias", "d_out_kernel", "d_out_bias")
+    for i, (label, Bt, Lt, zero_film) in enumerate((
+            ("B64 L1026 C128 H341 FiLM", 64, 1026, False), ("B64 L1026 zero FiLM", 64, 1026, True),
+            ("B64 L38 FiLM", 64, 38, False), ("B64 L38 zero FiLM", 64, 38, True))):
+        args, go = film_args(Bt, Lt, zero_film), rnd(Bt, Lt, 128)
+        got = film_layer.film_layer_bwd_cuda(*args, go)
+        worst_bwd = check_grads(
+            f"film_layer_bwd {label}", film_grads, got,
+            film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float()),
+            film_layer.film_layer_bwd_plain(*args, go),
+        )
+        # fixed-order sums, no float atomics: a second launch is bit-identical
+        if not all(torch.equal(a, b) for a, b in zip(got, film_layer.film_layer_bwd_cuda(*args, go))):
+            raise RuntimeError(f"film_layer_bwd {label}: two launches differ")
+        ms = cuda_ms(film_layer.film_layer_bwd_cuda, (*args, go))
+        plain_ms = backward_ms(film_layer.film_layer_plain, args, go)
+        log(f"film_layer_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if i == 0:
+            results["film_layer_bwd"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst_bwd}
+        results["film_layer_bwd"]["max_abs_err"] = max(results["film_layer_bwd"]["max_abs_err"],
+                                                       worst_bwd)
+
     # ---- 2. small slice: through the kernels vs through the plain versions ----
     args = LDMArgs()
     model = init_random(args, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -417,54 +671,18 @@ def main() -> int:
     md = cfg["model"]
     workdir = ROOT / "build" / "smoke_fit"
     shutil.rmtree(workdir, ignore_errors=True)
-    steps = TRAIN_WARMUP + TRAIN_TIMED
     t0 = time.perf_counter()
     # 64 mapsets x 4 maps x 12 windows of 152; 2 mapsets held out for
     # validation, 62 x 48 = 2976 training windows >= 22 batches of 128
     write_latent_corpus(workdir / "data", 64, 4, 152 * 12, md["a_dim"], md["emb_dim"],
                         md["style_dim"], SEED)
     cfg["data"].update(data_dir=str(workdir / "data"), max_per_map=-1, max_val_count=2)
-    cfg["fit"].update(run_dir=str(workdir / "runs"), max_steps=steps, log_every=5)
     log(f"synthetic cached-latent corpus written in {time.perf_counter() - t0:.1f} s")
-
-    marks: dict[int, tuple[float, dict]] = {}
-    step_metrics: list[dict] = []
-
-    def on_step(step: int, metrics: dict) -> None:
-        step_metrics.append(metrics)
-        if step in (TRAIN_WARMUP, steps):
-            torch.cuda.synchronize()
-            marks[step] = (time.perf_counter(), dict(_build.launches))
-            if step == TRAIN_WARMUP:
-                torch.cuda.reset_peak_memory_stats()
-
-    _build.reset_launches()
-    state = diffusion_fit.run(cfg, device=dev, on_step=on_step)
-    launches_train = dict(_build.launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"launches during fit-denoiser: {launches_train}")
-    if state.step != steps or len(step_metrics) != steps:
-        raise RuntimeError(f"fit-denoiser ran {state.step} steps, not {steps}")
-    (ta, la), (tb, lb) = marks[TRAIN_WARMUP], marks[steps]
-    timed = {k: lb[k] - la[k] for k in TRAINING_KERNELS}
-    log(f"launches during the {TRAIN_TIMED} timed steps: {timed}")
-    missing = [k for k, n in timed.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"the training path never launched: {missing}")
-    losses = {k: [float(m[k]) for m in step_metrics] for k in ("loss", "osl", "del", "u_mape")}
-    if not all(np.isfinite(v).all() for v in losses.values()):
-        raise RuntimeError(f"non-finite training loss: {losses}")
-    for ckpt in ("last", "best"):
-        if not (workdir / "runs" / ckpt / "state.pt").exists():
-            raise RuntimeError(f"fit-denoiser wrote no {ckpt} checkpoint")
-    ms_step = (tb - ta) / TRAIN_TIMED * 1e3
-    log(f"fit-denoiser (depth 8, width 512, 16 x 64 heads, B128 x L152, bf16): "
-        f"{ms_step:.2f} ms/step, {1e3 / ms_step:.3f} steps/s over {TRAIN_TIMED} steps after "
-        f"{TRAIN_WARMUP} warm-up; peak device memory {peak_gib:.2f} GiB [{smi}]")
-    log("losses per step: " + json.dumps({k: [round(x, 5) for x in v] for k, v in losses.items()})
-        + f" [{smi}]")
-    del state
-    torch.cuda.empty_cache()
+    denoiser_losses = ("loss", "osl", "del", "u_mape")
+    launches_train = fit_timed(
+        "fit-denoiser", diffusion_fit.run, cfg, dev, smi, workdir,
+        "depth 8, width 512, 16 x 64 heads, B128 x L152, bf16", TRAINING_KERNELS,
+        denoiser_losses, denoiser_losses)
 
     # one step through the kernels and through the plain versions (bf16),
     # each against a plain f32 step on the same batch, t and x0; random
@@ -474,16 +692,7 @@ def main() -> int:
     train_args = dataclass_from_dict(DiffusionTrainArgs, cfg["train"])
     bf16_model = DiffusionModel(model_args, torch.bfloat16).to(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    with torch.no_grad():
-        for name, p in bf16_model.named_parameters():
-            draw = torch.randn(p.shape, generator=gen, device=dev)
-            if p.dim() >= 2:
-                draw = draw / float(np.prod(p.shape[:-1])) ** 0.5
-            elif name.endswith("gamma"):
-                draw = 1.0 + 0.1 * draw
-            else:
-                draw = 0.1 * draw
-            p.copy_(draw)
+    randomize_(bf16_model, gen)
     f32_model = DiffusionModel(model_args, torch.float32).to(dev)
     f32_model.load_state_dict(bf16_model.state_dict())
     Bt, Lt = 128, 152
@@ -499,32 +708,27 @@ def main() -> int:
         with plain_ops() if plain else nullcontext():
             loss, aux = diffusion_loss(model, batch, train_args, t=t_inj, x0=x0_inj)
             grads = torch.autograd.grad(loss, list(model.parameters()))
-        terms = torch.stack([aux[k].detach().float() for k in ("loss", "osl", "del", "u_mape")])
+        terms = torch.stack([aux[k].detach().float() for k in denoiser_losses])
         return terms, torch.cat([g.flatten().float() for g in grads])
 
-    ref_terms, ref_grads = loss_and_grads(f32_model, True)
-    step_err = {}
-    for name, plain in (("kernels", False), ("plain", True)):
-        terms, grads = loss_and_grads(bf16_model, plain)
-        step_err[name] = ((terms - ref_terms).abs(), (grads - ref_grads).abs())
-    (kt, kg), (pt, pg) = step_err["kernels"], step_err["plain"]
-    log(f"one train step vs the f32 plain step: loss terms (loss, osl, del, u_mape) f32 "
-        f"{ref_terms.tolist()}, |err| kernels {kt.tolist()} plain bf16 {pt.tolist()}; "
-        f"gradients ({ref_grads.numel()} values, max |f32| {ref_grads.abs().max().item():.4g}) "
-        f"kernels mean {kg.mean().item():.4g} max {kg.max().item():.4g}, plain bf16 mean "
-        f"{pg.mean().item():.4g} max {pg.max().item():.4g}")
-    if not bool((kt <= torch.maximum(SLICE_MAX_RATIO * pt, LOSS_FLOOR * ref_terms.abs())).all()):
-        raise RuntimeError("train step: the kernel path's loss is farther from the f32 step than "
-                           "the plain bf16 path's")
-    if not (kg.mean() <= SLICE_MEAN_RATIO * pg.mean() and kg.max() <= SLICE_MAX_RATIO * pg.max()):
-        raise RuntimeError("train step: the kernel path's gradients are farther from the f32 "
-                           "step than the plain bf16 path's")
+    check_step("fit-denoiser", denoiser_losses,
+               loss_and_grads(f32_model, True), loss_and_grads(bf16_model, False),
+               loss_and_grads(bf16_model, True))
     shutil.rmtree(workdir, ignore_errors=True)
+    del bf16_model, f32_model
+    torch.cuda.empty_cache()
+
+    # ---- 5. full-width latent training through fit.run, then encode-latents ----
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+
+    launches_latent = train_latent(dev, smi, plain_ops, load_yaml_config(latent_fit.CONFIG),
+                                   LATENT_CORPUS, ROOT / "build" / "smoke_latent")
 
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
          "replaces": KERNEL_META[name][1],
-         "launches": launches_infer[name] + launches_train[name], **results[name]}
+         "launches": launches_infer[name] + launches_train[name] + launches_latent[name],
+         **results[name]}
         for name in _build.KERNELS
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

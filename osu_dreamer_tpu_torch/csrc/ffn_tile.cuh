@@ -121,6 +121,51 @@ __device__ void ffn_out(const bf16* hs, int ldh, int Hp, const bf16* wout, const
   }
 }
 
+// The backward kernels' hidden tile j for RT row fragments of ys and gos:
+// v and g (columns j*16.. of the two halves of W_vg) and dhn = gos W_out^T
+// (rows j*16.. of W_out, read transposed), f32 accumulators without biases.
+// The weight fragments come from L2: the next k-step's are in flight while
+// this one's products run (two register stages, C a multiple of 32).
+template <int RT>
+__device__ __forceinline__ void ffn_hidden_tile(
+    const bf16* ys, const bf16* gos, int lda, const bf16* wvg, const bf16* wout, int C, int Hp,
+    int j, wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&v)[RT],
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&g)[RT],
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&d)[RT]) {
+  const int ldw = 2 * Hp;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    wmma::fill_fragment(v[i], 0.f);
+    wmma::fill_fragment(g[i], 0.f);
+    wmma::fill_fragment(d[i], 0.f);
+  }
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv0, bg0, bv1, bg1;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bo0, bo1;
+  auto load = [&](auto& bv, auto& bg, auto& bo, int k) {
+    wmma::load_matrix_sync(bv, wvg + (size_t)k * ldw + j * 16, ldw);
+    wmma::load_matrix_sync(bg, wvg + (size_t)k * ldw + Hp + j * 16, ldw);
+    wmma::load_matrix_sync(bo, wout + (size_t)j * 16 * C + k, C);
+  };
+  auto step = [&](const auto& bv, const auto& bg, const auto& bo, int k) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, ys + i * 16 * lda + k, lda);
+      wmma::mma_sync(v[i], a, bv, v[i]);
+      wmma::mma_sync(g[i], a, bg, g[i]);
+      wmma::load_matrix_sync(a, gos + i * 16 * lda + k, lda);
+      wmma::mma_sync(d[i], a, bo, d[i]);
+    }
+  };
+  load(bv0, bg0, bo0, 0);
+  for (int k = 0; k < C; k += 32) {
+    load(bv1, bg1, bo1, k + 16);
+    step(bv0, bg0, bo0, k);
+    if (k + 32 < C) load(bv0, bg0, bo0, k + 32);
+    step(bv1, bg1, bo1, k + 16);
+  }
+}
+
 // ys[t][c] = depthwise conv over the haloed window src (T + K - 1 rows), in the
 // plain version's order: ((x0*w0 + x1*w1) + ...) + bias, each op rounded to bf16.
 template <int T>

@@ -62,49 +62,6 @@ struct SwigluBwdSmem {
   }
 };
 
-// v, g (columns j*16.. of the two halves of W_vg) and dhn (rows j*16.. of
-// W_out, read transposed) for the block's kSbE extended rows
-__device__ __forceinline__ void sb_hidden_tile(
-    const bf16* ys, const bf16* gos, int lda, const bf16* wvg, const bf16* wout, int C, int Hp,
-    int j, wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&v)[kSbRT],
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&g)[kSbRT],
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&d)[kSbRT]) {
-  const int ldw = 2 * Hp;
-#pragma unroll
-  for (int i = 0; i < kSbRT; ++i) {
-    wmma::fill_fragment(v[i], 0.f);
-    wmma::fill_fragment(g[i], 0.f);
-    wmma::fill_fragment(d[i], 0.f);
-  }
-  // the weight fragments come from L2: the next k-step's are in flight while
-  // this one's products run (two register stages, C a multiple of 32)
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv0, bg0, bv1, bg1;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bo0, bo1;
-  auto load = [&](auto& bv, auto& bg, auto& bo, int k) {
-    wmma::load_matrix_sync(bv, wvg + (size_t)k * ldw + j * 16, ldw);
-    wmma::load_matrix_sync(bg, wvg + (size_t)k * ldw + Hp + j * 16, ldw);
-    wmma::load_matrix_sync(bo, wout + (size_t)j * 16 * C + k, C);
-  };
-  auto step = [&](const auto& bv, const auto& bg, const auto& bo, int k) {
-#pragma unroll
-    for (int i = 0; i < kSbRT; ++i) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ys + i * 16 * lda + k, lda);
-      wmma::mma_sync(v[i], a, bv, v[i]);
-      wmma::mma_sync(g[i], a, bg, g[i]);
-      wmma::load_matrix_sync(a, gos + i * 16 * lda + k, lda);
-      wmma::mma_sync(d[i], a, bo, d[i]);
-    }
-  };
-  load(bv0, bg0, bo0, 0);
-  for (int k = 0; k < C; k += 32) {
-    load(bv1, bg1, bo1, k + 16);
-    step(bv0, bg0, bo0, k);
-    if (k + 32 < C) load(bv0, bg0, bo0, k + 32);
-    step(bv1, bg1, bo1, k + 16);
-  }
-}
-
 __global__ void __launch_bounds__(kFfnThreads)
 swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
                   const bf16* __restrict__ dww, const bf16* __restrict__ dwb,
@@ -162,7 +119,7 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
   // ---- pass 1: per-row sums of s^2 and dhn * s over H
   float sq[kSbRT] = {}, dot[kSbRT] = {};
   for (int j = warp; j < nTiles; j += kSbWarps) {
-    sb_hidden_tile(ys, gos, lda, wvg, wout, C, Hp, j, fv, fg, fd);
+    ffn_hidden_tile<kSbRT>(ys, gos, lda, wvg, wout, C, Hp, j, fv, fg, fd);
 #pragma unroll
     for (int i = 0; i < kSbRT; ++i) {
       wmma::store_matrix_sync(scr, fv[i], 16, wmma::mem_row_major);
@@ -203,7 +160,7 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
 
   // ---- pass 2: dvg tile by tile into the block's scratch (and the outputs)
   for (int j = warp; j < nTiles; j += kSbWarps) {
-    sb_hidden_tile(ys, gos, lda, wvg, wout, C, Hp, j, fv, fg, fd);
+    ffn_hidden_tile<kSbRT>(ys, gos, lda, wvg, wout, C, Hp, j, fv, fg, fd);
     // lane owns column j*16 + (lane & 15) of both halves; its vg-bias partial
     // sums that column over the core rows it visits
     float sv = 0.f, sg = 0.f;

@@ -1,17 +1,22 @@
-"""Windowed training streams over the cached-latent dataset.
+"""Windowed training streams over the pre-processed and cached-latent datasets.
 
-Copy of the latent half of osu_dreamer_tpu/data/pipeline.py (pure numpy and
-``random.Random``, pinned by tests/test_torch_data.py to yield the same
-windows in the same order for the same seed):
+Copy of osu_dreamer_tpu/data/pipeline.py (pure numpy and ``random.Random``,
+pinned by tests/test_torch_data.py to yield the same windows in the same
+order for the same seed):
 
 - ``hold_out_mapsets``: validation split by whole mapset (md5 order of the
   directory names), capped by count and fraction;
-- ``latent_windows``: random-offset non-overlapping windows of the
-  encode-latents cache (per mapset ``h.npy``, per map ``<id>.latent.npz``
-  with ``z``/``s``/``labels``) with a ``max_per_map`` cap and a shuffle
-  buffer; ``seq_len=None`` streams full maps in a fixed order;
+- ``signal_windows``: random-offset non-overlapping windows of the
+  generate-data layout (per mapset ``spec.npy``, per map ``<id>.map.npy``)
+  with X/Y flip augmentation, for stage 1;
+- ``latent_windows``: the same over the encode-latents cache (per mapset
+  ``h.npy``, per map ``<id>.latent.npz`` with ``z``/``s``/``labels``), for
+  stages 2 and 3;
+- both with a ``max_per_map`` cap and a shuffle buffer; ``seq_len=None``
+  streams full maps in a fixed order;
 - ``batched``: drop-last stacking; ``prefetch``: a background thread keeps
-  the stream ahead of the device.
+  the stream ahead of the device; ``pad_to_multiple``: edge replication of
+  the time axis.
 
 Samples are time-major / channel-last, (l, C).
 """
@@ -27,7 +32,18 @@ from typing import Iterable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 
+from ..audio.io import read_spec
+from ..signal.encoding import read_beatmap
+
 Mapset = list[Path]  # the map files of one mapset (same parent dir)
+
+
+class SignalSample(NamedTuple):
+    """one stage-1 training example, time-major"""
+
+    audio: np.ndarray   # (L, A_DIM) spectrogram in [0, 1]
+    chart: np.ndarray   # (L, X_DIM) signal: 7 hit channels + normalized xy
+    labels: np.ndarray  # (NUM_LABELS,) sr/ar/od/cs/hp
 
 
 class LatentSample(NamedTuple):
@@ -119,8 +135,52 @@ def _apply_shard(mapsets: Sequence[Mapset], shard) -> list[Mapset]:
     return list(mapsets)[shard_index::num_shards]
 
 
+def _read_spec_t(mapset_dir: Path) -> np.ndarray:
+    with open(mapset_dir / "spec.npy", "rb") as f:
+        return read_spec(f).T.astype(np.float32)  # (L, A)
+
+
+def _read_chart_t(map_file: Path) -> tuple[np.ndarray, np.ndarray]:
+    with open(map_file, "rb") as f:
+        chart, labels = read_beatmap(f)
+    return chart.T.astype(np.float32), labels.astype(np.float32)  # (L, X), (5,)
+
+
+def _flip_xy(chart: np.ndarray, rng: random.Random) -> np.ndarray:
+    """osu! playfield symmetry augmentation: mirror normalized cursor x
+    and/or y; hit channels unchanged"""
+    fx, fy = rng.random() < 0.5, rng.random() < 0.5
+    if not (fx or fy):
+        return chart
+    chart = chart.copy()
+    if fx:
+        chart[:, 7] = 1.0 - chart[:, 7]
+    if fy:
+        chart[:, 8] = 1.0 - chart[:, 8]
+    return chart
+
+
 def _cap_windows(n: int, cap: int) -> int:
     return n if cap < 0 else min(cap, n)
+
+
+def count_signal_windows(
+    sets: Sequence[Mapset],
+    seq_len: int,
+    max_per_map: int = -1,
+    shard: tuple[int, int] | None = None,
+) -> int:
+    """number of samples ``signal_windows`` yields for this shard (the random
+    offset moves windows but never changes their count), from array headers
+    only"""
+    total = 0
+    for ms in _apply_shard(sets, shard):
+        spec_len = np.load(ms[0].parent / "spec.npy", mmap_mode="r").shape[1]
+        for f in ms:
+            with np.load(f) as npz:
+                chart_len = npz["hit"].shape[1]
+            total += _cap_windows(min(spec_len, chart_len) // seq_len, max_per_map)
+    return total
 
 
 def count_latent_windows(
@@ -142,6 +202,53 @@ def count_latent_windows(
                 z_len = npz["z"].shape[0]
             total += _cap_windows(min(h_len, z_len) // seq_len, max_per_map)
     return total
+
+
+def signal_windows(
+    sets: Sequence[Mapset],
+    seq_len: int | None,
+    *,
+    shuffle_buffer: int = 1,
+    max_per_map: int = -1,
+    seed: int = 0,
+    flip_augment: bool = True,
+    shard: tuple[int, int] | None = None,
+) -> Iterator[SignalSample]:
+    """stream (spec window, chart window, labels) training samples;
+    ``seq_len=None`` -> full maps in a fixed order, no augmentation. The
+    mapset's spectrogram is read once and windows are views into it."""
+    mapsets = _apply_shard(sets, shard)
+
+    if seq_len is None:
+        for ms in mapsets:
+            spec = None
+            for f in sorted(ms):
+                if spec is None:
+                    spec = _read_spec_t(f.parent)
+                chart, labels = _read_chart_t(f)
+                L = min(len(spec), len(chart))
+                yield SignalSample(spec[:L], chart[:L], labels)
+        return
+
+    rng = random.Random(seed)
+
+    def gen() -> Iterator[SignalSample]:
+        order = list(mapsets)
+        rng.shuffle(order)
+        for ms in order:
+            files = list(ms)
+            rng.shuffle(files)
+            spec = _read_spec_t(files[0].parent)
+            for f in files:
+                chart, labels = _read_chart_t(f)
+                L = min(len(spec), len(chart))
+                for s0 in _window_starts(L, seq_len, max_per_map, rng):
+                    w = chart[s0 : s0 + seq_len]
+                    if flip_augment:
+                        w = _flip_xy(w, rng)
+                    yield SignalSample(spec[s0 : s0 + seq_len], w, labels)
+
+    yield from _shuffle_buffered(gen(), shuffle_buffer, rng)
 
 
 def latent_windows(
@@ -215,6 +322,14 @@ def batched(stream: Iterable, batch_size: int):
         if len(buf) == batch_size:
             yield type(buf[0])(*(np.stack(cols) for cols in zip(*buf)))
             buf = []
+
+
+def pad_to_multiple(x: np.ndarray, multiple: int) -> np.ndarray:
+    """replicate-pad axis 0 up to a multiple (the last frame repeated)"""
+    pad = -len(x) % multiple
+    if pad == 0:
+        return x
+    return np.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1), mode="edge")
 
 
 _END = object()

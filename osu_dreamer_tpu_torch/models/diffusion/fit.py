@@ -22,7 +22,7 @@ import torch
 from ...data.pipeline import batched, hold_out_mapsets, latent_windows, prefetch
 from ...nn.schedule import lr_at
 from ...ops.fused_attention import fused_attention_fits
-from ...train.loop import FitArgs, Stage, fit
+from ...train.loop import FitArgs, Stage, check_single_device, fit
 from ...train.state import TrainState
 from ...utils import dataclass_from_dict, load_yaml_config
 from .model import DiffusionModelArgs
@@ -40,20 +40,6 @@ class DiffusionDataArgs:
     max_val_frac: float = 0.3
     max_per_map: int = 1
     shuffle_buffer: int = 512
-
-
-def check_single_device(parallel: dict) -> None:
-    """accept only a ``parallel`` block that means one device"""
-    unsupported = {
-        key: value for key, value in parallel.items()
-        if not ((key == "dp" and value in (-1, 1)) or (key in ("tp", "sp") and value == 1)
-                or (key in ("coordinator", "process_id") and value is None)
-                or (key == "num_processes" and value in (None, 1)))
-    }
-    if unsupported:
-        raise NotImplementedError(
-            f"parallel training is not ported (this port trains on one device): {unsupported}"
-        )
 
 
 def run(

@@ -3,9 +3,9 @@ inference artifact written by the JAX package, or seeded random.
 
 The port's modules carry the flax parameter names and layouts, so the flax
 tree ``{"params": {"latent", "diffusion", "style"}}`` flattens onto
-``LDM.state_dict()`` key for key. Two things differ: flax ``nn.Conv`` kernels
-(kh, kw, in, out) become torch's (out, in, kh, kw), and the latent model's
-training-only subtrees (``SKIPPED``) have no module here yet.
+``LDM.state_dict()`` key for key, the latent model's chart encoder included.
+One thing differs: flax ``nn.Conv`` kernels (kh, kw, in, out) become torch's
+(out, in, kh, kw).
 """
 
 from __future__ import annotations
@@ -22,15 +22,6 @@ from ..latent.model import Conv2d
 from .model import LDM, LDMArgs
 
 ARTIFACT_VERSION = 1
-
-# latent-model subtrees only the chart encoder (training) uses
-SKIPPED = tuple(
-    f"latent.{name}" for name in (
-        "chart_stem", "chart_encoder", "style_stack", "style_pool",
-        "temporal_stack", "temporal_proj",
-    )
-)
-
 
 def default_dtype(device: torch.device) -> torch.dtype:
     """compute dtype as the JAX artifact loader picks it: f32 on the CPU,
@@ -66,15 +57,13 @@ def _as_tensor(leaf: Any) -> torch.Tensor:
 def from_flax_params(tree: dict, model: torch.nn.Module) -> dict[str, torch.Tensor]:
     """flax parameter tree (numpy or torch leaves) -> a state dict for
     ``model``, an ``LDM`` or any port module with a flax counterpart. Every
-    leaf is consumed exactly once or lies under ``SKIPPED``; an unknown leaf,
-    a missing parameter or a shape mismatch raises."""
+    leaf is consumed exactly once; an unknown leaf, a missing parameter or a
+    shape mismatch raises."""
     params = tree.get("params", tree)
     expected = model.state_dict()
     conv_kernels = _conv_kernels(model)
     out: dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(params).items():
-        if any(key == s or key.startswith(s + ".") for s in SKIPPED):
-            continue
         if key not in expected:
             raise KeyError(f"flax leaf {key!r} has no counterpart in the port")
         t = _as_tensor(leaf)

@@ -61,4 +61,4 @@ class LDM(nn.Module):
                          for t in (h, *skips))
         s = self.style.sample(labels, style_steps, style_guidance, s0=s0, generator=generator)
         z = self.diffusion.sample(h, s, num_steps, x0=x0, generator=generator)
-        return self.latent.decode(z, s, skips)
+        return self.latent.decode(z, s, skips=skips)

@@ -1,11 +1,12 @@
-"""Stage-1 chart autoencoder, inference subset.
+"""Stage-1 chart autoencoder (WAE): chart signal -> latent z + style s, and
+back, given the audio.
 
 Counterpart of osu_dreamer_tpu/models/latent/model.py: the audio stem
-(``SpecFeatures``), the audio U-Net encoder with its skips, and the decoder
-that turns a latent z and style s into the chart signal and the 5 labels.
-The chart encoder (``encode_chart``: ``chart_stem``, ``chart_encoder``,
-``style_stack``, ``style_pool``, ``temporal_*``) is used only in training and
-is not ported yet.
+(``SpecFeatures``) and audio U-Net encoder with its skips, the chart encoder
+(``encode_chart``: ``chart_stem``, ``chart_encoder``, ``style_stack``,
+``style_pool``, ``temporal_stack``, ``temporal_proj``), the decoder that turns
+z and s into chart logits and the 5 labels, and the training forward.
+``init_params`` draws flax's initialisation of ``LatentModel.init``.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...audio.constants import A_DIM
-from ...nn.blocks import MLP, Dense, DepthwiseConv, FilmStack
-from ...nn.norm import RMSNorm
+from ...nn.blocks import MLP, Dense, DepthwiseConv, FilmStack, lecun_normal_
+from ...nn.norm import RMSNorm, rms_norm
+from ...nn.pool import AttnPool
 from ...signal.constants import HIT_DIM, NUM_LABELS, X_DIM
 
 
@@ -60,6 +62,12 @@ class Conv2d(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(out_ch, in_ch, *kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch))
         self.stride, self.dtype = stride, dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax ``nn.Conv``: lecun_normal with fan_in = kh * kw * in, zero bias"""
+        with torch.no_grad():
+            lecun_normal_(self.kernel, self.kernel[0].numel(), generator)
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L, W, C_in) channel-last -> (B, L, W', C_out), padding 1 on
@@ -122,13 +130,14 @@ class Upsample(nn.Module):
 
 
 class SkipMixer(nn.Module):
-    """inject an encoder skip: x + norm(proj(skip)) * gate(x)"""
+    """inject an encoder skip: x + norm(proj(skip)) * gate(x), the gate
+    zero-initialised (kernel and bias)"""
 
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
         self.proj = Dense(dim, dim, dtype)
         self.norm = RMSNorm(dim)
-        self.gate = Dense(dim, dim, dtype)
+        self.gate = Dense(dim, dim, dtype, zero_init=True)
 
     def forward(self, skip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return x + self.norm(self.proj(skip)) * self.gate(x)
@@ -176,36 +185,76 @@ class UNetDecoder(nn.Module):
 
 
 class LatentModel(nn.Module):
-    """the chart autoencoder's inference half"""
+    """the full chart WAE"""
 
     def __init__(self, args: LatentModelArgs, dtype: torch.dtype):
         super().__init__()
         a = args
         self.args = args
+        self.chart_stem = Dense(X_DIM, a.h_dim, dtype)
+        self.chart_encoder = UNetEncoder(a.h_dim, a.n_downs, a.stride, a.stack, dtype)
         self.spec_stem = SpecFeatures(a.h_dim, dtype)
         self.audio_unet = UNetEncoder(a.h_dim, a.n_downs, a.stride, a.stack, dtype)
+        self.style_stack = _stack(a.h_dim, 0, a.stack, dtype)
+        self.style_pool = AttnPool(a.h_dim, a.style_dim, a.style_head_dim, a.style_heads, dtype)
+        self.temporal_stack = _stack(a.h_dim, a.style_dim, a.stack, dtype)
+        self.temporal_proj = Dense(a.h_dim, a.emb_dim, dtype)
         self.emb_proj = Dense(a.emb_dim, a.h_dim, dtype)
         self.decoder = UNetDecoder(a.h_dim, a.style_dim, a.n_downs, a.stride, a.stack, dtype)
         self.head = Dense(a.h_dim, X_DIM, dtype)
         self.label_mlp = MLP(a.style_dim, a.h_dim, NUM_LABELS, dtype)
 
+    def init_params(self, generator: torch.Generator) -> "LatentModel":
+        """flax's initialisation of ``LatentModel.init``: lecun_normal kernels
+        (flax's fans), zero biases, zero FiLM and skip-gate layers, unit
+        gains, block-norm gains 1e-3; drawn from ``generator`` in module
+        order"""
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self
+
+    def _check_len(self, t: torch.Tensor, name: str, width: int) -> None:
+        if t.dim() != 3 or t.shape[-1] != width:
+            raise ValueError(f"{name} must be (B, L, {width}), got {tuple(t.shape)}")
+        if t.shape[1] % self.args.chunk_size:
+            raise ValueError(f"L={t.shape[1]} must be a multiple of {self.args.chunk_size}")
+
+    def encode_chart(self, chart: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, L, 9) -> z (B, L / chunk, emb_dim), s (B, style_dim); both RMS
+        normalised (per frame, per map)"""
+        self._check_len(chart, "chart", X_DIM)
+        _, bottom = self.chart_encoder(self.chart_stem(chart))
+        s = rms_norm(self.style_pool(self.style_stack(bottom)))
+        z = rms_norm(self.temporal_proj(self.temporal_stack(bottom, s)))
+        return z, s
+
     def encode_audio(self, spec: torch.Tensor) -> tuple[list[torch.Tensor], torch.Tensor]:
         """(B, L, 72) -> (skips, h (B, L / chunk, h_dim))"""
-        if spec.dim() != 3 or spec.shape[-1] != A_DIM:
-            raise ValueError(f"spec must be (B, L, {A_DIM}), got {tuple(spec.shape)}")
-        if spec.shape[1] % self.args.chunk_size:
-            raise ValueError(f"L={spec.shape[1]} must be a multiple of {self.args.chunk_size}")
+        self._check_len(spec, "spec", A_DIM)
         return self.audio_unet(self.spec_stem(spec))
 
-    def decode_logits(self, z: torch.Tensor, s: torch.Tensor, skips: list[torch.Tensor]) -> torch.Tensor:
+    def decode_logits(self, z: torch.Tensor, s: torch.Tensor, *, spec: torch.Tensor | None = None,
+                      skips: list[torch.Tensor] | None = None) -> torch.Tensor:
+        """chart logits from z and s, given the audio as ``spec`` or as the
+        audio encoder's ``skips``"""
+        if skips is None:
+            if spec is None:
+                raise ValueError("decode needs spec or skips")
+            skips, _ = self.encode_audio(spec)
         return self.head(self.decoder(skips, self.emb_proj(z), s))
 
     def predict_labels(self, s: torch.Tensor) -> torch.Tensor:
         return self.label_mlp(s)
 
-    def decode(self, z: torch.Tensor, s: torch.Tensor, skips: list[torch.Tensor]
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+    def decode(self, z: torch.Tensor, s: torch.Tensor, *, spec: torch.Tensor | None = None,
+               skips: list[torch.Tensor] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (chart signal with sigmoided hit channels, labels in [0, 10])"""
-        logits = self.decode_logits(z, s, skips)
+        logits = self.decode_logits(z, s, spec=spec, skips=skips)
         chart = torch.cat([logits[..., :HIT_DIM].sigmoid(), logits[..., HIT_DIM:]], dim=-1)
         return chart, self.predict_labels(s).clamp(0.0, 10.0)
+
+    def forward(self, spec: torch.Tensor, z: torch.Tensor, s: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """training forward: -> (chart logits, label predictions)"""
+        return self.decode_logits(z, s, spec=spec), self.predict_labels(s)

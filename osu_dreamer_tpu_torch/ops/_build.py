@@ -35,7 +35,7 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
-           "fused_attention_fwd", "fused_attention_bwd")
+           "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "odt_swiglu_bwd": [_P] * 16 + [_I] * 6 + [_P],
     "odt_fused_attention_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_fused_attention_bwd": [_P] * 15 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_film_layer_bwd": [_P] * 23 + [_I] * 8 + [_P],
 }
 
 

@@ -1,16 +1,18 @@
-"""FiLM-modulated SwiGLU residual layer, forward: the plain PyTorch version
-and the CUDA kernel.
+"""FiLM-modulated SwiGLU residual layer, forward and backward: the plain
+PyTorch versions and the CUDA kernels.
 
-Counterpart of osu_dreamer_tpu/ops/film_layer.py (``film_layer_reference``
-and the Pallas ``_fwd_kernel``). Per position:
+Counterpart of osu_dreamer_tpu/ops/film_layer.py (``film_layer_reference``,
+the Pallas ``_fwd_kernel`` and ``_bwd_kernel``). Per position:
 
     h   = rms(x) * g1 * (1 + scale) + shift
     h   = SwiGLU(h)
     out = x + rms(h) * g2 * (1 + gate)
 
-``film_layer`` dispatches by device: a CUDA tensor goes to the kernel in
-``csrc/film_layer.cu`` (bf16 only; anything else raises), a CPU tensor to
-``film_layer_plain``.
+``film_layer`` dispatches by device: a CUDA tensor goes to
+``FilmLayerFunction``, whose forward is the kernel in ``csrc/film_layer.cu``
+(K2) and whose backward is ``csrc/film_layer_bwd.cu`` (K3) (bf16 only;
+anything else raises); a CPU tensor to ``film_layer_plain``, differentiated
+by autograd.
 """
 
 from __future__ import annotations
@@ -20,6 +22,13 @@ import torch
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
 from .swiglu import check_ffn_shapes, pack_ffn_weights, swiglu_plain
+
+# extended rows per block of the backward kernel (csrc/film_layer_bwd.cu
+# kFbE): each block owns BWD_ROWS - 2r core rows
+BWD_ROWS = 64
+# the weight products' split-K chunks: enough (output tile, chunk) blocks to
+# fill the card's 132 SMs about four times
+_GEMM_BLOCKS = 4 * 132
 
 
 def film_layer_plain(
@@ -40,14 +49,9 @@ def film_layer_plain(
     return x + h * (1 + gate[:, None, :].to(dt))
 
 
-def film_layer_cuda(
-    x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
-) -> torch.Tensor:
-    """the csrc/film_layer.cu kernel: bf16 (B, L, C) -> (B, L, C)"""
-    check_cuda("x", x, torch.bfloat16, 3)
-    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
-    B, L, C = x.shape
-    K = dw_kernel.shape[0]
+def _film_inputs(x, scale, shift, gate, g1, g2) -> list[torch.Tensor]:
+    """scale, shift, gate (B, C) and g1, g2 (C,) cast to x's dtype, checked"""
+    B, _, C = x.shape
     dt = x.dtype
     film = [t.to(dt).contiguous() for t in (scale, shift, gate)]
     for name, t in zip(("scale", "shift", "gate"), film):
@@ -59,26 +63,124 @@ def film_layer_cuda(
         if g.shape != (C,) or g.device != x.device:
             raise ValueError(f"{name} must be ({C},) on {x.device}, "
                              f"got {tuple(g.shape)} on {g.device}")
+    return film + gains
+
+
+def film_layer_cuda(
+    x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
+) -> torch.Tensor:
+    """K2, csrc/film_layer.cu: bf16 (B, L, C) -> (B, L, C)"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    B, L, C = x.shape
+    K = dw_kernel.shape[0]
+    film = _film_inputs(x, scale, shift, gate, g1, g2)
     weights, H, Hp = pack_ffn_weights(
-        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, dt
+        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
     )
     out = torch.empty_like(x)
     run(
         "odt_film_layer_fwd", "film_layer", x.device,
-        x.data_ptr(), *(t.data_ptr() for t in film + gains + weights), out.data_ptr(),
+        x.data_ptr(), *(t.data_ptr() for t in film + weights), out.data_ptr(),
         B, L, C, H, Hp, K,
     )
     return out
 
 
+def film_layer_bwd_plain(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                         out_kernel, out_bias, grad_out):
+    """autograd of ``film_layer_plain`` -> (dx, dscale, dshift, dgate, dg1,
+    dg2, d dw_kernel, d dw_bias, d vg_kernel, d vg_bias, d out_kernel,
+    d out_bias), the tuple the JAX ``_fused_film_layer_bwd_impl`` returns"""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in
+                  (x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                   out_kernel, out_bias)]
+        return torch.autograd.grad(film_layer_plain(*leaves), leaves, grad_out)
+
+
+def _splits(rows: int, m: int, n: int) -> int:
+    """split-K chunk count of csrc/gemm_tn.cuh for a (m, n) product over rows"""
+    tiles = -(-m // 64) * -(-n // 64)
+    return max(1, min(rows // 16, -(-_GEMM_BLOCKS // tiles)))
+
+
+def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                        out_kernel, out_bias, grad_out):
+    """K3, csrc/film_layer_bwd.cu: the tuple of ``film_layer_bwd_plain``, dx
+    bf16 and every other gradient f32. The kernel leaves one f32 partial per
+    block of the per-column sums, summed here in a fixed order; the two weight
+    products run in the same call (split-K, fixed-order reduction)."""
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    B, L, C = x.shape
+    if C not in (32, 64, 128, 256):
+        raise ValueError(f"channels {C} must be 32, 64, 128 or 256 for the backward kernel")
+    go = grad_out.to(torch.bfloat16).contiguous()
+    if go.shape != x.shape or go.device != x.device:
+        raise ValueError(f"grad_out must be {tuple(x.shape)} on {x.device}, "
+                         f"got {tuple(go.shape)} on {go.device}")
+    K = dw_kernel.shape[0]
+    film = _film_inputs(x, scale, shift, gate, g1, g2)
+    weights, H, Hp = pack_ffn_weights(
+        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
+    )
+    nT = -(-L // (BWD_ROWS - 2 * (K // 2)))
+    R = B * nT * BWD_ROWS
+    dev = x.device
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_vg, s_out = _splits(R, C, 2 * Hp), _splits(R, Hp, C)
+    dx = torch.empty_like(x)
+    part = torch.empty(B, nT, (7 + K) * C + 2 * Hp, **f32)
+    scratch = [torch.empty(R, C, **bf), torch.empty(R, Hp, **bf), torch.empty(R, C, **bf),
+               torch.empty(R, 2 * Hp, **bf)]  # y, hn, do, dvg
+    pvg, pout = torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32)
+    dwvg, dwout = torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)
+    run(
+        "odt_film_layer_bwd", "film_layer_bwd", dev,
+        x.data_ptr(), go.data_ptr(), *(t.data_ptr() for t in film + weights),
+        dx.data_ptr(), part.data_ptr(), *(t.data_ptr() for t in scratch),
+        *(t.data_ptr() for t in (pvg, pout, dwvg, dwout)),
+        B, L, C, H, Hp, K, s_vg, s_out,
+    )
+    per_row = part[:, :, : 3 * C].sum(1).view(B, 3, C)     # dscale, dshift, dgate
+    total = part[:, :, 3 * C :].sum((0, 1))
+    dg1, dg2, ddwb, dbout = total[: 4 * C].view(4, C)
+    ddw = total[4 * C : (4 + K) * C].view(K, C)
+    dbvg = total[(4 + K) * C :]
+    return (dx, per_row[:, 0], per_row[:, 1], per_row[:, 2], dg1, dg2, ddw, ddwb,
+            torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1),
+            torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout[:H], dbout)
+
+
+class FilmLayerFunction(torch.autograd.Function):
+    """K2 forward, K3 backward"""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                out_kernel, out_bias):
+        inputs = (x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                  out_kernel, out_bias)
+        ctx.save_for_backward(*inputs)
+        return film_layer_cuda(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = ctx.saved_tensors
+        grads = film_layer_bwd_cuda(*inputs, grad_out)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, inputs))
+
+
 def film_layer(
     x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
 ) -> torch.Tensor:
-    """film layer forward: kernel for CUDA tensors, plain version for CPU tensors"""
+    """film layer: kernels (forward and backward) for CUDA tensors, the plain
+    version (autograd) for CPU tensors"""
     args = (x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
             out_kernel, out_bias)
     if x.is_cuda:
-        return film_layer_cuda(*args)
+        return FilmLayerFunction.apply(*args)
     if x.device.type != "cpu":
         raise ValueError(f"film_layer: no implementation for device {x.device}")
     return film_layer_plain(*args)

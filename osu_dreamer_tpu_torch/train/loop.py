@@ -54,6 +54,20 @@ class Stage:
     on_step: Optional[Callable[[int, dict], None]] = None
 
 
+def check_single_device(parallel: dict) -> None:
+    """accept only a ``parallel`` block that means one device"""
+    unsupported = {
+        key: value for key, value in parallel.items()
+        if not ((key == "dp" and value in (-1, 1)) or (key in ("tp", "sp") and value == 1)
+                or (key in ("coordinator", "process_id") and value is None)
+                or (key == "num_processes" and value in (None, 1)))
+    }
+    if unsupported:
+        raise NotImplementedError(
+            f"parallel training is not ported (this port trains on one device): {unsupported}"
+        )
+
+
 def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> TrainState:
     run_dir = Path(args.run_dir)
     logger = MetricsLogger(run_dir / "tb")

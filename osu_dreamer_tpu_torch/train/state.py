@@ -1,4 +1,5 @@
-"""Train state: parameters, optimizer, EMA and the step's random generator.
+"""Train state: parameters, optimizer, EMA, the latent stage's loss EMA and
+the step's random generator.
 
 Counterpart of osu_dreamer_tpu/train/state.py. The optimizer keeps optax's
 semantics, not torch's defaults: ``optax.chain(clip_by_global_norm(clip),
@@ -103,14 +104,18 @@ def ema_update(ema: nn.Module, model: nn.Module, decay: float = 0.99) -> None:
 @dataclass
 class TrainState:
     """the model (its parameters are the training parameters, f32), the
-    optimizer, an EMA copy of the model and the generator the steps draw
-    their randomness from"""
+    optimizer, an EMA copy of the model (denoiser and style; None for the
+    latent stage), the generator the steps draw their randomness from, and
+    the latent stage's per-component loss EMA with its ready flag (device
+    tensors, updated without a host sync; None elsewhere)"""
 
     step: int
     model: nn.Module
     opt: AdamW
     ema_model: nn.Module | None
     generator: torch.Generator
+    loss_ema: torch.Tensor | None = None
+    loss_ema_ready: torch.Tensor | None = None
 
     def state_dict(self) -> dict:
         return {
@@ -119,6 +124,8 @@ class TrainState:
             "opt": self.opt.state_dict(),
             "ema_params": None if self.ema_model is None else self.ema_model.state_dict(),
             "generator": self.generator.get_state(),
+            "loss_ema": self.loss_ema,
+            "loss_ema_ready": self.loss_ema_ready,
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -128,6 +135,10 @@ class TrainState:
         if self.ema_model is not None:
             self.ema_model.load_state_dict(state["ema_params"])
         self.generator.set_state(state["generator"])
+        with torch.no_grad():
+            for name in ("loss_ema", "loss_ema_ready"):
+                if getattr(self, name) is not None:
+                    getattr(self, name).copy_(state[name])
 
 
 def stratified_logit_normal_t(n: int, generator: torch.Generator,

@@ -77,22 +77,18 @@ def test_odt_roundtrip_matches_jax(tmp_path, half):
 
 
 def test_bridge_accounts_for_every_leaf():
-    """an unknown leaf, a missing parameter or a wrong shape raises; the
-    training-only latent subtrees are the only leaves passed over"""
-    from osu_dreamer_tpu_torch.models.inference.artifact import (
-        SKIPPED,
-        _flatten,
-        from_flax_params,
-    )
+    """an unknown leaf, a missing parameter or a wrong shape raises; every
+    leaf of the tree, the latent model's chart encoder included, maps onto
+    the port"""
+    from osu_dreamer_tpu_torch.models.inference.artifact import _flatten, from_flax_params
     from osu_dreamer_tpu_torch.models.inference.model import LDM
 
     _, tree = full_tree(32)
     model = LDM(tiny_args("torch"), torch.float32)
     state = from_flax_params(tree, model)
     leaves = set(_flatten(tree["params"]))
-    passed_over = {k for k in leaves if ".".join(k.split(".")[:2]) in SKIPPED}
-    assert {".".join(k.split(".")[:2]) for k in passed_over} == set(SKIPPED)
-    assert leaves - passed_over == set(state) == set(model.state_dict())
+    assert any(k.startswith("latent.chart_encoder.") for k in leaves)
+    assert leaves == set(state) == set(model.state_dict())
 
     # bf16 numpy leaves (a half tree as flax reads it) carry over bit for bit
     from osu_dreamer_tpu.models.inference.artifact import _to_half

@@ -3,10 +3,11 @@ jaxtyping, click, msgpack, yaml or the JAX package.
 
 A subprocess makes each of those unimportable, imports every module of
 osu_dreamer_tpu_torch (the inference slice and the training modules:
-train/, data/, ops/, models/diffusion/, cli), drives a tiny slice
-(init_random weights, two songs x two difficulties, CFG on) through
-``build_batch_sampler`` on the CPU, and trains a tiny denoiser for two steps
-through ``fit.run`` (config as a dict: reading YAML needs yaml).
+train/, data/, ops/, models/diffusion/, models/latent/, cli), drives a tiny
+slice (init_random weights, two songs x two difficulties, CFG on) through
+``build_batch_sampler`` on the CPU, trains a tiny denoiser and a tiny chart
+autoencoder for two steps each through their ``fit.run`` (configs as dicts:
+reading YAML needs yaml), and runs encode-latents on the latter's checkpoint.
 """
 
 from __future__ import annotations
@@ -83,6 +84,24 @@ SCRIPT = textwrap.dedent(
                                      "radius": 1}}}},
         }}, device="cpu")
         assert state.step == 2 and (Path(tmp) / "runs" / "last" / "state.pt").exists()
+
+        from osu_dreamer_tpu_torch.data.synth import write_signal_corpus
+        from osu_dreamer_tpu_torch.models.latent.encode import encode_latents
+        from osu_dreamer_tpu_torch.models.latent.fit import run as run_latent
+
+        write_signal_corpus(Path(tmp) / "signals", 3, 2, 80)
+        state = run_latent({{
+            "data": {{"data_dir": str(Path(tmp) / "signals"), "seq_len": 36, "batch_size": 2,
+                      "max_per_map": -1}},
+            "fit": {{"run_dir": str(Path(tmp) / "latent"), "max_steps": 2,
+                     "monitor": "eval/score", "monitor_mode": "max"}},
+            "model": {{"emb_dim": 4, "style_dim": 8, "n_downs": 2, "h_dim": 16,
+                       "stack": {{"n_layers": 1, "expand": 2, "radius": 1}},
+                       "style_head_dim": 8, "style_heads": 2}},
+        }}, device="cpu")
+        assert state.step == 2 and (Path(tmp) / "latent" / "best" / "state.pt").exists()
+        assert encode_latents(Path(tmp) / "latent" / "best", Path(tmp) / "signals",
+                              device="cpu") == 6
     blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
     assert not blocked, blocked
     print("imported", len(names), "modules")

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from osu_dreamer_tpu_torch.ops import fused_attention, film_layer, long_attention, resonator, swiglu
+from osu_dreamer_tpu_torch.ops import (
+    _build, film_layer, fused_attention, long_attention, resonator, swiglu,
+)
 
 BF16_ULPS = 4
 # training kernels: max abs error against autograd of the plain version in
@@ -63,10 +65,11 @@ def test_kernel_matches_plain_on_gpu(kernel):
 
 
 def _grads_close(got, want) -> None:
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
-        assert (g - w).abs().max().item() <= GRAD_REL * w.abs().max().item()
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= GRAD_REL * scale, f"gradient {i}: max abs err {err:.4g}, max |f32| {scale:.4g}"
 
 
 @pytest.mark.gpu
@@ -106,3 +109,46 @@ def test_swiglu_bwd_kernel_matches_plain_on_gpu(B, L, C, H, K):
          rnd(2 * H, scale=0.1), rnd(H, C, scale=H**-0.5)]
     _grads_close(swiglu.swiglu_bwd_cuda(x, *w, go),
                  swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,C,H,K,zero_film", [(2, 77, 128, 341, 5, False),
+                                                 (3, 38, 128, 341, 5, True),
+                                                 (1, 70, 32, 20, 3, False)])
+def test_film_layer_bwd_kernel_matches_plain_on_gpu(B, L, C, H, K, zero_film):
+    """K3: dx and the eleven parameter / FiLM gradients (GRAD_REL) at a
+    ragged L (the last block partial, or one block holding the whole
+    sequence), H padded to a multiple of 16, zero and nonzero FiLM; a second
+    launch is bit-identical (fixed-order sums, no float atomics); and
+    ``film_layer`` on CUDA tensors builds its graph through K2 and K3"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x, go = rnd(B, L, C).to(torch.bfloat16), rnd(B, L, C).to(torch.bfloat16)
+    film = [torch.zeros(B, C, device="cuda") if zero_film else rnd(B, C, scale=0.3)
+            for _ in range(3)]
+    # f32 parameters, as in training, holding bf16 values: the kernel rounds
+    # them to bf16, so the f32 reference then sees the same weights
+    params = [1 + rnd(C, scale=0.1), 1 + rnd(C, scale=0.1), rnd(K, C, scale=0.4),
+              rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5), rnd(2 * H, scale=0.1),
+              rnd(H, C, scale=H**-0.5), rnd(C, scale=0.1)]
+    args = [x, *(t.to(torch.bfloat16) for t in film),
+            *(t.to(torch.bfloat16).float() for t in params)]
+    got = film_layer.film_layer_bwd_cuda(*args, go)
+    want = film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float())
+    _grads_close(got, want)
+    again = film_layer.film_layer_bwd_cuda(*args, go)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    before = _build.launches["film_layer_bwd"]
+    out = film_layer.film_layer(*leaves)
+    assert type(out.grad_fn).__name__ == "FilmLayerFunctionBackward"
+    grads = torch.autograd.grad(out, leaves, go)
+    assert _build.launches["film_layer_bwd"] == before + 1
+    for g, k in zip(grads, got):  # each cast to its input's dtype
+        assert torch.equal(g, k.to(g.dtype))

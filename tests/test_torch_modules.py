@@ -231,11 +231,7 @@ def test_latent_encode_audio_and_decode():
     chart = np.random.default_rng(1).random((2, 36, 9)).astype(np.float32)
     jm = JLatent(ja, F32)
     tree = fill_tree(jm.init(KEY, spec, chart, method=JLatent.init_all), 6)
-    # training-only subtrees have no module in the port yet
-    infer = {k: v for k, v in tree["params"].items()
-             if k not in ("chart_stem", "chart_encoder", "style_stack", "style_pool",
-                          "temporal_stack", "temporal_proj")}
-    tm = port(TLatent(ta, torch.float32), {"params": infer})
+    tm = port(TLatent(ta, torch.float32), tree)
 
     skips_j, h_j = jm.apply(tree, spec, method=JLatent.encode_audio)
     skips_t, h_t = tm.encode_audio(T(spec))
@@ -246,7 +242,7 @@ def test_latent_encode_audio_and_decode():
     # decode 4 rows against the S=2 skips broadcast/repeated as the LDM does
     z, s = randn(2, 2, 4, 4), randn(3, 2, 8)
     chart_j, lab_j = jm.apply(tree, z, s, skips=skips_j, method=JLatent.decode)
-    chart_t, lab_t = tm.decode(T(z), T(s), [T(np.asarray(k)) for k in skips_j])
+    chart_t, lab_t = tm.decode(T(z), T(s), skips=[T(np.asarray(k)) for k in skips_j])
     np.testing.assert_allclose(N(chart_t), np.asarray(chart_j), atol=1e-4)
     np.testing.assert_allclose(N(lab_t), np.asarray(lab_j), atol=1e-4)
 

@@ -112,7 +112,7 @@ def test_spec_for_model_batch_matches_jax():
 
 
 def _cuda_wrappers():
-    from osu_dreamer_tpu_torch.ops.film_layer import film_layer_cuda
+    from osu_dreamer_tpu_torch.ops.film_layer import film_layer_bwd_cuda, film_layer_cuda
     from osu_dreamer_tpu_torch.ops.fused_attention import (
         fused_attention_bwd_cuda, fused_attention_fwd_cuda,
     )
@@ -130,6 +130,7 @@ def _cuda_wrappers():
     return {
         "swiglu": lambda: swiglu_cuda(x, *w),
         "film_layer": lambda: film_layer_cuda(x, z, z, z, z[0], z[0], *w),
+        "film_layer_bwd": lambda: film_layer_bwd_cuda(x, z, z, z, z[0], z[0], *w, x),
         "flash_attention": lambda: attention_cuda(q, q, q),
         "resonator": lambda: resonate_cuda(torch.zeros(1, 8, 98)),
         "swiglu_bwd": lambda: swiglu_bwd_cuda(x, *w[:5], x),
@@ -140,7 +141,8 @@ def _cuda_wrappers():
 
 
 @pytest.mark.parametrize("kernel", ["swiglu", "film_layer", "flash_attention", "resonator",
-                                    "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd"])
+                                    "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd",
+                                    "film_layer_bwd"])
 def test_cuda_wrapper_refuses_cpu_tensors(kernel):
     """a kernel wrapper never falls back: given a CPU tensor it raises
     before building or launching anything, and counts no launch"""
@@ -251,9 +253,10 @@ def test_swiglu_bwd_plain_matches_pallas_partial_interpret():
 
 
 def test_autograd_functions_route_through_their_kernels(monkeypatch):
-    """the two autograd Functions the CUDA path takes, wired on the CPU with
+    """the three autograd Functions the CUDA path takes, wired on the CPU with
     their kernels' plain stand-ins: each forward and backward goes through
     the stand-in, and the gradients equal autograd of the plain version"""
+    from osu_dreamer_tpu_torch.ops import film_layer as fl
     from osu_dreamer_tpu_torch.ops import fused_attention as fa
     from osu_dreamer_tpu_torch.ops import swiglu as sw
 
@@ -269,12 +272,16 @@ def test_autograd_functions_route_through_their_kernels(monkeypatch):
     monkeypatch.setattr(sw, "swiglu_bwd_cuda", spy("swiglu_bwd", sw.swiglu_bwd_plain))
     monkeypatch.setattr(fa, "fused_attention_fwd_cuda", spy("fwd", fa.fused_attention_fwd_plain))
     monkeypatch.setattr(fa, "fused_attention_bwd_cuda", spy("bwd", fa.fused_attention_bwd_plain))
+    monkeypatch.setattr(fl, "film_layer_cuda", spy("film_layer", fl.film_layer_plain))
+    monkeypatch.setattr(fl, "film_layer_bwd_cuda", spy("film_layer_bwd", fl.film_layer_bwd_plain))
 
     x, w = randn(0, 2, 19, 16), ffn_weights(16, 20, 5, 1)
     qkv, qg, kg = _qkv_inputs(2, 19, 2)
     cases = [
         (sw.SwiGLUFunction.apply, sw.swiglu_plain, [T(x), *map(T, w)], ()),
         (fa.FusedNormRopeAttention.apply, fa.rope_attention_plain, [T(qkv), T(qg), T(kg)], (2,)),
+        (fl.FilmLayerFunction.apply, fl.film_layer_plain, [T(a) for a in _film_inputs(19, 2)],
+         ()),
     ]
     for fn, plain, leaves, extra in cases:
         leaves = [t.requires_grad_() for t in leaves]
@@ -282,4 +289,79 @@ def test_autograd_functions_route_through_their_kernels(monkeypatch):
         want = torch.autograd.grad(plain(*leaves, *extra).square().sum(), leaves)
         for g, r in zip(got, want):
             np.testing.assert_allclose(N(g), N(r), atol=1e-5, rtol=1e-5)
-    assert calls == ["swiglu", "swiglu_bwd", "fwd", "bwd"]
+    assert calls == ["swiglu", "swiglu_bwd", "fwd", "bwd", "film_layer", "film_layer_bwd"]
+
+
+class _CudaLooking(torch.Tensor):
+    """a CPU tensor that reports ``is_cuda``, to follow the dispatch on a
+    machine without a card"""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_film_layer_on_cuda_tensor_builds_graph_through_kernels(monkeypatch):
+    """``film_layer`` sends a CUDA tensor through ``FilmLayerFunction`` (K2
+    forward, K3 backward): the output carries that Function's graph node, so
+    every parameter and FiLM vector gets its gradient (before, the kernel's
+    output had no graph at all)"""
+    from osu_dreamer_tpu_torch.ops import film_layer as fl
+
+    monkeypatch.setattr(fl, "film_layer_cuda", fl.film_layer_plain)
+    monkeypatch.setattr(fl, "film_layer_bwd_cuda", fl.film_layer_bwd_plain)
+    leaves = [T(a).requires_grad_() for a in _film_inputs(19, 2)]
+    out = fl.film_layer(leaves[0].as_subclass(_CudaLooking), *leaves[1:])
+    assert type(out.grad_fn).__name__ == "FilmLayerFunctionBackward"
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    want = torch.autograd.grad(fl.film_layer_plain(*leaves).square().sum(), leaves)
+    for g, r in zip(grads, want):
+        np.testing.assert_allclose(N(g), N(r), atol=1e-5, rtol=1e-5)
+
+
+def _film_inputs(L: int, B: int, C: int = 16, H: int = 20, K: int = 5, seed: int = 0):
+    """x, scale, shift, gate, g1, g2 and the SwiGLU weights of one film layer"""
+    return [randn(seed, B, L, C), randn(seed + 1, B, C, scale=0.5),
+            randn(seed + 2, B, C, scale=0.5), randn(seed + 3, B, C, scale=0.5),
+            1 + randn(seed + 4, C, scale=0.1), 1 + randn(seed + 5, C, scale=0.1),
+            *ffn_weights(C, H, K, seed + 6)]
+
+
+FILM_GRADS = ("dx", "dscale", "dshift", "dgate", "dg1", "dg2", "d_dw_kernel", "d_dw_bias",
+              "d_vg_kernel", "d_vg_bias", "d_out_kernel", "d_out_bias")
+
+
+@pytest.mark.parametrize("B,L,C,H,K", [(2, 70, 16, 20, 5), (1, 33, 8, 12, 3)])
+def test_film_layer_bwd_plain_matches_jax_vjp(B, L, C, H, K):
+    """``film_layer_bwd_plain`` (K3's plain version) against ``jax.vjp`` of
+    ``film_layer_reference``: all twelve gradients, f32, nonzero FiLM, ragged
+    L (1e-5 relative plus 1e-6 of the gradient's largest magnitude: f32 on
+    both sides, the parameter gradients summed over B*L rows in other
+    orders)"""
+    from osu_dreamer_tpu.ops.film_layer import film_layer_reference
+    from osu_dreamer_tpu_torch.ops.film_layer import film_layer_bwd_plain
+
+    args, go = _film_inputs(L, B, C, H, K), randn(9, B, L, C)
+    _, vjp = jax.vjp(film_layer_reference, *args)
+    got = film_layer_bwd_plain(*map(T, args), T(go))
+    for name, g, want in zip(FILM_GRADS, got, vjp(go)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(N(g), want, atol=1e-6 * np.abs(want).max(), rtol=1e-5,
+                                   err_msg=name)
+
+
+def test_film_layer_bwd_plain_matches_pallas_interpret():
+    """the Pallas backward kernel K3 replaces, in interpret mode at the
+    smallest case above with 16-row tiles (three tiles, the last ragged;
+    f32; 2e-4: the kernel forms its row means as ones-matmuls and keeps its
+    recompute in f32)"""
+    from osu_dreamer_tpu.ops.film_layer import _fused_film_layer_bwd_impl
+    from osu_dreamer_tpu_torch.ops.film_layer import film_layer_bwd_plain
+
+    B, L, C, H, K = 1, 33, 8, 12, 3
+    args, go = _film_inputs(L, B, C, H, K, seed=3), randn(4, B, L, C)
+    want = _fused_film_layer_bwd_impl(*map(jnp.asarray, args), jnp.asarray(go), tile=16,
+                                      interpret=True)
+    got = film_layer_bwd_plain(*map(T, args), T(go))
+    for name, g, ref in zip(FILM_GRADS, got, want):
+        np.testing.assert_allclose(N(g), np.asarray(ref), atol=2e-4, rtol=2e-4, err_msg=name)

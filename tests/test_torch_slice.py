@@ -31,6 +31,7 @@ def test_slice_matches_jax(case):
     from osu_dreamer_tpu.audio.spectrogram import spec_for_model_batch as jspec
     from osu_dreamer_tpu.models.inference.model import LDM as JLDM
     from osu_dreamer_tpu.models.inference.sampler import build_batch_sampler as jbuild
+    from osu_dreamer_tpu.models.latent.model import LatentModel as JLatent
     from osu_dreamer_tpu_torch.audio.spectrogram import spec_for_model_batch as tspec
     from osu_dreamer_tpu_torch.models.inference.model import LDM as TLDM
     from osu_dreamer_tpu_torch.models.inference.sampler import build_batch_sampler as tbuild
@@ -47,7 +48,13 @@ def test_slice_matches_jax(case):
     steps, guidance = 3, 2.0
 
     jm = JLDM(ja, jnp.float32)
-    tree = fill_tree(jm.init(KEY, jnp.zeros((1, out_frames, 72)), LABELS, KEY, 1, 1), 21)
+    # the whole tree as export-inference writes it: the latent model's chart
+    # encoder, which the port's LDM holds too, included
+    tree = jm.init(KEY, jnp.zeros((1, out_frames, 72)), LABELS, KEY, 1, 1)
+    latent = JLatent(ja.latent, jnp.float32).init(
+        KEY, jnp.zeros((1, out_frames, 72)), jnp.zeros((1, out_frames, 9)),
+        method=JLatent.init_all)
+    tree = fill_tree({"params": {**tree["params"], "latent": latent["params"]}}, 21)
     key = jax.random.PRNGKey(5)
     rng_style, rng_z = jax.random.split(key)
     s0 = np.asarray(jax.random.normal(rng_style, (S * D, ja.style.style_dim), jnp.float32))
