@@ -6,33 +6,41 @@
 from the root of a checkout. It needs one CUDA card, ``nvcc`` for sm_90a and
 nothing of JAX; without a card it exits nonzero and prints no result.
 
-1. Builds the eight CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
+1. Builds the eleven CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
    per source, in parallel; printing the build seconds) and holds each
    against its plain PyTorch version on the card (bf16; f32 for the
-   resonator; TF32 off), timing both with CUDA events: the inference kernels
-   at the inference slice's shapes (the film layer also at latent training's
-   B64 L1026), the denoiser's training kernels (SwiGLU backward, fused
-   attention forward and backward) at its training shape B128 L152 and at a
-   ragged length, the film-layer backward at latent training's top and
-   bottom levels B64 L1026 and B64 L38, each with FiLM and with zero FiLM.
+   resonator; TF32 off), timing both with CUDA events and, for the flash
+   attention, torch's scaled_dot_product_attention as a yardstick: the
+   inference kernels at the inference slice's shapes (the film layer also at
+   latent training's B64 L1026), the denoiser's training kernels (SwiGLU
+   backward, fused attention forward and backward) at its training shape
+   B128 L152 and at a ragged length, the film-layer backward at latent
+   training's top and bottom levels B64 L1026 and B64 L38, each with FiLM
+   and with zero FiLM, the full SwiGLU backward (K5) at the width-384
+   denoiser's B128 L152 C384 H1024, and the fused norm + FiLM + qkv prologue
+   forward (K11) and backward (K12) at B128 L152 and B4 L759 (C 512, F 3072),
+   ragged, and at C 384. The backward kernels' reruns must be bit-identical.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
-   attention forward.
+   attention forward. Then once more through the kernels with
+   OSU_DREAMER_FUSED_PROLOGUE=1 (K11 must launch), held to the same rule.
 3. Runs the full-width slice (LDMArgs() defaults, seeded random weights,
    bf16): two synthetic 120 s songs x two difficulty rows, 32 denoiser
    steps, 16 style steps, once more with style guidance 2.0. The device part
    runs under torch.cuda.set_sync_debug_mode("error"), so a host sync inside
-   the samplers fails the run; every inference kernel must launch.
+   the samplers fails the run; every inference kernel must launch, the
+   prologue kernels not. Then one request with OSU_DREAMER_FUSED_PROLOGUE=1:
+   K11 must launch.
 4. Trains the denoiser at full width (the port's models/diffusion/config.yml:
    depth 8, width 512, 16 x 64 heads, batch 128 x 152, bf16 compute, f32
    parameters) through ``fit.run`` on a seeded synthetic cached-latent
    corpus written under build/: 2 warm-up steps and 20 timed steps, then EMA
    validation and the best/last checkpoints. Every loss must be finite and
-   every training kernel must launch during the timed steps. Then one step's
-   loss and gradients through the kernels (bf16) and through the plain
-   versions (bf16) are each held to a plain f32 step on the same batch, t and
-   x0 (random full-strength weights).
+   every training kernel must launch during the timed steps (the prologue
+   kernels and K5 not). Then one step's loss and gradients through the
+   kernels (bf16) and through the plain versions (bf16) are each held to a
+   plain f32 step on the same batch, t and x0 (random full-strength weights).
 5. Trains the chart autoencoder at full width (the port's
    models/latent/config.yml: h_dim 128, 3 downs of stride 3, 8-layer stacks,
    16 x 64 style heads, batch 32 x 2052 split into 64 x 1026 halves, bf16
@@ -45,6 +53,11 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    each held to a plain f32 step on the same batch and draws, as in 4; and
    encode-latents runs on the card from the ``last`` checkpoint over the
    corpus, its h, z and s checked and read back by the latent pipeline.
+6. Trains the denoiser as in 4 on phase 4's corpus with
+   OSU_DREAMER_FUSED_PROLOGUE=1, 2 warm-up and 10 timed steps, at the shipped
+   width 512 (K11, K12, K4, K6, K9 and K10 must launch, K5 not) and at width
+   384 (``backbone_dim: 384``; K5 instead of K6), each followed by the
+   one-step check of 4.
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -95,6 +108,13 @@ TRAIN_TIMED = 20
 # the one-step comparison's floor for the loss terms: 1e-3 of the f32 value
 LOSS_FLOOR = 1e-3
 
+# bound_ms: the larger of the operations over the card's peak for their type
+# and the bytes in and out over its memory rate (NVIDIA H100 SXM data sheet,
+# dense: bf16 tensor cores 989 TFLOP/s, f32 67 TFLOP/s, HBM3 3.35 TB/s)
+BF16_PEAK, F32_PEAK, HBM_RATE = 989e12, 67e12, 3.35e12
+# phase 6's timed steps at each width
+PROLOGUE_TIMED = 10
+
 KERNEL_META = {
     "resonator": ("osu_dreamer_tpu_torch/csrc/resonator.cu", "osu_dreamer_tpu/ops/resonator.py:115"),
     "film_layer": ("osu_dreamer_tpu_torch/csrc/film_layer.cu", "osu_dreamer_tpu/ops/film_layer.py:401"),
@@ -108,10 +128,21 @@ KERNEL_META = {
                             "osu_dreamer_tpu/ops/fused_attention.py:399"),
     "film_layer_bwd": ("osu_dreamer_tpu_torch/csrc/film_layer_bwd.cu",
                        "osu_dreamer_tpu/ops/film_layer.py:443"),
+    "swiglu_bwd_full": ("osu_dreamer_tpu_torch/csrc/swiglu_bwd.cu",
+                        "osu_dreamer_tpu/ops/swiglu.py:313"),
+    "film_qkv_fwd": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:122"),
+    "film_qkv_bwd": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:235"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd")
 LATENT_KERNELS = ("film_layer", "film_layer_bwd")
+PROLOGUE_KERNELS = ("film_qkv_fwd", "film_qkv_bwd")
+# phase 6: the kernels that must launch and those that must not, per width
+PROLOGUE_TRAINING = {
+    512: (PROLOGUE_KERNELS + TRAINING_KERNELS, ("swiglu_bwd_full",)),
+    384: (PROLOGUE_KERNELS + ("swiglu", "swiglu_bwd_full", "fused_attention_fwd",
+                              "fused_attention_bwd"), ("swiglu_bwd",)),
+}
 # the latent phase's corpus: 32 mapsets x 2 maps x 12 windows of 2052
 # frames; 2 mapsets held out, 30 x 2 x 12 = 720 training windows, 22 batches
 LATENT_CORPUS = (32, 2, 2052 * 12)
@@ -119,6 +150,44 @@ LATENT_CORPUS = (32, 2, 2052 * 12)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def moved_bytes(*tensors) -> int:
+    """bytes of the tensors among ``tensors`` (each read or written once)"""
+    return sum(t.numel() * t.element_size() for t in tensors if hasattr(t, "element_size"))
+
+
+def bound(flops: float, nbytes: int, peak: float = BF16_PEAK) -> dict:
+    """the least time the card could take for the work, in ms, and which of
+    operations and bytes sets it"""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def ffn_flops(rows: int, C: int, H: int, K: int, products: int, convs: int) -> int:
+    """a conv FFN's operations over ``rows`` positions: ``products`` C x H
+    products (the forward 3: the (C, 2H) and (H, C) projections; the
+    backward 8: the recomputed (C, 2H), the two data and the two weight
+    products) and ``convs`` K-tap conv passes, two operations a
+    multiply-add"""
+    return rows * 2 * (products * C * H + convs * K * C)
+
+
+@contextmanager
+def fused_prologue():
+    """OSU_DREAMER_FUSED_PROLOGUE=1 for the duration, os.environ restored"""
+    import os
+
+    saved = os.environ.get("OSU_DREAMER_FUSED_PROLOGUE")
+    os.environ["OSU_DREAMER_FUSED_PROLOGUE"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["OSU_DREAMER_FUSED_PROLOGUE"]
+        else:
+            os.environ["OSU_DREAMER_FUSED_PROLOGUE"] = saved
 
 
 def synth_wave(seed: int, seconds: float, sr: int) -> np.ndarray:
@@ -188,18 +257,20 @@ def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False) 
 
 def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: str,
               kernels: tuple[str, ...], loss_keys: tuple[str, ...],
-              shown: tuple[str, ...]) -> dict[str, int]:
+              shown: tuple[str, ...], timed: int = TRAIN_TIMED,
+              absent: tuple[str, ...] = ()) -> tuple[dict[str, int], float, float]:
     """``run`` (a stage's ``fit.run``) on ``cfg`` for TRAIN_WARMUP +
-    TRAIN_TIMED steps, checkpoints under ``workdir``; fails unless every step
-    ran, each of ``kernels`` launched during the timed steps, every loss of
-    ``loss_keys`` stayed finite and both checkpoints exist. Logs ms/step and
-    peak memory over the timed steps and the ``shown`` losses per step ->
-    the kernel launches of the whole run"""
+    ``timed`` steps, checkpoints under ``workdir``; fails unless every step
+    ran, each of ``kernels`` launched during the timed steps and none of
+    ``absent`` in the whole run, every loss of ``loss_keys`` stayed finite and
+    both checkpoints exist. Logs ms/step and peak memory over the timed steps
+    and the ``shown`` losses per step -> (the kernel launches of the whole
+    run, ms/step, peak GiB)"""
     import torch
 
     from osu_dreamer_tpu_torch.ops import _build
 
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    steps = TRAIN_WARMUP + timed
     cfg["fit"].update(run_dir=str(workdir / "runs"), max_steps=steps, log_every=5)
     marks: dict[int, tuple[float, dict]] = {}
     step_metrics: list[dict] = []
@@ -222,24 +293,27 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
     del state
     torch.cuda.empty_cache()
     (ta, la), (tb, lb) = marks[TRAIN_WARMUP], marks[steps]
-    timed = {k: lb[k] - la[k] for k in kernels}
-    log(f"launches during the {TRAIN_TIMED} timed steps: {timed}")
-    missing = [k for k, n in timed.items() if n == 0]
+    in_timed = {k: lb[k] - la[k] for k in kernels}
+    log(f"launches during the {timed} timed steps: {in_timed}")
+    missing = [k for k, n in in_timed.items() if n == 0]
     if missing:
         raise RuntimeError(f"{what} never launched: {missing}")
+    stray = [k for k in absent if launches[k]]
+    if stray:
+        raise RuntimeError(f"{what} launched {stray}, which its path must not take")
     losses = {k: [float(m[k]) for m in step_metrics] for k in loss_keys}
     if not all(np.isfinite(v).all() for v in losses.values()):
         raise RuntimeError(f"{what}: non-finite training loss: {losses}")
     for ckpt in ("last", "best"):
         if not (workdir / "runs" / ckpt / "state.pt").exists():
             raise RuntimeError(f"{what} wrote no {ckpt} checkpoint")
-    ms_step = (tb - ta) / TRAIN_TIMED * 1e3
+    ms_step = (tb - ta) / timed * 1e3
     log(f"{what} ({shape}): {ms_step:.2f} ms/step, {1e3 / ms_step:.3f} steps/s over "
-        f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up; peak device memory "
+        f"{timed} steps after {TRAIN_WARMUP} warm-up; peak device memory "
         f"{peak_gib:.2f} GiB [{smi}]")
     log("losses per step: " + json.dumps({k: [round(x, 5) for x in losses[k]] for k in shown})
         + f" [{smi}]")
-    return launches
+    return launches, ms_step, peak_gib
 
 
 def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, int],
@@ -270,7 +344,7 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
     log(f"synthetic chart-signal corpus ({n_sets} mapsets x {maps_per_set} maps x {length} "
         f"frames) written in {time.perf_counter() - t0:.1f} s")
     data, model = cfg["data"], cfg["model"]
-    launches_train = fit_timed(
+    launches_train, _, _ = fit_timed(
         "fit-latent", latent_fit.run, cfg, dev, smi, workdir,
         f"h_dim {model['h_dim']}, {model['n_downs']} downs, {model['stack']['n_layers']}-layer "
         f"stacks, B{data['batch_size']} x L{data['seq_len']}, bf16",
@@ -353,16 +427,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from osu_dreamer_tpu_torch.audio import spectrogram
-    from osu_dreamer_tpu_torch.audio.constants import SR
+    from osu_dreamer_tpu_torch.audio.constants import N_BINS, SR
     from osu_dreamer_tpu_torch.audio.spectrogram import prep_wave_for_model
     from osu_dreamer_tpu_torch.models.inference.artifact import init_random
     from osu_dreamer_tpu_torch.models.inference.model import LDM, LDMArgs
     from osu_dreamer_tpu_torch.models.inference.sampler import build_batch_sampler
     from osu_dreamer_tpu_torch.nn import attention, blocks
     from osu_dreamer_tpu_torch.ops import (
-        _build, film_layer, fused_attention, long_attention, resonator, swiglu,
+        _build, film_layer, film_qkv, fused_attention, long_attention, resonator, swiglu,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -399,27 +474,48 @@ def main() -> int:
                 else rnd(B, C, scale=0.3) for _ in range(3)]
         return (rnd(B, L, C), *film, 1 + rnd(C, scale=0.1), 1 + rnd(C, scale=0.1), *ffn(C, 341))
 
+    def prologue_args(B, L, C, F=3072):
+        """x, scale, shift, add bf16; the qkv kernel and bias f32 parameters
+        holding bf16 values, as in training"""
+        return (rnd(B, L, C), rnd(B, C, scale=0.3), rnd(B, C, scale=0.3), rnd(B, L, C, scale=0.5),
+                rnd(C, F, scale=C**-0.5).float(), rnd(F, scale=0.1).float())
+
+    def sdpa(q, k, v):
+        """the library yardstick of K7/K8: (B, L, H, D) in torch's (B, H, L, D)"""
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
     S, D = 2, len(DIFFS)
     B = S * D
-    cases = {  # name -> (kernel, plain, [(label, args)]); the first is the JSON line's time
+    # name -> (kernel, plain, [(label, args)], the operations of a call and
+    # the peak rate of their type); the first shape is the JSON line's
+    cases = {
         "resonator": (resonator.resonate_cuda, resonator.resonate_plain, [
             ("S2 K20480", (rnd(S, 20480, 98, scale=0.3, dtype=torch.float32),)),
-        ]),
+        ], lambda a: (4 * a[0].numel() * N_BINS + 8 * a[0].shape[0] * a[0].shape[1] * N_BINS,
+                      F32_PEAK)),
         "film_layer": (film_layer.film_layer_cuda, film_layer.film_layer_plain, [
             ("B4 L20493 FiLM", film_args(B, 20493, False)),
             ("B2 L20493 zero FiLM", film_args(S, 20493, True)),
             ("B4 L2277 FiLM", film_args(B, 2277, False)),
             ("B64 L1026 FiLM (latent training)", film_args(64, 1026, False)),
-        ]),
+        ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], 128, 341, 5, 3, 1), BF16_PEAK)),
         "swiglu": (swiglu.swiglu_cuda, swiglu.swiglu_plain, [
             ("B4 L759 C512", (rnd(B, 759, 512), *ffn(512, 1365))),
             ("B128 L152 C512 (training)", (rnd(128, 152, 512), *ffn(512, 1365))),
-        ]),
+        ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], 512, 1365, 5, 3, 1), BF16_PEAK)),
         "flash_attention": (long_attention.attention_cuda, long_attention.attention_plain, [
             ("B4 L759 H16", tuple(rnd(B, 759, 16, 64) for _ in range(3))),
             ("B1 L2500 H16", tuple(rnd(1, 2500, 16, 64) for _ in range(3))),
-        ]),
+        ], lambda a: (4 * a[0].shape[0] * a[0].shape[2] * a[0].shape[1] ** 2 * 64, BF16_PEAK)),
+        "film_qkv_fwd": (film_qkv.film_qkv_fwd_cuda, film_qkv.film_qkv_plain, [
+            ("B128 L152 C512 F3072 (training)", prologue_args(128, 152, 512)),
+            ("B4 L759 C512 F3072 (inference)", prologue_args(B, 759, 512)),
+            ("B4 L77 C512 F3072", prologue_args(B, 77, 512)),
+            ("B128 L152 C384 F3072", prologue_args(128, 152, 384)),
+        ], lambda a: (2 * a[0].numel() * a[4].shape[1], BF16_PEAK)),
     }
+    library = {"flash_attention": sdpa}
 
     def cuda_ms(fn, args, reps=20) -> float:
         fn(*args)
@@ -433,10 +529,11 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     results = {}
-    for name, (kernel, plain, shapes) in cases.items():
+    for name, (kernel, plain, shapes, work) in cases.items():
         worst = 0.0
         for i, (label, args) in enumerate(shapes):
-            got, want = kernel(*args).float(), plain(*args).float()
+            out = kernel(*args)
+            got, want = out.float(), plain(*args).float()
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"{name} {label}: non-finite kernel output")
@@ -450,9 +547,16 @@ def main() -> int:
                 raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
             worst = max(worst, err)
             ms, plain_ms = cuda_ms(kernel, args), cuda_ms(plain, args)
-            log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            lib_ms = cuda_ms(library[name], args) if name in library else None
+            flops, peak = work(args)
+            work_bound = bound(flops, moved_bytes(*args, out), peak)
+            log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                + (f", torch scaled_dot_product_attention {lib_ms:.4f} ms" if lib_ms else "")
+                + f"; bound {work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']})")
             if i == 0:
-                results[name] = {"ms": ms, "plain_ms": plain_ms}
+                results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                 **work_bound}
+            del out, got, want
         results[name]["max_abs_err"] = worst
 
     # ---- 1b. the training kernels at the denoiser's training shape ----
@@ -479,6 +583,21 @@ def main() -> int:
         y = fn(*leaves)
         return cuda_ms(lambda: torch.autograd.grad(y, leaves, grad_out, retain_graph=True), ())
 
+    def record(name, label, i, ms, plain_ms, err, flops, nbytes) -> None:
+        """log a case's times beside its bound; the first case is the JSON line's"""
+        work_bound = bound(flops, nbytes)
+        log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']})")
+        if i == 0:
+            results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                             "max_abs_err": err, **work_bound}
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    def check_rerun(name, label, fn, args, got) -> None:
+        """fixed-order sums, no float atomics: a second launch is bit-identical"""
+        if not all(torch.equal(a, b) for a, b in zip(got, fn(*args))):
+            raise RuntimeError(f"{name} {label}: two launches differ")
+
     H_ATT = 16
     for i, (label, Bt, Lt) in enumerate((("B128 L152 H16", 128, 152), ("B4 L77 H16", 4, 77))):
         qkv = rnd(Bt, Lt, 3 * H_ATT * 64, scale=0.7)
@@ -494,45 +613,48 @@ def main() -> int:
             raise RuntimeError(f"fused_attention_fwd {label}: kernel disagrees with its plain version")
         grad = rnd(Bt, Lt, H_ATT * 64)
         bwd_args = (qkv, grad, *res, qg, kg, H_ATT)
+        got = fused_attention.fused_attention_bwd_cuda(*bwd_args)
         worst_bwd = check_grads(
-            f"fused_attention_bwd {label}", ("dqkv", "dq_gamma", "dk_gamma"),
-            fused_attention.fused_attention_bwd_cuda(*bwd_args),
+            f"fused_attention_bwd {label}", ("dqkv", "dq_gamma", "dk_gamma"), got,
             fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg, kg, H_ATT),
             fused_attention.fused_attention_bwd_plain(*bwd_args),
         )
-        times = {
-            "fused_attention_fwd": (cuda_ms(fused_attention.fused_attention_fwd_cuda, fwd_args),
-                                    cuda_ms(fused_attention.rope_attention_plain, fwd_args), err),
-            "fused_attention_bwd": (
-                cuda_ms(fused_attention.fused_attention_bwd_cuda, bwd_args),
-                backward_ms(lambda a, b, c: fused_attention.rope_attention_plain(a, b, c, H_ATT),
-                            (qkv, qg, kg), grad),
-                worst_bwd),
-        }
-        for name, (ms, plain_ms, e) in times.items():
-            log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if i == 0:
-                results[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": e}
-            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+        attn_flops = 4 * Bt * H_ATT * Lt * Lt * 64
+        record("fused_attention_fwd", label, i,
+               cuda_ms(fused_attention.fused_attention_fwd_cuda, fwd_args),
+               cuda_ms(fused_attention.rope_attention_plain, fwd_args), err, attn_flops,
+               moved_bytes(*fwd_args, *res))
+        record("fused_attention_bwd", label, i,
+               cuda_ms(fused_attention.fused_attention_bwd_cuda, bwd_args),
+               backward_ms(lambda a, b, c: fused_attention.rope_attention_plain(a, b, c, H_ATT),
+                           (qkv, qg, kg), grad),
+               worst_bwd, 2.5 * attn_flops, moved_bytes(*bwd_args, *got))
 
-    for i, (label, Bt, Lt) in enumerate((("B128 L152 C512 H1365", 128, 152),
-                                         ("B4 L77 C512 H1365", 4, 77))):
-        x = rnd(Bt, Lt, 512)
-        w = [t.float() for t in ffn(512, 1365)[:5]]  # f32 parameters, as in training
-        go = rnd(Bt, Lt, 512)
-        names = ("dx", "d_dw_kernel", "d_dw_bias", "d_vg_kernel", "d_vg_bias", "d_out_kernel",
-                 "d_out_bias")
-        worst_bwd = check_grads(
-            f"swiglu_bwd {label}", names, swiglu.swiglu_bwd_cuda(x, *w, go),
-            swiglu.swiglu_bwd_plain(x.float(), *w, go.float()), swiglu.swiglu_bwd_plain(x, *w, go),
-        )
-        ms = cuda_ms(swiglu.swiglu_bwd_cuda, (x, *w, go))
-        zero_bias = torch.zeros(512, device=dev)
-        plain_ms = backward_ms(lambda *a: swiglu.swiglu_plain(*a, zero_bias), (x, *w), go)
-        log(f"swiglu_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if i == 0:
-            results["swiglu_bwd"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst_bwd}
-        results["swiglu_bwd"]["max_abs_err"] = max(results["swiglu_bwd"]["max_abs_err"], worst_bwd)
+    swiglu_grads = ("dx", "d_dw_kernel", "d_dw_bias", "d_vg_kernel", "d_vg_bias", "d_out_kernel",
+                    "d_out_bias")
+    # K6 at the denoiser's width; K5 at the width-384 denoiser's and at C128
+    # H341 (H padded to 352)
+    for name, fn, shapes in (
+            ("swiglu_bwd", swiglu.swiglu_bwd_cuda, (("B128 L152 C512 H1365", 128, 152, 512, 1365),
+                                                    ("B4 L77 C512 H1365", 4, 77, 512, 1365))),
+            ("swiglu_bwd_full", swiglu.swiglu_bwd_full_cuda,
+             (("B128 L152 C384 H1024", 128, 152, 384, 1024), ("B4 L77 C384 H1024", 4, 77, 384, 1024),
+              ("B8 L70 C128 H341", 8, 70, 128, 341)))):
+        for i, (label, Bt, Lt, C, H) in enumerate(shapes):
+            x = rnd(Bt, Lt, C)
+            w = [t.float() for t in ffn(C, H)[:5]]  # f32 parameters, as in training
+            go = rnd(Bt, Lt, C)
+            got = fn(x, *w, go)
+            worst_bwd = check_grads(
+                f"{name} {label}", swiglu_grads, got,
+                swiglu.swiglu_bwd_plain(x.float(), *w, go.float()), swiglu.swiglu_bwd_plain(x, *w, go),
+            )
+            if name == "swiglu_bwd_full":
+                check_rerun(name, label, fn, (x, *w, go), got)
+            zero_bias = torch.zeros(C, device=dev)
+            record(name, label, i, cuda_ms(fn, (x, *w, go)),
+                   backward_ms(lambda *a: swiglu.swiglu_plain(*a, zero_bias), (x, *w), go),
+                   worst_bwd, ffn_flops(Bt * Lt, C, H, 5, 8, 3), moved_bytes(x, *w, go, *got))
 
     # ---- 1c. the film-layer backward at latent training's top and bottom levels ----
     film_grads = ("dx", "dscale", "dshift", "dgate", "dg1", "dg2", "d_dw_kernel", "d_dw_bias",
@@ -547,16 +669,28 @@ def main() -> int:
             film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float()),
             film_layer.film_layer_bwd_plain(*args, go),
         )
-        # fixed-order sums, no float atomics: a second launch is bit-identical
-        if not all(torch.equal(a, b) for a, b in zip(got, film_layer.film_layer_bwd_cuda(*args, go))):
-            raise RuntimeError(f"film_layer_bwd {label}: two launches differ")
-        ms = cuda_ms(film_layer.film_layer_bwd_cuda, (*args, go))
-        plain_ms = backward_ms(film_layer.film_layer_plain, args, go)
-        log(f"film_layer_bwd {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if i == 0:
-            results["film_layer_bwd"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": worst_bwd}
-        results["film_layer_bwd"]["max_abs_err"] = max(results["film_layer_bwd"]["max_abs_err"],
-                                                       worst_bwd)
+        check_rerun("film_layer_bwd", label, film_layer.film_layer_bwd_cuda, (*args, go), got)
+        record("film_layer_bwd", label, i, cuda_ms(film_layer.film_layer_bwd_cuda, (*args, go)),
+               backward_ms(film_layer.film_layer_plain, args, go), worst_bwd,
+               ffn_flops(Bt * Lt, 128, 341, 5, 9, 3), moved_bytes(*args, go, *got))
+
+    # ---- 1d. the prologue backward at the denoiser's training shape ----
+    for i, (label, Bt, Lt, C) in enumerate((("B128 L152 C512 F3072", 128, 152, 512),
+                                            ("B4 L77 C512 F3072", 4, 77, 512),
+                                            ("B128 L152 C384 F3072", 128, 152, 384))):
+        args, go = prologue_args(Bt, Lt, C), rnd(Bt, Lt, 3072)
+        got = film_qkv.film_qkv_bwd_cuda(*args, go)
+        worst_bwd = check_grads(
+            f"film_qkv_bwd {label}", ("dx", "dscale", "dshift", "dadd", "dkernel", "dbias"), got,
+            film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()),
+            film_qkv.film_qkv_bwd_plain(*args, go),
+        )
+        check_rerun("film_qkv_bwd", label, film_qkv.film_qkv_bwd_cuda, (*args, go), got)
+        record("film_qkv_bwd", label, i, cuda_ms(film_qkv.film_qkv_bwd_cuda, (*args, go)),
+               backward_ms(film_qkv.film_qkv_plain, args, go), worst_bwd,
+               4 * Bt * Lt * C * 3072, moved_bytes(*args, go, *got))
+    del args, go, got
+    torch.cuda.empty_cache()
 
     # ---- 2. small slice: through the kernels vs through the plain versions ----
     args = LDMArgs()
@@ -576,41 +710,57 @@ def main() -> int:
 
     @contextmanager
     def plain_ops():
-        """every kernel dispatch swapped for its plain version (the SwiGLU
-        and attention backward then come from autograd of the plain ones)"""
+        """every kernel dispatch swapped for its plain version (the SwiGLU,
+        attention and prologue backward then come from autograd of the plain
+        ones)"""
         saved = (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
-                 attention.fused_norm_rope_attention, spectrogram.resonate_frames)
+                 attention.fused_norm_rope_attention, attention.film_qkv,
+                 spectrogram.resonate_frames)
         blocks.film_layer, blocks.swiglu = film_layer.film_layer_plain, swiglu.swiglu_plain
         attention.long_flash_attention = long_attention.attention_plain
         attention.fused_norm_rope_attention = fused_attention.rope_attention_plain
+        attention.film_qkv = film_qkv.film_qkv_plain
         spectrogram.resonate_frames = resonator.resonate_plain
         try:
             yield
         finally:
             (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
-             attention.fused_norm_rope_attention, spectrogram.resonate_frames) = saved
+             attention.fused_norm_rope_attention, attention.film_qkv,
+             spectrogram.resonate_frames) = saved
 
     small = upload([synth_wave(SEED + 10 + i, 6.0, SR) for i in range(S)])
     reference = LDM(args, torch.float32).to(dev).eval()
     reference.load_state_dict(model.state_dict())
     charts = {}
-    for name, ldm, use_plain in (("kernels", model, False), ("plain", model, True),
-                                 ("plain_f32", reference, True)):
-        with torch.inference_mode(), (plain_ops() if use_plain else nullcontext()):
+    for name, ldm, use_plain, prologue in (
+            ("kernels", model, False, False), ("plain", model, True, False),
+            ("plain_f32", reference, True, False), ("kernels, fused prologue", model, False, True)):
+        _build.reset_launches()
+        with (torch.inference_mode(), plain_ops() if use_plain else nullcontext(),
+              fused_prologue() if prologue else nullcontext()):
             spec = spectrogram.spec_for_model_batch(*small)
             chart, lab = ldm(spec, labels, 4, style_steps=4, style_guidance=2.0,
                              generator=torch.Generator(device=dev).manual_seed(SEED))
         charts[name] = torch.cat([chart.float().flatten(), lab.float().flatten()])
-    if not bool(torch.isfinite(charts["kernels"]).all()):
-        raise RuntimeError("small slice: non-finite output")
-    err = {k: (charts[k] - charts["plain_f32"]).abs() for k in ("kernels", "plain")}
+        if (_build.launches["film_qkv_fwd"] > 0) != prologue:
+            raise RuntimeError(f"small slice ({name}): {_build.launches['film_qkv_fwd']} "
+                               "launches of the prologue kernel")
+    for name in ("kernels", "kernels, fused prologue"):
+        if not bool(torch.isfinite(charts[name]).all()):
+            raise RuntimeError(f"small slice ({name}): non-finite output")
+    err = {k: (charts[k] - charts["plain_f32"]).abs() for k in charts if k != "plain_f32"}
     log("small slice (2 songs x 2 diffs, 6 s, 4 steps, CFG 2.0), distance from the f32 "
         "plain path: " + ", ".join(
             f"bf16 {k} max {e.max().item():.4g} mean {e.mean().item():.4g}" for k, e in err.items()))
-    if not (err["kernels"].mean() <= SLICE_MEAN_RATIO * err["plain"].mean()
-            and err["kernels"].max() <= SLICE_MAX_RATIO * err["plain"].max()):
-        raise RuntimeError("small slice: the kernel path is farther from the f32 reference "
-                           "than the plain bf16 path")
+    moved = (charts["kernels, fused prologue"] - charts["kernels"]).abs()
+    log(f"small slice: the fused prologue moves the kernel path's output by max "
+        f"{moved.max().item():.4g}, mean {moved.mean().item():.4g} ({int((moved > 0).sum())} of "
+        f"{moved.numel()} values)")
+    for name in ("kernels", "kernels, fused prologue"):
+        if not (err[name].mean() <= SLICE_MEAN_RATIO * err["plain"].mean()
+                and err[name].max() <= SLICE_MAX_RATIO * err["plain"].max()):
+            raise RuntimeError(f"small slice: the {name} path is farther from the f32 reference "
+                               "than the plain bf16 path")
 
     # ---- 3. the full-width slice ----
     waves_np = [synth_wave(SEED + i, SONG_SECONDS, SR) for i in range(S)]
@@ -630,17 +780,8 @@ def main() -> int:
         out = hit.cpu().numpy(), xy.cpu().numpy(), lab.float().cpu().numpy()
         return time.perf_counter() - t0, out_frames, out
 
-    request(1.0, SEED)  # warm-up
-    _build.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    runs = [(g, *request(g, SEED + 1)) for g in (1.0, 1.0, 1.0, 2.0)]
-    launches_infer = dict(_build.launches)
-    log(f"launches during the full-width inference runs: {launches_infer}")
-    missing = [k for k in INFERENCE_KERNELS if launches_infer[k] == 0]
-    if missing:
-        raise RuntimeError(f"the inference path never launched: {missing}")
-
-    for guidance, wall, out_frames, (hit, xy, lab) in runs:
+    def check_request(what, guidance, wall, out_frames, outs) -> None:
+        hit, xy, lab = outs
         if hit.shape != (B, out_frames, 7) or hit.dtype != np.uint8:
             raise RuntimeError(f"bad hit output {hit.shape} {hit.dtype}")
         if xy.shape != (B, out_frames, 2) or xy.dtype != np.int16:
@@ -649,13 +790,40 @@ def main() -> int:
             raise RuntimeError(f"bad labels {lab}")
         if hit.max() == hit.min():
             raise RuntimeError("the hit channels are constant")
-        log(f"request (S={S} songs x D={D} diffs, {SONG_SECONDS:.0f} s, {STEPS} steps, "
+        log(f"{what} (S={S} songs x D={D} diffs, {SONG_SECONDS:.0f} s, {STEPS} steps, "
             f"guidance {guidance}): {wall * 1e3:.1f} ms wall, "
             f"{B / wall * 60:.1f} maps/min [{smi}]")
+
+    request(1.0, SEED)  # warm-up
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [(g, *request(g, SEED + 1)) for g in (1.0, 1.0, 1.0, 2.0)]
+    launches_infer = dict(_build.launches)
+    log(f"launches during the full-width inference runs: {launches_infer}")
+    missing = [k for k in INFERENCE_KERNELS if launches_infer[k] == 0]
+    stray = [k for k in PROLOGUE_KERNELS if launches_infer[k]]
+    if missing or stray:
+        raise RuntimeError(f"the inference path never launched {missing} or launched {stray}")
+    for guidance, wall, out_frames, outs in runs:
+        check_request("request", guidance, wall, out_frames, outs)
     same = all(np.array_equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
     if not same:
         raise RuntimeError("two seeded runs of the same request differ")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one request with the fused prologue (K11 in every backbone layer)
+    with fused_prologue():
+        request(1.0, SEED)  # warm-up
+        _build.reset_launches()
+        wall, out_frames, outs = request(1.0, SEED + 1)
+    launches_prologue = dict(_build.launches)
+    check_request("request, OSU_DREAMER_FUSED_PROLOGUE=1", 1.0, wall, out_frames, outs)
+    log(f"launches during that request: {launches_prologue}; film_qkv_fwd "
+        f"{launches_prologue['film_qkv_fwd']} per request")
+    if launches_prologue["film_qkv_fwd"] == 0 or launches_prologue["film_qkv_bwd"]:
+        raise RuntimeError("the prologue request did not run through the prologue forward alone")
+    del model, reference, sample
+    torch.cuda.empty_cache()
 
     # ---- 4. full-width denoiser training through fit.run ----
     from osu_dreamer_tpu_torch.data.synth import write_latent_corpus
@@ -667,56 +835,63 @@ def main() -> int:
     from osu_dreamer_tpu_torch.train.state import stratified_logit_normal_t
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict, load_yaml_config
 
-    cfg = load_yaml_config(diffusion_fit.CONFIG)
-    md = cfg["model"]
     workdir = ROOT / "build" / "smoke_fit"
+
+    def denoiser_config(width: int) -> dict:
+        cfg = load_yaml_config(diffusion_fit.CONFIG)
+        cfg["model"]["backbone_dim"] = width
+        cfg["data"].update(data_dir=str(workdir / "data"), max_per_map=-1, max_val_count=2)
+        return cfg
+
+    cfg = denoiser_config(512)
+    md = cfg["model"]
     shutil.rmtree(workdir, ignore_errors=True)
     t0 = time.perf_counter()
     # 64 mapsets x 4 maps x 12 windows of 152; 2 mapsets held out for
     # validation, 62 x 48 = 2976 training windows >= 22 batches of 128
     write_latent_corpus(workdir / "data", 64, 4, 152 * 12, md["a_dim"], md["emb_dim"],
                         md["style_dim"], SEED)
-    cfg["data"].update(data_dir=str(workdir / "data"), max_per_map=-1, max_val_count=2)
     log(f"synthetic cached-latent corpus written in {time.perf_counter() - t0:.1f} s")
     denoiser_losses = ("loss", "osl", "del", "u_mape")
-    launches_train = fit_timed(
+    launches_train, ms_off, peak_off = fit_timed(
         "fit-denoiser", diffusion_fit.run, cfg, dev, smi, workdir,
         "depth 8, width 512, 16 x 64 heads, B128 x L152, bf16", TRAINING_KERNELS,
-        denoiser_losses, denoiser_losses)
+        denoiser_losses, denoiser_losses, absent=PROLOGUE_KERNELS + ("swiglu_bwd_full",))
 
-    # one step through the kernels and through the plain versions (bf16),
-    # each against a plain f32 step on the same batch, t and x0; random
-    # full-strength weights (flax's zero-initialised layers would leave most
-    # gradients exactly zero)
-    model_args = dataclass_from_dict(DiffusionModelArgs, cfg["model"])
-    train_args = dataclass_from_dict(DiffusionTrainArgs, cfg["train"])
-    bf16_model = DiffusionModel(model_args, torch.bfloat16).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    randomize_(bf16_model, gen)
-    f32_model = DiffusionModel(model_args, torch.float32).to(dev)
-    f32_model.load_state_dict(bf16_model.state_dict())
-    Bt, Lt = 128, 152
-    z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
-    batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
-                        z=z / z.square().mean(-1, keepdim=True).sqrt(),
-                        s=torch.randn(Bt, md["style_dim"], generator=gen, device=dev),
-                        labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
-    t_inj = stratified_logit_normal_t(Bt, gen, dev)
-    x0_inj = torch.randn(batch.z.shape, generator=gen, device=dev)
+    def denoiser_step(what: str, cfg: dict) -> None:
+        """one step through the kernels and through the plain versions (bf16),
+        each against a plain f32 step on the same batch, t and x0; random
+        full-strength weights (flax's zero-initialised layers would leave most
+        gradients exactly zero)"""
+        model_args = dataclass_from_dict(DiffusionModelArgs, cfg["model"])
+        train_args = dataclass_from_dict(DiffusionTrainArgs, cfg["train"])
+        bf16_model = DiffusionModel(model_args, torch.bfloat16).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        randomize_(bf16_model, gen)
+        f32_model = DiffusionModel(model_args, torch.float32).to(dev)
+        f32_model.load_state_dict(bf16_model.state_dict())
+        Bt, Lt = 128, 152
+        z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
+        batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
+                            z=z / z.square().mean(-1, keepdim=True).sqrt(),
+                            s=torch.randn(Bt, md["style_dim"], generator=gen, device=dev),
+                            labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+        t_inj = stratified_logit_normal_t(Bt, gen, dev)
+        x0_inj = torch.randn(batch.z.shape, generator=gen, device=dev)
 
-    def loss_and_grads(model, plain: bool):
-        with plain_ops() if plain else nullcontext():
-            loss, aux = diffusion_loss(model, batch, train_args, t=t_inj, x0=x0_inj)
-            grads = torch.autograd.grad(loss, list(model.parameters()))
-        terms = torch.stack([aux[k].detach().float() for k in denoiser_losses])
-        return terms, torch.cat([g.flatten().float() for g in grads])
+        def loss_and_grads(model, plain: bool):
+            with plain_ops() if plain else nullcontext():
+                loss, aux = diffusion_loss(model, batch, train_args, t=t_inj, x0=x0_inj)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            terms = torch.stack([aux[k].detach().float() for k in denoiser_losses])
+            return terms, torch.cat([g.flatten().float() for g in grads])
 
-    check_step("fit-denoiser", denoiser_losses,
-               loss_and_grads(f32_model, True), loss_and_grads(bf16_model, False),
-               loss_and_grads(bf16_model, True))
-    shutil.rmtree(workdir, ignore_errors=True)
-    del bf16_model, f32_model
-    torch.cuda.empty_cache()
+        check_step(what, denoiser_losses, loss_and_grads(f32_model, True),
+                   loss_and_grads(bf16_model, False), loss_and_grads(bf16_model, True))
+        del bf16_model, f32_model
+        torch.cuda.empty_cache()
+
+    denoiser_step("fit-denoiser", cfg)
 
     # ---- 5. full-width latent training through fit.run, then encode-latents ----
     from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
@@ -724,19 +899,45 @@ def main() -> int:
     launches_latent = train_latent(dev, smi, plain_ops, load_yaml_config(latent_fit.CONFIG),
                                    LATENT_CORPUS, ROOT / "build" / "smoke_latent")
 
+    # ---- 6. denoiser training with the fused prologue, widths 512 and 384 ----
+    launches_prologue_train = dict.fromkeys(_build.KERNELS, 0)
+    steps_on = {}
+    for width, (must, absent) in PROLOGUE_TRAINING.items():
+        cfg = denoiser_config(width)
+        shutil.rmtree(workdir / "runs", ignore_errors=True)
+        with fused_prologue():
+            launched, ms, peak = fit_timed(
+                f"fit-denoiser, fused prologue, width {width}", diffusion_fit.run, cfg, dev, smi,
+                workdir, f"depth 8, width {width}, 16 x 64 heads, B128 x L152, bf16, "
+                "OSU_DREAMER_FUSED_PROLOGUE=1", must, denoiser_losses, denoiser_losses,
+                timed=PROLOGUE_TIMED, absent=absent)
+            denoiser_step(f"fit-denoiser, fused prologue, width {width}", cfg)
+        steps_on[width] = (ms, peak)
+        for k, n in launched.items():
+            launches_prologue_train[k] += n
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"denoiser train step (B128 x L152): width 512 prologue off {ms_off:.2f} ms/step, peak "
+        f"{peak_off:.2f} GiB; " + "; ".join(
+            f"width {w} prologue on {ms:.2f} ms/step, peak {peak:.2f} GiB"
+            for w, (ms, peak) in steps_on.items()) + f" [{smi}]")
+
+    paths = (launches_infer, launches_prologue, launches_train, launches_latent,
+             launches_prologue_train)
+    launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
+    never = [k for k, n in launches.items() if n == 0]
+    if never:
+        raise RuntimeError(f"kernels never launched on a main path: {never}")
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
-         "replaces": KERNEL_META[name][1],
-         "launches": launches_infer[name] + launches_train[name] + launches_latent[name],
-         **results[name]}
+         "replaces": KERNEL_META[name][1], "launches": launches[name], **results[name]}
         for name in _build.KERNELS
     ]
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -12,8 +12,10 @@
 // kernel sums the S partials in index order. No atomics: two runs give
 // bit-identical results.
 //
-// Requirements: R, M, N multiples of 16; lda, ldb multiples of 8; the base
-// pointers 32-byte aligned. The caller allocates part (S, M, N) and out.
+// Requirements: M, N multiples of 16; lda, ldb multiples of 8; the base
+// pointers 32-byte aligned. R may be ragged: a last group of fewer than 16
+// rows is staged through shared memory with zero rows (no read past row R).
+// The caller allocates part (S, M, N) and out.
 #pragma once
 
 #include "common.cuh"
@@ -36,20 +38,39 @@ gemm_tn_partial_kernel(const bf16* __restrict__ A, int lda, const bf16* __restri
   const bool mv[2] = {m0 < M, m0 + 16 < M};
   const bool nv[2] = {n0 < N, n0 + 16 < N};
   if (!mv[0] || !nv[0]) return;
+  // a warp's ragged last 16 rows of its A and B columns, zero past row R
+  __shared__ __align__(32) bf16 tail[Warps][2][16 * 32];
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
   for (int r = r0; r < r1; r += 16) {
+    const bf16* a_src = A + (size_t)r * lda + m0;
+    const bf16* b_src = B + (size_t)r * ldb + n0;
+    int a_ld = lda, b_ld = ldb;
+    if (r + 16 > R) {
+      bf16* ta = tail[warp][0];
+      bf16* tb = tail[warp][1];
+      const bf16 zero = __float2bfloat16(0.f);
+      for (int idx = threadIdx.x & 31; idx < 16 * 32; idx += 32) {
+        const int rr = r + idx / 32, c = idx % 32;
+        ta[idx] = rr < R && m0 + c < M ? A[(size_t)rr * lda + m0 + c] : zero;
+        tb[idx] = rr < R && n0 + c < N ? B[(size_t)rr * ldb + n0 + c] : zero;
+      }
+      __syncwarp();
+      a_src = ta;
+      b_src = tb;
+      a_ld = b_ld = 32;
+    }
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
     wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (mv[i]) wmma::load_matrix_sync(a[i], A + (size_t)r * lda + m0 + 16 * i, lda);
+      if (mv[i]) wmma::load_matrix_sync(a[i], a_src + 16 * i, a_ld);
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      if (nv[j]) wmma::load_matrix_sync(b[j], B + (size_t)r * ldb + n0 + 16 * j, ldb);
+      if (nv[j]) wmma::load_matrix_sync(b[j], b_src + 16 * j, b_ld);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -80,9 +101,8 @@ splitk_reduce_kernel(const float* __restrict__ part, int S, size_t n, float* __r
 // Launch both kernels on `stream`; -> the first launch error.
 inline cudaError_t gemm_tn_splitk(const bf16* A, int lda, const bf16* B, int ldb, int R, int M,
                                   int N, int S, float* part, float* out, cudaStream_t stream) {
-  if (R % 16 || M % 16 || N % 16 || lda % 8 || ldb % 8 || S < 1 || R < 16)
-    return cudaErrorInvalidValue;
-  const int rows_per_split = ((R / 16 + S - 1) / S) * 16;
+  if (M % 16 || N % 16 || lda % 8 || ldb % 8 || S < 1 || R < 1) return cudaErrorInvalidValue;
+  const int rows_per_split = (((R + 15) / 16 + S - 1) / S) * 16;
   dim3 grid((M + kGemmTile - 1) / kGemmTile, (N + kGemmTile - 1) / kGemmTile, S);
   gemm_tn_partial_kernel<><<<grid, kGemmWarps * 32, 0, stream>>>(A, lda, B, ldb, R, M, N,
                                                                  rows_per_split, part);

@@ -1,10 +1,29 @@
-// SwiGLU conv-FFN partial backward for Hopper (K6).
+// SwiGLU conv-FFN backward for Hopper: the partial backward (K6) and the
+// full backward (K5), one row kernel for both.
 //
-// Replaces the Pallas TPU kernel osu_dreamer_tpu/ops/swiglu.py
-// `_partial_bwd_kernel` (launched by `_fused_swiglu_partial_bwd_impl`). On the
-// main path it is the backward of the denoiser FFN in training: x and the
-// output gradient bf16 (128, 152, 512), H = 1365 (padded to 1376), K = 5,
-// 8 layers per step.
+// K6 replaces the Pallas TPU kernel osu_dreamer_tpu/ops/swiglu.py
+// `_partial_bwd_kernel` (launched by `_fused_swiglu_partial_bwd_impl`,
+// swiglu.py:492). On the main path it is the backward of the denoiser FFN in
+// training: x and the output gradient bf16 (128, 152, 512), H = 1365 (padded
+// to 1376), K = 5, 8 layers per step.
+//
+// K5 (odt_swiglu_bwd_full) replaces `_bwd_kernel` (launched by
+// `_fused_swiglu_bwd_impl`, swiglu.py:313), the backward that keeps every
+// weight gradient in on-chip accumulators and that the JAX dispatch takes
+// wherever its footprint fits (`bwd_kernel_feasible`: a denoiser of width
+// 384 or less, e.g. C 384, H 1024). Blocks on Hopper run in no order and the
+// gradients must repeat bit for bit, so K5 is K6's row pass in a second mode
+// followed, in the same call, by the two weight products on the tensor cores
+// (csrc/gemm_tn.cuh, split-K, summed in index order): the row kernel writes
+// y, hn and the output gradient of its core rows (zero on the halo and past
+// L) into block-major bf16 scratch whose rows line up with the per-block dvg
+// scratch it writes anyway, so dW_vg = y^T dvg and dW_out = hn^T go run over
+// blocks x 80 rows (a multiple of 16) with H padded to 16; the small
+// gradients' per-block partials are summed by the same fixed-order kernel.
+// Bound at B128 L152 C384 H1024: 122.4 GFLOP of products against 45 MB in
+// and out, so compute (124 us at the bf16 tensor-core peak).
+//
+// The rest of this note is the row pass both share.
 //
 // Per block of core rows (with a conv halo of r rows on each side) it
 // recomputes the depthwise conv y (bf16, the forward's rounding), then
@@ -37,6 +56,7 @@
 // wmma/mma.sync; staging the weights in shared memory (TMA, wgmma) is later
 // work.
 #include "ffn_tile.cuh"
+#include "gemm_tn.cuh"
 
 namespace odt {
 
@@ -69,8 +89,12 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
                   const bf16* __restrict__ wout, bf16* __restrict__ dx, bf16* __restrict__ dvg,
                   bf16* __restrict__ hn, bf16* __restrict__ y, float* __restrict__ ddw_part,
                   float* __restrict__ ddwb_part, float* __restrict__ dbvg_part,
-                  float* __restrict__ dbout_part, bf16* __restrict__ dvg_scratch, int L, int C,
-                  int H, int Hp, int K) {
+                  float* __restrict__ dbout_part, bf16* __restrict__ dvg_scratch,
+                  bf16* __restrict__ y_s, bf16* __restrict__ hn_s, bf16* __restrict__ go_s, int L,
+                  int C, int H, int Hp, int K) {
+  // K5 passes y_s, hn_s and go_s (block-major, kSbE rows a block) instead of
+  // dvg, hn and y
+  const bool full = y_s != nullptr;
   extern __shared__ __align__(128) unsigned char smem[];
   const SwigluBwdSmem lay(C);
   const int lda = lay.lda;
@@ -181,15 +205,18 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
         dvs[row * ldd + col] = dv;
         dvs[row * ldd + Hp + col] = dg;
         const int pos = t0 - r + row;
-        if (row >= r && row < r + T && pos < L) {
+        const bool core = row >= r && row < r + T && pos < L;
+        if (core) {
           sv += __bfloat162float(dv);
           sg += __bfloat162float(dg);
-          if (col < H) {
-            const size_t p = (size_t)b * L + pos;
-            hn[p * H + col] = __float2bfloat16(s * n);
-            dvg[p * 2 * H + col] = dv;
-            dvg[p * 2 * H + H + col] = dg;
-          }
+        }
+        if (full) {
+          hn_s[((size_t)blk * kSbE + row) * Hp + col] = __float2bfloat16(core ? s * n : 0.f);
+        } else if (core && col < H) {
+          const size_t p = (size_t)b * L + pos;
+          hn[p * H + col] = __float2bfloat16(s * n);
+          dvg[p * 2 * H + col] = dv;
+          dvg[p * 2 * H + H + col] = dg;
         }
       }
       __syncwarp();
@@ -199,6 +226,17 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
     const int c = lane & 15;
     dbvg_part[(size_t)blk * ldd + (lane < 16 ? j * 16 + c : Hp + j * 16 + c)] =
         lane < 16 ? sv : sg;
+  }
+  if (full) {  // the weight products' left and right operands of the core rows
+    const int4 zero = make_int4(0, 0, 0, 0);
+    const size_t row0 = (size_t)blk * kSbE;
+    for (int idx = threadIdx.x; idx < kSbE * cv; idx += blockDim.x) {
+      const int e = idx / cv, c = (idx % cv) * 8;
+      const bool keep = e >= r && e < r + T && t0 - r + e < L;
+      const size_t o = (row0 + e) * C + c;
+      *reinterpret_cast<int4*>(y_s + o) = keep ? *reinterpret_cast<const int4*>(ys + e * lda + c) : zero;
+      *reinterpret_cast<int4*>(go_s + o) = keep ? *reinterpret_cast<const int4*>(gos + e * lda + c) : zero;
+    }
   }
   __syncthreads();  // the block's dvg scratch is complete (and visible to it)
 
@@ -249,7 +287,7 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
       float acc = 0.f;
       for (int k = 0; k < K; ++k) acc += dY[(e + r - k) * 16] * ldf(dww + k * C + c);
       dx[p] = __float2bfloat16(acc);
-      y[p] = ys[e * lda + c];
+      if (!full) y[p] = ys[e * lda + c];
       const float d = dY[e * 16];
       sw += d;
       so += ldf(gos + e * lda + c);
@@ -288,5 +326,53 @@ extern "C" int odt_swiglu_bwd(const void* x, const void* go, const void* dww, co
                      (const bf16*)x, (const bf16*)go, (const bf16*)dww, (const bf16*)dwb,
                      (const bf16*)wvg, (const bf16*)bvg, (const bf16*)wout, (bf16*)dx, (bf16*)dvg,
                      (bf16*)hn, (bf16*)y, (float*)ddw_part, (float*)ddwb_part, (float*)dbvg_part,
-                     (float*)dbout_part, (bf16*)dvg_scratch, L, C, H, Hp, K);
+                     (float*)dbout_part, (bf16*)dvg_scratch, (bf16*)nullptr, (bf16*)nullptr,
+                     (bf16*)nullptr, L, C, H, Hp, K);
+}
+
+// K5. The row kernel's outputs as K6's, minus dvg/hn/y; the scratch dvg_s
+// (R, 2 Hp), y_s, go_s (R, C), hn_s (R, Hp) bf16 with R = blocks x 80; the
+// split-K partials pvg (S_vg, C, 2 Hp), pout (S_out, Hp, C) f32. -> dx, the
+// per-block partials, and their sums ddw (K, C), ddwb (C), dbvg (2 Hp), dbout
+// (C), dwvg (C, 2 Hp), dwout (Hp, C) f32 in the padded layout.
+extern "C" int odt_swiglu_bwd_full(const void* x, const void* go, const void* dww, const void* dwb,
+                                   const void* wvg, const void* bvg, const void* wout, void* dx,
+                                   void* ddw_part, void* ddwb_part, void* dbvg_part,
+                                   void* dbout_part, void* dvg_s, void* y_s, void* hn_s,
+                                   void* go_s, void* pvg, void* pout, void* ddw, void* ddwb,
+                                   void* dbvg, void* dbout, void* dwvg, void* dwout, int B, int L,
+                                   int C, int H, int Hp, int K, int S_vg, int S_out,
+                                   void* stream) {
+  using namespace odt;
+  if (K > kSbMaxK || K % 2 == 0 || kSbE - 2 * (K / 2) <= 0 || C % 32 ||
+      C > 16 * kSbWarps * kSbCT || Hp % 16 || H > Hp || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const SwigluBwdSmem lay(C);
+  const int T = kSbE - 2 * (K / 2);
+  dim3 grid((L + T - 1) / T, B);
+  const int nblk = grid.x * grid.y, R = nblk * kSbE;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch(
+      swiglu_bwd_kernel, grid, dim3(kFfnThreads), lay.total, s, (const bf16*)x, (const bf16*)go,
+      (const bf16*)dww, (const bf16*)dwb, (const bf16*)wvg, (const bf16*)bvg, (const bf16*)wout,
+      (bf16*)dx, (bf16*)nullptr, (bf16*)nullptr, (bf16*)nullptr, (float*)ddw_part,
+      (float*)ddwb_part, (float*)dbvg_part, (float*)dbout_part, (bf16*)dvg_s, (bf16*)y_s,
+      (bf16*)hn_s, (bf16*)go_s, L, C, H, Hp, K);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)dvg_s, 2 * Hp, R, C, 2 * Hp, S_vg,
+                       (float*)pvg, (float*)dwvg, s);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_tn_splitk((const bf16*)hn_s, Hp, (const bf16*)go_s, C, R, Hp, C, S_out, (float*)pout,
+                       (float*)dwout, s);
+  if (err != cudaSuccess) return (int)err;
+  const struct { const void* part; void* out; size_t n; } sums[] = {
+      {ddw_part, ddw, (size_t)K * C}, {ddwb_part, ddwb, (size_t)C},
+      {dbvg_part, dbvg, (size_t)2 * Hp}, {dbout_part, dbout, (size_t)C}};
+  for (const auto& t : sums) {
+    splitk_reduce_kernel<><<<(unsigned)((t.n + 255) / 256), 256, 0, s>>>(
+        (const float*)t.part, nblk, t.n, (float*)t.out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -7,18 +7,32 @@ embedding, softmax attention, output projection. As in the JAX package,
 lengths where ``fused_attention_fits`` holds go straight off the packed
 projection through ``fused_norm_rope_attention`` (ops/fused_attention.py,
 forward and backward kernels); longer ones normalise and rotate here and take
-the forward-only ``long_flash_attention`` (ops/long_attention.py).
+the forward-only ``long_flash_attention`` (ops/long_attention.py). On the
+FiLM path the norm, FiLM, add and qkv projection run as one fused prologue
+(ops/film_qkv.py) where ``prologue_ok`` holds, the JAX package's opt-in
+setting ``OSU_DREAMER_FUSED_PROLOGUE=1``.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
+from ..ops.film_qkv import film_qkv
 from ..ops.fused_attention import fused_attention_fits, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
 from .blocks import Dense
 from .norm import rms_norm
+
+
+def prologue_ok(C: int, F: int) -> bool:
+    """the JAX ``_prologue_ok`` (osu_dreamer_tpu/nn/attention.py), read on
+    every call: ``OSU_DREAMER_FUSED_PROLOGUE=1`` and lane-aligned widths. Its
+    TPU backend, GSPMD and VMEM-footprint tests have no counterpart here"""
+    return os.environ.get("OSU_DREAMER_FUSED_PROLOGUE", "0") == "1" and C % 128 == 0 \
+        and F % 128 == 0
 
 
 class RoPEAttention(nn.Module):
@@ -49,16 +63,20 @@ class RoPEAttention(nn.Module):
         FiLM before the qkv projection; ``add`` is a position-local stream
         added after it"""
         dt = self.dtype
-        B, L, _ = x.shape
+        B, L, C = x.shape
         H, D = self.n_heads, self.head_dim
-        if film is None:
-            h = x.to(dt)
+        if film is not None and prologue_ok(C, 3 * H * D):
+            a = x.new_zeros(B, L, C, dtype=dt) if add is None else add.to(dt)
+            qkv = film_qkv(x.to(dt), *film, a, self.qkv.kernel, self.qkv.bias)
         else:
-            scale, shift = film
-            h = rms_norm(x) * (1 + scale[:, None, :].to(dt)) + shift[:, None, :].to(dt)
-        if add is not None:
-            h = h + add.to(dt)
-        qkv = self.qkv(h)
+            if film is None:
+                h = x.to(dt)
+            else:
+                scale, shift = film
+                h = rms_norm(x) * (1 + scale[:, None, :].to(dt)) + shift[:, None, :].to(dt)
+            if add is not None:
+                h = h + add.to(dt)
+            qkv = self.qkv(h)
         if fused_attention_fits(L, H, D):
             return self.out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
         q, k, v = qkv.split(H * D, dim=-1)

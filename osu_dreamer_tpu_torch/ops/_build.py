@@ -35,7 +35,8 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
-           "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd")
+           "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd", "swiglu_bwd_full",
+           "film_qkv_fwd", "film_qkv_bwd")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -49,6 +50,9 @@ _SIGNATURES = {
     "odt_fused_attention_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_fused_attention_bwd": [_P] * 15 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_film_layer_bwd": [_P] * 23 + [_I] * 8 + [_P],
+    "odt_swiglu_bwd_full": [_P] * 24 + [_I] * 8 + [_P],
+    "odt_film_qkv_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "odt_film_qkv_bwd": [_P] * 15 + [_I] * 5 + [_P],
 }
 
 

@@ -21,14 +21,11 @@ import torch
 
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
-from .swiglu import check_ffn_shapes, pack_ffn_weights, swiglu_plain
+from .swiglu import check_ffn_shapes, gemm_splits, pack_ffn_weights, swiglu_plain
 
 # extended rows per block of the backward kernel (csrc/film_layer_bwd.cu
 # kFbE): each block owns BWD_ROWS - 2r core rows
 BWD_ROWS = 64
-# the weight products' split-K chunks: enough (output tile, chunk) blocks to
-# fill the card's 132 SMs about four times
-_GEMM_BLOCKS = 4 * 132
 
 
 def film_layer_plain(
@@ -99,12 +96,6 @@ def film_layer_bwd_plain(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_k
         return torch.autograd.grad(film_layer_plain(*leaves), leaves, grad_out)
 
 
-def _splits(rows: int, m: int, n: int) -> int:
-    """split-K chunk count of csrc/gemm_tn.cuh for a (m, n) product over rows"""
-    tiles = -(-m // 64) * -(-n // 64)
-    return max(1, min(rows // 16, -(-_GEMM_BLOCKS // tiles)))
-
-
 def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
                         out_kernel, out_bias, grad_out):
     """K3, csrc/film_layer_bwd.cu: the tuple of ``film_layer_bwd_plain``, dx
@@ -130,7 +121,7 @@ def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_ke
     dev = x.device
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    s_vg, s_out = _splits(R, C, 2 * Hp), _splits(R, Hp, C)
+    s_vg, s_out = gemm_splits(R, C, 2 * Hp), gemm_splits(R, Hp, C)
     dx = torch.empty_like(x)
     part = torch.empty(B, nT, (7 + K) * C + 2 * Hp, **f32)
     scratch = [torch.empty(R, C, **bf), torch.empty(R, Hp, **bf), torch.empty(R, C, **bf),

@@ -2,17 +2,20 @@
 CUDA kernels.
 
 Counterpart of osu_dreamer_tpu/ops/swiglu.py (``swiglu_reference``, the
-Pallas forward ``_kernel`` and the partial backward ``_partial_bwd_kernel``,
-the one the JAX dispatch takes at the denoiser's dims). The block is
+Pallas forward ``_kernel``, the full backward ``_bwd_kernel`` and the partial
+backward ``_partial_bwd_kernel``). The block is
 
     x -> depthwise conv (2r+1 taps, zero SAME padding) -> (C, 2H) projection
       -> v * silu(g) -> RMS norm over H (f32 statistics) -> (H, C) projection
 
 ``swiglu`` dispatches by device: a CUDA tensor goes to a
 ``torch.autograd.Function`` whose forward is the kernel in ``csrc/swiglu.cu``
-(K4) and whose backward is ``csrc/swiglu_bwd.cu`` (K6) plus the two big
-weight products as torch matmuls (bf16 only; anything else raises); a CPU
-tensor to ``swiglu_plain``, differentiated by autograd.
+(K4) and whose backward is chosen as the JAX ``_bwd`` chooses it: where
+``bwd_kernel_feasible`` holds, ``odt_swiglu_bwd_full`` in
+``csrc/swiglu_bwd.cu`` (K5, every weight gradient in the call), elsewhere
+``odt_swiglu_bwd`` (K6) plus the two big weight products as torch matmuls
+(bf16 only; anything else raises); a CPU tensor to ``swiglu_plain``,
+differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -26,6 +29,42 @@ from ._build import check_cuda, run
 # extended rows per block of the backward kernel (csrc/swiglu_bwd.cu kSbE):
 # each block owns BWD_ROWS - 2r core rows
 BWD_ROWS = 80
+# the split-K chunks of csrc/gemm_tn.cuh's weight products: enough (output
+# tile, chunk) blocks to fill the card's 132 SMs about four times
+_GEMM_BLOCKS = 4 * 132
+
+# The JAX dispatch rule between the full backward (K5) and the partial one
+# (K6), copied from osu_dreamer_tpu/ops/swiglu.py (``_bwd_vmem_bytes``,
+# ``bwd_kernel_feasible``) and ops/_tiles.py (the budget and the halving
+# search), so both packages take K5 at the same dims. It is the rule that
+# chooses the backward, not a tile size of the CUDA kernels.
+_HALO = 8
+_DEFAULT_TILE = 512
+_VMEM_BUDGET_BYTES = 14 * 2**20
+
+
+def _bwd_vmem_bytes(C: int, H: int, K: int, tile: int) -> int:
+    E = tile + 2 * _HALO
+    weights = 2 * (K * C + C + C * 2 * H + 2 * H + H * C)
+    accums = 4 * (K * C + C + C * 2 * H + 2 * H + H * C + C)
+    work = 4 * E * (2 * H) * 3 + 4 * E * H * 2 + 4 * E * C * 2 + 2 * E * C * 2
+    return weights + accums + work
+
+
+def bwd_kernel_feasible(C: int, H: int, K: int) -> bool:
+    """whether the JAX package takes its full-accumulator backward at these
+    dims: some power-of-two halving of its default tile down to 64 fits the
+    budget"""
+    tile = _DEFAULT_TILE
+    while tile > 64 and _bwd_vmem_bytes(C, H, K, tile) > _VMEM_BUDGET_BYTES:
+        tile //= 2
+    return _bwd_vmem_bytes(C, H, K, tile) <= _VMEM_BUDGET_BYTES
+
+
+def gemm_splits(rows: int, m: int, n: int) -> int:
+    """split-K chunk count of csrc/gemm_tn.cuh for a (m, n) product over rows"""
+    tiles = -(-m // 64) * -(-n // 64)
+    return max(1, min(rows // 16, -(-_GEMM_BLOCKS // tiles)))
 
 
 def swiglu_plain(
@@ -124,24 +163,34 @@ def swiglu_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad
         return torch.autograd.grad(y, [*leaves, out_bias], grad_out)
 
 
+def _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
+    """the backward kernels' checks -> (bf16 output gradient, packed
+    weights, H, padded H)"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    out_bias = vg_kernel.new_zeros(x.shape[-1])
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    go = grad_out.to(torch.bfloat16).contiguous()
+    if x.shape[-1] % 32 or x.shape[-1] > 512:
+        raise ValueError(f"channels {x.shape[-1]} must be a multiple of 32 and at most 512 for "
+                         "the backward kernels")
+    if go.shape != x.shape or go.device != x.device:
+        raise ValueError(f"grad_out must be {tuple(x.shape)} on {x.device}, "
+                         f"got {tuple(go.shape)} on {go.device}")
+    weights, H, Hp = pack_ffn_weights(
+        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
+    )
+    return go, weights, H, Hp
+
+
 def swiglu_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
     """K6, csrc/swiglu_bwd.cu: dx (bf16) and the small gradients (f32) from
     the kernel; dW_vg = y^T dvg and dW_out = hn^T go as f32-accumulated
     torch matmuls over all B*L rows. -> the tuple of ``swiglu_bwd_plain``,
     weight gradients f32"""
-    check_cuda("x", x, torch.bfloat16, 3)
-    out_bias = vg_kernel.new_zeros(x.shape[-1])
-    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
-    go = grad_out.to(torch.bfloat16).contiguous()
-    if x.shape[-1] % 32:
-        raise ValueError(f"channels {x.shape[-1]} must be a multiple of 32 for the backward kernel")
-    if go.shape != x.shape:
-        raise ValueError(f"grad_out must be {tuple(x.shape)}, got {tuple(go.shape)}")
+    go, weights, H, Hp = _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                                     grad_out)
     B, L, C = x.shape
     K = dw_kernel.shape[0]
-    weights, H, Hp = pack_ffn_weights(
-        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
-    )
     rows = BWD_ROWS - 2 * (K // 2)
     nblk = B * -(-L // rows)
     dev = x.device
@@ -165,8 +214,43 @@ def swiglu_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_
             dbout.sum(0))
 
 
+def swiglu_bwd_full_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
+    """K5, csrc/swiglu_bwd.cu ``odt_swiglu_bwd_full``: K6's row pass, then
+    both weight products (split-K, fixed order) and the sums of the small
+    gradients' per-block partials in the same call. -> the tuple of
+    ``swiglu_bwd_plain``, dx bf16 and the weight gradients f32"""
+    go, weights, H, Hp = _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                                     grad_out)
+    B, L, C = x.shape
+    K = dw_kernel.shape[0]
+    nblk = B * -(-L // (BWD_ROWS - 2 * (K // 2)))
+    R = nblk * BWD_ROWS
+    dev = x.device
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_vg, s_out = gemm_splits(R, C, 2 * Hp), gemm_splits(R, Hp, C)
+    dx = torch.empty_like(x)
+    parts = [torch.empty(nblk, K, C, **f32), torch.empty(nblk, C, **f32),
+             torch.empty(nblk, 2 * Hp, **f32), torch.empty(nblk, C, **f32)]
+    scratch = [torch.empty(R, 2 * Hp, **bf), torch.empty(R, C, **bf), torch.empty(R, Hp, **bf),
+               torch.empty(R, C, **bf)]  # dvg, y, hn, go
+    pvg, pout = torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32)
+    ddw, ddwb, dbvg, dbout = (torch.empty(K, C, **f32), torch.empty(C, **f32),
+                              torch.empty(2 * Hp, **f32), torch.empty(C, **f32))
+    dwvg, dwout = torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)
+    run(
+        "odt_swiglu_bwd_full", "swiglu_bwd_full", dev,
+        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights[:5]), dx.data_ptr(),
+        *(t.data_ptr() for t in parts + scratch + [pvg, pout, ddw, ddwb, dbvg, dbout, dwvg, dwout]),
+        B, L, C, H, Hp, K, s_vg, s_out,
+    )
+    return (dx, ddw, ddwb, torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1),
+            torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout[:H], dbout)
+
+
 class SwiGLUFunction(torch.autograd.Function):
-    """K4 forward, K6 backward"""
+    """K4 forward; K5 backward where the JAX dispatch takes its full
+    backward (``bwd_kernel_feasible``), K6 elsewhere"""
 
     @staticmethod
     def forward(ctx, x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias):
@@ -176,7 +260,9 @@ class SwiGLUFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         x, *weights = ctx.saved_tensors
-        grads = swiglu_bwd_cuda(x, *weights, grad_out)
+        C, H, K = x.shape[-1], weights[4].shape[0], weights[0].shape[0]
+        bwd = swiglu_bwd_full_cuda if bwd_kernel_feasible(C, H, K) else swiglu_bwd_cuda
+        grads = bwd(x, *weights, grad_out)
         return (grads[0].to(x.dtype),
                 *(g.to(w.dtype) for g, w in zip(grads[1:], (*weights, weights[-1]))))
 

@@ -7,7 +7,9 @@ train/, data/, ops/, models/diffusion/, models/latent/, cli), drives a tiny
 slice (init_random weights, two songs x two difficulties, CFG on) through
 ``build_batch_sampler`` on the CPU, trains a tiny denoiser and a tiny chart
 autoencoder for two steps each through their ``fit.run`` (configs as dicts:
-reading YAML needs yaml), and runs encode-latents on the latter's checkpoint.
+reading YAML needs yaml), runs encode-latents on the latter's checkpoint, and
+takes one attention forward and backward through the fused prologue
+(ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1).
 """
 
 from __future__ import annotations
@@ -102,6 +104,21 @@ SCRIPT = textwrap.dedent(
         assert state.step == 2 and (Path(tmp) / "latent" / "best" / "state.pt").exists()
         assert encode_latents(Path(tmp) / "latent" / "best", Path(tmp) / "signals",
                               device="cpu") == 6
+
+    import os
+    from osu_dreamer_tpu_torch.nn import attention
+
+    assert "osu_dreamer_tpu_torch.ops.film_qkv" in names
+    os.environ["OSU_DREAMER_FUSED_PROLOGUE"] = "1"
+    seen = []
+    dispatch = attention.film_qkv
+    attention.film_qkv = lambda *a: seen.append(1) or dispatch(*a)
+    attn = attention.RoPEAttention(128, 2, 64, 32, torch.float32)
+    attn.qkv.reset_parameters(gen)
+    xa = torch.randn(2, 10, 128, generator=gen, requires_grad=True)
+    film = (torch.zeros(2, 128), torch.zeros(2, 128))
+    attn(xa, film=film).square().sum().backward()
+    assert seen == [1] and bool(torch.isfinite(xa.grad).all())
     blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
     assert not blocked, blocked
     print("imported", len(names), "modules")

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from osu_dreamer_tpu_torch.ops import (
-    _build, film_layer, fused_attention, long_attention, resonator, swiglu,
+    _build, film_layer, film_qkv, fused_attention, long_attention, resonator, swiglu,
 )
 
 BF16_ULPS = 4
@@ -152,3 +152,81 @@ def test_film_layer_bwd_kernel_matches_plain_on_gpu(B, L, C, H, K, zero_film):
     assert _build.launches["film_layer_bwd"] == before + 1
     for g, k in zip(grads, got):  # each cast to its input's dtype
         assert torch.equal(g, k.to(g.dtype))
+
+
+def _prologue_case(B, L, C, F, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    # f32 parameters, as in training, holding bf16 values
+    return [rnd(B, L, C), rnd(B, C, scale=0.3), rnd(B, C, scale=0.3), rnd(B, L, C, scale=0.5),
+            rnd(C, F, scale=C**-0.5).float(), rnd(F, scale=0.1).float()], rnd(B, L, F)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,C,F", [(2, 77, 128, 384), (3, 64, 512, 3072), (1, 150, 384, 1152)])
+def test_film_qkv_kernels_match_plain_on_gpu(B, L, C, F):
+    """K11 (4 ulp of the plain version) and K12 (GRAD_REL of f32 autograd of
+    the plain version; a second launch bit-identical) at a ragged L, one
+    block per sequence and several; ``film_qkv`` on CUDA tensors builds its
+    graph through both kernels"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _prologue_case(B, L, C, F, 4)
+    got, want = film_qkv.film_qkv_fwd_cuda(*args).float(), film_qkv.film_qkv_plain(*args).float()
+    torch.cuda.synchronize()
+    tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert bool(torch.isfinite(got).all()) and (got - want).abs().max().item() <= tol
+    grads = film_qkv.film_qkv_bwd_cuda(*args, go)
+    _grads_close(grads, film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()))
+    again = film_qkv.film_qkv_bwd_cuda(*args, go)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    before = dict(_build.launches)
+    out = film_qkv.film_qkv(*leaves)
+    assert type(out.grad_fn).__name__ == "FilmQKVFunctionBackward"
+    torch.autograd.grad(out, leaves, go)
+    assert _build.launches["film_qkv_fwd"] == before["film_qkv_fwd"] + 1
+    assert _build.launches["film_qkv_bwd"] == before["film_qkv_bwd"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,C,H,K", [(2, 45, 64, 40, 5), (2, 70, 128, 341, 5), (1, 33, 384, 1024, 3)])
+def test_swiglu_bwd_full_kernel_matches_plain_on_gpu(B, L, C, H, K):
+    """K5: dx and the six weight gradients (GRAD_REL), ragged L, H padded to
+    16; a second launch is bit-identical"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x, go = rnd(B, L, C).to(torch.bfloat16), rnd(B, L, C).to(torch.bfloat16)
+    w = [rnd(K, C, scale=0.4), rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5),
+         rnd(2 * H, scale=0.1), rnd(H, C, scale=H**-0.5)]
+    got = swiglu.swiglu_bwd_full_cuda(x, *w, go)
+    _grads_close(got, swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))
+    again = swiglu.swiglu_bwd_full_cuda(x, *w, go)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,kernel", [(384, 1024, "swiglu_bwd_full"), (512, 1365, "swiglu_bwd")])
+def test_swiglu_function_launches_the_jax_backward_on_gpu(C, H, kernel):
+    """``swiglu`` on CUDA tensors takes K5 where the JAX dispatch takes its
+    full backward and K6 elsewhere (the launch counters)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(2, 40, C, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+    w = [torch.randn(*shape, generator=gen, device="cuda").mul_(0.05).requires_grad_()
+         for shape in ((5, C), (C,), (C, 2 * H), (2 * H,), (H, C), (C,))]
+    before = dict(_build.launches)
+    torch.autograd.grad(swiglu.swiglu(x, *w).float().square().sum(), [x, *w])
+    other = "swiglu_bwd" if kernel == "swiglu_bwd_full" else "swiglu_bwd_full"
+    assert _build.launches[kernel] == before[kernel] + 1
+    assert _build.launches[other] == before[other]

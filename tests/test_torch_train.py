@@ -218,6 +218,63 @@ def test_train_step_matches_jax(grad_clip):
             np.testing.assert_allclose(N(got[key]), np.asarray(want), atol=5e-6, err_msg=key)
 
 
+def test_train_step_matches_jax_with_fused_prologue(monkeypatch):
+    """OSU_DREAMER_FUSED_PROLOGUE=1: one f32 step's loss terms and every
+    gradient leaf, the port's attention prologues through ``film_qkv`` (its
+    plain version on the CPU) against the JAX step through its Pallas
+    prologue in interpret mode (tests/test_ops.py's monkeypatch); the
+    tolerances of ``test_train_step_matches_jax``"""
+    import osu_dreamer_tpu.nn.attention as jattn
+    import osu_dreamer_tpu.ops.film_qkv as jfq
+    from osu_dreamer_tpu.models.diffusion.model import DiffusionModel as JDiff
+    from osu_dreamer_tpu.models.diffusion.train import LatentBatch as JBatch
+    from osu_dreamer_tpu.models.diffusion.train import diffusion_loss as jloss
+    from osu_dreamer_tpu.train.state import stratified_logit_normal_t
+    from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel as TDiff
+    from osu_dreamer_tpu_torch.models.diffusion.train import LatentBatch, diffusion_loss
+    from osu_dreamer_tpu_torch.nn import attention as tattn
+
+    ja, jt = _args("jax")
+    ta, tt = _args("torch")
+    B, L = 4, 24
+    rng = np.random.default_rng(1)
+    z = rng.standard_normal((B, L, 6)).astype(np.float32)
+    batch_np = (rng.random((B, L, 16), dtype=np.float32), z,
+                rng.standard_normal((B, 8)).astype(np.float32),
+                rng.uniform(0, 10, (B, 5)).astype(np.float32))
+    jm = JDiff(ja, F32)
+    tree = fill_tree(jax.jit(jm.init)(KEY, batch_np[0], batch_np[2], z), 22)
+    step_rng = jax.random.PRNGKey(6)
+
+    traced = []
+    orig = jfq.film_qkv
+    monkeypatch.setattr(jfq, "film_qkv", lambda *a: traced.append(1) or orig(*a, 16, True))
+    monkeypatch.setattr(jattn, "_prologue_ok", lambda C_, F_: True)
+    (_, aux_j), grads_j = jax.value_and_grad(
+        lambda p: jloss(jm, p, step_rng, JBatch(*batch_np), jt), has_aux=True)(tree)
+    assert len(traced) == 2  # one prologue per backbone layer
+
+    k_t, k_noise = jax.random.split(step_rng)
+    t = T(stratified_logit_normal_t(k_t, B))
+    x0 = T(jax.random.normal(k_noise, z.shape, F32))
+    monkeypatch.setenv("OSU_DREAMER_FUSED_PROLOGUE", "1")
+    calls = []
+    dispatch = tattn.film_qkv
+    monkeypatch.setattr(tattn, "film_qkv", lambda *a: calls.append(1) or dispatch(*a))
+    model = TDiff(ta, torch.float32)
+    model.load_state_dict(from_flax_params(tree, model))
+    _, aux_t = diffusion_loss(model, LatentBatch(*map(T, batch_np)), tt, t=t, x0=x0)
+    assert len(calls) == 2
+    grads_t = dict(zip([k for k, _ in model.named_parameters()],
+                       torch.autograd.grad(aux_t["loss"], list(model.parameters()))))
+    for name in ("loss", "osl", "del", "u_mape"):
+        np.testing.assert_allclose(N(aux_t[name]), np.asarray(aux_j[name]), rtol=1e-5,
+                                   err_msg=name)
+    gmax = max(np.abs(np.asarray(g)).max() for g in jax.tree.leaves(grads_j))
+    for key, want in _flatten(grads_j["params"]).items():
+        np.testing.assert_allclose(N(grads_t[key]), np.asarray(want), atol=2e-5 * gmax, err_msg=key)
+
+
 # ------------------------------------------------------- fit and resume ----
 
 
