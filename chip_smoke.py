@@ -9,10 +9,14 @@ nothing of JAX; without a card it exits nonzero and prints no result.
 1. Builds the eleven CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
    per source, in parallel; printing the build seconds) and holds each
    against its plain PyTorch version on the card (bf16; f32 for the
-   resonator; TF32 off), timing both with CUDA events and, for the flash
-   attention, torch's scaled_dot_product_attention as a yardstick: the
+   resonator; TF32 off), timing both with CUDA events (the flash attention
+   over replays of a CUDA graph of 20 calls, which leaves out the host's
+   launch cost; the inference kernels' times beside their bounds and achieved
+   TFLOP/s) and, for the flash attention, torch's
+   scaled_dot_product_attention as a yardstick: the
    inference kernels at the inference slice's shapes (the film layer also at
-   latent training's B64 L1026), the denoiser's training kernels (SwiGLU
+   latent training's B64 L1026; the flash attention also at B1 L2500, B4 L65
+   and B1 L2049), the denoiser's training kernels (SwiGLU
    backward, fused attention forward and backward) at its training shape
    B128 L152 and at a ragged length, the film-layer backward at latent
    training's top and bottom levels B64 L1026 and B64 L38, each with FiLM
@@ -29,9 +33,11 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    bf16): two synthetic 120 s songs x two difficulty rows, 32 denoiser
    steps, 16 style steps, once more with style guidance 2.0. The device part
    runs under torch.cuda.set_sync_debug_mode("error"), so a host sync inside
-   the samplers fails the run; every inference kernel must launch, the
-   prologue kernels not. Then one request with OSU_DREAMER_FUSED_PROLOGUE=1:
-   K11 must launch.
+   the samplers fails the run; every inference kernel must launch (the flash
+   attention 264 times a request), the prologue kernels not. One more
+   request runs under torch.profiler, which gives the device-busy and flash
+   attention milliseconds of a request. Then one request with
+   OSU_DREAMER_FUSED_PROLOGUE=1: K11 must launch.
 4. Trains the denoiser at full width (the port's models/diffusion/config.yml:
    depth 8, width 512, 16 x 64 heads, batch 128 x 152, bf16 compute, f32
    parameters) through ``fit.run`` on a seeded synthetic cached-latent
@@ -69,6 +75,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
@@ -134,6 +141,12 @@ KERNEL_META = {
     "film_qkv_bwd": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:235"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
+# kernels timed by CUDA-graph replay (device time) rather than by a loop of
+# launches from Python, whose host cost exceeds their run time
+GRAPH_TIMED = ("flash_attention",)
+# one flash attention per backbone layer (8) per denoiser pass (33: the
+# initial u estimate and 32 steps)
+FLASH_PER_REQUEST = 8 * (STEPS + 1)
 TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd")
 LATENT_KERNELS = ("film_layer", "film_layer_bwd")
 PROLOGUE_KERNELS = ("film_qkv_fwd", "film_qkv_bwd")
@@ -163,6 +176,21 @@ def bound(flops: float, nbytes: int, peak: float = BF16_PEAK) -> dict:
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def device_busy(trace: Path, kernel: str) -> tuple[float, float, int]:
+    """from a torch.profiler Chrome trace: ms during which the device ran a
+    kernel, copy or set (the union of their intervals), ms and count of the
+    kernels whose name holds ``kernel``"""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: float(e["ts"])):
+        start, stop = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    named = [float(e["dur"]) for e in events if e["cat"] == "kernel" and kernel in e["name"]]
+    return busy / 1e3, sum(named) / 1e3, len(named)
 
 
 def ffn_flops(rows: int, C: int, H: int, K: int, products: int, convs: int) -> int:
@@ -504,9 +532,11 @@ def main() -> int:
             ("B4 L759 C512", (rnd(B, 759, 512), *ffn(512, 1365))),
             ("B128 L152 C512 (training)", (rnd(128, 152, 512), *ffn(512, 1365))),
         ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], 512, 1365, 5, 3, 1), BF16_PEAK)),
+        # the sampler's shape, K8's range, and one key past a 64-key tile and
+        # past the TPU's resident limit
         "flash_attention": (long_attention.attention_cuda, long_attention.attention_plain, [
-            ("B4 L759 H16", tuple(rnd(B, 759, 16, 64) for _ in range(3))),
-            ("B1 L2500 H16", tuple(rnd(1, 2500, 16, 64) for _ in range(3))),
+            (f"B{b} L{n} H16", tuple(rnd(b, n, 16, 64) for _ in range(3)))
+            for b, n in ((B, 759), (1, 2500), (B, 65), (1, 2049))
         ], lambda a: (4 * a[0].shape[0] * a[0].shape[2] * a[0].shape[1] ** 2 * 64, BF16_PEAK)),
         "film_qkv_fwd": (film_qkv.film_qkv_fwd_cuda, film_qkv.film_qkv_plain, [
             ("B128 L152 C512 F3072 (training)", prologue_args(128, 152, 512)),
@@ -528,6 +558,30 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def graph_ms(fn, args, reps=20) -> float:
+        """device ms per call: ``reps`` calls captured in one CUDA graph and
+        replayed, so the host's launch cost drops out (the flash attention
+        runs for about as long as its launch from Python takes)"""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args)  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(end) / (5 * reps)
+
     results = {}
     for name, (kernel, plain, shapes, work) in cases.items():
         worst = 0.0
@@ -546,13 +600,17 @@ def main() -> int:
             if not err <= tol:
                 raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
             worst = max(worst, err)
-            ms, plain_ms = cuda_ms(kernel, args), cuda_ms(plain, args)
-            lib_ms = cuda_ms(library[name], args) if name in library else None
+            timer = graph_ms if name in GRAPH_TIMED else cuda_ms
+            ms, plain_ms = timer(kernel, args), timer(plain, args)
+            lib_ms = timer(library[name], args) if name in library else None
             flops, peak = work(args)
             work_bound = bound(flops, moved_bytes(*args, out), peak)
             log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
                 + (f", torch scaled_dot_product_attention {lib_ms:.4f} ms" if lib_ms else "")
-                + f"; bound {work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']})")
+                + f"; bound {work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']}); kernel "
+                f"{flops / ms / 1e9:.1f} TFLOP/s of {peak / 1e12:.0f}"
+                + (f"; CUDA-graph replays (launched from Python: kernel {cuda_ms(kernel, args):.4f}"
+                   " ms)" if name in GRAPH_TIMED else "") + f" [{smi}]")
             if i == 0:
                 results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                                  **work_bound}
@@ -804,12 +862,32 @@ def main() -> int:
     stray = [k for k in PROLOGUE_KERNELS if launches_infer[k]]
     if missing or stray:
         raise RuntimeError(f"the inference path never launched {missing} or launched {stray}")
+    if launches_infer["flash_attention"] != FLASH_PER_REQUEST * len(runs):
+        raise RuntimeError(f"{launches_infer['flash_attention']} flash attention launches in "
+                           f"{len(runs)} requests, not {FLASH_PER_REQUEST} each")
     for guidance, wall, out_frames, outs in runs:
         check_request("request", guidance, wall, out_frames, outs)
     same = all(np.array_equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
     if not same:
         raise RuntimeError("two seeded runs of the same request differ")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one more request under torch.profiler: device-busy and flash attention time
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            wall, out_frames, outs = request(1.0, SEED + 1)
+        prof.export_chrome_trace(str(Path(tmpdir) / "trace.json"))
+        busy_ms, flash_ms, n_flash = device_busy(Path(tmpdir) / "trace.json",
+                                                 "flash_attention_fwd_kernel")
+    check_request("request, under torch.profiler", 1.0, wall, out_frames, outs)
+    log(f"that request on the device: busy {busy_ms:.2f} ms (kernels and copies, union), flash "
+        f"attention {flash_ms:.2f} ms over {n_flash} kernels ({_build.launches['flash_attention']}"
+        f" launches counted) [{smi}]")
+    if n_flash != FLASH_PER_REQUEST or _build.launches["flash_attention"] != FLASH_PER_REQUEST:
+        raise RuntimeError(f"the profiled request ran {n_flash} flash attention kernels, not "
+                           f"{FLASH_PER_REQUEST}")
 
     # one request with the fused prologue (K11 in every backbone layer)
     with fused_prologue():

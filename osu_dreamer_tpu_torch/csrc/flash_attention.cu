@@ -5,148 +5,288 @@
 // `_fwd_kernel` (k/v resident in VMEM, L <= 2048) and `_blocked_kernel`
 // (online softmax over 512-wide k-blocks, longer L). The resident variant
 // exists only for the TPU's VMEM budget; here one online-softmax kernel serves
-// every L. Inputs (B, L, H, 64) bf16, output packed (B, L, H*64) bf16. Logits
-// and softmax are f32; P @ V takes bf16 probabilities with an f32
-// accumulator, as ops/long_attention.py:121-133 does.
+// every L. Inputs (B, L, H, 64) bf16, output packed (B, L, H*64) bf16. The
+// numerics are `_blocked_kernel`'s: f32 logits and softmax, unnormalised
+// probabilities rounded to bf16 for P @ V with an f32 accumulator, one
+// division by the running denominator at the end, ragged keys masked to
+// -1e30.
 //
-// What bounds it on the H100: at the sampler's L = 759 a head's scores are
-// 759 x 759; materialised in f32 they would cost 2.3 MB of HBM traffic per
-// head and layer, more than q, k and v together. Computing them is 2*L*L*64
-// multiply-adds per head, which the tensor cores do far faster than HBM could
-// move the scores.
-// What the design does: one block of 4 warps per (64 queries, head, batch
-// row) walks the keys in 64-wide tiles; scores, probabilities and the output
-// accumulator live in shared memory only, and both products run on the
-// tensor cores through wmma. The ragged key tail (759 is no multiple of 64)
-// is masked with -1e30 as the Pallas kernels do.
+// What bounds it on the H100: 4 L^2 64 operations per (batch row, head), on
+// the tensor cores, against 4 L 64 x 2 bytes of q, k, v and out; at the
+// sampler's L = 759 that is 380 operations a byte, above the card's ~295, so
+// it is bound by operations. The exponentials (L^2 per head, on the 16-wide
+// MUFU) cost about as much issue time as the two products at head dim 64.
+// What the design does (hopper.cuh holds the primitives):
+// - one CTA per (192 queries, head, batch row): three consumer warpgroups of
+//   64 query rows each, and one producer warp; at 109 registers a thread one
+//   CTA fits an SM;
+// - q, k, v and out are 3-D tensor maps (H*64, L, B) with 128-byte swizzle:
+//   rows past L are zero-filled inside batch row b, never read from row
+//   b + 1, and the output store clips at L;
+// - the producer keeps a ring of kFaStages 64-key K/V tiles in flight with
+//   TMA, on full / empty mbarriers; Q is loaded once;
+// - S = Q K^T and O += P V run on wgmma (bf16 in, f32 accumulate): Q and K
+//   K-major from shared memory, P from registers (the S accumulator rounded
+//   to bf16 is the A-operand layout), V MN-major with the transpose bit;
+//   each warpgroup issues tile t's S together with tile t-1's P V, so its
+//   softmax of tile t runs while the tensor cores finish P V;
+// - the softmax stays in registers: a row is shared by the four threads of a
+//   quad (two shuffles), one FFMA and one ex2 per probability with
+//   scale * log2(e) folded in, the mask only in the last, ragged key tile; O
+//   is rescaled in registers;
+// - the epilogue scales by 1 / l, writes bf16 into the warpgroup's (spent) Q
+//   tile in the swizzled layout and stores it with one TMA store.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace odt {
 
-constexpr int kFaD = 64;                 // head dim
-constexpr int kFaBQ = 64;                // queries per block (16 per warp)
-constexpr int kFaBK = 64;                // keys per tile
-constexpr int kFaWarps = 4;
-constexpr int kFaLd = kFaD + 8;          // bf16 row stride of the q/k/v tiles
-constexpr int kFaLdp = kFaBK + 8;        // bf16 row stride of P
+using namespace hopper;
+
+constexpr int kFaD = 64;         // head dim
+constexpr int kFaRows = 64;      // query rows per consumer warpgroup
+constexpr int kFaConsumers = 3;  // consumer warpgroups per CTA
+constexpr int kFaBQ = kFaRows * kFaConsumers;
+constexpr int kFaBK = 64;        // keys per K/V tile
+constexpr int kFaStages = 4;
+constexpr int kFaThreads = kFaConsumers * 128 + 32;
+constexpr int kFaNS = kFaBK / 2;  // S accumulator registers a thread
 constexpr float kFaNeg = -1e30f;
+static_assert(kFaBK == 64 && kFaRows == 64,
+              "one 64 x 64 box and m64n64 wgmmas serve every tile");
 
-constexpr size_t kFaTileBytes = (size_t)kFaBQ * kFaLd * sizeof(bf16);
-constexpr size_t kFaSOff = 3 * kFaTileBytes;
-constexpr size_t kFaOOff = kFaSOff + (size_t)kFaWarps * 16 * kFaBK * sizeof(float);
-constexpr size_t kFaPOff = kFaOOff + (size_t)kFaWarps * 16 * kFaD * sizeof(float);
-constexpr size_t kFaSmem = kFaPOff + (size_t)kFaWarps * 16 * kFaLdp * sizeof(bf16);
-static_assert(kFaBK == kFaD, "the score tile doubles as the P @ V output tile");
+constexpr uint32_t kFaQBytes = kFaRows * kFaD * sizeof(bf16);  // one warpgroup's Q (or O)
+constexpr uint32_t kFaKVBytes = kFaBK * kFaD * sizeof(bf16);   // one K or V tile
+constexpr size_t kFaQOff = 0;
+constexpr size_t kFaKOff = kFaQOff + kFaConsumers * kFaQBytes;
+constexpr size_t kFaVOff = kFaKOff + kFaStages * kFaKVBytes;
+constexpr size_t kFaBarOff = kFaVOff + kFaStages * kFaKVBytes;
+// + 1024 so the base can be rounded up to the swizzle atom
+constexpr size_t kFaSmem = kFaBarOff + (2 * kFaStages + 1) * sizeof(uint64_t) + 1024;
 
-// rows [p0, p0 + 64) of one head into a (64, kFaLd) tile, zero past L
-__device__ __forceinline__ void fa_load_tile(bf16* dst, const bf16* src, int p0, int L,
-                                             size_t row_stride) {
-  for (int idx = threadIdx.x; idx < 64 * (kFaD / 8); idx += blockDim.x) {
-    const int r = idx / (kFaD / 8), ch = idx % (kFaD / 8), pos = p0 + r;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (pos < L) v = *reinterpret_cast<const int4*>(src + pos * row_stride + ch * 8);
-    *reinterpret_cast<int4*>(dst + r * kFaLd + ch * 8) = v;
-  }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(kFaWarps * 32)
-flash_attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out, int L, int H,
-                           float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + kFaTileBytes);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 2 * kFaTileBytes);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Sw = reinterpret_cast<float*>(smem + kFaSOff) + warp * 16 * kFaBK;
-  float* Ow = reinterpret_cast<float*>(smem + kFaOOff) + warp * 16 * kFaD;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + kFaPOff) + warp * 16 * kFaLdp;
+// 2^x on the MUFU unit alone (a denormal result flushes to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int q0 = blockIdx.x * kFaBQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t row_stride = (size_t)H * kFaD;
-  const size_t head_base = (size_t)b * L * row_stride + (size_t)h * kFaD;
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
 
-  fa_load_tile(Qs, q + head_base, q0, L, row_stride);
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
 
-  // each lane owns half (32 columns) of one of its warp's 16 rows
-  const int rr = lane >> 1, c0 = (lane & 1) * 32;
-  for (int c = 0; c < 32; ++c) Ow[rr * kFaD + c0 + c] = 0.f;
-  float m = kFaNeg, l = 0.f;
+// a barrier over the 128 threads of consumer warpgroup wg (ids 1, 2, 3)
+__device__ __forceinline__ void warpgroup_barrier(int wg) {
+  static_assert(kFaConsumers <= 3, "one named barrier per consumer warpgroup");
+  if (wg == 0) named_barrier<1, 128>();
+  else if (wg == 1) named_barrier<2, 128>();
+  else named_barrier<3, 128>();
+}
 
-  for (int kb = 0; kb * kFaBK < L; ++kb) {
-    __syncthreads();  // every warp is done with the previous k/v tiles
-    fa_load_tile(Ks, k + head_base, kb * kFaBK, L, row_stride);
-    fa_load_tile(Vs, v + head_base, kb * kFaBK, L, row_stride);
-    __syncthreads();
-
-    // S = Q_w K^T (16 x 64), f32
+// S = Q K^T (64 x 64) into sc: both K-major, k16 steps 32 bytes apart
+__device__ __forceinline__ void issue_qk(float (&sc)[kFaNS], uint64_t qdesc, const void* ktile) {
+  const uint64_t kdesc = wgmma_desc(ktile, 16, 1024);
 #pragma unroll
-    for (int ct = 0; ct < kFaBK / 16; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
+  for (int kk = 0; kk < kFaD / 16; ++kk)
+    wgmma_m64n64k16_ss(sc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// O += P V: P from registers, V MN-major (transpose bit), k16 steps 16 rows
+// = 2048 bytes apart; SBO is the 1024-byte stride of 8-key groups (LBO,
+// the stride of 64-column groups, is never used at head dim 64)
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[kFaNS / 2],
+                                         const void* vtile) {
+  const uint64_t vdesc = wgmma_desc(vtile, 1024, 1024);
 #pragma unroll
-      for (int kk = 0; kk < kFaD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * kFaLd + kk, kFaLd);
-        wmma::load_matrix_sync(bt, Ks + ct * 16 * kFaLd + kk, kFaLd);
-        wmma::mma_sync(s, a, bt, s);
+  for (int kk = 0; kk < kFaBK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    wgmma_m64n64k16_rs_bt(o, a, vdesc + 128 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// the online softmax of key tile t over this thread's rows r0 (even pairs
+// of sc) and r0 + 8 (odd pairs): keys past L in the last tile are masked to
+// -1e30, m0 / m1 are the running maxima of the raw logits q.k, and sc
+// becomes the unnormalised probabilities exp2((s - m) * scale * log2(e)),
+// one FFMA and one ex2 each. Returns each row's rescale factor for the
+// earlier tiles (0 on the first) and this thread's share of the row sums.
+struct RowStep {
+  float a0, a1, s0, s1;
+};
+
+__device__ __forceinline__ RowStep softmax_tile(float (&sc)[kFaNS], float& m0, float& m1, int t,
+                                                int ntiles, int L, int lane, float scale_log2) {
+  if (t == ntiles - 1 && L % kFaBK) {
+    const int lim = L - t * kFaBK;
+#pragma unroll
+    for (int i = 0; i < kFaNS; ++i)
+      if ((i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= lim) sc[i] = kFaNeg;
+  }
+  float mx0 = kFaNeg, mx1 = kFaNeg;
+#pragma unroll
+  for (int j = 0; j < kFaNS / 4; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(m0, quad_max(mx0));
+  mx1 = fmaxf(m1, quad_max(mx1));
+  RowStep r{ex2((m0 - mx0) * scale_log2), ex2((m1 - mx1) * scale_log2), 0.f, 0.f};
+  m0 = mx0;
+  m1 = mx1;
+  const float b0 = -m0 * scale_log2, b1 = -m1 * scale_log2;
+#pragma unroll
+  for (int j = 0; j < kFaNS / 4; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, b0));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, b0));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, b1));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, b1));
+    r.s0 += sc[4 * j] + sc[4 * j + 1];
+    r.s1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  return r;
+}
+
+// P in bf16 for the product, in the A-operand layout (the accumulator's)
+__device__ __forceinline__ void pack_p(uint32_t (&p)[kFaNS / 2], const float (&sc)[kFaNS]) {
+#pragma unroll
+  for (int j = 0; j < kFaNS / 2; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+}
+
+__global__ void __launch_bounds__(kFaThreads, 1)
+flash_attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o, int L, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kFaBarOff);
+  uint64_t* empty = full + kFaStages;
+  uint64_t* qbar = empty + kFaStages;
+
+  const int q0 = blockIdx.x * kFaBQ, col0 = blockIdx.y * kFaD, b = blockIdx.z;
+  const int ntiles = (L + kFaBK - 1) / kFaBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFaConsumers * 4);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kFaConsumers) {
+    // producer: one thread issues every load
+    if (threadIdx.x % 32 == 0) {
+      mbar_arrive_expect_tx(qbar, kFaConsumers * kFaQBytes);
+      for (int w = 0; w < kFaConsumers; ++w)
+        tma_load_3d(smem + kFaQOff + w * kFaQBytes, &tm_q, qbar, col0, q0 + w * kFaRows, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kFaStages;
+        if (t >= kFaStages) mbar_wait(&empty[s], (t / kFaStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kFaKVBytes);
+        tma_load_3d(smem + kFaKOff + s * kFaKVBytes, &tm_k, &full[s], col0, t * kFaBK, b);
+        tma_load_3d(smem + kFaVOff + s * kFaKVBytes, &tm_v, &full[s], col0, t * kFaBK, b);
       }
-      wmma::store_matrix_sync(Sw + ct * 16, s, kFaBK, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // online softmax over this tile's columns
-    float sv[32];
-    float mx = kFaNeg;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = c0 + c;
-      const float x = (kb * kFaBK + col < L) ? Sw[rr * kFaBK + col] * scale : kFaNeg;
-      sv[c] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float ps = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = expf(sv[c] - m_new);
-      ps += p;
-      Pw[rr * kFaLdp + c0 + c] = __float2bfloat16(p);
-    }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    l = l * alpha + ps;
-    m = m_new;
-    for (int c = 0; c < 32; ++c) Ow[rr * kFaD + c0 + c] *= alpha;
-    __syncwarp();
-
-    // O += P V (16 x 64), bf16 in, f32 accumulate; Sw holds the product
-#pragma unroll
-    for (int ct = 0; ct < kFaD / 16; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::fill_fragment(o, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kFaBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Pw + kk, kFaLdp);
-        wmma::load_matrix_sync(bv, Vs + kk * kFaLd + ct * 16, kFaLd);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(Sw + ct * 16, o, kFaD, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int c = 0; c < 32; ++c) Ow[rr * kFaD + c0 + c] += Sw[rr * kFaD + c0 + c];
-    __syncwarp();
+    return;
   }
 
-  const int pos = q0 + warp * 16 + rr;
-  if (pos < L) {
-    const float inv = 1.f / l;
-    bf16* orow = out + head_base + (size_t)pos * row_stride + c0;
-    for (int c = 0; c < 32; ++c) orow[c] = __float2bfloat16(Ow[rr * kFaD + c0 + c] * inv);
+  // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+  unsigned char* qtile = smem + kFaQOff + wg * kFaQBytes;
+  const uint64_t qdesc = wgmma_desc(qtile, 16, 1024);
+  auto ktile = [&](int t) { return smem + kFaKOff + (t % kFaStages) * kFaKVBytes; };
+  auto vtile = [&](int t) { return smem + kFaVOff + (t % kFaStages) * kFaKVBytes; };
+
+  float o[32], sc[kFaNS];
+  uint32_t p[kFaNS / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kFaNS; ++i) sc[i] = 0.f;
+  float m0 = kFaNeg, m1 = kFaNeg;  // running maxima of the raw logits of rows r0, r0 + 8
+
+  mbar_wait(qbar, 0);
+  mbar_wait(&full[0], 0);
+  fence_regs(sc);
+  wgmma_fence();
+  issue_qk(sc, qdesc, ktile(0));
+  wgmma_wait<0>();
+  fence_regs(sc);
+  RowStep rs = softmax_tile(sc, m0, m1, 0, ntiles, L, lane, scale_log2);
+  float l0 = rs.s0, l1 = rs.s1;  // this thread's share of the row sums
+  pack_p(p, sc);
+
+  for (int t = 1; t < ntiles; ++t) {
+    mbar_wait(&full[t % kFaStages], (t / kFaStages) & 1);
+    fence_regs(sc);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+    issue_qk(sc, qdesc, ktile(t));
+    issue_pv(o, p, vtile(t - 1));
+    wgmma_wait<1>();  // S of tile t is done, P V of tile t-1 may still run
+    fence_regs(sc);
+    rs = softmax_tile(sc, m0, m1, t, ntiles, L, lane, scale_log2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    __syncwarp();  // this warp no longer reads stage t-1
+    if (lane == 0) mbar_arrive(&empty[(t - 1) % kFaStages]);
+    l0 = l0 * rs.a0 + rs.s0;
+    l1 = l1 * rs.a1 + rs.s1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= rs.a0;
+      o[4 * j + 1] *= rs.a0;
+      o[4 * j + 2] *= rs.a1;
+      o[4 * j + 3] *= rs.a1;
+    }
+    pack_p(p, sc);
+  }
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+  issue_pv(o, p, vtile(ntiles - 1));
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(p);
+
+  // epilogue: O / l in bf16 into the Q tile (swizzled) once every warp of
+  // the warpgroup is past its last product, then one TMA store
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  warpgroup_barrier(wg);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    *reinterpret_cast<uint32_t*>(qtile + swizzle128(r0, col)) =
+        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(qtile + swizzle128(r0 + 8, col)) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  fence_proxy_async();
+  warpgroup_barrier(wg);
+  if (tid == 0) {
+    tma_store_3d(&tm_o, qtile, col0, q0 + wg * kFaRows, b);
+    tma_store_commit_and_wait();
   }
 }
 
@@ -155,8 +295,15 @@ flash_attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 extern "C" int odt_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        int B, int L, int H, float scale, void* stream) {
   using namespace odt;
+  const uint64_t HD = (uint64_t)H * kFaD;
+  CUtensorMap maps[4];
+  const void* bases[4] = {q, k, v, out};
+  for (int i = 0; i < 4; ++i) {
+    cudaError_t err = hopper::tma_map_bf16_3d(&maps[i], bases[i], HD, L, B, kFaD, kFaBK);
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 grid((L + kFaBQ - 1) / kFaBQ, H, B);
-  return (int)launch(flash_attention_fwd_kernel, grid, dim3(kFaWarps * 32), kFaSmem,
-                     (cudaStream_t)stream, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-                     (bf16*)out, L, H, scale);
+  return (int)launch(flash_attention_fwd_kernel, grid, dim3(kFaThreads), kFaSmem,
+                     (cudaStream_t)stream, maps[0], maps[1], maps[2], maps[3], L,
+                     scale * 1.4426950408889634f);
 }

@@ -1,0 +1,235 @@
+// Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels, in
+// inline PTX: mbarriers, TMA tensor loads and stores, 3-D tensor-map
+// encoding on the host, wgmma shared-memory descriptors, the m64n64k16 bf16
+// products and their fence / commit / wait.
+//
+// Conventions:
+// - Tiles are 64 bf16 columns (128 bytes) wide and loaded with
+//   CU_TENSOR_MAP_SWIZZLE_128B, so every tile base is 1024-byte aligned and
+//   16-byte chunk c of row r sits at chunk c ^ (r % 8) (`swizzle128`).
+// - A descriptor describes such a tile to wgmma (layout type 1, 128-byte
+//   swizzle). K-major operands (the reduced dimension contiguous) advance by
+//   32 bytes per k16 step; an MN-major operand (the output dimension
+//   contiguous, used with the transpose bit) advances by 16 rows = 2048
+//   bytes per k16 step.
+// - mbarrier waits take the parity of the phase to wait for: phase n of a
+//   barrier has completed once `mbar_wait(bar, n & 1)` returns.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace odt::hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make initialised barriers visible to the async proxy (TMA) and other threads
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transactions for this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---- TMA ----
+
+// box (c0, c1, c2) of a 3-D tensor map into shared memory; completion is
+// counted in bytes on `bar`. Out-of-bounds elements are filled with zeros
+// (and still counted).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared memory into box (c0, c1, c2); elements out of bounds are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3}], [%4];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+
+// commit the issued TMA stores and wait until their source has been read
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA, wgmma) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// barrier kId (1..15; 0 is __syncthreads) over kCount threads; a constant
+// id lets ptxas reserve only the barriers a kernel names
+template <int kId, int kCount>
+__device__ __forceinline__ void named_barrier() {
+  asm volatile("bar.sync %0, %1;" ::"n"(kId), "n"(kCount) : "memory");
+}
+
+// byte offset of bf16 element (row, col) in a 64-column tile written by TMA
+// with 128-byte swizzle
+__device__ __forceinline__ uint32_t swizzle128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// ---- wgmma ----
+
+// descriptor of a 128-byte-swizzled tile at `p` (1024-byte aligned, or a
+// k-step offset from such a base); byte offsets are encoded in 16-byte units
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo_bytes & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo_bytes & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// pin registers in place across the asynchronous wgmma (accumulators and
+// register A operands): the compiler must not move their reads or writes
+// over the fence, commit or wait, nor reuse them while a product runs
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define ODT_WGMMA_D32                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define ODT_WGMMA_D32_OPERANDS                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D (64 x 64 f32, 32 registers a thread) = A B (+ D if scale_d), bf16 in;
+// A (64 x 16) and B (16 x 64) from shared memory, both K-major. Thread t of
+// the warpgroup holds d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2),
+// column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ODT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      : ODT_WGMMA_D32_OPERANDS
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with A from registers and B MN-major (the transpose bit): four
+// bf16x2 per thread, in the layout of the accumulator's columns
+// 16 k .. 16 k + 15 (a[0]: d[8k], d[8k+1]; a[1]: d[8k+2], d[8k+3];
+// a[2]: d[8k+4], d[8k+5]; a[3]: d[8k+6], d[8k+7])
+__device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ODT_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : ODT_WGMMA_D32_OPERANDS
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#undef ODT_WGMMA_D32
+#undef ODT_WGMMA_D32_OPERANDS
+
+// ---- host: tensor maps ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime (so the
+// library links nothing beyond cudart); null if the driver lacks it
+static inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// tensor map of a row-major bf16 array (dim2, dim1, dim0), dim0 contiguous,
+// read and written in boxes of (1, box1, box0) with 128-byte swizzle
+// (box0 * 2 <= 128). Out-of-bounds reads return zeros. Rows past dim1 lie
+// outside the map even where dim2 continues, so a box never reaches into
+// the next outer index.
+static inline cudaError_t tma_map_bf16_3d(CUtensorMap* map, const void* base, uint64_t dim0,
+                                          uint64_t dim1, uint64_t dim2, uint32_t box0,
+                                          uint32_t box1) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {dim0, dim1, dim2};
+  const cuuint64_t strides[2] = {dim0 * 2, dim0 * dim1 * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace odt::hopper

@@ -64,6 +64,69 @@ def test_kernel_matches_plain_on_gpu(kernel):
     assert (got - want).abs().max().item() <= tol
 
 
+def _ulp_tol(want: torch.Tensor) -> float:
+    return BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+
+
+def _attention_qkv(B: int, L: int, H: int, seed: int) -> list[torch.Tensor]:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(B, L, H, 64, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H", [(1, 1, 1), (2, 63, 3), (1, 64, 16), (3, 65, 2), (1, 193, 2),
+                                   (4, 759, 16), (1, 2500, 16)])
+def test_flash_attention_matches_plain_on_gpu(B, L, H):
+    """K7/K8 (4 ulp of the plain version) at the kernel's tile edges (64-key
+    tiles, 192 queries a block), the sampler's B4 L759 and K8's range; a
+    second launch is bit-identical"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    q, k, v = _attention_qkv(B, L, H, 7)
+    got = long_attention.attention_cuda(q, k, v)
+    want = long_attention.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert got.shape == (B, L, H * 64) and bool(torch.isfinite(got).all())
+    assert (got.float() - want).abs().max().item() <= _ulp_tol(want)
+    assert torch.equal(got, long_attention.attention_cuda(q, k, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_keeps_batch_rows_apart_on_gpu():
+    """batch row 1 holds values 1e4 times larger: each row equals the plain
+    version run on that row alone (no key, value or query crosses rows)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    q, k, v = _attention_qkv(3, 77, 2, 8)
+    for t in (q, k, v):
+        t[1] *= 1e4
+    got = long_attention.attention_cuda(q, k, v).float()
+    for b in range(3):
+        want = long_attention.attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1]).float()
+        assert (got[b:b + 1] - want).abs().max().item() <= _ulp_tol(want), f"batch row {b}"
+
+
+@pytest.mark.gpu
+def test_flash_attention_ignores_the_buffer_past_its_batch_on_gpu():
+    """q, k, v are the first B rows of (B+1, L, H, 64) buffers whose last
+    row is NaN, at a ragged L: the zero fill of the last key tile never reads
+    that row, so the output is finite and equals the plain version"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    B, L, H = 2, 77, 3
+    bufs = _attention_qkv(B + 1, L, H, 9)
+    for t in bufs:
+        t[B] = float("nan")
+    q, k, v = (t[:B] for t in bufs)
+    assert q.is_contiguous()
+    got = long_attention.attention_cuda(q, k, v).float()
+    want = long_attention.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= _ulp_tol(want)
+
+
 def _grads_close(got, want) -> None:
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()

@@ -55,10 +55,14 @@ def test_film_layer_plain_matches_jax():
     np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-4)
 
 
-@pytest.mark.parametrize("variant,L", [("resident", 300), ("blocked", 600)])
+@pytest.mark.parametrize("variant,L", [("resident", 300), ("blocked", 600), ("resident", 65),
+                                       ("resident", 128), ("resident", 129), ("resident", 759),
+                                       ("blocked", 2049)])
 def test_attention_plain_matches_pallas(variant, L):
     """both TPU variants in interpret mode (k/v resident, and online softmax
-    over 512-wide k-blocks), ragged L, f32 inputs"""
+    over 512-wide k-blocks), ragged L, f32 inputs; the lengths straddle the
+    CUDA kernel's tile edges (64-key tiles, 192-query blocks), the sampler's
+    L = 759 and one past the TPU's resident limit"""
     from osu_dreamer_tpu.ops.long_attention import _blocked_impl, _fwd_impl
     from osu_dreamer_tpu_torch.ops.long_attention import long_flash_attention
 
@@ -161,6 +165,51 @@ def test_cuda_wrapper_refuses_cpu_tensors(kernel):
     with pytest.raises(ValueError, match="CUDA"):
         _cuda_wrappers()[kernel]()
     assert _build.launches == before
+
+
+def _c_prototypes() -> dict[str, list[str]]:
+    """name -> argument kinds ('pointer', 'int', 'float') of every extern "C"
+    entry point in csrc/*.cu"""
+    import re
+
+    from osu_dreamer_tpu_torch.ops import _build
+
+    protos = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            kinds = []
+            for arg in args.split(","):
+                arg = arg.split()
+                kinds.append("pointer" if "*" in "".join(arg) else arg[-2])
+            protos[name] = kinds
+    return protos
+
+
+_ENTRY_POINTS = ["odt_resonate", "odt_film_layer_fwd", "odt_swiglu_fwd", "odt_flash_attention_fwd",
+                 "odt_swiglu_bwd", "odt_fused_attention_fwd", "odt_fused_attention_bwd",
+                 "odt_film_layer_bwd", "odt_swiglu_bwd_full", "odt_film_qkv_fwd",
+                 "odt_film_qkv_bwd"]
+
+
+def test_c_entry_points_are_the_bound_ones():
+    from osu_dreamer_tpu_torch.ops import _build
+
+    assert sorted(_c_prototypes()) == sorted(_build._SIGNATURES) == sorted(_ENTRY_POINTS)
+
+
+@pytest.mark.parametrize("name", _ENTRY_POINTS)
+def test_ctypes_signature_matches_c_prototype(name):
+    """each ctypes argtypes list names the C prototype's arguments kind for
+    kind (a pointer declared as an int would be cut to 32 bits), the stream
+    last"""
+    import ctypes
+
+    from osu_dreamer_tpu_torch.ops import _build
+
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    proto = _c_prototypes()[name]
+    assert [kinds[t] for t in _build._SIGNATURES[name]] == proto
+    assert proto[-1] == "pointer"
 
 
 # ------------------------------------------------------ training kernels ----
