@@ -9,10 +9,15 @@ nothing of JAX; without a card it exits nonzero and prints no result.
 1. Builds the eleven CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
    per source, in parallel; printing the build seconds) and holds each
    against its plain PyTorch version on the card (bf16; f32 for the
-   resonator; TF32 off), timing both with CUDA events (the flash attention
-   over replays of a CUDA graph of 20 calls, which leaves out the host's
-   launch cost; the inference kernels' times beside their bounds and achieved
-   TFLOP/s) and, for the flash attention, torch's
+   resonator; TF32 off; the SwiGLU and film-layer forward kernels against
+   the plain version in f32, within 1.1x mean / 1.5x max of the plain bf16
+   path's error, and bit-identical on rerun), timing both with CUDA events
+   (the flash attention, SwiGLU and film-layer forwards over replays of a
+   CUDA graph of 20 calls, which leaves out the host's launch cost; every
+   kernel's time beside its bound and achieved TFLOP/s, also at the widened
+   widths: K4 at C 768, K2 at C 384, K6 at C 640, K3 at C 256 and 384,
+   K11/K12 at C 640 and 1024, and at widths whose last 64-column box runs
+   past C: K4 at C 96, K2 at C 32) and, for the flash attention, torch's
    scaled_dot_product_attention as a yardstick: the
    inference kernels at the inference slice's shapes (the film layer also at
    latent training's B64 L1026; the flash attention also at B1 L2500, B4 L65
@@ -24,6 +29,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    denoiser's B128 L152 C384 H1024, and the fused norm + FiLM + qkv prologue
    forward (K11) and backward (K12) at B128 L152 and B4 L759 (C 512, F 3072),
    ragged, and at C 384. The backward kernels' reruns must be bit-identical.
+   Then K4 under five plans (output columns a CTA holds x hidden slices) at
+   B4 L759 and B128 L152: graph-replay ms, the core kernel and the
+   reduction of the split plans timed apart by torch.profiler.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -34,10 +42,13 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    steps, 16 style steps, once more with style guidance 2.0. The device part
    runs under torch.cuda.set_sync_debug_mode("error"), so a host sync inside
    the samplers fails the run; every inference kernel must launch (the flash
-   attention 264 times a request), the prologue kernels not. One more
-   request runs under torch.profiler, which gives the device-busy and flash
-   attention milliseconds of a request. Then one request with
-   OSU_DREAMER_FUSED_PROLOGUE=1: K11 must launch.
+   attention and the SwiGLU 264 times a request, the film layer 48), the
+   prologue kernels not. One more request runs under torch.profiler, which
+   gives the device-busy, flash attention, SwiGLU and film-layer
+   milliseconds of a request. Then one request with
+   OSU_DREAMER_FUSED_PROLOGUE=1: K11 must launch. Then an 8 x 64-head
+   attention at L 300 (past K9/K10's range) answers through K7 within the
+   f32 rule, and fit-denoiser's check refuses that shape.
 4. Trains the denoiser at full width (the port's models/diffusion/config.yml:
    depth 8, width 512, 16 x 64 heads, batch 128 x 152, bf16 compute, f32
    parameters) through ``fit.run`` on a seeded synthetic cached-latent
@@ -143,7 +154,17 @@ KERNEL_META = {
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
 # launches from Python, whose host cost exceeds their run time
-GRAPH_TIMED = ("flash_attention",)
+GRAPH_TIMED = ("flash_attention", "swiglu", "film_layer")
+# the forward core's kernels (K4, K2) are held to the plain version in f32 on
+# the same bf16 inputs: their error's mean within SLICE_MEAN_RATIO and max
+# within SLICE_MAX_RATIO of the plain bf16 path's (they keep v, g and h in
+# f32 and apply 1/rms(h) after the output product, where the plain version
+# rounds each to bf16)
+F32_RULED = ("swiglu", "film_layer")
+# a request's SwiGLU (8 layers x 33 denoiser passes) and film-layer (48
+# latent U-Net layers) launches
+SWIGLU_PER_REQUEST = 8 * (STEPS + 1)
+FILM_PER_REQUEST = 48
 # one flash attention per backbone layer (8) per denoiser pass (33: the
 # initial u estimate and 32 steps)
 FLASH_PER_REQUEST = 8 * (STEPS + 1)
@@ -178,10 +199,10 @@ def bound(flops: float, nbytes: int, peak: float = BF16_PEAK) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def device_busy(trace: Path, kernel: str) -> tuple[float, float, int]:
+def device_busy(trace: Path, *kernels: str) -> tuple[float, float, int]:
     """from a torch.profiler Chrome trace: ms during which the device ran a
     kernel, copy or set (the union of their intervals), ms and count of the
-    kernels whose name holds ``kernel``"""
+    kernels whose name holds one of ``kernels``"""
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     busy, end = 0.0, float("-inf")
@@ -189,7 +210,8 @@ def device_busy(trace: Path, kernel: str) -> tuple[float, float, int]:
         start, stop = float(e["ts"]), float(e["ts"]) + float(e["dur"])
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    named = [float(e["dur"]) for e in events if e["cat"] == "kernel" and kernel in e["name"]]
+    named = [float(e["dur"]) for e in events
+             if e["cat"] == "kernel" and any(k in e["name"] for k in kernels)]
     return busy / 1e3, sum(named) / 1e3, len(named)
 
 
@@ -200,6 +222,48 @@ def ffn_flops(rows: int, C: int, H: int, K: int, products: int, convs: int) -> i
     products) and ``convs`` K-tap conv passes, two operations a
     multiply-add"""
     return rows * 2 * (products * C * H + convs * K * C)
+
+
+def ffn_plans(swiglu, graph_ms, rnd, ffn, B: int, smi: str) -> None:
+    """K4 under each (output columns a CTA holds, hidden slices) plan at the
+    sampler's shape (B4 L759) and the training shape (B128 L152), C 512:
+    graph-replay ms, and the core and the reduction apart (torch.profiler
+    device time); each plan's largest difference from the chosen plan's
+    output is printed (the f32 partials are summed in another order). ``swiglu.fwd_plan`` decides the plan
+    in the port; it is replaced here for the sweep only."""
+    import torch
+
+    C, H = 512, 1365
+    Hp = -(-H // 64) * 64
+    sms = swiglu.device_sms(torch.device("cuda", 0))
+    chosen = swiglu.fwd_plan
+    for label, Bp, Lp in ((f"B{B} L759", B, 759), ("B128 L152", 128, 152)):
+        args = (rnd(Bp, Lp, C), *ffn(C, H))
+        ref = swiglu.swiglu_cuda(*args).float()
+        pick = chosen(Bp * Lp, C, Hp, sms)
+        for nc, S in ((256, 1), (256, 2), (256, 3), (128, 1), (128, 2)):
+            swiglu.fwd_plan = lambda *_a, nc=nc, S=S, **_k: (nc, S)
+            try:
+                diff = (swiglu.swiglu_cuda(*args).float() - ref).abs().max().item()
+                ms = graph_ms(swiglu.swiglu_cuda, args)
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        swiglu.swiglu_cuda(*args)
+                    torch.cuda.synchronize()
+            finally:
+                swiglu.fwd_plan = chosen
+            dev_us = {k: sum(e.device_time_total for e in prof.key_averages() if k in e.key) / 10
+                      for k in ("ffn_core_kernel", "ffn_reduce_kernel")}
+            groups, rows = -(-C // nc), Bp * Lp
+            ctas = min(-(-rows // 128), max(1, sms // (groups * S))) * groups * S
+            log(f"swiglu plan {label} C{C}: {nc} columns a CTA x {S} hidden slices"
+                f"{' (chosen)' if (nc, S) == pick else ''}: {ctas} CTAs on {sms} SMs, "
+                f"v|g computed {groups}x ({2 * groups + 1} C H multiply-adds a row, the least 3); "
+                f"{ms:.4f} ms (graph replay); core {dev_us['ffn_core_kernel']:.1f} us, "
+                f"reduction {dev_us['ffn_reduce_kernel']:.1f} us (profiler); max |diff| to the "
+                f"chosen plan {diff:.3g} [{smi}]")
+        del args, ref
 
 
 @contextmanager
@@ -496,11 +560,11 @@ def main() -> int:
         return [rnd(K, C, scale=0.4), rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5),
                 rnd(2 * H, scale=0.1), rnd(H, C, scale=H**-0.5), rnd(C, scale=0.1)]
 
-    def film_args(B, L, zero_film):
-        C = 128
+    def film_args(B, L, zero_film, C=128):
         film = [torch.zeros(B, C, dtype=torch.bfloat16, device=dev) if zero_film
                 else rnd(B, C, scale=0.3) for _ in range(3)]
-        return (rnd(B, L, C), *film, 1 + rnd(C, scale=0.1), 1 + rnd(C, scale=0.1), *ffn(C, 341))
+        return (rnd(B, L, C), *film, 1 + rnd(C, scale=0.1), 1 + rnd(C, scale=0.1),
+                *ffn(C, int(C * 8 / 3)))
 
     def prologue_args(B, L, C, F=3072):
         """x, scale, shift, add bf16; the qkv kernel and bias f32 parameters
@@ -527,11 +591,19 @@ def main() -> int:
             ("B2 L20493 zero FiLM", film_args(S, 20493, True)),
             ("B4 L2277 FiLM", film_args(B, 2277, False)),
             ("B64 L1026 FiLM (latent training)", film_args(64, 1026, False)),
-        ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], 128, 341, 5, 3, 1), BF16_PEAK)),
+            ("B64 L38 FiLM (hidden split)", film_args(64, 38, False)),
+            ("B8 L2277 C384 FiLM (widest JAX-fused width)", film_args(8, 2277, False, 384)),
+            ("B16 L1026 C32 FiLM (narrow: the box runs past C)", film_args(16, 1026, False, 32)),
+        ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], a[0].shape[2], a[10].shape[0],
+                                5, 3, 1), BF16_PEAK)),
         "swiglu": (swiglu.swiglu_cuda, swiglu.swiglu_plain, [
             ("B4 L759 C512", (rnd(B, 759, 512), *ffn(512, 1365))),
             ("B128 L152 C512 (training)", (rnd(128, 152, 512), *ffn(512, 1365))),
-        ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], 512, 1365, 5, 3, 1), BF16_PEAK)),
+            ("B3 L77 C512 ragged", (rnd(3, 77, 512), *ffn(512, 1365))),
+            ("B4 L759 C768 H2048 (one consumer warpgroup)", (rnd(B, 759, 768), *ffn(768, 2048))),
+            ("B4 L759 C96 H256 (narrow: the box runs past C)", (rnd(B, 759, 96), *ffn(96, 256))),
+        ], lambda a: (ffn_flops(a[0].shape[0] * a[0].shape[1], a[0].shape[2], a[5].shape[0], 5,
+                                3, 1), BF16_PEAK)),
         # the sampler's shape, K8's range, and one key past a 64-key tile and
         # past the TPU's resident limit
         "flash_attention": (long_attention.attention_cuda, long_attention.attention_plain, [
@@ -543,6 +615,8 @@ def main() -> int:
             ("B4 L759 C512 F3072 (inference)", prologue_args(B, 759, 512)),
             ("B4 L77 C512 F3072", prologue_args(B, 77, 512)),
             ("B128 L152 C384 F3072", prologue_args(128, 152, 384)),
+            ("B128 L152 C640 F3072 (widened)", prologue_args(128, 152, 640)),
+            ("B4 L759 C1024 F1920 (widened)", prologue_args(B, 759, 1024, 1920)),
         ], lambda a: (2 * a[0].numel() * a[4].shape[1], BF16_PEAK)),
     }
     library = {"flash_attention": sdpa}
@@ -592,13 +666,26 @@ def main() -> int:
             if not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"{name} {label}: non-finite kernel output")
             err = (got - want).abs().max().item()
-            if name == "resonator":
-                tol = F32_ATOL
+            if name in F32_RULED:
+                ref = plain(*(t.float() for t in args)).float()
+                ek, ep = (got - ref).abs(), (want - ref).abs()
+                log(f"{name} {label}: max_abs_err {err:.3g} vs plain bf16; vs the plain f32 "
+                    f"version kernel mean {ek.mean().item():.4g} max {ek.max().item():.4g}, plain "
+                    f"bf16 mean {ep.mean().item():.4g} max {ep.max().item():.4g} (limits "
+                    f"{SLICE_MEAN_RATIO}x / {SLICE_MAX_RATIO}x)")
+                if not (ek.mean() <= SLICE_MEAN_RATIO * ep.mean()
+                        and ek.max() <= SLICE_MAX_RATIO * ep.max()):
+                    raise RuntimeError(f"{name} {label}: kernel farther from the f32 version than "
+                                       "the plain bf16 path")
+                if not torch.equal(kernel(*args), out):
+                    raise RuntimeError(f"{name} {label}: two launches differ")
+                del ref, ek, ep
             else:
-                tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
-            log(f"{name} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
-            if not err <= tol:
-                raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
+                tol = (F32_ATOL if name == "resonator"
+                       else BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7))
+                log(f"{name} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
+                if not err <= tol:
+                    raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
             worst = max(worst, err)
             timer = graph_ms if name in GRAPH_TIMED else cuda_ms
             ms, plain_ms = timer(kernel, args), timer(plain, args)
@@ -616,6 +703,9 @@ def main() -> int:
                                  **work_bound}
             del out, got, want
         results[name]["max_abs_err"] = worst
+
+    # ---- 1a. K4's plans at the sampler's and the training shape ----
+    ffn_plans(swiglu, graph_ms, rnd, ffn, B, smi)
 
     # ---- 1b. the training kernels at the denoiser's training shape ----
     def check_grads(label, names, got, ref, plain) -> float:
@@ -645,7 +735,8 @@ def main() -> int:
         """log a case's times beside its bound; the first case is the JSON line's"""
         work_bound = bound(flops, nbytes)
         log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-            f"{work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']})")
+            f"{work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']}); kernel "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of {BF16_PEAK / 1e12:.0f} [{smi}]")
         if i == 0:
             results[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                              "max_abs_err": err, **work_bound}
@@ -694,7 +785,9 @@ def main() -> int:
     # H341 (H padded to 352)
     for name, fn, shapes in (
             ("swiglu_bwd", swiglu.swiglu_bwd_cuda, (("B128 L152 C512 H1365", 128, 152, 512, 1365),
-                                                    ("B4 L77 C512 H1365", 4, 77, 512, 1365))),
+                                                    ("B4 L77 C512 H1365", 4, 77, 512, 1365),
+                                                    ("B32 L152 C640 H1706 (48-row blocks)", 32, 152,
+                                                     640, 1706))),
             ("swiglu_bwd_full", swiglu.swiglu_bwd_full_cuda,
              (("B128 L152 C384 H1024", 128, 152, 384, 1024), ("B4 L77 C384 H1024", 4, 77, 384, 1024),
               ("B8 L70 C128 H341", 8, 70, 128, 341)))):
@@ -717,10 +810,13 @@ def main() -> int:
     # ---- 1c. the film-layer backward at latent training's top and bottom levels ----
     film_grads = ("dx", "dscale", "dshift", "dgate", "dg1", "dg2", "d_dw_kernel", "d_dw_bias",
                   "d_vg_kernel", "d_vg_bias", "d_out_kernel", "d_out_bias")
-    for i, (label, Bt, Lt, zero_film) in enumerate((
-            ("B64 L1026 C128 H341 FiLM", 64, 1026, False), ("B64 L1026 zero FiLM", 64, 1026, True),
-            ("B64 L38 FiLM", 64, 38, False), ("B64 L38 zero FiLM", 64, 38, True))):
-        args, go = film_args(Bt, Lt, zero_film), rnd(Bt, Lt, 128)
+    for i, (label, Bt, Lt, zero_film, C) in enumerate((
+            ("B64 L1026 C128 H341 FiLM", 64, 1026, False, 128),
+            ("B64 L1026 zero FiLM", 64, 1026, True, 128),
+            ("B64 L38 FiLM", 64, 38, False, 128), ("B64 L38 zero FiLM", 64, 38, True, 128),
+            ("B16 L342 C256 H682 FiLM (widened)", 16, 342, False, 256),
+            ("B16 L342 C384 H1024 FiLM (widened)", 16, 342, False, 384))):
+        args, go = film_args(Bt, Lt, zero_film, C), rnd(Bt, Lt, C)
         got = film_layer.film_layer_bwd_cuda(*args, go)
         worst_bwd = check_grads(
             f"film_layer_bwd {label}", film_grads, got,
@@ -730,12 +826,13 @@ def main() -> int:
         check_rerun("film_layer_bwd", label, film_layer.film_layer_bwd_cuda, (*args, go), got)
         record("film_layer_bwd", label, i, cuda_ms(film_layer.film_layer_bwd_cuda, (*args, go)),
                backward_ms(film_layer.film_layer_plain, args, go), worst_bwd,
-               ffn_flops(Bt * Lt, 128, 341, 5, 9, 3), moved_bytes(*args, go, *got))
+               ffn_flops(Bt * Lt, C, int(C * 8 / 3), 5, 9, 3), moved_bytes(*args, go, *got))
 
     # ---- 1d. the prologue backward at the denoiser's training shape ----
     for i, (label, Bt, Lt, C) in enumerate((("B128 L152 C512 F3072", 128, 152, 512),
                                             ("B4 L77 C512 F3072", 4, 77, 512),
-                                            ("B128 L152 C384 F3072", 128, 152, 384))):
+                                            ("B128 L152 C384 F3072", 128, 152, 384),
+                                            ("B128 L152 C640 F3072 (widened)", 128, 152, 640))):
         args, go = prologue_args(Bt, Lt, C), rnd(Bt, Lt, 3072)
         got = film_qkv.film_qkv_bwd_cuda(*args, go)
         worst_bwd = check_grads(
@@ -862,9 +959,11 @@ def main() -> int:
     stray = [k for k in PROLOGUE_KERNELS if launches_infer[k]]
     if missing or stray:
         raise RuntimeError(f"the inference path never launched {missing} or launched {stray}")
-    if launches_infer["flash_attention"] != FLASH_PER_REQUEST * len(runs):
-        raise RuntimeError(f"{launches_infer['flash_attention']} flash attention launches in "
-                           f"{len(runs)} requests, not {FLASH_PER_REQUEST} each")
+    for name, per_request in (("flash_attention", FLASH_PER_REQUEST),
+                              ("swiglu", SWIGLU_PER_REQUEST), ("film_layer", FILM_PER_REQUEST)):
+        if launches_infer[name] != per_request * len(runs):
+            raise RuntimeError(f"{launches_infer[name]} {name} launches in {len(runs)} requests, "
+                               f"not {per_request} each")
     for guidance, wall, out_frames, outs in runs:
         check_request("request", guidance, wall, out_frames, outs)
     same = all(np.array_equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
@@ -879,12 +978,22 @@ def main() -> int:
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             wall, out_frames, outs = request(1.0, SEED + 1)
         prof.export_chrome_trace(str(Path(tmpdir) / "trace.json"))
-        busy_ms, flash_ms, n_flash = device_busy(Path(tmpdir) / "trace.json",
-                                                 "flash_attention_fwd_kernel")
+        trace = Path(tmpdir) / "trace.json"
+        busy_ms, flash_ms, n_flash = device_busy(trace, "flash_attention_fwd_kernel")
+        # the core kernel (and, where a request's SwiGLU splits its hidden
+        # dimension across CTAs, the reduction after it), by template flag
+        _, swiglu_ms, n_swiglu = device_busy(trace, "ffn_core_kernel<false", "ffn_reduce_kernel<false")
+        _, film_ms, n_film = device_busy(trace, "ffn_core_kernel<true", "ffn_reduce_kernel<true")
     check_request("request, under torch.profiler", 1.0, wall, out_frames, outs)
     log(f"that request on the device: busy {busy_ms:.2f} ms (kernels and copies, union), flash "
         f"attention {flash_ms:.2f} ms over {n_flash} kernels ({_build.launches['flash_attention']}"
-        f" launches counted) [{smi}]")
+        f" launches counted), SwiGLU {swiglu_ms:.2f} ms over {n_swiglu} kernels "
+        f"({_build.launches['swiglu']} launches counted), film layer {film_ms:.2f} ms over "
+        f"{n_film} kernels ({_build.launches['film_layer']} launches counted) [{smi}]")
+    if (_build.launches["swiglu"] != SWIGLU_PER_REQUEST or n_swiglu < SWIGLU_PER_REQUEST
+            or _build.launches["film_layer"] != FILM_PER_REQUEST or n_film < FILM_PER_REQUEST):
+        raise RuntimeError("the profiled request did not run its SwiGLU and film layers through "
+                           "the forward core")
     if n_flash != FLASH_PER_REQUEST or _build.launches["flash_attention"] != FLASH_PER_REQUEST:
         raise RuntimeError(f"the profiled request ran {n_flash} flash attention kernels, not "
                            f"{FLASH_PER_REQUEST}")
@@ -902,6 +1011,40 @@ def main() -> int:
         raise RuntimeError("the prologue request did not run through the prologue forward alone")
     del model, reference, sample
     torch.cuda.empty_cache()
+
+    # ---- 3b. 8 x 64 heads at L 300: the JAX gate holds but K9/K10's shared
+    # memory takes L <= 256, so inference normalises and rotates in torch and
+    # takes the flash attention (K7); training refuses before step 1 ----
+    from osu_dreamer_tpu_torch.models.diffusion.fit import check_attention_shape
+    from osu_dreamer_tpu_torch.nn.attention import RoPEAttention
+
+    attn = RoPEAttention(512, 8, 64, 512, torch.bfloat16).to(dev)
+    randomize_(attn, torch.Generator(device=dev).manual_seed(SEED + 5))
+    attn_f32 = RoPEAttention(512, 8, 64, 512, torch.float32).to(dev)
+    attn_f32.load_state_dict(attn.state_dict())
+    xa = rnd(2, 300, 512)
+    _build.reset_launches()
+    with torch.inference_mode():
+        got = attn(xa).float()
+        launched = dict(_build.launches)
+        with plain_ops():
+            plain_out, ref = attn(xa).float(), attn_f32(xa.float()).float()
+    ek, ep = (got - ref).abs(), (plain_out - ref).abs()
+    log(f"8 x 64 heads at B2 L300: flash attention launches {launched['flash_attention']}, fused "
+        f"attention {launched['fused_attention_fwd']}; vs f32 kernel mean {ek.mean().item():.4g} "
+        f"max {ek.max().item():.4g}, plain bf16 mean {ep.mean().item():.4g} max "
+        f"{ep.max().item():.4g}")
+    if (launched["flash_attention"] != 1 or launched["fused_attention_fwd"]
+            or not bool(torch.isfinite(got).all()) or not ek.mean() <= SLICE_MEAN_RATIO * ep.mean()
+            or not ek.max() <= SLICE_MAX_RATIO * ep.max()):
+        raise RuntimeError("8 x 64 heads at L 300 did not answer through K7 within tolerance")
+    try:
+        check_attention_shape(300, 8, 64, "cuda")
+    except NotImplementedError as e:
+        log(f"fit-denoiser at 8 x 64 heads, seq_len 300 refuses: {e}")
+    else:
+        raise RuntimeError("training at 8 x 64 heads and seq_len 300 was not refused")
+    del attn, attn_f32
 
     # ---- 4. full-width denoiser training through fit.run ----
     from osu_dreamer_tpu_torch.data.synth import write_latent_corpus

@@ -1,17 +1,21 @@
-// The gated conv-FFN core shared by the SwiGLU and film-layer kernels.
+// The wmma (mma.sync) conv-FFN tile pieces of the backward kernels: the
+// film-layer backward (film_layer_bwd.cu, K3) recomputes its forward with
+// ffn_dwconv, ffn_gate and ffn_out, and both backward kernels (K3 and
+// swiglu_bwd.cu, K5/K6) form their hidden tiles with ffn_hidden_tile. The
+// forwards (K2, K4) run on the TMA + wgmma core of ffn_core.cuh instead.
 //
 // One block owns T consecutive positions of one batch row. Everything between
 // the input read and the output write stays in shared memory:
 //
 //   ys (T, C)  depthwise-conv output            bf16
-//   hs (T, Hp) v * silu(g), then RMS-normalised  bf16
+//   hs (T, Hp) v * silu(g)                       bf16
 //
 // Both projections run on the tensor cores through wmma (mma.sync, bf16 in,
 // f32 accumulate). The weights are read straight from global memory, where
-// they stay resident in the 50 MB L2 across blocks; staging them through
-// shared memory with TMA and wgmma is later work.
+// they stay resident in the 50 MB L2 across blocks.
 //
-// Weight layout (prepared by the Python wrapper, ops/swiglu.py):
+// Weight layout (prepared by the Python wrapper, ops/swiglu.py
+// ``packed_bwd_weights``):
 //   wvg  (C, 2*Hp)  v columns in [0, Hp), g columns in [Hp, 2*Hp), zero padded
 //   bvg  (2*Hp)     the same split, zero padded
 //   wout (Hp, C)    zero rows past H
@@ -68,23 +72,6 @@ __device__ void ffn_gate(const bf16* ys, int lda, int C, const bf16* wvg, const 
       }
       __syncwarp();
     }
-  }
-}
-
-// In place: each of the T rows of hs scaled to unit RMS over its first H
-// columns (f32 statistics, eps 1e-6), rounded back to bf16.
-template <int T>
-__device__ void ffn_rms_rows(bf16* hs, int ldh, int H) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < T; t += kFfnWarps) {
-    bf16* row = hs + t * ldh;
-    float s = 0.f;
-    for (int c = lane; c < H; c += 32) {
-      const float h = ldf(row + c);
-      s += h * h;
-    }
-    const float inv = rsqrtf(warp_sum(s) / H + 1e-6f);
-    for (int c = lane; c < H; c += 32) row[c] = __float2bfloat16(ldf(row + c) * inv);
   }
 }
 

@@ -16,8 +16,9 @@
 //
 // Design. One block owns kFbE = 64 extended rows (T = 64 - 2r core rows plus
 // an r-row halo each side, the rows whose dY the transposed conv of the core
-// needs) of one batch row, and recomputes the forward there from x alone:
-// h1 on 64 + 2r rows, y, s and hn (bf16, rounded where the plain version
+// needs) of one batch row; 32 rows at C 256 and 16 at C 384, the widest
+// width the JAX package fuses (fb_rows), so that the row buffers fit shared
+// memory. It recomputes the forward there from x alone: h1 on E + 2r rows, y, s and hn (bf16, rounded where the plain version
 // rounds), o. Then, all in shared memory except dvg:
 //   block norm backward   do = n2 don - n2^3 o mean(don o), don = go (1+gate) g2
 //   pass 1 over 16-wide hidden tiles: dhn = do W_out^T and the row sum of dhn s
@@ -34,7 +35,8 @@
 //
 // Sums over rows (blocks run in no order): every per-column sum (the FiLM
 // grads per batch row, g1, g2, the conv taps and bias, both biases) leaves as
-// one f32 partial per block, in a fixed warp order; the wrapper sums them.
+// one f32 partial per block, the warps adding theirs in place in warp order;
+// the wrapper sums the blocks' partials.
 // The two weight products dW_vg = y^T dvg (C x 2H) and dW_out = hn^T do
 // (H x C), which the Pallas kernel forms in its own body, are a second and
 // third kernel here (csrc/gemm_tn.cuh): the row kernel writes y, hn and do of
@@ -55,12 +57,13 @@
 
 namespace odt {
 
-constexpr int kFbE = 64;           // extended rows per block
-constexpr int kFbRT = kFbE / 16;   // row fragments
 constexpr int kFbWarps = kFfnWarps;
 constexpr int kFbMaxK = 9;
-constexpr int kFbMaxCT = 2;        // dY column tiles per warp: C <= 16 * 8 * 2
 constexpr int kFbScr = 768;        // f32 per warp: three 16 x 16 tiles
+
+// extended rows per block: 64 up to C 128; the JAX package also fuses C 256
+// and 384, where 32 and 16 rows keep the row buffers in shared memory
+__host__ __device__ constexpr int fb_rows(int C) { return C <= 128 ? 64 : C <= 256 ? 32 : 16; }
 
 // slots of a block's partial row (C floats each; the conv taps take K, the
 // vg bias 2 Hp at the end)
@@ -70,7 +73,7 @@ struct FilmBwdSmem {
   int lda, ldh, nsum;
   size_t h1, ys, hs, fs, dos, scratch, part, rows, total;
   __host__ __device__ FilmBwdSmem(int C, int Hp, int K) {
-    const int r = K / 2;
+    const int r = K / 2, kFbE = fb_rows(C);
     lda = C + 8;
     ldh = Hp + 8;
     nsum = 4 + K;  // per-warp column sums of the last phase
@@ -81,7 +84,10 @@ struct FilmBwdSmem {
     dos = fs + align128((size_t)kFbE * C * sizeof(float));
     scratch = dos + align128((size_t)kFbE * lda * sizeof(bf16));
     part = scratch + align128((size_t)kFbWarps * kFbScr * sizeof(float));
-    rows = part + align128((size_t)kFbWarps * nsum * C * sizeof(float));
+    // the column partials, summed warp by warp in place (and pass 1's per-warp row sums)
+    const size_t np = (size_t)nsum * C > (size_t)kFbWarps * kFbE ? (size_t)nsum * C
+                                                                  : (size_t)kFbWarps * kFbE;
+    rows = part + align128(np * sizeof(float));
     total = rows + (size_t)(3 * kFbE + 2 * r) * sizeof(float);
   }
 };
@@ -99,6 +105,9 @@ film_layer_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
                       bf16* __restrict__ do_s, bf16* __restrict__ dvg_s, int L, int H, int Hp,
                       int K) {
   constexpr int C = CQ * 32;
+  constexpr int kFbE = fb_rows(C);                 // extended rows per block
+  constexpr int kFbRT = kFbE / 16;                 // row fragments
+  constexpr int kFbMaxCT = CQ <= 8 ? 2 : CQ / 4;   // dY column tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
   const FilmBwdSmem lay(C, Hp, K);
   const int lda = lay.lda, ldh = lay.ldh, nsum = lay.nsum;
@@ -208,21 +217,25 @@ film_layer_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
         if (core) pbo[q] += d;
       }
     }
+    // summed warp by warp, in warp order (a fixed order: reruns are
+    // bit-identical)
+    for (int w = 0; w < kFbWarps; ++w) {
+      if (warp == w) {
 #pragma unroll
-    for (int q = 0; q < CQ; ++q) {
-      const int c = lane + 32 * q;
-      ps[(warp * 3 + 0) * C + c] = pg[q];
-      ps[(warp * 3 + 1) * C + c] = p2[q];
-      ps[(warp * 3 + 2) * C + c] = pbo[q];
+        for (int q = 0; q < CQ; ++q) {
+          const int c = lane + 32 * q;
+          ps[0 * C + c] = (w ? ps[0 * C + c] : 0.f) + pg[q];
+          ps[1 * C + c] = (w ? ps[1 * C + c] : 0.f) + p2[q];
+          ps[2 * C + c] = (w ? ps[2 * C + c] : 0.f) + pbo[q];
+        }
+      }
+      __syncthreads();
     }
   }
-  __syncthreads();
   for (int idx = threadIdx.x; idx < 3 * C; idx += blockDim.x) {
     const int q = idx / C, c = idx % C;
-    float acc = 0.f;
-    for (int w = 0; w < kFbWarps; ++w) acc += ps[(w * 3 + q) * C + c];
     const int slot = q == 0 ? kDgate : (q == 1 ? kDg2 : kDbout);
-    pb[slot * C + c] = acc;
+    pb[slot * C + c] = ps[q * C + c];
   }
   __syncthreads();
 
@@ -392,26 +405,28 @@ film_layer_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
             __float2bfloat16(ldf(gob + p) + n1 * dxn[q] - n1 * n1 * n1 * xv[q] * m);
       }
     }
+    __syncthreads();  // pass 1's row sums are read; the region takes the partials
+    for (int w = 0; w < kFbWarps; ++w) {
+      if (warp == w) {
 #pragma unroll
-    for (int q = 0; q < CQ; ++q) {
-      const int c = lane + 32 * q;
-      float* w = ps + warp * nsum * C + c;
-      w[0 * C] = psh[q];
-      w[1 * C] = psc[q];
-      w[2 * C] = pg1[q];
-      w[3 * C] = pdb[q];
+        for (int q = 0; q < CQ; ++q) {
+          float* p = ps + lane + 32 * q;  // warp 0 writes, the others add in order
+          p[0 * C] = (w ? p[0 * C] : 0.f) + psh[q];
+          p[1 * C] = (w ? p[1 * C] : 0.f) + psc[q];
+          p[2 * C] = (w ? p[2 * C] : 0.f) + pg1[q];
+          p[3 * C] = (w ? p[3 * C] : 0.f) + pdb[q];
 #pragma unroll
-      for (int k = 0; k < kFbMaxK; ++k)
-        if (k < K) w[(4 + k) * C] = ptap[k][q];
+          for (int k = 0; k < kFbMaxK; ++k)
+            if (k < K) p[(4 + k) * C] = (w ? p[(4 + k) * C] : 0.f) + ptap[k][q];
+        }
+      }
+      __syncthreads();
     }
   }
-  __syncthreads();
   for (int idx = threadIdx.x; idx < nsum * C; idx += blockDim.x) {
     const int q = idx / C, c = idx % C;
-    float acc = 0.f;
-    for (int w = 0; w < kFbWarps; ++w) acc += ps[(w * nsum + q) * C + c];
     const int slot = q == 0 ? kDsh : q == 1 ? kDsc : q == 2 ? kDg1 : q == 3 ? kDdwb : kDdw + q - 4;
-    pb[slot * C + c] = acc;
+    pb[slot * C + c] = ps[q * C + c];
   }
 }
 
@@ -444,10 +459,11 @@ extern "C" int odt_film_layer_bwd(const void* x, const void* go, const void* sca
                                   void* dwout, int B, int L, int C, int H, int Hp, int K,
                                   int S_vg, int S_out, void* stream) {
   using namespace odt;
-  if (K > kFbMaxK || K % 2 == 0 || kFbE - 2 * (K / 2) <= 0 || Hp % 16 || H > Hp || H < 1)
+  const int E = fb_rows(C);
+  if (K > kFbMaxK || K % 2 == 0 || E - 2 * (K / 2) <= 0 || Hp % 16 || H > Hp || H < 1)
     return (int)cudaErrorInvalidValue;
   const FilmBwdSmem lay(C, Hp, K);
-  const int T = kFbE - 2 * (K / 2);
+  const int T = E - 2 * (K / 2);
   dim3 grid((L + T - 1) / T, B);
   cudaStream_t s = (cudaStream_t)stream;
   auto args = [&](auto fn) {
@@ -463,10 +479,11 @@ extern "C" int odt_film_layer_bwd(const void* x, const void* go, const void* sca
     case 64: err = args(launch_film_layer_bwd<2>); break;
     case 128: err = args(launch_film_layer_bwd<4>); break;
     case 256: err = args(launch_film_layer_bwd<8>); break;
+    case 384: err = args(launch_film_layer_bwd<12>); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const int R = grid.x * grid.y * kFbE;
+  const int R = grid.x * grid.y * E;
   err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)dvg_s, 2 * Hp, R, C, 2 * Hp, S_vg,
                        (float*)pvg, (float*)dwvg, s);
   if (err != cudaSuccess) return (int)err;

@@ -38,7 +38,9 @@
 // the column sums of dy (dshift) and dy xn (dscale, with xn in f32 as the
 // Pallas kernel takes it) and of g (db). dW = y^T g is csrc/gemm_tn.cuh's
 // split-K tensor-core product, and the block partials are summed in index
-// order by a small kernel.
+// order by a small kernel. Past C 512 (up to 1024, every width the JAX
+// `_prologue_ok` admits) the row kernel takes 32 rows a block and a warp up
+// to 8 dy column tiles (FqBwdWide), so its f32 dy rows fit shared memory.
 //
 // What bounds them on the H100: at B128 L152 C512 F3072 the forward's product
 // is 61.2 GFLOP against 162 MB of inputs and outputs (62 us vs 48 us: compute)
@@ -54,8 +56,7 @@ constexpr int kFqRows = 64;                   // rows per block
 constexpr int kFqRT = kFqRows / 16;           // row fragments
 constexpr int kFqWarps = 8;
 constexpr int kFqThreads = kFqWarps * 32;
-constexpr int kFqMaxV = 2;                    // 16-byte vectors per lane and row: C <= 512
-constexpr int kFqMaxCT = 4;                   // dy column tiles per warp: C <= 16 * 8 * 4
+constexpr int kFqMaxV = 4;                    // 16-byte vectors per lane and row: C <= 1024
 constexpr int kFqChunk = 64;                  // g columns per staged chunk (backward)
 constexpr int kFqLdg = kFqChunk + 8;
 
@@ -71,13 +72,13 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 // One row's y, computed by one warp: lane owns the 8-column vectors lane + 32 j.
 // bf16(bf16(bf16(bf16(x inv) bf16(1 + sc)) + sh) + add), inv from the f32 mean
 // of squares; -> inv. x values stay in xv for the caller.
+template <int MaxV>
 __device__ __forceinline__ float fq_row(const bf16* xr, const bf16* ar, const bf16* sc,
-                                        const bf16* sh, int C, bf16* yr,
-                                        float (&xv)[kFqMaxV][8]) {
+                                        const bf16* sh, int C, bf16* yr, float (&xv)[MaxV][8]) {
   const int lane = threadIdx.x & 31, nv = C / 8;
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < kFqMaxV; ++j) {
+  for (int j = 0; j < MaxV; ++j) {
     const int v = lane + 32 * j;
     if (v >= nv) break;
     const int4 raw = *reinterpret_cast<const int4*>(xr + v * 8);
@@ -90,7 +91,7 @@ __device__ __forceinline__ float fq_row(const bf16* xr, const bf16* ar, const bf
   }
   const float inv = rsqrtf(warp_sum(s) / C + 1e-6f);
 #pragma unroll
-  for (int j = 0; j < kFqMaxV; ++j) {
+  for (int j = 0; j < MaxV; ++j) {
     const int v = lane + 32 * j;
     if (v >= nv) break;
     const int4 ra = *reinterpret_cast<const int4*>(ar + v * 8);
@@ -198,17 +199,29 @@ film_qkv_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
 
 // ------------------------------------------------------------ backward ----
 
+// the backward's shape: rows per block, dy column tiles per warp (C <= 16 x
+// 8 x MaxCT) and 16-byte vectors per lane and row (C <= 256 MaxV). 64 rows
+// up to C 512; wider (to C 1024, as far as the JAX feasibility reaches) 32
+// rows, so that the f32 dy rows and the warps' partial sums fit shared memory
+template <int Rows, int MaxCT, int MaxV>
+struct FqBwdShape {
+  static constexpr int kRows = Rows, kRT = Rows / 16, kMaxCT = MaxCT, kMaxV = MaxV;
+};
+using FqBwdNarrow = FqBwdShape<64, 4, 2>;
+using FqBwdWide = FqBwdShape<32, 8, 4>;
+
 struct FqBwdSmem {
   size_t gbuf, dys, part, rows, total;
-  __host__ __device__ FqBwdSmem(int C) {
+  __host__ __device__ FqBwdSmem(int C, int R) {
     gbuf = 0;
-    dys = align128((size_t)2 * kFqRows * kFqLdg * sizeof(bf16));
-    part = dys + align128((size_t)kFqRows * C * sizeof(float));
+    dys = align128((size_t)2 * R * kFqLdg * sizeof(bf16));
+    part = dys + align128((size_t)R * C * sizeof(float));
     rows = part + align128((size_t)kFqWarps * 2 * C * sizeof(float));
-    total = rows + kFqRows * sizeof(float);
+    total = rows + R * sizeof(float);
   }
 };
 
+template <class Sh>
 __global__ void __launch_bounds__(kFqThreads)
 film_qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
                     const bf16* __restrict__ shift, const bf16* __restrict__ add,
@@ -216,8 +229,9 @@ film_qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
                     bf16* __restrict__ dx, bf16* __restrict__ dadd, bf16* __restrict__ y_s,
                     float* __restrict__ part_film, float* __restrict__ part_db, int L, int C,
                     int F) {
+  constexpr int kFqRows = Sh::kRows, kFqRT = Sh::kRT, kFqMaxCT = Sh::kMaxCT, kFqMaxV = Sh::kMaxV;
   extern __shared__ __align__(128) unsigned char smem[];
-  const FqBwdSmem lay(C);
+  const FqBwdSmem lay(C, kFqRows);
   bf16* gbuf = reinterpret_cast<bf16*>(smem + lay.gbuf);
   float* dys = reinterpret_cast<float*>(smem + lay.dys);
   float* ps = reinterpret_cast<float*>(smem + lay.part);
@@ -405,15 +419,21 @@ extern "C" int odt_film_qkv_bwd(const void* x, const void* scale, const void* sh
                                 void* part_w, void* dw, void* db, void* film, int B, int L, int C,
                                 int F, int S, void* stream) {
   using namespace odt;
-  if (B < 1 || L < 1 || C % 64 || C > 16 * kFqWarps * kFqMaxCT || F % kFqChunk || S < 1)
+  if (B < 1 || L < 1 || C % 64 || C > 1024 || F % kFqChunk || S < 1)
     return (int)cudaErrorInvalidValue;
-  const FqBwdSmem lay(C);
-  const int nT = (L + kFqRows - 1) / kFqRows;
+  // the rows per block follow C (ops/film_qkv.py bwd_rows)
+  const int rows = C <= 512 ? FqBwdNarrow::kRows : FqBwdWide::kRows;
+  const FqBwdSmem lay(C, rows);
+  const int nT = (L + rows - 1) / rows;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch(film_qkv_bwd_kernel, dim3(nT, B), dim3(kFqThreads), lay.total, s,
-                           (const bf16*)x, (const bf16*)scale, (const bf16*)shift,
-                           (const bf16*)add, (const bf16*)w, (const bf16*)g, (bf16*)dx,
-                           (bf16*)dadd, (bf16*)y_s, (float*)part_film, (float*)part_db, L, C, F);
+  auto row_pass = [&](auto kernel) {
+    return launch(kernel, dim3(nT, B), dim3(kFqThreads), lay.total, s, (const bf16*)x,
+                  (const bf16*)scale, (const bf16*)shift, (const bf16*)add, (const bf16*)w,
+                  (const bf16*)g, (bf16*)dx, (bf16*)dadd, (bf16*)y_s, (float*)part_film,
+                  (float*)part_db, L, C, F);
+  };
+  cudaError_t err = C <= 512 ? row_pass(film_qkv_bwd_kernel<FqBwdNarrow>)
+                             : row_pass(film_qkv_bwd_kernel<FqBwdWide>);
   if (err != cudaSuccess) return (int)err;
   err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)g, F, B * L, C, F, S, (float*)part_w,
                        (float*)dw, s);

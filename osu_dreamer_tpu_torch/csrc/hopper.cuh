@@ -106,6 +106,18 @@ __device__ __forceinline__ void named_barrier() {
   asm volatile("bar.sync %0, %1;" ::"n"(kId), "n"(kCount) : "memory");
 }
 
+// hand registers between the warpgroups of a block (all 128 threads of a
+// warpgroup execute it): a producer gives up what its loads do not need and
+// the consumers take it for their accumulators
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // byte offset of bf16 element (row, col) in a 64-column tile written by TMA
 // with 128-byte swizzle
 __device__ __forceinline__ uint32_t swizzle128(int row, int col) {
@@ -188,6 +200,54 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], const uint
 
 #undef ODT_WGMMA_D32
 #undef ODT_WGMMA_D32_OPERANDS
+
+#define ODT_WGMMA_D64                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "               \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "      \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "      \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "      \
+  "%60, %61, %62, %63}"
+#define ODT_WGMMA_D64_OPERANDS                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),          \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),        \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),        \
+  "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),        \
+  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),        \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),        \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// D (64 x 128 f32, 64 registers a thread) = A B (+ D if scale_d), bf16 in;
+// A (64 x 16) and B (16 x 128) from shared memory, both K-major: B is a
+// 128-row K-major tile, i.e. two 64-row swizzled tiles one after the other
+// (SBO 1024 walks all sixteen 8-row groups). Thread t holds d[4j + e] at
+// row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ODT_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}"
+      : ODT_WGMMA_D64_OPERANDS
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with A from registers (the accumulator layout of a 64 x 16 slab,
+// as in wgmma_m64n64k16_rs_bt) and B K-major (no transpose)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t* a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ODT_WGMMA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
+      : ODT_WGMMA_D64_OPERANDS
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#undef ODT_WGMMA_D64
+#undef ODT_WGMMA_D64_OPERANDS
 
 // ---- host: tensor maps ----
 

@@ -50,7 +50,9 @@
 // read three times per block and W_out twice, so a block takes as many rows
 // as shared memory allows: 80 (76 core rows at r = 2, two blocks per 152-row
 // sequence); only y, the output gradient rows and small per-warp tiles live
-// there (about 213 KB at C = 512; x is read from L2 for the conv). The
+// there (about 213 KB at C = 512; x is read from L2 for the conv). Past C
+// 512 (K6 at C 640, where the JAX partial backward still fits) a block takes
+// 48 rows and a warp 80 columns of dY (SbWide). The
 // weight fragments stream from L2 straight into registers, the next
 // k-step's in flight while this one's products run. A first design on
 // wmma/mma.sync; staging the weights in shared memory (TMA, wgmma) is later
@@ -60,28 +62,38 @@
 
 namespace odt {
 
-constexpr int kSbE = 80;             // extended rows per block: core rows + 2r halo
-constexpr int kSbRT = kSbE / 16;     // row fragments
 constexpr int kSbWarps = kFfnWarps;  // 8
-constexpr int kSbCT = 4;             // dY column tiles per warp: C <= 16 * 8 * 4
 constexpr int kSbMaxK = 9;
 
-constexpr int kSbScr = (kSbRT > 3 ? kSbRT : 3) * 256;  // f32 per warp: 3 tiles, or kSbE x 16
+// the kernel's shape: E extended rows per block (core rows + 2r halo) and
+// CT dY column tiles per warp (C <= 16 * 8 * CT). 80 rows up to C 512; at C
+// 640 (K6 only) 48 rows, so that the two row buffers fit shared memory and
+// the 5 x 3 dY fragments a warp's registers
+template <int E, int CT>
+struct SbShape {
+  static constexpr int kE = E;
+  static constexpr int kRT = E / 16;                          // row fragments
+  static constexpr int kCT = CT;
+  static constexpr int kScr = (kRT > 3 ? kRT : 3) * 256;      // f32 per warp: 3 tiles, or E x 16
+};
+using SbNarrow = SbShape<80, 4>;
+using SbWide = SbShape<48, 5>;
 
 struct SwigluBwdSmem {
   int lda;
   size_t ys, gos, scratch, stats, rows, total;
-  __host__ __device__ SwigluBwdSmem(int C) {
+  __host__ __device__ SwigluBwdSmem(int C, int E, int scr) {
     lda = C + 8;  // bf16 rows
     ys = 0;
-    gos = ys + align128((size_t)kSbE * lda * sizeof(bf16));
-    scratch = gos + align128((size_t)kSbE * lda * sizeof(bf16));
-    stats = scratch + align128((size_t)kSbWarps * kSbScr * sizeof(float));
-    rows = stats + align128((size_t)kSbWarps * kSbE * 2 * sizeof(float));
-    total = rows + 2 * kSbE * sizeof(float);
+    gos = ys + align128((size_t)E * lda * sizeof(bf16));
+    scratch = gos + align128((size_t)E * lda * sizeof(bf16));
+    stats = scratch + align128((size_t)kSbWarps * scr * sizeof(float));
+    rows = stats + align128((size_t)kSbWarps * E * 2 * sizeof(float));
+    total = rows + 2 * E * sizeof(float);
   }
 };
 
+template <class Sh>
 __global__ void __launch_bounds__(kFfnThreads)
 swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
                   const bf16* __restrict__ dww, const bf16* __restrict__ dwb,
@@ -95,8 +107,9 @@ swiglu_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go,
   // K5 passes y_s, hn_s and go_s (block-major, kSbE rows a block) instead of
   // dvg, hn and y
   const bool full = y_s != nullptr;
+  constexpr int kSbE = Sh::kE, kSbRT = Sh::kRT, kSbCT = Sh::kCT, kSbScr = Sh::kScr;
   extern __shared__ __align__(128) unsigned char smem[];
-  const SwigluBwdSmem lay(C);
+  const SwigluBwdSmem lay(C, kSbE, kSbScr);
   const int lda = lay.lda;
   bf16* ys = reinterpret_cast<bf16*>(smem + lay.ys);
   bf16* gos = reinterpret_cast<bf16*>(smem + lay.gos);
@@ -316,18 +329,24 @@ extern "C" int odt_swiglu_bwd(const void* x, const void* go, const void* dww, co
                               void* dbvg_part, void* dbout_part, void* dvg_scratch, int B, int L,
                               int C, int H, int Hp, int K, void* stream) {
   using namespace odt;
-  if (K > kSbMaxK || K % 2 == 0 || kSbE - 2 * (K / 2) <= 0 || C % 32 ||
-      C > 16 * kSbWarps * kSbCT || Hp % 16)
-    return (int)cudaErrorInvalidValue;
-  const SwigluBwdSmem lay(C);
-  const int T = kSbE - 2 * (K / 2);
-  dim3 grid((L + T - 1) / T, B);
-  return (int)launch(swiglu_bwd_kernel, grid, dim3(kFfnThreads), lay.total, (cudaStream_t)stream,
-                     (const bf16*)x, (const bf16*)go, (const bf16*)dww, (const bf16*)dwb,
-                     (const bf16*)wvg, (const bf16*)bvg, (const bf16*)wout, (bf16*)dx, (bf16*)dvg,
-                     (bf16*)hn, (bf16*)y, (float*)ddw_part, (float*)ddwb_part, (float*)dbvg_part,
-                     (float*)dbout_part, (bf16*)dvg_scratch, (bf16*)nullptr, (bf16*)nullptr,
-                     (bf16*)nullptr, L, C, H, Hp, K);
+  auto go_k6 = [&](auto shape) {
+    using Sh = decltype(shape);
+    if (K > kSbMaxK || K % 2 == 0 || Sh::kE - 2 * (K / 2) <= 0 || C % 32 ||
+        C > 16 * kSbWarps * Sh::kCT || Hp % 16)
+      return (int)cudaErrorInvalidValue;
+    const SwigluBwdSmem lay(C, Sh::kE, Sh::kScr);
+    const int T = Sh::kE - 2 * (K / 2);
+    dim3 grid((L + T - 1) / T, B);
+    return (int)launch(swiglu_bwd_kernel<Sh>, grid, dim3(kFfnThreads), lay.total,
+                       (cudaStream_t)stream, (const bf16*)x, (const bf16*)go, (const bf16*)dww,
+                       (const bf16*)dwb, (const bf16*)wvg, (const bf16*)bvg, (const bf16*)wout,
+                       (bf16*)dx, (bf16*)dvg, (bf16*)hn, (bf16*)y, (float*)ddw_part,
+                       (float*)ddwb_part, (float*)dbvg_part, (float*)dbout_part,
+                       (bf16*)dvg_scratch, (bf16*)nullptr, (bf16*)nullptr, (bf16*)nullptr, L, C, H,
+                       Hp, K);
+  };
+  // the rows per block follow C (ops/swiglu.py bwd_rows)
+  return C <= 512 ? go_k6(SbNarrow{}) : go_k6(SbWide{});
 }
 
 // K5. The row kernel's outputs as K6's, minus dvg/hn/y; the scratch dvg_s
@@ -344,16 +363,17 @@ extern "C" int odt_swiglu_bwd_full(const void* x, const void* go, const void* dw
                                    int C, int H, int Hp, int K, int S_vg, int S_out,
                                    void* stream) {
   using namespace odt;
-  if (K > kSbMaxK || K % 2 == 0 || kSbE - 2 * (K / 2) <= 0 || C % 32 ||
-      C > 16 * kSbWarps * kSbCT || Hp % 16 || H > Hp || H < 1)
+  using Sh = SbNarrow;
+  if (K > kSbMaxK || K % 2 == 0 || Sh::kE - 2 * (K / 2) <= 0 || C % 32 ||
+      C > 16 * kSbWarps * Sh::kCT || Hp % 16 || H > Hp || H < 1)
     return (int)cudaErrorInvalidValue;
-  const SwigluBwdSmem lay(C);
-  const int T = kSbE - 2 * (K / 2);
+  const SwigluBwdSmem lay(C, Sh::kE, Sh::kScr);
+  const int T = Sh::kE - 2 * (K / 2);
   dim3 grid((L + T - 1) / T, B);
-  const int nblk = grid.x * grid.y, R = nblk * kSbE;
+  const int nblk = grid.x * grid.y, R = nblk * Sh::kE;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch(
-      swiglu_bwd_kernel, grid, dim3(kFfnThreads), lay.total, s, (const bf16*)x, (const bf16*)go,
+      swiglu_bwd_kernel<Sh>, grid, dim3(kFfnThreads), lay.total, s, (const bf16*)x, (const bf16*)go,
       (const bf16*)dww, (const bf16*)dwb, (const bf16*)wvg, (const bf16*)bvg, (const bf16*)wout,
       (bf16*)dx, (bf16*)nullptr, (bf16*)nullptr, (bf16*)nullptr, (float*)ddw_part,
       (float*)ddwb_part, (float*)dbvg_part, (float*)dbout_part, (bf16*)dvg_s, (bf16*)y_s,

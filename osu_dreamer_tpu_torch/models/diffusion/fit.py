@@ -6,8 +6,9 @@ cut to the training window), stacked as a batch and scored with the
 distance-marching losses on the EMA weights; the checkpoint monitor is
 val/loss. Out of scope, raising: data/tensor/sequence parallelism (a
 ``parallel`` block other than one device), ``backbone.dropout > 0``, and
-windows where ``fused_attention_fits`` fails (no attention backward kernel
-there, as in the JAX package).
+windows that ``attention_route`` sends off the fused attention (no attention
+backward kernel there: beyond the JAX ``fused_attention_fits``, and on the
+card beyond the kernels' head dim 64 and L <= 256).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from ...data.pipeline import batched, hold_out_mapsets, latent_windows, prefetch
 from ...nn.schedule import lr_at
-from ...ops.fused_attention import fused_attention_fits
+from ...ops.fused_attention import MAX_KERNEL_LEN, attention_route
 from ...train.loop import FitArgs, Stage, check_single_device, fit
 from ...train.state import TrainState
 from ...utils import dataclass_from_dict, load_yaml_config
@@ -40,6 +41,19 @@ class DiffusionDataArgs:
     max_val_frac: float = 0.3
     max_per_map: int = 1
     shuffle_buffer: int = 512
+
+
+def check_attention_shape(seq_len: int, n_heads: int, head_dim: int, device_type: str) -> None:
+    """refuse a training window that ``attention_route`` sends off the fused
+    attention: there is no attention backward at that shape (beyond the JAX
+    ``fused_attention_fits``, and on the card beyond the kernels' head dim 64
+    and L <= MAX_KERNEL_LEN, where the route itself raises for the head dim)"""
+    if attention_route(seq_len, n_heads, head_dim, device_type) != "fused":
+        raise NotImplementedError(
+            f"seq_len {seq_len} with {n_heads} x {head_dim} heads is beyond "
+            "fused_attention_fits or, on the card, the fused attention kernels' range (head dim "
+            f"64, L <= {MAX_KERNEL_LEN}): there is no attention backward at that shape"
+        )
 
 
 def run(
@@ -66,11 +80,7 @@ def run(
         raise NotImplementedError("sequence parallelism (backbone.seq_axis) is not ported")
     if bb.dropout > 0:
         raise NotImplementedError("backbone.dropout > 0 is not ported")
-    if not fused_attention_fits(data_args.seq_len, bb.n_heads, bb.head_dim):
-        raise NotImplementedError(
-            f"seq_len {data_args.seq_len} with {bb.n_heads} x {bb.head_dim} heads is beyond "
-            "fused_attention_fits: there is no attention backward at that length"
-        )
+    check_attention_shape(data_args.seq_len, bb.n_heads, bb.head_dim, device.type)
 
     train_sets, val_sets = hold_out_mapsets(
         Path(data_args.data_dir), "*.latent.npz", data_args.max_val_count,

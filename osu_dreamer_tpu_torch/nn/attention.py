@@ -3,14 +3,15 @@
 Counterpart of osu_dreamer_tpu/nn/attention.py (``rope``, ``RoPEAttention``):
 packed qkv projection (optionally after a pre-norm FiLM and an added
 stream), per-head RMS norm of q and k with learned gains, rotary position
-embedding, softmax attention, output projection. As in the JAX package,
-lengths where ``fused_attention_fits`` holds go straight off the packed
-projection through ``fused_norm_rope_attention`` (ops/fused_attention.py,
-forward and backward kernels); longer ones normalise and rotate here and take
-the forward-only ``long_flash_attention`` (ops/long_attention.py). On the
-FiLM path the norm, FiLM, add and qkv projection run as one fused prologue
-(ops/film_qkv.py) where ``prologue_ok`` holds, the JAX package's opt-in
-setting ``OSU_DREAMER_FUSED_PROLOGUE=1``.
+embedding, softmax attention, output projection. ``attention_route``
+(ops/fused_attention.py) decides: where the JAX ``fused_attention_fits``
+holds (and, on the card, the kernels take the shape) the attention goes
+straight off the packed projection through ``fused_norm_rope_attention``
+(forward and backward kernels); elsewhere it normalises and rotates here and
+takes the forward-only ``long_flash_attention`` (ops/long_attention.py). On
+the FiLM path the norm, FiLM, add and qkv projection run as one fused
+prologue (ops/film_qkv.py) where ``prologue_ok`` holds: the JAX package's
+opt-in setting ``OSU_DREAMER_FUSED_PROLOGUE=1`` and its feasibility rule.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import os
 import torch
 from torch import nn
 
-from ..ops.film_qkv import film_qkv
-from ..ops.fused_attention import fused_attention_fits, fused_norm_rope_attention, rope
+from ..ops.film_qkv import feasible_bwd_tile, feasible_fwd_tile, film_qkv
+from ..ops.fused_attention import attention_route, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
 from .blocks import Dense
 from .norm import rms_norm
@@ -29,10 +30,12 @@ from .norm import rms_norm
 
 def prologue_ok(C: int, F: int) -> bool:
     """the JAX ``_prologue_ok`` (osu_dreamer_tpu/nn/attention.py), read on
-    every call: ``OSU_DREAMER_FUSED_PROLOGUE=1`` and lane-aligned widths. Its
-    TPU backend, GSPMD and VMEM-footprint tests have no counterpart here"""
+    every call: ``OSU_DREAMER_FUSED_PROLOGUE=1``, lane-aligned widths and its
+    forward and backward footprints (the copied rule). Its TPU backend and
+    GSPMD tests have no counterpart here"""
     return os.environ.get("OSU_DREAMER_FUSED_PROLOGUE", "0") == "1" and C % 128 == 0 \
-        and F % 128 == 0
+        and F % 128 == 0 and feasible_fwd_tile(C, F) is not None \
+        and feasible_bwd_tile(C, F) is not None
 
 
 class RoPEAttention(nn.Module):
@@ -77,7 +80,7 @@ class RoPEAttention(nn.Module):
             if add is not None:
                 h = h + add.to(dt)
             qkv = self.qkv(h)
-        if fused_attention_fits(L, H, D):
+        if attention_route(L, H, D, x.device.type) == "fused":
             return self.out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
         q, k, v = qkv.split(H * D, dim=-1)
         q = rope(rms_norm(q.reshape(B, L, H, D), self.q_gamma))

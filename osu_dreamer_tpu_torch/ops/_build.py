@@ -43,8 +43,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "odt_resonate": [_P] * 8 + [_I, _I, _P],
-    "odt_film_layer_fwd": [_P] * 13 + [_I] * 6 + [_P],
-    "odt_swiglu_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    "odt_film_layer_fwd": [_P] * 14 + [_I] * 8 + [_P],
+    "odt_swiglu_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    "odt_ffn_weight_maps": [_P, _P, _I, _I, _P],
     "odt_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_swiglu_bwd": [_P] * 16 + [_I] * 6 + [_P],
     "odt_fused_attention_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],

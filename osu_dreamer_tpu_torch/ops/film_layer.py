@@ -8,11 +8,15 @@ the Pallas ``_fwd_kernel`` and ``_bwd_kernel``). Per position:
     h   = SwiGLU(h)
     out = x + rms(h) * g2 * (1 + gate)
 
-``film_layer`` dispatches by device: a CUDA tensor goes to
-``FilmLayerFunction``, whose forward is the kernel in ``csrc/film_layer.cu``
-(K2) and whose backward is ``csrc/film_layer_bwd.cu`` (K3) (bf16 only;
-anything else raises); a CPU tensor to ``film_layer_plain``, differentiated
-by autograd.
+``film_layer`` dispatches by device and decides the route before any
+launch: a CUDA tensor whose width the forward core takes
+(ops/swiglu.py ``fwd_kernel_fits``) goes to ``FilmLayerFunction``, whose
+forward is the kernel in ``csrc/film_layer.cu`` (K2, on the core of
+``csrc/ffn_core.cuh``) and whose backward is ``csrc/film_layer_bwd.cu`` (K3)
+where ``bwd_kernel_fits`` holds, else autograd of ``film_layer_plain`` (bf16
+only; anything else raises); any other CUDA input runs ``film_layer_plain``
+on the card, and a CPU tensor ``film_layer_plain``, both differentiated by
+autograd.
 """
 
 from __future__ import annotations
@@ -21,11 +25,26 @@ import torch
 
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
-from .swiglu import check_ffn_shapes, gemm_splits, pack_ffn_weights, swiglu_plain
+from .swiglu import (
+    check_ffn_shapes, ffn_fwd_inputs, fwd_kernel_fits, gemm_splits, packed_bwd_weights,
+    swiglu_plain,
+)
 
-# extended rows per block of the backward kernel (csrc/film_layer_bwd.cu
-# kFbE): each block owns BWD_ROWS - 2r core rows
-BWD_ROWS = 64
+# the widths K3 takes: every width the JAX package fuses (C 128, 256, 384)
+# and the narrow ones below
+BWD_WIDTHS = (32, 64, 128, 256, 384)
+
+
+def bwd_rows(C: int) -> int:
+    """extended rows per block of the backward kernel (csrc/film_layer_bwd.cu
+    ``fb_rows``: 64, or 32 at C 256 and 16 at C 384 so that its row buffers
+    fit shared memory); each block owns bwd_rows - 2r core rows"""
+    return 64 if C <= 128 else 32 if C <= 256 else 16
+
+
+def bwd_kernel_fits(C: int, K: int) -> bool:
+    """whether the film-layer backward kernel (K3) takes width C and K taps"""
+    return C in BWD_WIDTHS and K % 2 == 1 and K <= 9
 
 
 def film_layer_plain(
@@ -67,19 +86,17 @@ def film_layer_cuda(
     x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
 ) -> torch.Tensor:
     """K2, csrc/film_layer.cu: bf16 (B, L, C) -> (B, L, C)"""
-    check_cuda("x", x, torch.bfloat16, 3)
-    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    pack, nc, slices, scratch = ffn_fwd_inputs(
+        x, (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias), film=True)
     B, L, C = x.shape
-    K = dw_kernel.shape[0]
     film = _film_inputs(x, scale, shift, gate, g1, g2)
-    weights, H, Hp = pack_ffn_weights(
-        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
-    )
     out = torch.empty_like(x)
     run(
         "odt_film_layer_fwd", "film_layer", x.device,
-        x.data_ptr(), *(t.data_ptr() for t in film + weights), out.data_ptr(),
-        B, L, C, H, Hp, K,
+        x.data_ptr(), *(t.data_ptr() for t in film), pack.dww.data_ptr(), pack.dwb.data_ptr(),
+        pack.bvg.data_ptr(), pack.bout.data_ptr(), pack.weight_maps(), out.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch),
+        B, L, C, pack.H, pack.Hp, dw_kernel.shape[0], slices, nc,
     )
     return out
 
@@ -105,19 +122,19 @@ def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_ke
     check_cuda("x", x, torch.bfloat16, 3)
     check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
     B, L, C = x.shape
-    if C not in (32, 64, 128, 256):
-        raise ValueError(f"channels {C} must be 32, 64, 128 or 256 for the backward kernel")
+    if not bwd_kernel_fits(C, dw_kernel.shape[0]):
+        raise ValueError(f"channels {C} must be one of {BWD_WIDTHS} for the backward kernel")
     go = grad_out.to(torch.bfloat16).contiguous()
     if go.shape != x.shape or go.device != x.device:
         raise ValueError(f"grad_out must be {tuple(x.shape)} on {x.device}, "
                          f"got {tuple(go.shape)} on {go.device}")
     K = dw_kernel.shape[0]
     film = _film_inputs(x, scale, shift, gate, g1, g2)
-    weights, H, Hp = pack_ffn_weights(
-        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
-    )
-    nT = -(-L // (BWD_ROWS - 2 * (K // 2)))
-    R = B * nT * BWD_ROWS
+    weights, H, Hp = packed_bwd_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                                        x.dtype)
+    weights = [*weights, out_bias.to(x.dtype).contiguous()]
+    nT = -(-L // (bwd_rows(C) - 2 * (K // 2)))
+    R = B * nT * bwd_rows(C)
     dev = x.device
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -146,7 +163,8 @@ def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_ke
 
 
 class FilmLayerFunction(torch.autograd.Function):
-    """K2 forward, K3 backward"""
+    """K2 forward; K3 backward where ``bwd_kernel_fits``, else autograd of
+    the plain version (the JAX reference's vjp)"""
 
     @staticmethod
     def forward(ctx, x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
@@ -159,19 +177,24 @@ class FilmLayerFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         inputs = ctx.saved_tensors
-        grads = film_layer_bwd_cuda(*inputs, grad_out)
+        C, K = inputs[0].shape[-1], inputs[6].shape[0]
+        bwd = film_layer_bwd_cuda if bwd_kernel_fits(C, K) else film_layer_bwd_plain
+        grads = bwd(*inputs, grad_out)
         return tuple(g.to(t.dtype) for g, t in zip(grads, inputs))
 
 
 def film_layer(
     x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
 ) -> torch.Tensor:
-    """film layer: kernels (forward and backward) for CUDA tensors, the plain
-    version (autograd) for CPU tensors"""
+    """film layer: on the card the kernels where ``fwd_kernel_fits`` (the
+    backward K3 where ``bwd_kernel_fits``), elsewhere the plain version; the
+    plain version (autograd) for CPU tensors"""
     args = (x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
             out_kernel, out_bias)
     if x.is_cuda:
-        return FilmLayerFunction.apply(*args)
+        if fwd_kernel_fits(x.shape[-1], dw_kernel.shape[0], out_kernel.shape[0]):
+            return FilmLayerFunction.apply(*args)
+        return film_layer_plain(*args)
     if x.device.type != "cpu":
         raise ValueError(f"film_layer: no implementation for device {x.device}")
     return film_layer_plain(*args)

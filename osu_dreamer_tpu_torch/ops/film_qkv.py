@@ -21,14 +21,45 @@ from __future__ import annotations
 import torch
 
 from ._build import check_cuda, run
-from .swiglu import gemm_splits
+from .swiglu import gemm_splits, shrink_tile_to_budget
 
-# rows per block of both kernels (csrc/film_qkv.cu kFqRows); a block never
-# crosses a batch row
+# rows per block of the forward kernel (csrc/film_qkv.cu kFqRows); a block
+# never crosses a batch row
 ROWS = 64
+# the widest C the kernels take (csrc/film_qkv.cu kFqMaxV, FqBwdWide)
+MAX_C = 1024
 # blocks the forward aims for: about two waves on the card's 132 SMs (short
 # inputs split the projection's columns across blocks)
 _FWD_BLOCKS = 2 * 132
+
+
+def bwd_rows(C: int) -> int:
+    """rows per block of the backward's row kernel (csrc/film_qkv.cu
+    FqBwdNarrow / FqBwdWide)"""
+    return 64 if C <= 512 else 32
+
+
+# The JAX prologue's feasibility rule, copied from osu_dreamer_tpu/ops/
+# film_qkv.py (``_fwd_vmem_bytes``, ``_bwd_vmem_bytes``) with the shared
+# budget search (ops/swiglu.py ``shrink_tile_to_budget``), so that both
+# packages take the fused prologue at the same widths.
+_DEFAULT_TILE = 512
+
+
+def _fwd_vmem_bytes(C: int, F: int, tile: int) -> int:
+    return 2 * (C * F + F) + tile * (10 * C + 6 * F)
+
+
+def _bwd_vmem_bytes(C: int, F: int, tile: int) -> int:
+    return 2 * (C * F) + 4 * (C * F + F + 2 * C) + tile * (18 * C + 6 * F)
+
+
+def feasible_fwd_tile(C: int, F: int, tile: int = _DEFAULT_TILE) -> int | None:
+    return shrink_tile_to_budget(lambda t: _fwd_vmem_bytes(C, F, t), tile)
+
+
+def feasible_bwd_tile(C: int, F: int, tile: int = _DEFAULT_TILE) -> int | None:
+    return shrink_tile_to_budget(lambda t: _bwd_vmem_bytes(C, F, t), tile)
 
 
 def film_qkv_plain(
@@ -63,8 +94,8 @@ def _check_inputs(x, scale, shift, add, kernel, bias) -> list[torch.Tensor]:
     check_cuda("x", x, torch.bfloat16, 3)
     B, L, C = x.shape
     F = kernel.shape[-1]
-    if C % 64 or C > 512:
-        raise ValueError(f"channels {C} must be a multiple of 64 and at most 512")
+    if C % 64 or C > MAX_C:
+        raise ValueError(f"channels {C} must be a multiple of 64 and at most {MAX_C}")
     if F % 128:
         raise ValueError(f"projection width {F} must be a multiple of 128")
     shapes = {"scale": (scale, (B, C)), "shift": (shift, (B, C)), "add": (add, (B, L, C)),
@@ -110,7 +141,7 @@ def film_qkv_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out):
         g = g.clone()
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    nblk = B * -(-L // ROWS)
+    nblk = B * -(-L // bwd_rows(C))
     splits = gemm_splits(B * L, C, F)
     dx, dadd = torch.empty_like(x), torch.empty_like(x)
     y_s = torch.empty(B * L, C, dtype=torch.bfloat16, device=dev)  # the recomputed y

@@ -39,6 +39,26 @@ def fused_attention_fits(L: int, n_heads: int, head_dim: int) -> bool:
     return HD > 0 and L * HD <= MAX_FUSED_LEN * 1024 and head_dim % 2 == 0 and HD % 128 == 0
 
 
+def attention_route(L: int, n_heads: int, head_dim: int, device_type: str) -> str:
+    """where RoPE attention over L positions runs, decided before any launch:
+    "fused" (``fused_norm_rope_attention``: K9 forward, K10 backward on the
+    card) or "long" (norm and RoPE in torch, then the forward-only
+    ``long_flash_attention``, K7 on the card). Off the card the JAX gate
+    alone decides, as before. On the card the fused route also needs the
+    kernels to take the shape (head dim 64, L <= MAX_KERNEL_LEN); every
+    kernel takes head dim 64 only, so another head dim raises here, naming
+    it, before any kernel wrapper sees it"""
+    fits = fused_attention_fits(L, n_heads, head_dim)
+    if device_type != "cuda":
+        return "fused" if fits else "long"
+    if head_dim != HEAD_DIM:
+        raise ValueError(
+            f"head dim {head_dim}: the attention kernels take head dim {HEAD_DIM} only (the "
+            f"fused norm + RoPE attention K9/K10 at L <= {MAX_KERNEL_LEN}, the flash attention "
+            "K7 at any L)")
+    return "fused" if fits and L <= MAX_KERNEL_LEN else "long"
+
+
 def rope_tables(L: int, D: int, device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin), each (L, D/2) in ``dtype``: f32 angles rounded once"""
     inv_freq = 10000.0 ** (torch.arange(0, D, 2, dtype=torch.float32, device=device) / -D)

@@ -8,39 +8,64 @@ backward ``_partial_bwd_kernel``). The block is
     x -> depthwise conv (2r+1 taps, zero SAME padding) -> (C, 2H) projection
       -> v * silu(g) -> RMS norm over H (f32 statistics) -> (H, C) projection
 
-``swiglu`` dispatches by device: a CUDA tensor goes to a
-``torch.autograd.Function`` whose forward is the kernel in ``csrc/swiglu.cu``
-(K4) and whose backward is chosen as the JAX ``_bwd`` chooses it: where
+``swiglu`` dispatches by device and decides the route before any launch. A
+CUDA tensor whose width the forward kernel takes (``fwd_kernel_fits``) goes to
+a ``torch.autograd.Function`` whose forward is the kernel in
+``csrc/swiglu.cu`` (K4, on the core of ``csrc/ffn_core.cuh``) and whose
+backward follows the JAX ``_bwd`` (``bwd_route``): where
 ``bwd_kernel_feasible`` holds, ``odt_swiglu_bwd_full`` in
-``csrc/swiglu_bwd.cu`` (K5, every weight gradient in the call), elsewhere
-``odt_swiglu_bwd`` (K6) plus the two big weight products as torch matmuls
-(bf16 only; anything else raises); a CPU tensor to ``swiglu_plain``,
+``csrc/swiglu_bwd.cu`` (K5, every weight gradient in the call); where the
+JAX partial backward fits, ``odt_swiglu_bwd`` (K6) plus the two big weight
+products as torch matmuls; elsewhere autograd of ``swiglu_plain``, the JAX
+package's own reference vjp at those widths. Any other CUDA input runs
+``swiglu_plain`` on the card, and a CPU tensor ``swiglu_plain``, both
 differentiated by autograd.
+
+The kernels read the weights in packed layouts that are built once per
+weight version (``packed_ffn_weights``, ``packed_bwd_weights``): a cache keyed
+on the parameter tensors and their in-place version counters, so an
+optimizer step (which updates the parameters in place) forces a repack.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import weakref
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..nn.norm import rms_norm
-from ._build import check_cuda, run
+from ._build import check_cuda, library, run
 
-# extended rows per block of the backward kernel (csrc/swiglu_bwd.cu kSbE):
-# each block owns BWD_ROWS - 2r core rows
-BWD_ROWS = 80
 # the split-K chunks of csrc/gemm_tn.cuh's weight products: enough (output
-# tile, chunk) blocks to fill the card's 132 SMs about four times
+# tile, chunk) blocks to fill the H100's 132 SMs about four times
 _GEMM_BLOCKS = 4 * 132
+# csrc/ffn_core.cuh: the most ring stages, their bytes, the shared memory
+# beside y and the ring, the largest conv radius (tests/test_torch_ffn_core.py
+# reads them from the header and holds these copies to them)
+_FC_MAX_STAGES, _FC_STAGE_BYTES, _FC_EXTRA_BYTES, _FC_MAX_RADIUS = 8, 18 * 1024, 2176, 4
+_MAX_SMEM = 232448  # shared memory a block may use on Hopper (csrc/common.cuh kMaxSmem)
 
-# The JAX dispatch rule between the full backward (K5) and the partial one
-# (K6), copied from osu_dreamer_tpu/ops/swiglu.py (``_bwd_vmem_bytes``,
-# ``bwd_kernel_feasible``) and ops/_tiles.py (the budget and the halving
-# search), so both packages take K5 at the same dims. It is the rule that
-# chooses the backward, not a tile size of the CUDA kernels.
+# The JAX dispatch rules of the backward, copied from
+# osu_dreamer_tpu/ops/swiglu.py (``_bwd_vmem_bytes``,
+# ``_partial_bwd_vmem_bytes``) and ops/_tiles.py (the budget and the halving
+# search), so both packages choose the same backward at the same dims. They
+# are the rules that choose a route, not tile sizes of the CUDA kernels.
 _HALO = 8
 _DEFAULT_TILE = 512
 _VMEM_BUDGET_BYTES = 14 * 2**20
+
+
+def shrink_tile_to_budget(vmem_bytes, tile: int, min_tile: int = 64) -> int | None:
+    """ops/_tiles.py: the largest power-of-two shrink of ``tile`` whose
+    footprint fits the budget, or None"""
+    while tile > min_tile and vmem_bytes(tile) > _VMEM_BUDGET_BYTES:
+        tile //= 2
+    return tile if vmem_bytes(tile) <= _VMEM_BUDGET_BYTES else None
 
 
 def _bwd_vmem_bytes(C: int, H: int, K: int, tile: int) -> int:
@@ -51,14 +76,83 @@ def _bwd_vmem_bytes(C: int, H: int, K: int, tile: int) -> int:
     return weights + accums + work
 
 
+def _partial_bwd_vmem_bytes(C: int, H: int, K: int, tile: int) -> int:
+    E = tile + 2 * _HALO
+    weights = 2 * (K * C + C + C * 2 * H + 2 * H + H * C)
+    accums = 4 * (K * C + C + 2 * H + C)
+    work = 4 * E * (2 * H) * 2 + 4 * E * H * 3 + 4 * E * C * 2 + 2 * E * C * 2
+    emit = 2 * tile * (2 * H + H + C) * 2
+    return weights + accums + work + emit
+
+
 def bwd_kernel_feasible(C: int, H: int, K: int) -> bool:
     """whether the JAX package takes its full-accumulator backward at these
-    dims: some power-of-two halving of its default tile down to 64 fits the
-    budget"""
-    tile = _DEFAULT_TILE
-    while tile > 64 and _bwd_vmem_bytes(C, H, K, tile) > _VMEM_BUDGET_BYTES:
-        tile //= 2
-    return _bwd_vmem_bytes(C, H, K, tile) <= _VMEM_BUDGET_BYTES
+    dims"""
+    return shrink_tile_to_budget(lambda t: _bwd_vmem_bytes(C, H, K, t), _DEFAULT_TILE) is not None
+
+
+def partial_bwd_feasible(C: int, H: int, K: int) -> bool:
+    """whether the JAX package's partial backward fits (``_feasible_partial_tile``)"""
+    return shrink_tile_to_budget(
+        lambda t: _partial_bwd_vmem_bytes(C, H, K, t), _DEFAULT_TILE) is not None
+
+
+def bwd_rows(C: int) -> int:
+    """extended rows per block of the backward kernels (csrc/swiglu_bwd.cu
+    ``kSbE``: 80, or 48 past C 512 where 80 rows overflow shared memory);
+    each block owns bwd_rows - 2r core rows"""
+    return 80 if C <= 512 else 48
+
+
+def bwd_route(C: int, H: int, K: int) -> str:
+    """the SwiGLU backward on the card, as the JAX ``_bwd`` chooses it:
+    "full" (K5) where ``bwd_kernel_feasible``, "partial" (K6) where the
+    partial backward fits, else "plain" (autograd of ``swiglu_plain``, the
+    JAX reference vjp). K5 takes C % 32 == 0 up to 512, K6 up to 640."""
+    fits = C % 32 == 0 and K % 2 == 1 and K <= 9
+    if fits and C <= 512 and bwd_kernel_feasible(C, H, K):
+        return "full"
+    if fits and C <= 640 and partial_bwd_feasible(C, H, K):
+        return "partial"
+    return "plain"
+
+
+def fwd_stages(C: int, K: int, H: int) -> int:
+    """ring stages of csrc/ffn_core.cuh's kernel (``ffn_stages``) at its
+    largest: as many 18 KB stages as fit beside the y tiles and the vectors
+    of the film layer's CTA holding the whole hidden dimension, at most 8"""
+    nwg = 2 if C <= 512 else 1
+    nloc = -(-H // 64)
+    params = 2 * nloc * 64 * 4 + C * 4 + K * C * 2 + C * 2 + 2 * C * 2
+    fixed = -(-C // 64) * nwg * 8192 + -(-params // 1024) * 1024 + _FC_EXTRA_BYTES
+    return max(0, min(_FC_MAX_STAGES, (_MAX_SMEM - fixed) // _FC_STAGE_BYTES))
+
+
+def fwd_kernel_fits(C: int, K: int, H: int) -> bool:
+    """whether the forward core (K4, K2) takes width C, K taps and hidden
+    width H: C a multiple of 16 (padded to 64-column boxes inside the kernel)
+    whose y tiles and vectors leave room for two ring stages"""
+    return C % 16 == 0 and K % 2 == 1 and K // 2 <= _FC_MAX_RADIUS and fwd_stages(C, K, H) >= 2
+
+
+def fwd_plan(rows: int, C: int, Hp: int, sms: int, film: bool = False) -> tuple[int, int]:
+    """(output columns a CTA holds, hidden slices) of the forward core over
+    ``rows`` = B L positions on a card of ``sms`` SMs: 256 columns (128
+    registers a thread) where C allows, else 128 (always for the film layer,
+    whose epilogue keeps more in registers); the hidden dimension split
+    across CTAs until the row tiles and column groups fill the SMs"""
+    nc = 256 if C % 256 == 0 and not film else 128
+    tile = 128 if C <= 512 else 64
+    ctas = -(-rows // tile) * -(-C // nc)
+    slices = 1 if ctas >= sms else max(1, min(Hp // 64, sms // ctas))
+    return nc, slices
+
+
+@functools.cache
+def device_sms(device: torch.device) -> int:
+    """the streaming multiprocessors of a CUDA device (csrc/ffn_core.cuh
+    sizes its grid from the same count)"""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gemm_splits(rows: int, m: int, n: int) -> int:
@@ -88,12 +182,96 @@ def swiglu_plain(
     return h @ out_kernel.to(dt) + out_bias.to(dt)
 
 
-def pack_ffn_weights(
-    dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, dtype: torch.dtype
-) -> tuple[list[torch.Tensor], int, int]:
-    """cast the SwiGLU weights to ``dtype`` and zero-pad the hidden width H to
-    a multiple of 16 (the wmma tile) -> (weights, H, padded H), laid out as
-    csrc/ffn_tile.cuh expects: v columns then g columns, each padded"""
+# ---------------------------------------------------------------- packs ----
+
+# the packed layouts live as long as the W_vg tensor they were made from:
+# W_vg -> {(kind, dtype): (weak references to all the weight tensors, their
+# in-place versions, the layout)}
+_PACKS = WeakIdKeyDictionary()
+
+
+def _cached(kind: str, tensors: tuple[torch.Tensor, ...], dtype: torch.dtype, make):
+    """``make()`` once per version of ``tensors`` (their third is W_vg): a
+    hit needs the same tensor objects at the same in-place versions.
+    Inference tensors keep no version counter and are packed anew. A layout
+    keeps no autograd history (which would hold the weights alive)."""
+    if any(t.is_inference() for t in tensors):
+        with torch.no_grad():
+            return make()
+    versions = tuple(t._version for t in tensors)
+    packs = _PACKS.setdefault(tensors[2], {})
+    hit = packs.get((kind, dtype))
+    if hit is not None and hit[1] == versions and all(
+            ref() is t for ref, t in zip(hit[0], tensors)):
+        return hit[2]
+    with torch.no_grad():
+        packed = make()
+    packs[(kind, dtype)] = (tuple(weakref.ref(t) for t in tensors), versions, packed)
+    return packed
+
+
+@dataclass
+class FfnPack:
+    """the forward core's weights (csrc/ffn_core.cuh): W_vg^T (2 Hp, C) and
+    W_out^T (C, Hp) in ``dtype``, K-major, H zero-padded to Hp (a multiple of
+    64, so the g half starts on a 16-byte TMA boundary); the biases as f32
+    holding ``dtype`` values; the weights' tensor maps once encoded on the
+    card"""
+
+    dww: torch.Tensor
+    dwb: torch.Tensor
+    wvg_t: torch.Tensor
+    wout_t: torch.Tensor
+    bvg: torch.Tensor
+    bout: torch.Tensor
+    H: int
+    Hp: int
+    maps: ctypes.Array | None = None
+
+    def weight_maps(self) -> int:
+        """host address of the two CUtensorMaps (encoded at first use)"""
+        if self.maps is None:
+            maps = (ctypes.c_uint8 * 256)()
+            err = library().odt_ffn_weight_maps(self.wvg_t.data_ptr(), self.wout_t.data_ptr(),
+                                                self.wout_t.shape[0], self.Hp, ctypes.addressof(maps))
+            if err != 0:
+                raise RuntimeError(f"ffn weight tensor maps: cudaError {err}")
+            self.maps = maps
+        return ctypes.addressof(self.maps)
+
+
+def pack_ffn_fwd(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
+                 dtype: torch.dtype) -> FfnPack:
+    """the forward core's layout of the SwiGLU weights (uncached)"""
+    C, H2 = vg_kernel.shape
+    H = H2 // 2
+    Hp = -(-H // 64) * 64
+    dev = vg_kernel.device
+    wvg_t = torch.zeros(2 * Hp, C, dtype=dtype, device=dev)
+    wvg_t[:H] = vg_kernel[:, :H].t()
+    wvg_t[Hp : Hp + H] = vg_kernel[:, H:].t()
+    wout_t = torch.zeros(C, Hp, dtype=dtype, device=dev)
+    wout_t[:, :H] = out_kernel.t()
+    bvg = torch.zeros(2 * Hp, dtype=torch.float32, device=dev)
+    bvg[:H] = vg_bias[:H].to(dtype)
+    bvg[Hp : Hp + H] = vg_bias[H:].to(dtype)
+    return FfnPack(dw_kernel.to(dtype).contiguous(), dw_bias.to(dtype).contiguous(), wvg_t,
+                   wout_t, bvg, out_bias.to(dtype).float().contiguous(), H, Hp)
+
+
+def packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
+                       dtype: torch.dtype) -> FfnPack:
+    """``pack_ffn_fwd``, once per weight version"""
+    weights = (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    return _cached("fwd", weights, dtype, lambda: pack_ffn_fwd(*weights, dtype))
+
+
+def pack_ffn_bwd(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                 dtype: torch.dtype) -> tuple[list[torch.Tensor], int, int]:
+    """the backward kernels' layout (csrc/ffn_tile.cuh), uncached: the
+    weights in ``dtype``, the hidden width H zero-padded to a multiple of 16
+    (the wmma tile) -> ([dw_kernel, dw_bias, W_vg (C, 2 Hp), b_vg (2 Hp),
+    W_out (Hp, C)], H, Hp), v columns then g columns, each padded"""
     C, H2 = vg_kernel.shape
     H = H2 // 2
     Hp = -(-H // 16) * 16
@@ -106,11 +284,14 @@ def pack_ffn_weights(
     bvg[Hp : Hp + H] = vg_bias[H:]
     wout = torch.zeros(Hp, C, dtype=dtype, device=dev)
     wout[:H] = out_kernel
-    weights = [
-        dw_kernel.to(dtype).contiguous(), dw_bias.to(dtype).contiguous(),
-        wvg, bvg, wout, out_bias.to(dtype).contiguous(),
-    ]
-    return weights, H, Hp
+    return [dw_kernel.to(dtype).contiguous(), dw_bias.to(dtype).contiguous(), wvg, bvg, wout], H, Hp
+
+
+def packed_bwd_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                       dtype: torch.dtype) -> tuple[list[torch.Tensor], int, int]:
+    """``pack_ffn_bwd``, once per weight version"""
+    weights = (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel)
+    return _cached("bwd", weights, dtype, lambda: pack_ffn_bwd(*weights, dtype))
 
 
 def check_ffn_shapes(x: torch.Tensor, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
@@ -133,20 +314,38 @@ def check_ffn_shapes(x: torch.Tensor, dw_kernel, dw_bias, vg_kernel, vg_bias, ou
             raise ValueError(f"{name} is on {t.device}, the input on {x.device}")
 
 
-def swiglu_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias) -> torch.Tensor:
-    """the csrc/swiglu.cu kernel: bf16 (B, L, C) -> (B, L, C)"""
+def ffn_fwd_inputs(x, weights, film: bool = False) -> tuple[FfnPack, int, int, tuple]:
+    """the forward core's checks and operands: -> (pack, output columns a
+    CTA holds, hidden slices, (workspace, sums of squares) pointers, None
+    where one CTA owns a row tile)"""
     check_cuda("x", x, torch.bfloat16, 3)
-    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    check_ffn_shapes(x, *weights)
     B, L, C = x.shape
-    K = dw_kernel.shape[0]
-    weights, H, Hp = pack_ffn_weights(
-        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
-    )
+    K, H = weights[0].shape[0], weights[4].shape[0]
+    if not fwd_kernel_fits(C, K, H):
+        raise ValueError(f"channels {C} / {K} taps outside the forward kernel's range (C a "
+                         f"multiple of 16 up to the shared-memory limit, radius <= {_FC_MAX_RADIUS})")
+    pack = packed_ffn_weights(*weights, x.dtype)
+    nc, slices = fwd_plan(B * L, C, pack.Hp, device_sms(x.device), film)
+    if slices == 1 and C <= nc:
+        return pack, nc, slices, (None, None)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ws, ss = torch.empty(slices, B * L, C, **f32), torch.empty(slices, B * L, **f32)
+    return pack, nc, slices, (ws, ss)
+
+
+def swiglu_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias) -> torch.Tensor:
+    """K4, csrc/swiglu.cu: bf16 (B, L, C) -> (B, L, C)"""
+    pack, nc, slices, scratch = ffn_fwd_inputs(
+        x, (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias))
+    B, L, C = x.shape
     out = torch.empty_like(x)
     run(
         "odt_swiglu_fwd", "swiglu", x.device,
-        x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
-        B, L, C, H, Hp, K,
+        x.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(), pack.bvg.data_ptr(),
+        pack.bout.data_ptr(), pack.weight_maps(), out.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch),
+        B, L, C, pack.H, pack.Hp, dw_kernel.shape[0], slices, nc,
     )
     return out
 
@@ -163,22 +362,20 @@ def swiglu_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad
         return torch.autograd.grad(y, [*leaves, out_bias], grad_out)
 
 
-def _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
+def _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, max_c: int):
     """the backward kernels' checks -> (bf16 output gradient, packed
     weights, H, padded H)"""
     check_cuda("x", x, torch.bfloat16, 3)
-    out_bias = vg_kernel.new_zeros(x.shape[-1])
-    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                     vg_kernel.new_empty(x.shape[-1]))  # the kernels read no output bias
     go = grad_out.to(torch.bfloat16).contiguous()
-    if x.shape[-1] % 32 or x.shape[-1] > 512:
-        raise ValueError(f"channels {x.shape[-1]} must be a multiple of 32 and at most 512 for "
-                         "the backward kernels")
+    if x.shape[-1] % 32 or x.shape[-1] > max_c:
+        raise ValueError(f"channels {x.shape[-1]} must be a multiple of 32 and at most {max_c} "
+                         "for this backward kernel")
     if go.shape != x.shape or go.device != x.device:
         raise ValueError(f"grad_out must be {tuple(x.shape)} on {x.device}, "
                          f"got {tuple(go.shape)} on {go.device}")
-    weights, H, Hp = pack_ffn_weights(
-        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, x.dtype
-    )
+    weights, H, Hp = packed_bwd_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
     return go, weights, H, Hp
 
 
@@ -188,11 +385,11 @@ def swiglu_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_
     torch matmuls over all B*L rows. -> the tuple of ``swiglu_bwd_plain``,
     weight gradients f32"""
     go, weights, H, Hp = _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                                     grad_out)
+                                     grad_out, 640)
     B, L, C = x.shape
     K = dw_kernel.shape[0]
-    rows = BWD_ROWS - 2 * (K // 2)
-    nblk = B * -(-L // rows)
+    E = bwd_rows(C)
+    nblk = B * -(-L // (E - 2 * (K // 2)))
     dev = x.device
     dx, y = torch.empty_like(x), torch.empty_like(x)
     dvg = torch.empty(B, L, 2 * H, dtype=x.dtype, device=dev)
@@ -200,10 +397,10 @@ def swiglu_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_
     f32 = dict(dtype=torch.float32, device=dev)
     ddw, ddwb = torch.empty(nblk, K, C, **f32), torch.empty(nblk, C, **f32)
     dbvg, dbout = torch.empty(nblk, 2 * Hp, **f32), torch.empty(nblk, C, **f32)
-    scratch = torch.empty(nblk, BWD_ROWS, 2 * Hp, dtype=x.dtype, device=dev)  # dvg of each block
+    scratch = torch.empty(nblk, E, 2 * Hp, dtype=x.dtype, device=dev)  # dvg of each block
     run(
         "odt_swiglu_bwd", "swiglu_bwd", dev,
-        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights[:5]),
+        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights),
         *(t.data_ptr() for t in (dx, dvg, hn, y, ddw, ddwb, dbvg, dbout, scratch)),
         B, L, C, H, Hp, K,
     )
@@ -220,11 +417,11 @@ def swiglu_bwd_full_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, 
     gradients' per-block partials in the same call. -> the tuple of
     ``swiglu_bwd_plain``, dx bf16 and the weight gradients f32"""
     go, weights, H, Hp = _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                                     grad_out)
+                                     grad_out, 512)
     B, L, C = x.shape
     K = dw_kernel.shape[0]
-    nblk = B * -(-L // (BWD_ROWS - 2 * (K // 2)))
-    R = nblk * BWD_ROWS
+    nblk = B * -(-L // (bwd_rows(C) - 2 * (K // 2)))
+    R = nblk * bwd_rows(C)
     dev = x.device
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -240,7 +437,7 @@ def swiglu_bwd_full_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, 
     dwvg, dwout = torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)
     run(
         "odt_swiglu_bwd_full", "swiglu_bwd_full", dev,
-        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights[:5]), dx.data_ptr(),
+        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights), dx.data_ptr(),
         *(t.data_ptr() for t in parts + scratch + [pvg, pout, ddw, ddwb, dbvg, dbout, dwvg, dwout]),
         B, L, C, H, Hp, K, s_vg, s_out,
     )
@@ -249,8 +446,8 @@ def swiglu_bwd_full_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, 
 
 
 class SwiGLUFunction(torch.autograd.Function):
-    """K4 forward; K5 backward where the JAX dispatch takes its full
-    backward (``bwd_kernel_feasible``), K6 elsewhere"""
+    """K4 forward; the backward ``bwd_route`` chooses: K5, K6, or autograd of
+    the plain version"""
 
     @staticmethod
     def forward(ctx, x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias):
@@ -261,18 +458,22 @@ class SwiGLUFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         x, *weights = ctx.saved_tensors
         C, H, K = x.shape[-1], weights[4].shape[0], weights[0].shape[0]
-        bwd = swiglu_bwd_full_cuda if bwd_kernel_feasible(C, H, K) else swiglu_bwd_cuda
+        bwd = {"full": swiglu_bwd_full_cuda, "partial": swiglu_bwd_cuda,
+               "plain": swiglu_bwd_plain}[bwd_route(C, H, K)]
         grads = bwd(x, *weights, grad_out)
         return (grads[0].to(x.dtype),
                 *(g.to(w.dtype) for g, w in zip(grads[1:], (*weights, weights[-1]))))
 
 
 def swiglu(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias) -> torch.Tensor:
-    """SwiGLU: kernels (forward and backward) for CUDA tensors, the plain
-    version (autograd) for CPU tensors"""
+    """SwiGLU: on the card the kernels where ``fwd_kernel_fits`` (the
+    backward as ``bwd_route`` decides), elsewhere the plain version; the
+    plain version (autograd) for CPU tensors"""
+    args = (x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
     if x.is_cuda:
-        return SwiGLUFunction.apply(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                                    out_bias)
+        if fwd_kernel_fits(x.shape[-1], dw_kernel.shape[0], out_kernel.shape[0]):
+            return SwiGLUFunction.apply(*args)
+        return swiglu_plain(*args)
     if x.device.type != "cpu":
         raise ValueError(f"swiglu: no implementation for device {x.device}")
-    return swiglu_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    return swiglu_plain(*args)

@@ -188,7 +188,7 @@ def _c_prototypes() -> dict[str, list[str]]:
 _ENTRY_POINTS = ["odt_resonate", "odt_film_layer_fwd", "odt_swiglu_fwd", "odt_flash_attention_fwd",
                  "odt_swiglu_bwd", "odt_fused_attention_fwd", "odt_fused_attention_bwd",
                  "odt_film_layer_bwd", "odt_swiglu_bwd_full", "odt_film_qkv_fwd",
-                 "odt_film_qkv_bwd"]
+                 "odt_film_qkv_bwd", "odt_ffn_weight_maps"]
 
 
 def test_c_entry_points_are_the_bound_ones():
@@ -334,13 +334,14 @@ def test_autograd_functions_route_through_their_kernels(monkeypatch):
     monkeypatch.setattr(fl, "film_layer_cuda", spy("film_layer", fl.film_layer_plain))
     monkeypatch.setattr(fl, "film_layer_bwd_cuda", spy("film_layer_bwd", fl.film_layer_bwd_plain))
 
-    x, w = randn(0, 2, 19, 16), ffn_weights(16, 20, 5, 1)
+    # C 64: a width every kernel of the route takes (K4, K5, K2, K3)
+    x, w = randn(0, 2, 19, 64), ffn_weights(64, 42, 5, 1)
     qkv, qg, kg = _qkv_inputs(2, 19, 2)
     cases = [
         (sw.SwiGLUFunction.apply, sw.swiglu_plain, [T(x), *map(T, w)], ()),
         (fa.FusedNormRopeAttention.apply, fa.rope_attention_plain, [T(qkv), T(qg), T(kg)], (2,)),
-        (fl.FilmLayerFunction.apply, fl.film_layer_plain, [T(a) for a in _film_inputs(19, 2)],
-         ()),
+        (fl.FilmLayerFunction.apply, fl.film_layer_plain,
+         [T(a) for a in _film_inputs(19, 2, C=64, H=42)], ()),
     ]
     for fn, plain, leaves, extra in cases:
         leaves = [t.requires_grad_() for t in leaves]
@@ -370,7 +371,7 @@ def test_film_layer_on_cuda_tensor_builds_graph_through_kernels(monkeypatch):
 
     monkeypatch.setattr(fl, "film_layer_cuda", fl.film_layer_plain)
     monkeypatch.setattr(fl, "film_layer_bwd_cuda", fl.film_layer_bwd_plain)
-    leaves = [T(a).requires_grad_() for a in _film_inputs(19, 2)]
+    leaves = [T(a).requires_grad_() for a in _film_inputs(19, 2, C=64, H=42)]
     out = fl.film_layer(leaves[0].as_subclass(_CudaLooking), *leaves[1:])
     assert type(out.grad_fn).__name__ == "FilmLayerFunctionBackward"
     grads = torch.autograd.grad(out.square().sum(), leaves)
