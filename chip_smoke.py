@@ -17,15 +17,17 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    kernel's time beside its bound and achieved TFLOP/s, also at the widened
    widths: K4 at C 768, K2 at C 384, K6 at C 640, K3 at C 256 and 384,
    K11/K12 at C 640 and 1024, and at widths whose last 64-column box runs
-   past C: K4 at C 96, K2 at C 32) and, for the flash attention, torch's
+   past C: K4 at C 96, K2 at C 32; the FFN and prologue backward kernels K3,
+   K5, K6 and K12 also by graph replay, their plain versions by CUDA events
+   around 20 launches) and, for the flash attention, torch's
    scaled_dot_product_attention as a yardstick: the
    inference kernels at the inference slice's shapes (the film layer also at
    latent training's B64 L1026; the flash attention also at B1 L2500, B4 L65
    and B1 L2049), the denoiser's training kernels (SwiGLU
    backward, fused attention forward and backward) at its training shape
    B128 L152 and at a ragged length, the film-layer backward at latent
-   training's top and bottom levels B64 L1026 and B64 L38, each with FiLM
-   and with zero FiLM, the full SwiGLU backward (K5) at the width-384
+   training's four levels B64 L1026, L342, L114 and L38 (the top and bottom
+   also with zero FiLM), the full SwiGLU backward (K5) at the width-384
    denoiser's B128 L152 C384 H1024, and the fused norm + FiLM + qkv prologue
    forward (K11) and backward (K12) at B128 L152 and B4 L759 (C 512, F 3072),
    ragged, and at C 384. The backward kernels' reruns must be bit-identical.
@@ -55,7 +57,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    corpus written under build/: 2 warm-up steps and 20 timed steps, then EMA
    validation and the best/last checkpoints. Every loss must be finite and
    every training kernel must launch during the timed steps (the prologue
-   kernels and K5 not). Then one step's loss and gradients through the
+   kernels and K5 not); one more step runs under torch.profiler, which gives
+   the step's device-busy ms and K6's ms (its two torch matmuls apart) and
+   launches. Then one step's loss and gradients through the
    kernels (bf16) and through the plain versions (bf16) are each held to a
    plain f32 step on the same batch, t and x0 (random full-strength weights).
 5. Trains the chart autoencoder at full width (the port's
@@ -65,7 +69,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    chart-signal corpus written under build/: 2 warm-up steps and 20 timed
    steps, validation on two held-out mapsets and both checkpoints. Every
    loss must be finite and the film layer's forward and backward kernels
-   must launch during the timed steps. Then one step's loss terms and
+   must launch during the timed steps; one more step runs under
+   torch.profiler, which gives the step's device-busy ms and K3's row core
+   and weight-product ms and launches. Then one step's loss terms and
    gradients through the kernels and through the plain versions (bf16) are
    each held to a plain f32 step on the same batch and draws, as in 4; and
    encode-latents runs on the card from the ``last`` checkpoint over the
@@ -153,8 +159,10 @@ KERNEL_META = {
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
-# launches from Python, whose host cost exceeds their run time
-GRAPH_TIMED = ("flash_attention", "swiglu", "film_layer")
+# launches from Python, whose host cost exceeds their run time (the
+# backward wrappers launch several kernels and torch ops a call)
+GRAPH_TIMED = ("flash_attention", "swiglu", "film_layer", "swiglu_bwd", "swiglu_bwd_full",
+               "film_layer_bwd", "film_qkv_bwd")
 # the forward core's kernels (K4, K2) are held to the plain version in f32 on
 # the same bf16 inputs: their error's mean within SLICE_MEAN_RATIO and max
 # within SLICE_MAX_RATIO of the plain bf16 path's (they keep v, g and h in
@@ -213,6 +221,96 @@ def device_busy(trace: Path, *kernels: str) -> tuple[float, float, int]:
     named = [float(e["dur"]) for e in events
              if e["cat"] == "kernel" and any(k in e["name"] for k in kernels)]
     return busy / 1e3, sum(named) / 1e3, len(named)
+
+
+# the FFN backward's kernels in a profiled train step, by a regular
+# expression on their names (this tree's and the parent's, which
+# tools/step_profile.py reads too): K3's row core and weight products in
+# the latent step, K6's core (its two torch matmuls apart) in the denoiser's
+LATENT_FAMILIES = {
+    "K3 row core": r"ffn_core_kernel<true, \d+, \d+, true>|bwd_mid_kernel<true|ffn_bwd_grad_kernel"
+                   r"|bwd_finish_film_kernel|film_layer_bwd_kernel",
+    "K3 GEMM": r"gemm_tn|splitk_reduce_kernel",
+}
+DENOISER_FAMILIES = {
+    "K6 core": r"bwd_conv_kernel|bwd_mid_kernel<false|ffn_bwd_grad_kernel|bwd_finish_plain_kernel"
+               r"|swiglu_bwd_kernel",
+}
+
+
+def step_kernels(trace: Path, families: dict[str, str]) -> str:
+    """a profiled step's device-busy ms and each family's kernel ms and
+    count, as one line"""
+    import re
+
+    busy, _, _ = device_busy(trace)
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "kernel" and "dur" in e]
+    parts = [f"device busy {busy:.3f} ms over {len(events)} kernels"]
+    for name, pattern in families.items():
+        durs = [float(e["dur"]) for e in events if re.search(pattern, e["name"])]
+        parts.append(f"{name} {sum(durs) / 1e3:.3f} ms over {len(durs)} kernels")
+    return ", ".join(parts)
+
+
+def _replay_ms(graph, calls: int) -> float:
+    """device ms per call of a captured graph of ``calls`` calls, over 5
+    replays after one warm replay"""
+    import torch
+
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * calls)
+
+
+def graph_ms(fn, args, reps: int = 20) -> float:
+    """device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed, so the host's launch cost drops out (the flash attention runs
+    for about as long as its launch from Python takes); the first call, on a
+    side stream outside the capture, warms caches such as the weight packs"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn(*args)
+    ms = _replay_ms(graph, reps)
+    del graph
+    return ms
+
+
+def graph_grad_ms(fn, leaves, grad_out, reps: int = 20) -> float:
+    """device ms of autograd's backward of ``fn`` (the plain version of a
+    backward kernel) over a graph built once, timed as ``graph_ms`` times
+    the kernel: ``reps`` backward passes captured in one CUDA graph and
+    replayed. The forward runs on the capture's stream, so that its
+    backward nodes run there too."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        y = fn(*leaves)
+        torch.autograd.grad(y, leaves, grad_out, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            torch.autograd.grad(y, leaves, grad_out, retain_graph=True)
+    ms = _replay_ms(graph, reps)
+    del graph, y
+    return ms
 
 
 def ffn_flops(rows: int, C: int, H: int, K: int, products: int, convs: int) -> int:
@@ -350,30 +448,39 @@ def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False) 
 def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: str,
               kernels: tuple[str, ...], loss_keys: tuple[str, ...],
               shown: tuple[str, ...], timed: int = TRAIN_TIMED,
-              absent: tuple[str, ...] = ()) -> tuple[dict[str, int], float, float]:
+              absent: tuple[str, ...] = (),
+              families: dict[str, str] | None = None) -> tuple[dict[str, int], float, float]:
     """``run`` (a stage's ``fit.run``) on ``cfg`` for TRAIN_WARMUP +
     ``timed`` steps, checkpoints under ``workdir``; fails unless every step
     ran, each of ``kernels`` launched during the timed steps and none of
     ``absent`` in the whole run, every loss of ``loss_keys`` stayed finite and
     both checkpoints exist. Logs ms/step and peak memory over the timed steps
-    and the ``shown`` losses per step -> (the kernel launches of the whole
-    run, ms/step, peak GiB)"""
+    and the ``shown`` losses per step; with ``families``, one more step runs
+    under torch.profiler and its device-busy and family ms are logged ->
+    (the kernel launches of the whole run, ms/step, peak GiB)"""
     import torch
 
     from osu_dreamer_tpu_torch.ops import _build
 
-    steps = TRAIN_WARMUP + timed
+    end = TRAIN_WARMUP + timed
+    steps = end + (1 if families else 0)
     cfg["fit"].update(run_dir=str(workdir / "runs"), max_steps=steps, log_every=5)
     marks: dict[int, tuple[float, dict]] = {}
     step_metrics: list[dict] = []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
 
     def on_step(step: int, metrics: dict) -> None:
         step_metrics.append(metrics)
-        if step in (TRAIN_WARMUP, steps):
+        if step in (TRAIN_WARMUP, end, steps):
             torch.cuda.synchronize()
             marks[step] = (time.perf_counter(), dict(_build.launches))
             if step == TRAIN_WARMUP:
                 torch.cuda.reset_peak_memory_stats()
+            if families and step == end:
+                prof.start()
+            elif families and step == steps:
+                prof.stop()
 
     _build.reset_launches()
     state = run(cfg, device=dev, on_step=on_step)
@@ -384,7 +491,7 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
         raise RuntimeError(f"{what} ran {state.step} steps, not {steps}")
     del state
     torch.cuda.empty_cache()
-    (ta, la), (tb, lb) = marks[TRAIN_WARMUP], marks[steps]
+    (ta, la), (tb, lb) = marks[TRAIN_WARMUP], marks[end]
     in_timed = {k: lb[k] - la[k] for k in kernels}
     log(f"launches during the {timed} timed steps: {in_timed}")
     missing = [k for k, n in in_timed.items() if n == 0]
@@ -403,6 +510,14 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
     log(f"{what} ({shape}): {ms_step:.2f} ms/step, {1e3 / ms_step:.3f} steps/s over "
         f"{timed} steps after {TRAIN_WARMUP} warm-up; peak device memory "
         f"{peak_gib:.2f} GiB [{smi}]")
+    if families:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmpdir:
+            trace = Path(tmpdir) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            summary = step_kernels(trace, families)
+        one = {k: marks[steps][1][k] - marks[end][1][k] for k in _build.KERNELS}
+        log(f"{what}: one step under torch.profiler: {summary}; launches "
+            f"{ {k: n for k, n in one.items() if n} } [{smi}]")
     log("losses per step: " + json.dumps({k: [round(x, 5) for x in losses[k]] for k in shown})
         + f" [{smi}]")
     return launches, ms_step, peak_gib
@@ -441,7 +556,7 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
         f"h_dim {model['h_dim']}, {model['n_downs']} downs, {model['stack']['n_layers']}-layer "
         f"stacks, B{data['batch_size']} x L{data['seq_len']}, bf16",
         LATENT_KERNELS, ("loss", *LOSS_COMPONENTS, "s_reg"),
-        ("loss", "hit/onset", "cursor/pos", "label", "s_reg"))
+        ("loss", "hit/onset", "cursor/pos", "label", "s_reg"), families=LATENT_FAMILIES)
 
     # one step through the kernels and through the plain versions (bf16),
     # each against a plain f32 step on the same batch and draws, the
@@ -632,30 +747,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def graph_ms(fn, args, reps=20) -> float:
-        """device ms per call: ``reps`` calls captured in one CUDA graph and
-        replayed, so the host's launch cost drops out (the flash attention
-        runs for about as long as its launch from Python takes)"""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*args)  # warm-up outside the capture
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn(*args)
-        graph.replay()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        del graph
-        return start.elapsed_time(end) / (5 * reps)
-
     results = {}
     for name, (kernel, plain, shapes, work) in cases.items():
         worst = 0.0
@@ -725,8 +816,12 @@ def main() -> int:
             worst = max(worst, err)
         return worst
 
-    def backward_ms(fn, leaves, grad_out) -> float:
-        """CUDA-event ms of autograd's backward over a graph built once"""
+    def backward_ms(name, fn, leaves, grad_out) -> float:
+        """ms of autograd's backward over a graph built once, timed as the
+        kernel ``name`` is: graph replays for GRAPH_TIMED, else CUDA events
+        around launches from Python"""
+        if name in GRAPH_TIMED:
+            return graph_grad_ms(fn, leaves, grad_out)
         leaves = [t.detach().requires_grad_() for t in leaves]
         y = fn(*leaves)
         return cuda_ms(lambda: torch.autograd.grad(y, leaves, grad_out, retain_graph=True), ())
@@ -734,7 +829,8 @@ def main() -> int:
     def record(name, label, i, ms, plain_ms, err, flops, nbytes) -> None:
         """log a case's times beside its bound; the first case is the JSON line's"""
         work_bound = bound(flops, nbytes)
-        log(f"{name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+        how = " (CUDA-graph replays, as its plain version's)" if name in GRAPH_TIMED else ""
+        log(f"{name} {label}: kernel {ms:.4f} ms{how}, plain {plain_ms:.4f} ms; bound "
             f"{work_bound['bound_ms']:.4f} ms ({work_bound['bound_by']}); kernel "
             f"{flops / ms / 1e9:.1f} TFLOP/s of {BF16_PEAK / 1e12:.0f} [{smi}]")
         if i == 0:
@@ -775,7 +871,8 @@ def main() -> int:
                moved_bytes(*fwd_args, *res))
         record("fused_attention_bwd", label, i,
                cuda_ms(fused_attention.fused_attention_bwd_cuda, bwd_args),
-               backward_ms(lambda a, b, c: fused_attention.rope_attention_plain(a, b, c, H_ATT),
+               backward_ms("fused_attention_bwd",
+                           lambda a, b, c: fused_attention.rope_attention_plain(a, b, c, H_ATT),
                            (qkv, qg, kg), grad),
                worst_bwd, 2.5 * attn_flops, moved_bytes(*bwd_args, *got))
 
@@ -800,11 +897,10 @@ def main() -> int:
                 f"{name} {label}", swiglu_grads, got,
                 swiglu.swiglu_bwd_plain(x.float(), *w, go.float()), swiglu.swiglu_bwd_plain(x, *w, go),
             )
-            if name == "swiglu_bwd_full":
-                check_rerun(name, label, fn, (x, *w, go), got)
+            check_rerun(name, label, fn, (x, *w, go), got)
             zero_bias = torch.zeros(C, device=dev)
-            record(name, label, i, cuda_ms(fn, (x, *w, go)),
-                   backward_ms(lambda *a: swiglu.swiglu_plain(*a, zero_bias), (x, *w), go),
+            record(name, label, i, graph_ms(fn, (x, *w, go)),
+                   backward_ms(name, lambda *a: swiglu.swiglu_plain(*a, zero_bias), (x, *w), go),
                    worst_bwd, ffn_flops(Bt * Lt, C, H, 5, 8, 3), moved_bytes(x, *w, go, *got))
 
     # ---- 1c. the film-layer backward at latent training's top and bottom levels ----
@@ -813,6 +909,7 @@ def main() -> int:
     for i, (label, Bt, Lt, zero_film, C) in enumerate((
             ("B64 L1026 C128 H341 FiLM", 64, 1026, False, 128),
             ("B64 L1026 zero FiLM", 64, 1026, True, 128),
+            ("B64 L342 FiLM", 64, 342, False, 128), ("B64 L114 FiLM", 64, 114, False, 128),
             ("B64 L38 FiLM", 64, 38, False, 128), ("B64 L38 zero FiLM", 64, 38, True, 128),
             ("B16 L342 C256 H682 FiLM (widened)", 16, 342, False, 256),
             ("B16 L342 C384 H1024 FiLM (widened)", 16, 342, False, 384))):
@@ -824,8 +921,8 @@ def main() -> int:
             film_layer.film_layer_bwd_plain(*args, go),
         )
         check_rerun("film_layer_bwd", label, film_layer.film_layer_bwd_cuda, (*args, go), got)
-        record("film_layer_bwd", label, i, cuda_ms(film_layer.film_layer_bwd_cuda, (*args, go)),
-               backward_ms(film_layer.film_layer_plain, args, go), worst_bwd,
+        record("film_layer_bwd", label, i, graph_ms(film_layer.film_layer_bwd_cuda, (*args, go)),
+               backward_ms("film_layer_bwd", film_layer.film_layer_plain, args, go), worst_bwd,
                ffn_flops(Bt * Lt, C, int(C * 8 / 3), 5, 9, 3), moved_bytes(*args, go, *got))
 
     # ---- 1d. the prologue backward at the denoiser's training shape ----
@@ -841,8 +938,8 @@ def main() -> int:
             film_qkv.film_qkv_bwd_plain(*args, go),
         )
         check_rerun("film_qkv_bwd", label, film_qkv.film_qkv_bwd_cuda, (*args, go), got)
-        record("film_qkv_bwd", label, i, cuda_ms(film_qkv.film_qkv_bwd_cuda, (*args, go)),
-               backward_ms(film_qkv.film_qkv_plain, args, go), worst_bwd,
+        record("film_qkv_bwd", label, i, graph_ms(film_qkv.film_qkv_bwd_cuda, (*args, go)),
+               backward_ms("film_qkv_bwd", film_qkv.film_qkv_plain, args, go), worst_bwd,
                4 * Bt * Lt * C * 3072, moved_bytes(*args, go, *got))
     del args, go, got
     torch.cuda.empty_cache()
@@ -980,12 +1077,14 @@ def main() -> int:
         prof.export_chrome_trace(str(Path(tmpdir) / "trace.json"))
         trace = Path(tmpdir) / "trace.json"
         busy_ms, flash_ms, n_flash = device_busy(trace, "flash_attention_fwd_kernel")
+        n_kernels = sum(e.get("cat") == "kernel" for e in json.loads(trace.read_text())["traceEvents"])
         # the core kernel (and, where a request's SwiGLU splits its hidden
         # dimension across CTAs, the reduction after it), by template flag
         _, swiglu_ms, n_swiglu = device_busy(trace, "ffn_core_kernel<false", "ffn_reduce_kernel<false")
         _, film_ms, n_film = device_busy(trace, "ffn_core_kernel<true", "ffn_reduce_kernel<true")
     check_request("request, under torch.profiler", 1.0, wall, out_frames, outs)
-    log(f"that request on the device: busy {busy_ms:.2f} ms (kernels and copies, union), flash "
+    log(f"that request on the device: busy {busy_ms:.2f} ms (kernels and copies, union) over "
+        f"{n_kernels} kernels, flash "
         f"attention {flash_ms:.2f} ms over {n_flash} kernels ({_build.launches['flash_attention']}"
         f" launches counted), SwiGLU {swiglu_ms:.2f} ms over {n_swiglu} kernels "
         f"({_build.launches['swiglu']} launches counted), film layer {film_ms:.2f} ms over "
@@ -1077,7 +1176,8 @@ def main() -> int:
     launches_train, ms_off, peak_off = fit_timed(
         "fit-denoiser", diffusion_fit.run, cfg, dev, smi, workdir,
         "depth 8, width 512, 16 x 64 heads, B128 x L152, bf16", TRAINING_KERNELS,
-        denoiser_losses, denoiser_losses, absent=PROLOGUE_KERNELS + ("swiglu_bwd_full",))
+        denoiser_losses, denoiser_losses, absent=PROLOGUE_KERNELS + ("swiglu_bwd_full",),
+        families=DENOISER_FAMILIES)
 
     def denoiser_step(what: str, cfg: dict) -> None:
         """one step through the kernels and through the plain versions (bf16),

@@ -35,6 +35,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 // wmma fragment loads need 32-byte aligned tile pointers.
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
+// The current device's streaming multiprocessors (queried once; 0 on error).
+// Persistent grids and hidden splits are sized from it.
+inline int device_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
 // Opt a kernel in to `smem` bytes of dynamic shared memory and launch it.
 template <class Kernel, class... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t stream,

@@ -49,13 +49,20 @@
 //   runs in registers and the output leaves by TMA stores.
 //
 // Weight layout (ops/swiglu.py ``packed_ffn_weights``, cached per weight
-// version): W_vg^T (2 Hp, C) bf16, v rows then g rows, and W_out^T (C, Hp)
-// bf16, both K-major with H zero-padded to Hp (a multiple of 64); b_vg
-// (2 Hp) and b_out (C) f32 (bf16-rounded values). Padded hidden columns give
-// v = 0, so h = 0 there.
+// version, and read by the backward core of ffn_bwd_core.cuh too): W_vg^T
+// (2 Hp, C) bf16, v rows then g rows, and W_out^T (C, Hp) bf16, both K-major
+// with H zero-padded to Hp (a multiple of 64); b_vg (2 Hp) f32 (bf16-rounded
+// values); b_out (C) bf16. Padded hidden columns give v = 0, so h = 0 there.
+//
+// The backward core runs this kernel as its first pass (``ystore``): the
+// partial outputs and sums of squares always leave through the workspace,
+// no reduction follows, and the y tiles are stored (TMA) for the weight
+// gradient.
 #pragma once
 
 #include <string.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -77,7 +84,7 @@ struct FfnArgs {
   const bf16* dww;    // (K, C)
   const bf16* dwb;    // (C)
   const float* bvg;   // (2 Hp)
-  const float* bout;  // (C)
+  const bf16* bout;   // (C); null in the backward's first pass, which adds no bias
   const bf16* scale;  // (B, C), K2 only
   const bf16* shift;  // (B, C), K2 only
   const bf16* gate;   // (B, C), K2 only
@@ -88,6 +95,8 @@ struct FfnArgs {
   int BL, L, C, H, Hp, K, S;
   int stages;  // ring stages
   int xres;    // K2 keeps its tile's x rows in shared memory for the residual
+  int nwg;     // consumer warpgroups a CTA (64 rows each); 0: by C
+  int ystore;  // the backward's first pass: y leaves through the output map
 };
 
 // the per-column vectors a CTA keeps in shared memory: b_v and b_g of its
@@ -222,7 +231,9 @@ __device__ void fc_conv_box(const unsigned char* xs, int c, unsigned char* ys, c
   }
 }
 
-template <bool FILM, int NWG, int NC>
+// YS: the backward's first pass (``ystore``), a separate instantiation so
+// that the forward's kernels carry none of its code
+template <bool FILM, int NWG, int NC, bool YS>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 ffn_core_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_wvg,
                 const __grid_constant__ CUtensorMap tm_wout, const __grid_constant__ CUtensorMap tm_out,
@@ -334,7 +345,7 @@ ffn_core_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
     sbv[i] = in ? a.bvg[j0 * 64 + i] : 0.f;
     sbg[i] = in ? a.bvg[a.Hp + j0 * 64 + i] : 0.f;
   }
-  for (int i = threadIdx.x; i < C; i += NWG * 128) sbout[i] = a.bout[i];
+  for (int i = threadIdx.x; i < C; i += NWG * 128) sbout[i] = a.bout ? ldf(a.bout + i) : 0.f;
   for (int i = threadIdx.x; i < (a.K + (FILM ? 3 : 1)) * C / 8; i += NWG * 128) {
     const int row = i / (C / 8), v = (i % (C / 8)) * 8;
     const bf16* src = row < a.K ? a.dww + (size_t)row * C : row == a.K ? a.dwb : row == a.K + 1 ? a.g1 : a.g2;
@@ -403,6 +414,12 @@ ffn_core_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
     }
     fence_proxy_async();  // y, written by threads, is read by wgmma
     fc_consumers_sync<NWG>();
+    if (YS && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x % 128 == 0) {
+      // the backward's y: this warpgroup's tiles, read before the next conv
+      for (int c = 0; c < kt; ++c)
+        tma_store_3d(&tm_out, ys + (size_t)(c * NWG + wg) * kFcTileBytes, c * 64, row0 + wg * 64, 0);
+      tma_store_commit_and_wait();
+    }
 
     float o[kNQ][64];
 #pragma unroll
@@ -642,7 +659,7 @@ __global__ void __launch_bounds__(256) ffn_reduce_kernel(const FfnArgs a, bf16* 
   auto value = [&](int c) {
     float acc = 0.f;
     for (int s = 0; s < a.S; ++s) acc += a.ws[s * plane + (size_t)g * C + c];
-    return acc * inv + a.bout[c];
+    return acc * inv + ldf(a.bout + c);
   };
   bf16* orow = out + (size_t)g * C;
   if (!FILM) {
@@ -673,18 +690,21 @@ inline int ffn_weight_maps(const void* wvgT, const void* woutT, int C, int Hp, v
 }
 
 // launch the core (and the reduction where the output is split) on `stream`;
-// nc the output columns of a CTA (128 or 256), a.S the hidden slices
+// nc the output columns of a CTA (128 or 256), a.S the hidden slices. With
+// a.ystore (the backward's first pass) `out` is where y goes, and the
+// partials stay in the workspace.
 template <bool FILM>
 int ffn_forward(FfnArgs a, const void* wmaps, void* out, int nc, cudaStream_t stream) {
-  const int nwg = a.C <= 512 ? 2 : 1, rows = 64 * nwg, r = a.K / 2;
+  const int nwg = a.nwg ? a.nwg : a.C <= 512 ? 2 : 1, rows = 64 * nwg, r = a.K / 2;
   const int groups = (a.C + nc - 1) / nc;
   const bool split = groups > 1 || a.S > 1;
   if (a.K % 2 == 0 || r > kFcMaxRadius || a.C % 16 || a.Hp % 64 || a.Hp < a.H || a.S < 1 ||
-      a.S > a.Hp / 64 || (nc != 128 && nc != 256) || split != (a.ws != nullptr) || a.BL < 1)
+      a.S > a.Hp / 64 || (nc != 128 && nc != 256) || (split || a.ystore) != (a.ws != nullptr) ||
+      a.BL < 1 || nwg < 1 || nwg > 2 || (nwg == 2 && a.C > 512))
     return (int)cudaErrorInvalidValue;
   const int nloc = (a.Hp / 64 + a.S - 1) / a.S;
   // K2 keeps its rows' x for the residual where that leaves 4 stages
-  a.xres = FILM && !split && ffn_stages(a.C, a.K, nloc, FILM, nwg, true) >= 4;
+  a.xres = FILM && a.ws == nullptr && ffn_stages(a.C, a.K, nloc, FILM, nwg, true) >= 4;
   a.stages = ffn_stages(a.C, a.K, nloc, FILM, nwg, a.xres);
   if (a.stages < 2) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
@@ -694,13 +714,8 @@ int ffn_forward(FfnArgs a, const void* wmaps, void* out, int nc, cudaStream_t st
   if (err != cudaSuccess) return (int)err;
   // persistent CTAs: as many row-tile walkers as fill the SMs beside the
   // column groups and hidden slices
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return (int)cudaErrorInvalidDevice;
-  }
+  const int sms = device_sms();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
   const int ntiles = (a.BL + rows - 1) / rows;
   const int walkers = sms / (groups * a.S) > 1 ? sms / (groups * a.S) : 1;
   const dim3 grid(ntiles < walkers ? ntiles : walkers, groups, a.S);
@@ -709,19 +724,21 @@ int ffn_forward(FfnArgs a, const void* wmaps, void* out, int nc, cudaStream_t st
   if constexpr (FILM) {
     if (nc != 128) return (int)cudaErrorInvalidValue;  // K2 keeps 128 output columns a CTA
   }
-  if (!FILM && nwg == 2 && nc == 256)
-    err = launch(ffn_core_kernel<FILM, 2, FILM ? 128 : 256>, grid, block, smem, stream, maps[0],
-                 maps[1], maps[2], maps[3], a);
-  else if (nwg == 2)
-    err = launch(ffn_core_kernel<FILM, 2, 128>, grid, block, smem, stream, maps[0], maps[1],
-                 maps[2], maps[3], a);
-  else if (!FILM && nc == 256)
-    err = launch(ffn_core_kernel<FILM, 1, FILM ? 128 : 256>, grid, block, smem, stream, maps[0],
-                 maps[1], maps[2], maps[3], a);
+  auto run = [&](auto kernel) {
+    return launch(kernel, grid, block, smem, stream, maps[0], maps[1], maps[2], maps[3], a);
+  };
+  auto pick = [&](auto ys) {
+    constexpr bool YS = decltype(ys)::value;
+    if (!FILM && nwg == 2 && nc == 256) return run(ffn_core_kernel<FILM, 2, FILM ? 128 : 256, YS>);
+    if (nwg == 2) return run(ffn_core_kernel<FILM, 2, 128, YS>);
+    if (!FILM && nc == 256) return run(ffn_core_kernel<FILM, 1, FILM ? 128 : 256, YS>);
+    return run(ffn_core_kernel<FILM, 1, 128, YS>);
+  };
+  if constexpr (FILM)  // only K3's backward runs the first pass
+    err = a.ystore ? pick(std::true_type{}) : pick(std::false_type{});
   else
-    err = launch(ffn_core_kernel<FILM, 1, 128>, grid, block, smem, stream, maps[0], maps[1],
-                 maps[2], maps[3], a);
-  if (err != cudaSuccess || !split) return (int)err;
+    err = a.ystore ? cudaErrorInvalidValue : pick(std::false_type{});
+  if (err != cudaSuccess || a.ws == nullptr || a.ystore) return (int)err;
   return (int)launch(ffn_reduce_kernel<FILM>, dim3((a.BL + 7) / 8), dim3(256), 0, stream, a,
                      (bf16*)out);
 }

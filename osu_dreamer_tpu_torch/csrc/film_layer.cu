@@ -41,7 +41,7 @@ extern "C" int odt_film_layer_fwd(const void* x, const void* scale, const void* 
   a.dww = (const bf16*)dww;
   a.dwb = (const bf16*)dwb;
   a.bvg = (const float*)bvg;
-  a.bout = (const float*)bout;
+  a.bout = (const bf16*)bout;
   a.ws = (float*)ws;
   a.ss = (float*)ss;
   a.BL = B * L;

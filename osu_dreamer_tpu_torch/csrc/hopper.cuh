@@ -184,6 +184,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// the same with B MN-major (the transpose bit: B's tile holds K rows of 64
+// N values, k16 steps 2048 bytes apart; descriptor LBO 1024, SBO 1024)
+__device__ __forceinline__ void wgmma_m64n64k16_ss_bt(float (&d)[32], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ODT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 1;\n}"
+      : ODT_WGMMA_D32_OPERANDS
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same with A and B both MN-major (A's tile holds K rows of 64 M values)
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tt(float (&d)[32], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ODT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 1, 1;\n}"
+      : ODT_WGMMA_D32_OPERANDS
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // the same with A from registers and B MN-major (the transpose bit): four
 // bf16x2 per thread, in the layout of the accumulator's columns
 // 16 k .. 16 k + 15 (a[0]: d[8k], d[8k+1]; a[1]: d[8k+2], d[8k+3];

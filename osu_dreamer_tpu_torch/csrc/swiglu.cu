@@ -30,7 +30,7 @@ extern "C" int odt_swiglu_fwd(const void* x, const void* dww, const void* dwb, c
   a.dww = (const bf16*)dww;
   a.dwb = (const bf16*)dwb;
   a.bvg = (const float*)bvg;
-  a.bout = (const float*)bout;
+  a.bout = (const bf16*)bout;
   a.ws = (float*)ws;
   a.ss = (float*)ss;
   a.BL = B * L;

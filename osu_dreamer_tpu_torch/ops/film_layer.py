@@ -12,11 +12,12 @@ the Pallas ``_fwd_kernel`` and ``_bwd_kernel``). Per position:
 launch: a CUDA tensor whose width the forward core takes
 (ops/swiglu.py ``fwd_kernel_fits``) goes to ``FilmLayerFunction``, whose
 forward is the kernel in ``csrc/film_layer.cu`` (K2, on the core of
-``csrc/ffn_core.cuh``) and whose backward is ``csrc/film_layer_bwd.cu`` (K3)
-where ``bwd_kernel_fits`` holds, else autograd of ``film_layer_plain`` (bf16
-only; anything else raises); any other CUDA input runs ``film_layer_plain``
-on the card, and a CPU tensor ``film_layer_plain``, both differentiated by
-autograd.
+``csrc/ffn_core.cuh``) and whose backward is ``csrc/film_layer_bwd.cu`` (K3,
+on the backward core of ``csrc/ffn_bwd_core.cuh``, reading the forward's
+weight pack) where ``bwd_kernel_fits`` holds, else autograd of
+``film_layer_plain`` (bf16 only; anything else raises); any other CUDA input
+runs ``film_layer_plain`` on the card, and a CPU tensor ``film_layer_plain``,
+both differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -26,20 +27,13 @@ import torch
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
 from .swiglu import (
-    check_ffn_shapes, ffn_fwd_inputs, fwd_kernel_fits, gemm_splits, packed_bwd_weights,
-    swiglu_plain,
+    _BM_ROWS, bwd_plan, check_ffn_shapes, device_sms, ffn_fwd_inputs, fwd_kernel_fits,
+    gemm_splits, packed_ffn_weights, packed_out_bias, swiglu_plain,
 )
 
 # the widths K3 takes: every width the JAX package fuses (C 128, 256, 384)
 # and the narrow ones below
 BWD_WIDTHS = (32, 64, 128, 256, 384)
-
-
-def bwd_rows(C: int) -> int:
-    """extended rows per block of the backward kernel (csrc/film_layer_bwd.cu
-    ``fb_rows``: 64, or 32 at C 256 and 16 at C 384 so that its row buffers
-    fit shared memory); each block owns bwd_rows - 2r core rows"""
-    return 64 if C <= 128 else 32 if C <= 256 else 16
 
 
 def bwd_kernel_fits(C: int, K: int) -> bool:
@@ -90,11 +84,11 @@ def film_layer_cuda(
         x, (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias), film=True)
     B, L, C = x.shape
     film = _film_inputs(x, scale, shift, gate, g1, g2)
-    out = torch.empty_like(x)
+    out, bout = torch.empty_like(x), packed_out_bias(out_bias, vg_kernel, x.dtype)
     run(
         "odt_film_layer_fwd", "film_layer", x.device,
         x.data_ptr(), *(t.data_ptr() for t in film), pack.dww.data_ptr(), pack.dwb.data_ptr(),
-        pack.bvg.data_ptr(), pack.bout.data_ptr(), pack.weight_maps(), out.data_ptr(),
+        pack.bvg.data_ptr(), bout.data_ptr(), pack.weight_maps(), out.data_ptr(),
         *(t.data_ptr() if t is not None else None for t in scratch),
         B, L, C, pack.H, pack.Hp, dw_kernel.shape[0], slices, nc,
     )
@@ -116,9 +110,10 @@ def film_layer_bwd_plain(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_k
 def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
                         out_kernel, out_bias, grad_out):
     """K3, csrc/film_layer_bwd.cu: the tuple of ``film_layer_bwd_plain``, dx
-    bf16 and every other gradient f32. The kernel leaves one f32 partial per
-    block of the per-column sums, summed here in a fixed order; the two weight
-    products run in the same call (split-K, fixed-order reduction)."""
+    bf16 and every other gradient f32. The kernels leave fixed-order f32
+    partials of the per-column sums (per CTA or warpgroup), summed here;
+    the two weight products run in the same call. The workspace follows the
+    backward core's plan (``bwd_plan``) and the B L real rows."""
     check_cuda("x", x, torch.bfloat16, 3)
     check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
     B, L, C = x.shape
@@ -130,34 +125,36 @@ def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_ke
                          f"got {tuple(go.shape)} on {go.device}")
     K = dw_kernel.shape[0]
     film = _film_inputs(x, scale, shift, gate, g1, g2)
-    weights, H, Hp = packed_bwd_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                                        x.dtype)
-    weights = [*weights, out_bias.to(x.dtype).contiguous()]
-    nT = -(-L // (bwd_rows(C) - 2 * (K // 2)))
-    R = B * nT * bwd_rows(C)
-    dev = x.device
+    pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
+    bout = packed_out_bias(out_bias, vg_kernel, x.dtype)
+    H, Hp, BL, dev = pack.H, pack.Hp, B * L, x.device
+    nwg, sa, sb = bwd_plan(BL, C, Hp, device_sms(dev), film=True)
+    nT = -(-L // _BM_ROWS)
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    s_vg, s_out = gemm_splits(R, C, 2 * Hp), gemm_splits(R, Hp, C)
+    s_vg, s_out = gemm_splits(BL, C, 2 * Hp), gemm_splits(BL, Hp, C)
     dx = torch.empty_like(x)
-    part = torch.empty(B, nT, (7 + K) * C + 2 * Hp, **f32)
-    scratch = [torch.empty(R, C, **bf), torch.empty(R, Hp, **bf), torch.empty(R, C, **bf),
-               torch.empty(R, 2 * Hp, **bf)]  # y, hn, do, dvg
-    pvg, pout = torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32)
-    dwvg, dwout = torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)
+    work = [torch.empty(sa, BL, C, **f32), torch.empty(sa, BL, **f32),  # pass A: s W_out, sum s^2
+            torch.empty(BL, C, **bf), torch.empty(BL, C, **bf),       # y, do
+            torch.empty(BL, 2, **f32), torch.empty(B, nT, 3, C, **f32),  # (n, n^3 m), mid sums
+            torch.empty(BL, 2 * Hp, **bf), torch.empty(BL, Hp, **bf),  # dvg, hn
+            torch.empty(-(-BL // (64 * nwg)) * nwg, 2 * Hp, **f32),   # vg-bias partials
+            torch.empty(sb, BL, C, **f32), torch.empty(B, nT, 4 + K, C, **f32),  # dY, finish sums
+            torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32),
+            torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)]  # dW_vg, dW_out
     run(
         "odt_film_layer_bwd", "film_layer_bwd", dev,
-        x.data_ptr(), go.data_ptr(), *(t.data_ptr() for t in film + weights),
-        dx.data_ptr(), part.data_ptr(), *(t.data_ptr() for t in scratch),
-        *(t.data_ptr() for t in (pvg, pout, dwvg, dwout)),
-        B, L, C, H, Hp, K, s_vg, s_out,
+        x.data_ptr(), go.data_ptr(), *(t.data_ptr() for t in film), pack.dww.data_ptr(),
+        pack.dwb.data_ptr(), pack.bvg.data_ptr(), bout.data_ptr(), pack.weight_maps(),
+        dx.data_ptr(), *(t.data_ptr() for t in work),
+        B, L, C, H, Hp, K, nwg, sa, sb, s_vg, s_out,
     )
-    per_row = part[:, :, : 3 * C].sum(1).view(B, 3, C)     # dscale, dshift, dgate
-    total = part[:, :, 3 * C :].sum((0, 1))
-    dg1, dg2, ddwb, dbout = total[: 4 * C].view(4, C)
-    ddw = total[4 * C : (4 + K) * C].view(K, C)
-    dbvg = total[(4 + K) * C :]
-    return (dx, per_row[:, 0], per_row[:, 1], per_row[:, 2], dg1, dg2, ddw, ddwb,
+    # per batch row: dgate, dg2, dbout (mid) and dshift, dscale, dg1, d dw_bias,
+    # the taps (fin); the FiLM vectors' gradients stay per batch row
+    mid, fin, dbvg, dwvg, dwout = work[5].sum(1), work[10].sum(1), work[8].sum(0), work[13], work[14]
+    dg2, dbout = mid[:, 1:].sum(0)
+    rest = fin[:, 2:].sum(0)
+    return (dx, fin[:, 1], fin[:, 0], mid[:, 0], rest[0], dg2, rest[2:], rest[1],
             torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1),
             torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout[:H], dbout)
 

@@ -17,14 +17,16 @@ backward follows the JAX ``_bwd`` (``bwd_route``): where
 ``csrc/swiglu_bwd.cu`` (K5, every weight gradient in the call); where the
 JAX partial backward fits, ``odt_swiglu_bwd`` (K6) plus the two big weight
 products as torch matmuls; elsewhere autograd of ``swiglu_plain``, the JAX
-package's own reference vjp at those widths. Any other CUDA input runs
-``swiglu_plain`` on the card, and a CPU tensor ``swiglu_plain``, both
-differentiated by autograd.
+package's own reference vjp at those widths. K5 and K6 run on the backward
+core of ``csrc/ffn_bwd_core.cuh`` (as does the film layer's K3). Any other
+CUDA input runs ``swiglu_plain`` on the card, and a CPU tensor
+``swiglu_plain``, both differentiated by autograd.
 
-The kernels read the weights in packed layouts that are built once per
-weight version (``packed_ffn_weights``, ``packed_bwd_weights``): a cache keyed
-on the parameter tensors and their in-place version counters, so an
-optimizer step (which updates the parameters in place) forces a repack.
+The kernels read the weights in one packed layout, built once per weight
+version (``packed_ffn_weights``): a cache keyed on the weight tensors and
+their in-place version counters, so an optimizer step (which updates the
+parameters in place) forces a repack. The forward and backward cores read
+the same pack, so a training step holds one pack a layer.
 """
 
 from __future__ import annotations
@@ -41,14 +43,20 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..nn.norm import rms_norm
 from ._build import check_cuda, library, run
 
-# the split-K chunks of csrc/gemm_tn.cuh's weight products: enough (output
-# tile, chunk) blocks to fill the H100's 132 SMs about four times
-_GEMM_BLOCKS = 4 * 132
+# the row chunks of csrc/gemm_tn.cuh's weight products: about one (128 x 128
+# output tile, chunk) item for each of the H100's 132 SMs
+_GEMM_ITEMS = 132
 # csrc/ffn_core.cuh: the most ring stages, their bytes, the shared memory
 # beside y and the ring, the largest conv radius (tests/test_torch_ffn_core.py
 # reads them from the header and holds these copies to them)
 _FC_MAX_STAGES, _FC_STAGE_BYTES, _FC_EXTRA_BYTES, _FC_MAX_RADIUS = 8, 18 * 1024, 2176, 4
 _MAX_SMEM = 232448  # shared memory a block may use on Hopper (csrc/common.cuh kMaxSmem)
+# csrc/ffn_bwd_core.cuh: pass B's ring stages (the most, their bytes), the dY
+# columns a warpgroup of its own rows holds, the C past which and up to which
+# the paired mode runs (two warpgroups on one row tile), the rows of the row
+# kernels' CTAs (held to the header by tests/test_torch_ffn_bwd_core.py)
+_BG_MAX_STAGES, _BG_STAGE_BYTES, _BG_COLS, _BM_ROWS = 6, 24 * 1024, 128, 32
+_BP_FROM, _BP_COLS = 384, 512
 
 # The JAX dispatch rules of the backward, copied from
 # osu_dreamer_tpu/ops/swiglu.py (``_bwd_vmem_bytes``,
@@ -98,9 +106,10 @@ def partial_bwd_feasible(C: int, H: int, K: int) -> bool:
 
 
 def bwd_rows(C: int) -> int:
-    """extended rows per block of the backward kernels (csrc/swiglu_bwd.cu
-    ``kSbE``: 80, or 48 past C 512 where 80 rows overflow shared memory);
-    each block owns bwd_rows - 2r core rows"""
+    """rows of one batch row a CTA of the SwiGLU backward's finish (the
+    transposed conv and the column partials, csrc/ffn_bwd_core.cuh
+    ``bwd_finish_plain_kernel``): 80, or 48 past C 512; its halo costs
+    2r / rows of re-reads. Pass B's tiles are 64 flat rows (``bwd_plan``)."""
     return 80 if C <= 512 else 48
 
 
@@ -148,6 +157,43 @@ def fwd_plan(rows: int, C: int, Hp: int, sms: int, film: bool = False) -> tuple[
     return nc, slices
 
 
+def bwd_plan(rows: int, C: int, Hp: int, sms: int, film: bool) -> tuple[int, int, int]:
+    """(row warpgroups a CTA, hidden slices of pass A, hidden slices of
+    pass B) of the backward core (csrc/ffn_bwd_core.cuh; ``film`` for K3)
+    over ``rows`` = B L positions on a card of ``sms`` SMs. Up to C 384
+    and at C 640 pass B runs 128-column groups across CTAs; a CTA takes two
+    64-row warpgroups up to C 256 where 128-row tiles fill the card, else
+    one (more CTAs for short inputs, and room for wider y and do tiles).
+    From C 416 to 512 a CTA takes one 64-row tile and pass B pairs two
+    warpgroups on it, splitting the dY columns. Then each pass's hidden
+    dimension splits across CTAs until its grid (row tiles x column groups
+    x slices) fills the card, as far as the 64-column hidden chunks allow"""
+    nch = Hp // 64
+    groups_b = 1 if _BP_FROM < C <= _BP_COLS else -(-C // _BG_COLS)
+    nwg = 2 if C <= 256 and -(-rows // 128) * groups_b >= sms else 1
+    tiles = -(-rows // (64 * nwg))
+
+    def slices(groups: int) -> int:
+        ctas = tiles * groups
+        return 1 if ctas >= sms else min(nch, -(-sms // ctas))
+
+    # pass A: K3's is the forward core (128 output columns a CTA), K6's the
+    # statistics pass (no output columns)
+    return nwg, slices(-(-C // 128) if film else 1), slices(groups_b)
+
+
+def bwd_stages(C: int, rw: int, pair: bool, nloc: int) -> int:
+    """ring stages of the backward core's pass B or K6's statistics pass
+    (``bwd_stages`` of csrc/ffn_bwd_core.cuh): as many 24 KB stages as fit
+    beside the y and do tiles of ``rw`` 64-row warpgroups, the paired mode's
+    two dvg tiles or else the vg biases of ``nloc`` hidden chunks, and the
+    column sums, at most 6"""
+    dos = -(-C // 64) * rw * 8192
+    total = (2 * dos + int(pair) * 2 * 8192 + (1 - int(pair)) * 2 * nloc * 64 * 4
+             + (rw + int(pair)) * 2 * 4 * 128 * 4 + (2 * _BG_MAX_STAGES + 1) * 8 + 1024)
+    return max(0, min(_BG_MAX_STAGES, (_MAX_SMEM - total) // _BG_STAGE_BYTES))
+
+
 @functools.cache
 def device_sms(device: torch.device) -> int:
     """the streaming multiprocessors of a CUDA device (csrc/ffn_core.cuh
@@ -156,9 +202,10 @@ def device_sms(device: torch.device) -> int:
 
 
 def gemm_splits(rows: int, m: int, n: int) -> int:
-    """split-K chunk count of csrc/gemm_tn.cuh for a (m, n) product over rows"""
-    tiles = -(-m // 64) * -(-n // 64)
-    return max(1, min(rows // 16, -(-_GEMM_BLOCKS // tiles)))
+    """row chunks of csrc/gemm_tn.cuh for a (m, n) product over ``rows``
+    rows (at most one per 64 rows): the size of its partials"""
+    tiles = -(-m // 128) * -(-n // 128)
+    return max(1, min(-(-rows // 64), -(-_GEMM_ITEMS // tiles)))
 
 
 def swiglu_plain(
@@ -190,16 +237,18 @@ def swiglu_plain(
 _PACKS = WeakIdKeyDictionary()
 
 
-def _cached(kind: str, tensors: tuple[torch.Tensor, ...], dtype: torch.dtype, make):
-    """``make()`` once per version of ``tensors`` (their third is W_vg): a
-    hit needs the same tensor objects at the same in-place versions.
-    Inference tensors keep no version counter and are packed anew. A layout
-    keeps no autograd history (which would hold the weights alive)."""
+def _cached(kind: str, tensors: tuple[torch.Tensor, ...], dtype: torch.dtype, make,
+            owner: torch.Tensor | None = None):
+    """``make()`` once per version of ``tensors``, kept as long as ``owner``
+    (by default their third, W_vg) lives: a hit needs the same tensor
+    objects at the same in-place versions. Inference tensors keep no version
+    counter and are packed anew. A layout keeps no autograd history (which
+    would hold the weights alive)."""
     if any(t.is_inference() for t in tensors):
         with torch.no_grad():
             return make()
     versions = tuple(t._version for t in tensors)
-    packs = _PACKS.setdefault(tensors[2], {})
+    packs = _PACKS.setdefault(tensors[2] if owner is None else owner, {})
     hit = packs.get((kind, dtype))
     if hit is not None and hit[1] == versions and all(
             ref() is t for ref, t in zip(hit[0], tensors)):
@@ -212,18 +261,17 @@ def _cached(kind: str, tensors: tuple[torch.Tensor, ...], dtype: torch.dtype, ma
 
 @dataclass
 class FfnPack:
-    """the forward core's weights (csrc/ffn_core.cuh): W_vg^T (2 Hp, C) and
-    W_out^T (C, Hp) in ``dtype``, K-major, H zero-padded to Hp (a multiple of
-    64, so the g half starts on a 16-byte TMA boundary); the biases as f32
-    holding ``dtype`` values; the weights' tensor maps once encoded on the
-    card"""
+    """the weights of the forward and backward cores (csrc/ffn_core.cuh,
+    csrc/ffn_bwd_core.cuh): W_vg^T (2 Hp, C) and W_out^T (C, Hp) in
+    ``dtype``, K-major, H zero-padded to Hp (a multiple of 64, so the g half
+    starts on a 16-byte TMA boundary); b_vg as f32 holding ``dtype`` values;
+    the weights' tensor maps once encoded on the card"""
 
     dww: torch.Tensor
     dwb: torch.Tensor
     wvg_t: torch.Tensor
     wout_t: torch.Tensor
     bvg: torch.Tensor
-    bout: torch.Tensor
     H: int
     Hp: int
     maps: ctypes.Array | None = None
@@ -240,9 +288,8 @@ class FfnPack:
         return ctypes.addressof(self.maps)
 
 
-def pack_ffn_fwd(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
-                 dtype: torch.dtype) -> FfnPack:
-    """the forward core's layout of the SwiGLU weights (uncached)"""
+def pack_ffn(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, dtype: torch.dtype) -> FfnPack:
+    """the cores' layout of the SwiGLU weights (uncached)"""
     C, H2 = vg_kernel.shape
     H = H2 // 2
     Hp = -(-H // 64) * 64
@@ -256,42 +303,21 @@ def pack_ffn_fwd(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
     bvg[:H] = vg_bias[:H].to(dtype)
     bvg[Hp : Hp + H] = vg_bias[H:].to(dtype)
     return FfnPack(dw_kernel.to(dtype).contiguous(), dw_bias.to(dtype).contiguous(), wvg_t,
-                   wout_t, bvg, out_bias.to(dtype).float().contiguous(), H, Hp)
+                   wout_t, bvg, H, Hp)
 
 
-def packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
+def packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
                        dtype: torch.dtype) -> FfnPack:
-    """``pack_ffn_fwd``, once per weight version"""
-    weights = (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
-    return _cached("fwd", weights, dtype, lambda: pack_ffn_fwd(*weights, dtype))
-
-
-def pack_ffn_bwd(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                 dtype: torch.dtype) -> tuple[list[torch.Tensor], int, int]:
-    """the backward kernels' layout (csrc/ffn_tile.cuh), uncached: the
-    weights in ``dtype``, the hidden width H zero-padded to a multiple of 16
-    (the wmma tile) -> ([dw_kernel, dw_bias, W_vg (C, 2 Hp), b_vg (2 Hp),
-    W_out (Hp, C)], H, Hp), v columns then g columns, each padded"""
-    C, H2 = vg_kernel.shape
-    H = H2 // 2
-    Hp = -(-H // 16) * 16
-    dev = vg_kernel.device
-    wvg = torch.zeros(C, 2 * Hp, dtype=dtype, device=dev)
-    wvg[:, :H] = vg_kernel[:, :H]
-    wvg[:, Hp : Hp + H] = vg_kernel[:, H:]
-    bvg = torch.zeros(2 * Hp, dtype=dtype, device=dev)
-    bvg[:H] = vg_bias[:H]
-    bvg[Hp : Hp + H] = vg_bias[H:]
-    wout = torch.zeros(Hp, C, dtype=dtype, device=dev)
-    wout[:H] = out_kernel
-    return [dw_kernel.to(dtype).contiguous(), dw_bias.to(dtype).contiguous(), wvg, bvg, wout], H, Hp
-
-
-def packed_bwd_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                       dtype: torch.dtype) -> tuple[list[torch.Tensor], int, int]:
-    """``pack_ffn_bwd``, once per weight version"""
+    """``pack_ffn``, once per weight version"""
     weights = (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel)
-    return _cached("bwd", weights, dtype, lambda: pack_ffn_bwd(*weights, dtype))
+    return _cached("ffn", weights, dtype, lambda: pack_ffn(*weights, dtype))
+
+
+def packed_out_bias(out_bias, vg_kernel, dtype: torch.dtype) -> torch.Tensor:
+    """b_out in ``dtype``, once per version of ``out_bias`` (kept beside
+    W_vg's pack, apart from it: the backward reads the pack and no b_out)"""
+    return _cached("bout", (out_bias,), dtype, lambda: out_bias.to(dtype).contiguous(),
+                   owner=vg_kernel)
 
 
 def check_ffn_shapes(x: torch.Tensor, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
@@ -316,8 +342,8 @@ def check_ffn_shapes(x: torch.Tensor, dw_kernel, dw_bias, vg_kernel, vg_bias, ou
 
 def ffn_fwd_inputs(x, weights, film: bool = False) -> tuple[FfnPack, int, int, tuple]:
     """the forward core's checks and operands: -> (pack, output columns a
-    CTA holds, hidden slices, (workspace, sums of squares) pointers, None
-    where one CTA owns a row tile)"""
+    CTA holds, hidden slices, (workspace, sums of squares), None where one
+    CTA owns a row tile)"""
     check_cuda("x", x, torch.bfloat16, 3)
     check_ffn_shapes(x, *weights)
     B, L, C = x.shape
@@ -325,7 +351,7 @@ def ffn_fwd_inputs(x, weights, film: bool = False) -> tuple[FfnPack, int, int, t
     if not fwd_kernel_fits(C, K, H):
         raise ValueError(f"channels {C} / {K} taps outside the forward kernel's range (C a "
                          f"multiple of 16 up to the shared-memory limit, radius <= {_FC_MAX_RADIUS})")
-    pack = packed_ffn_weights(*weights, x.dtype)
+    pack = packed_ffn_weights(*weights[:5], x.dtype)
     nc, slices = fwd_plan(B * L, C, pack.Hp, device_sms(x.device), film)
     if slices == 1 and C <= nc:
         return pack, nc, slices, (None, None)
@@ -339,11 +365,11 @@ def swiglu_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
     pack, nc, slices, scratch = ffn_fwd_inputs(
         x, (dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias))
     B, L, C = x.shape
-    out = torch.empty_like(x)
+    out, bout = torch.empty_like(x), packed_out_bias(out_bias, vg_kernel, x.dtype)
     run(
         "odt_swiglu_fwd", "swiglu", x.device,
         x.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(), pack.bvg.data_ptr(),
-        pack.bout.data_ptr(), pack.weight_maps(), out.data_ptr(),
+        bout.data_ptr(), pack.weight_maps(), out.data_ptr(),
         *(t.data_ptr() if t is not None else None for t in scratch),
         B, L, C, pack.H, pack.Hp, dw_kernel.shape[0], slices, nc,
     )
@@ -362,87 +388,73 @@ def swiglu_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad
         return torch.autograd.grad(y, [*leaves, out_bias], grad_out)
 
 
-def _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, max_c: int):
-    """the backward kernels' checks -> (bf16 output gradient, packed
-    weights, H, padded H)"""
+def _bwd_core(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, full: bool):
+    """K6 (``full`` False) or K5 on the backward core: -> (dx, the small
+    gradients, H, Hp, and K6's y, dvg, hn and bf16 output gradient for the
+    weight products, or K5's padded dW_vg and dW_out)"""
     check_cuda("x", x, torch.bfloat16, 3)
     check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
                      vg_kernel.new_empty(x.shape[-1]))  # the kernels read no output bias
     go = grad_out.to(torch.bfloat16).contiguous()
-    if x.shape[-1] % 32 or x.shape[-1] > max_c:
-        raise ValueError(f"channels {x.shape[-1]} must be a multiple of 32 and at most {max_c} "
+    B, L, C = x.shape
+    max_c = 512 if full else 640
+    if C % 32 or C > max_c:
+        raise ValueError(f"channels {C} must be a multiple of 32 and at most {max_c} "
                          "for this backward kernel")
     if go.shape != x.shape or go.device != x.device:
         raise ValueError(f"grad_out must be {tuple(x.shape)} on {x.device}, "
                          f"got {tuple(go.shape)} on {go.device}")
-    weights, H, Hp = packed_bwd_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
-    return go, weights, H, Hp
+    pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
+    K, H, Hp, BL, dev = dw_kernel.shape[0], pack.H, pack.Hp, B * L, x.device
+    nwg, sa, sb = bwd_plan(BL, C, Hp, device_sms(dev), film=False)
+    frows = bwd_rows(C)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    work = [torch.empty(2 * sa, BL, **f32),                           # pass A: sum s^2, sum dhn s
+            torch.empty(BL, C, **bf), torch.empty(BL, 2, **f32),      # y, (n, n^3 m)
+            torch.empty(BL, 2 * Hp, **bf), torch.empty(BL, Hp, **bf),  # dvg, hn
+            torch.empty(-(-BL // (64 * nwg)) * nwg, 2 * Hp, **f32),   # vg-bias partials
+            torch.empty(sb, BL, C, **f32),                             # dY
+            torch.empty(B, -(-L // frows), 2 + K, C, **f32)]           # the finish's sums
+    args = [x.data_ptr(), go.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(),
+            pack.bvg.data_ptr(), pack.weight_maps(), dx.data_ptr(), *(t.data_ptr() for t in work)]
+    dims = [B, L, C, H, Hp, K, nwg, sa, sb, frows]
+    if full:
+        s_vg, s_out = gemm_splits(BL, C, 2 * Hp), gemm_splits(BL, Hp, C)
+        prods = [torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32),
+                 torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)]
+        run("odt_swiglu_bwd_full", "swiglu_bwd_full", dev, *args, *(t.data_ptr() for t in prods),
+            *dims, s_vg, s_out)
+        extra = prods[2:]
+    else:
+        run("odt_swiglu_bwd", "swiglu_bwd", dev, *args, *dims)
+        extra = [work[1], work[3], work[4], go.reshape(BL, C)]
+    fin, dbvg = work[7].sum((0, 1)), work[5].sum(0)  # d dw_bias, d out_bias, the taps
+    small = (fin[2:], fin[0], torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), fin[1])
+    return dx, small, H, Hp, extra
 
 
 def swiglu_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
     """K6, csrc/swiglu_bwd.cu: dx (bf16) and the small gradients (f32) from
-    the kernel; dW_vg = y^T dvg and dW_out = hn^T go as f32-accumulated
-    torch matmuls over all B*L rows. -> the tuple of ``swiglu_bwd_plain``,
+    the backward core; dW_vg = y^T dvg and dW_out = hn^T go as f32-accumulated
+    torch matmuls over all B L rows. -> the tuple of ``swiglu_bwd_plain``,
     weight gradients f32"""
-    go, weights, H, Hp = _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                                     grad_out, 640)
-    B, L, C = x.shape
-    K = dw_kernel.shape[0]
-    E = bwd_rows(C)
-    nblk = B * -(-L // (E - 2 * (K // 2)))
-    dev = x.device
-    dx, y = torch.empty_like(x), torch.empty_like(x)
-    dvg = torch.empty(B, L, 2 * H, dtype=x.dtype, device=dev)
-    hn = torch.empty(B, L, H, dtype=x.dtype, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    ddw, ddwb = torch.empty(nblk, K, C, **f32), torch.empty(nblk, C, **f32)
-    dbvg, dbout = torch.empty(nblk, 2 * Hp, **f32), torch.empty(nblk, C, **f32)
-    scratch = torch.empty(nblk, E, 2 * Hp, dtype=x.dtype, device=dev)  # dvg of each block
-    run(
-        "odt_swiglu_bwd", "swiglu_bwd", dev,
-        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights),
-        *(t.data_ptr() for t in (dx, dvg, hn, y, ddw, ddwb, dbvg, dbout, scratch)),
-        B, L, C, H, Hp, K,
-    )
-    dwvg = torch.mm(y.reshape(-1, C).t(), dvg.reshape(-1, 2 * H), out_dtype=torch.float32)
-    dwout = torch.mm(hn.reshape(-1, H).t(), go.reshape(-1, C), out_dtype=torch.float32)
-    dbvg = dbvg.sum(0)
-    return (dx, ddw.sum(0), ddwb.sum(0), dwvg, torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout,
-            dbout.sum(0))
+    dx, (ddw, ddwb, dbvg, dbout), H, Hp, (y, dvg, hn, go) = _bwd_core(
+        x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, full=False)
+    dwvg = torch.mm(y.t(), dvg, out_dtype=torch.float32)
+    dwout = torch.mm(hn.t(), go, out_dtype=torch.float32)
+    return (dx, ddw, ddwb, torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1), dbvg, dwout[:H], dbout)
 
 
 def swiglu_bwd_full_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out):
-    """K5, csrc/swiglu_bwd.cu ``odt_swiglu_bwd_full``: K6's row pass, then
-    both weight products (split-K, fixed order) and the sums of the small
-    gradients' per-block partials in the same call. -> the tuple of
-    ``swiglu_bwd_plain``, dx bf16 and the weight gradients f32"""
-    go, weights, H, Hp = _bwd_inputs(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
-                                     grad_out, 512)
-    B, L, C = x.shape
-    K = dw_kernel.shape[0]
-    nblk = B * -(-L // (bwd_rows(C) - 2 * (K // 2)))
-    R = nblk * bwd_rows(C)
-    dev = x.device
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    s_vg, s_out = gemm_splits(R, C, 2 * Hp), gemm_splits(R, Hp, C)
-    dx = torch.empty_like(x)
-    parts = [torch.empty(nblk, K, C, **f32), torch.empty(nblk, C, **f32),
-             torch.empty(nblk, 2 * Hp, **f32), torch.empty(nblk, C, **f32)]
-    scratch = [torch.empty(R, 2 * Hp, **bf), torch.empty(R, C, **bf), torch.empty(R, Hp, **bf),
-               torch.empty(R, C, **bf)]  # dvg, y, hn, go
-    pvg, pout = torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32)
-    ddw, ddwb, dbvg, dbout = (torch.empty(K, C, **f32), torch.empty(C, **f32),
-                              torch.empty(2 * Hp, **f32), torch.empty(C, **f32))
-    dwvg, dwout = torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)
-    run(
-        "odt_swiglu_bwd_full", "swiglu_bwd_full", dev,
-        x.data_ptr(), go.data_ptr(), *(w.data_ptr() for w in weights), dx.data_ptr(),
-        *(t.data_ptr() for t in parts + scratch + [pvg, pout, ddw, ddwb, dbvg, dbout, dwvg, dwout]),
-        B, L, C, H, Hp, K, s_vg, s_out,
-    )
-    return (dx, ddw, ddwb, torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1),
-            torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout[:H], dbout)
+    """K5, csrc/swiglu_bwd.cu ``odt_swiglu_bwd_full``: K6's pass, then both
+    weight products (csrc/gemm_tn.cuh, fixed-order chunk sums) in the same
+    call. -> the tuple of ``swiglu_bwd_plain``, dx bf16 and the weight
+    gradients f32"""
+    dx, (ddw, ddwb, dbvg, dbout), H, Hp, (dwvg, dwout) = _bwd_core(
+        x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, full=True)
+    return (dx, ddw, ddwb, torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1), dbvg, dwout[:H], dbout)
 
 
 class SwiGLUFunction(torch.autograd.Function):

@@ -167,19 +167,39 @@ def test_fwd_stages_mirror_the_header(C, H):
 
 
 def _params(C: int = 64, H: int = 42, K: int = 5, seed: int = 0) -> list[torch.nn.Parameter]:
+    """the five weights the pack holds (the output bias is passed apart)"""
     return [torch.nn.Parameter(torch.from_numpy(a)) for a in
             (randn(seed, K, C), randn(seed + 1, C), randn(seed + 2, C, 2 * H),
-             randn(seed + 3, 2 * H), randn(seed + 4, H, C), randn(seed + 5, C))]
+             randn(seed + 3, 2 * H), randn(seed + 4, H, C))]
 
 
 def test_pack_cache_returns_the_cached_layout():
+    """one pack a weight version, read by the forward and the backward
+    kernels alike: the backward's lookup (the same five weights) hits the
+    forward's layout"""
     p = _params()
     a = sw.packed_ffn_weights(*p, torch.bfloat16)
     assert sw.packed_ffn_weights(*p, torch.bfloat16) is a
-    b = sw.packed_bwd_weights(*p[:5], torch.bfloat16)
-    assert sw.packed_bwd_weights(*p[:5], torch.bfloat16) is b
+    assert set(sw._PACKS[p[2]]) == {("ffn", torch.bfloat16)}
     # another dtype is another layout
     assert sw.packed_ffn_weights(*p, torch.float32) is not a
+
+
+def test_out_bias_is_cast_once_per_version():
+    """the forward wrappers' bf16 b_out: one cast a version of the f32
+    parameter, kept beside W_vg's pack and apart from it (so the backward's
+    lookup of the five weights still hits the forward's pack)"""
+    p = _params()
+    bias = torch.nn.Parameter(torch.from_numpy(randn(9, 64)))
+    a = sw.packed_out_bias(bias, p[2], torch.bfloat16)
+    assert sw.packed_out_bias(bias, p[2], torch.bfloat16) is a
+    assert a.dtype == torch.bfloat16 and torch.equal(a, bias.detach().to(torch.bfloat16))
+    sw.packed_ffn_weights(*p, torch.bfloat16)
+    assert set(sw._PACKS[p[2]]) == {("bout", torch.bfloat16), ("ffn", torch.bfloat16)}
+    with torch.no_grad():
+        bias.add_(1.0)
+    b = sw.packed_out_bias(bias, p[2], torch.bfloat16)
+    assert b is not a and torch.equal(b, bias.detach().to(torch.bfloat16))
 
 
 def test_pack_cache_repacks_after_an_in_place_update():
@@ -195,14 +215,14 @@ def test_pack_cache_repacks_after_an_in_place_update():
 def test_pack_cache_repacks_after_an_optimizer_step():
     p = _params()
     a = sw.packed_ffn_weights(*p, torch.bfloat16)
-    bwd = sw.packed_bwd_weights(*p[:5], torch.bfloat16)
     opt = torch.optim.AdamW(p, lr=1e-2)
     sum(t.square().sum() for t in p).backward()
     opt.step()
     b = sw.packed_ffn_weights(*p, torch.bfloat16)
     assert b is not a
     torch.testing.assert_close(b.wout_t[:, :42], p[4].t().to(torch.bfloat16))
-    assert sw.packed_bwd_weights(*p[:5], torch.bfloat16) is not bwd
+    torch.testing.assert_close(b.dww, p[0].to(torch.bfloat16))
+    assert sw.packed_ffn_weights(*p, torch.bfloat16) is b
 
 
 def test_pack_cache_misses_a_new_tensor():
@@ -228,9 +248,7 @@ def test_pack_pads_the_hidden_with_zeros():
     bf = torch.bfloat16
     torch.testing.assert_close(pk.wvg_t[Hp : Hp + H], p[2][:, H:].t().to(bf))
     torch.testing.assert_close(pk.bvg[:H], p[3][:H].to(bf).float())
-    torch.testing.assert_close(pk.bout, p[5].to(bf).float())
-    wb, Hb, Hpb = sw.packed_bwd_weights(*p[:5], torch.bfloat16)
-    assert (Hb, Hpb) == (42, 48) and not wb[2][:, H:48].any() and not wb[4][H:].any()
+    torch.testing.assert_close(pk.bvg[Hp : Hp + H], p[3][H:].to(bf).float())
 
 
 def test_pack_cache_lets_the_weights_go():
@@ -238,8 +256,8 @@ def test_pack_cache_lets_the_weights_go():
     bound, and a dropped weight takes its layouts with it"""
     p = _params(C=32, H=21)
     sw.packed_ffn_weights(*p, torch.bfloat16)
-    sw.packed_bwd_weights(*p[:5], torch.bfloat16)
-    assert set(sw._PACKS[p[2]]) == {("fwd", torch.bfloat16), ("bwd", torch.bfloat16)}
+    sw.packed_ffn_weights(*p, torch.float32)
+    assert set(sw._PACKS[p[2]]) == {("ffn", torch.bfloat16), ("ffn", torch.float32)}
     before = len(sw._PACKS)
     del p
     gc.collect()
@@ -255,11 +273,17 @@ def test_pack_skips_inference_tensors():
 
 
 def test_film_layer_backward_widths():
-    """K3's range: every width the JAX package fuses (to C 384), with fewer
-    rows a block past C 128 so that its row buffers fit shared memory"""
+    """K3's range: every width the JAX package fuses (to C 384); the
+    backward core's pass B with two 64-row warpgroups a CTA to C 256 and
+    one at C 384 (its y and do tiles), always at least two ring stages"""
     assert [C for C in (32, 64, 96, 128, 256, 384, 512) if fl.bwd_kernel_fits(C, 5)] == [
         32, 64, 128, 256, 384]
-    assert [fl.bwd_rows(C) for C in (64, 128, 256, 384)] == [64, 64, 32, 16]
+    rows = 64 * 1026  # latent training's top level: enough row tiles
+    assert [sw.bwd_plan(rows, C, -(-int(C * 8 / 3) // 64) * 64, H100_SMS, True)[0]
+            for C in (64, 128, 256, 384)] == [2, 2, 2, 1]
+    for C in fl.BWD_WIDTHS:
+        Hp = -(-int(C * 8 / 3) // 64) * 64
+        assert sw.bwd_stages(C, 2 if C <= 256 else 1, False, Hp // 64) >= 2
 
 
 def test_emulation_matches_the_plain_version_closely():

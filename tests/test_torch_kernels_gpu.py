@@ -312,9 +312,9 @@ def test_swiglu_bwd_kernel_matches_plain_on_gpu(B, L, C, H, K):
                                                  (2, 41, 384, 1024, 5, False)])
 def test_film_layer_bwd_kernel_matches_plain_on_gpu(B, L, C, H, K, zero_film):
     """K3: dx and the eleven parameter / FiLM gradients (GRAD_REL) at a
-    ragged L (the last block partial, or one block holding the whole
-    sequence), H padded to a multiple of 16, zero and nonzero FiLM; a second
-    launch is bit-identical (fixed-order sums, no float atomics); and
+    ragged L (flat 64-row tiles straddling batch rows, the hidden split of
+    short inputs), H padded to a multiple of 64, zero and nonzero FiLM; a
+    second launch is bit-identical (fixed-order sums, no float atomics); and
     ``film_layer`` on CUDA tensors builds its graph through K2 and K3"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -425,3 +425,107 @@ def test_swiglu_function_launches_the_jax_backward_on_gpu(C, H, kernel):
     other = "swiglu_bwd" if kernel == "swiglu_bwd_full" else "swiglu_bwd_full"
     assert _build.launches[kernel] == before[kernel] + 1
     assert _build.launches[other] == before[other]
+
+
+def _film_bwd_case(B, L, C, H, seed, zero_film=False):
+    """K3's inputs: bf16 x, FiLM vectors and output gradient, f32 parameters
+    holding bf16 values (as in training)"""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x, go = rnd(B, L, C).to(torch.bfloat16), rnd(B, L, C).to(torch.bfloat16)
+    film = [torch.zeros(B, C, device="cuda") if zero_film else rnd(B, C, scale=0.3)
+            for _ in range(3)]
+    params = [1 + rnd(C, scale=0.1), 1 + rnd(C, scale=0.1), rnd(5, C, scale=0.4),
+              rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5), rnd(2 * H, scale=0.1),
+              rnd(H, C, scale=H**-0.5), rnd(C, scale=0.1)]
+    return [x, *(t.to(torch.bfloat16) for t in film),
+            *(t.to(torch.bfloat16).float() for t in params)], go
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H", [(32, 85), (64, 170), (128, 341), (256, 682), (384, 1024)])
+@pytest.mark.parametrize("B,L", [(3, 1), (64, 38), (2, 65), (4, 1026)])
+def test_film_layer_bwd_core_widths_on_gpu(B, L, C, H):
+    """K3 on the backward core at every width it takes and at L 1, 38 (the
+    hidden split), 65 (a tile past one) and 1026: GRAD_REL of f32 autograd
+    of the plain version, and a second launch bit-identical"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _film_bwd_case(B, L, C, H, 20)
+    got = film_layer.film_layer_bwd_cuda(*args, go)
+    _grads_close(got, film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float()))
+    assert all(torch.equal(a, b) for a, b in zip(got, film_layer.film_layer_bwd_cuda(*args, go)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero_film", [False, True])
+@pytest.mark.parametrize("L", [1026, 342, 114, 38])
+def test_film_layer_bwd_latent_levels_on_gpu(L, zero_film):
+    """K3 at latent training's four levels (B 64, C 128), with and without
+    FiLM: GRAD_REL, and one launch counted a call"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _film_bwd_case(64, L, 128, 341, 21, zero_film)
+    before = _build.launches["film_layer_bwd"]
+    got = film_layer.film_layer_bwd_cuda(*args, go)
+    assert _build.launches["film_layer_bwd"] == before + 1
+    _grads_close(got, film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float()))
+
+
+@pytest.mark.gpu
+def test_backward_core_keeps_batch_rows_apart_on_gpu():
+    """a NaN-filled batch row leaves the other rows' dx untouched in K3 and
+    K6: the tiles run over the flattened rows, the conv and its transpose
+    select zero across a batch row"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _film_bwd_case(3, 40, 128, 341, 22)
+    clean = film_layer.film_layer_bwd_cuda(*args, go)[0]
+    args[0][1] = float("nan")
+    dirty = film_layer.film_layer_bwd_cuda(*args, go)[0]
+    assert torch.equal(dirty[0], clean[0]) and torch.equal(dirty[2], clean[2])
+    x, w, g = _swiglu_bwd_case(3, 40, 512, 1365, 23)
+    clean = swiglu.swiglu_bwd_cuda(x, *w, g)[0]
+    x[1] = float("nan")
+    dirty = swiglu.swiglu_bwd_cuda(x, *w, g)[0]
+    assert torch.equal(dirty[0], clean[0]) and torch.equal(dirty[2], clean[2])
+
+
+def _swiglu_bwd_case(B, L, C, H, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x, go = rnd(B, L, C).to(torch.bfloat16), rnd(B, L, C).to(torch.bfloat16)
+    w = [rnd(5, C, scale=0.4), rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5),
+         rnd(2 * H, scale=0.1), rnd(H, C, scale=H**-0.5)]
+    return x, [t.to(torch.bfloat16).float() for t in w], go
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,kernel", [(512, 1365, "swiglu_bwd"), (640, 1706, "swiglu_bwd"),
+                                        (448, 1194, "swiglu_bwd"),
+                                        (384, 1024, "swiglu_bwd_full"),
+                                        (480, 1280, "swiglu_bwd_full"),
+                                        (128, 341, "swiglu_bwd_full")])
+@pytest.mark.parametrize("B,L", [(3, 1), (8, 38), (2, 65), (1, 1026)])
+def test_swiglu_bwd_core_widths_on_gpu(B, L, C, H, kernel):
+    """K6 and K5 on the backward core at their widths and at L 1, 38, 65 and
+    1026 (C 448: an odd count of dY tiles split between pass B's paired
+    warpgroups; C 480: a half-filled last tile; C 384 and 640: column
+    groups): GRAD_REL of f32 autograd
+    of the plain version, a second launch bit-identical, one launch counted
+    a call"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    x, w, go = _swiglu_bwd_case(B, L, C, H, 24)
+    fn = getattr(swiglu, f"{kernel}_cuda")
+    before = _build.launches[kernel]
+    got = fn(x, *w, go)
+    assert _build.launches[kernel] == before + 1
+    _grads_close(got, swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))
+    assert all(torch.equal(a, b) for a, b in zip(got, fn(x, *w, go)))

@@ -7,7 +7,10 @@
 # card's name and power limit, each run's exit code, then from each log the
 # lines the two are compared on: the SwiGLU and film-layer kernels at their
 # main shapes, K4's plans, the profiled request's device time, the train
-# steps and the wall.
+# steps and the wall. After each smoke run, tools/step_profile.py (this
+# tree's copy, from that checkout) times the FFN backward kernels by graph
+# replay and profiles one train step of each stage, so that both trees are
+# measured by the same code; its lines close each block.
 #
 #   tools/parent_vs_change.sh PARENT_DIR CHANGE_DIR OUT_DIR
 #
@@ -24,10 +27,15 @@ out=$(realpath -m "$3")
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
+tool=$(realpath "$(dirname "$0")/step_profile.py")
 smoke() {
   (cd "$1" && python3 chip_smoke.py > "$out/$2.log" 2>&1)
   local rc=$?
   echo "$2: chip_smoke.py rc $rc"
+  [ $rc -eq 0 ] || status=1
+  (cd "$1" && python3 "$tool" > "$out/$2_steps.log" 2>&1)
+  rc=$?
+  echo "$2: step_profile.py rc $rc"
   [ $rc -eq 0 ] || status=1
 }
 smoke "$parent" parent1
@@ -44,5 +52,6 @@ for run in parent1 change1 change2 parent2; do
   echo "== $run"
   grep -E "$main|^swiglu plan|that request on the device|^fit-(denoiser|latent) \(|chip_smoke wall time" \
     "$out/$run.log" | cut -c1-400
+  grep -E "^K[356] |one step under" "$out/${run}_steps.log" | cut -c1-400
 done
 exit $status

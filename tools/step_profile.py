@@ -1,0 +1,154 @@
+#!/usr/bin/env python3
+"""The FFN backward kernels and one train step of each stage on the card,
+for the checkout in the working directory, read with this repository's
+chip_smoke.py measures (its graph-replay timer, ``step_kernels`` and the
+kernel families, which name this tree's kernels and the parent's):
+
+    cd CHECKOUT && python3 /path/to/this/repo/tools/step_profile.py
+
+tools/parent_vs_change.sh runs it from both checkouts in one call, so the
+two trees are timed by the same code. It prints the card's name and power
+limit, then:
+- K3 (film-layer backward) at B64 L1026 and B64 L38, C 128, K6 (SwiGLU
+  partial backward, its two torch matmuls included) at B128 L152 C512 and
+  K5 at B128 L152 C384: device ms a call over replays of a CUDA graph of 20
+  calls, then each kernel's device ms a call (torch.profiler over 5 calls);
+- one full-width latent train step (the package config, B32 x 2052) and one
+  denoiser step (B128 x L152, width 512) on a random batch, seeded, after
+  two warm-up steps, under torch.profiler: device-busy ms and the FFN
+  backward's kernel ms.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+SEED = 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("step_profile: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())  # the checkout's package
+    spec = importlib.util.spec_from_file_location("chip_smoke_measures", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from osu_dreamer_tpu_torch.models.diffusion import fit as diffusion_fit
+    from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModelArgs
+    from osu_dreamer_tpu_torch.models.diffusion.train import (
+        DiffusionTrainArgs, LatentBatch, init_diffusion_training,
+    )
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import (
+        Batch, LatentTrainArgs, init_latent_training,
+    )
+    from osu_dreamer_tpu_torch.ops import film_layer, swiglu
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict, load_yaml_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"{smi}; checkout {os.getcwd()}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def ffn(C, H):  # f32 parameters holding bf16 values, as in training
+        return [rnd(5, C, scale=0.4).float(), rnd(C, scale=0.1).float(),
+                rnd(C, 2 * H, scale=C**-0.5).float(), rnd(2 * H, scale=0.1).float(),
+                rnd(H, C, scale=H**-0.5).float(), rnd(C, scale=0.1).float()]
+
+    def kernels(fn, args, calls=5) -> str:
+        """each kernel's device ms a call, by name (its template arguments
+        kept), in the order of its first launch"""
+        fn(*args)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            trace = Path(tmpdir) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        times: dict[str, float] = {}
+        for e in sorted((e for e in events if e.get("cat") == "kernel" and "dur" in e),
+                        key=lambda e: float(e["ts"])):
+            name = e["name"].split("(")[0].replace("void ", "").replace("odt::", "")[:60]
+            times[name] = times.get(name, 0.0) + float(e["dur"]) / 1e3 / calls
+        return "; ".join(f"{k} {v:.4f}" for k, v in times.items())
+
+    for B, L in ((64, 1026), (64, 38)):
+        args = (rnd(B, L, 128), *(rnd(B, 128, scale=0.3) for _ in range(3)),
+                1 + rnd(128, scale=0.1), 1 + rnd(128, scale=0.1), *ffn(128, 341), rnd(B, L, 128))
+        print(f"K3 film_layer_bwd B{B} L{L} C128 H341: "
+              f"{smoke.graph_ms(film_layer.film_layer_bwd_cuda, args):.4f} ms (graph replay); by kernel, "
+              f"ms: {kernels(film_layer.film_layer_bwd_cuda, args)} [{smi}]", flush=True)
+    for name, fn, C, H in (("K6 swiglu_bwd", swiglu.swiglu_bwd_cuda, 512, 1365),
+                           ("K5 swiglu_bwd_full", swiglu.swiglu_bwd_full_cuda, 384, 1024)):
+        args = (rnd(128, 152, C), *ffn(C, H)[:5], rnd(128, 152, C))
+        print(f"{name} B128 L152 C{C} H{H}: {smoke.graph_ms(fn, args):.4f} ms (graph replay); by "
+              f"kernel, ms: {kernels(fn, args)} [{smi}]", flush=True)
+    del args
+    torch.cuda.empty_cache()
+
+    def profile(what, state, step, batch, families) -> None:
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step(state, batch)
+                torch.cuda.synchronize()
+            trace = Path(tmpdir) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            print(f"{what}: one step under torch.profiler: "
+                  f"{smoke.step_kernels(trace, families)} [{smi}]", flush=True)
+
+    cfg = load_yaml_config(latent_fit.CONFIG)
+    margs = dataclass_from_dict(LatentModelArgs, cfg["model"])
+    state, step = init_latent_training(margs, dataclass_from_dict(LatentTrainArgs, cfg["train"]),
+                                       SEED, dev, torch.bfloat16)
+    smoke.randomize_(state.model, gen)
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    batch = Batch(audio=torch.rand(Bt, Lt, 72, generator=gen, device=dev),
+                  chart=torch.rand(Bt, Lt, 9, generator=gen, device=dev),
+                  labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    profile(f"latent step (B{Bt} x L{Lt})", state, step, batch, smoke.LATENT_FAMILIES)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    cfg = load_yaml_config(diffusion_fit.CONFIG)
+    md = cfg["model"]
+    state, step = init_diffusion_training(dataclass_from_dict(DiffusionModelArgs, md),
+                                          dataclass_from_dict(DiffusionTrainArgs, cfg["train"]),
+                                          SEED, dev, torch.bfloat16)
+    smoke.randomize_(state.model, gen)
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
+    batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
+                        z=z / z.square().mean(-1, keepdim=True).sqrt(),
+                        s=torch.randn(Bt, md["style_dim"], generator=gen, device=dev),
+                        labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    profile(f"denoiser step (B{Bt} x L{Lt})", state, step, batch, smoke.DENOISER_FAMILIES)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
