@@ -18,19 +18,23 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    widths: K4 at C 768, K2 at C 384, K6 at C 640, K3 at C 256 and 384,
    K11/K12 at C 640 and 1024, and at widths whose last 64-column box runs
    past C: K4 at C 96, K2 at C 32; the FFN and prologue backward kernels K3,
-   K5, K6 and K12 also by graph replay, their plain versions by CUDA events
-   around 20 launches) and, for the flash attention, torch's
+   K5, K6 and K12 and the fused attention K9/K10 also by graph replay, as
+   their plain versions) and, for the flash attention, torch's
    scaled_dot_product_attention as a yardstick: the
    inference kernels at the inference slice's shapes (the film layer also at
    latent training's B64 L1026; the flash attention also at B1 L2500, B4 L65
    and B1 L2049), the denoiser's training kernels (SwiGLU
    backward, fused attention forward and backward) at its training shape
-   B128 L152 and at a ragged length, the film-layer backward at latent
+   B128 L152 and at a ragged length (the fused attention also at the edges
+   of one to four 64-row tiles, L 1, 63, 64, 65, 192, 193 and 256, its
+   forward also without residuals, which must give the same output), the
+   film-layer backward at latent
    training's four levels B64 L1026, L342, L114 and L38 (the top and bottom
    also with zero FiLM), the full SwiGLU backward (K5) at the width-384
    denoiser's B128 L152 C384 H1024, and the fused norm + FiLM + qkv prologue
    forward (K11) and backward (K12) at B128 L152 and B4 L759 (C 512, F 3072),
-   ragged, and at C 384. The backward kernels' reruns must be bit-identical.
+   ragged, and at C 384. The backward kernels' and K9's reruns must be
+   bit-identical.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
    reduction of the split plans timed apart by torch.profiler.
@@ -58,8 +62,8 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    validation and the best/last checkpoints. Every loss must be finite and
    every training kernel must launch during the timed steps (the prologue
    kernels and K5 not); one more step runs under torch.profiler, which gives
-   the step's device-busy ms and K6's ms (its two torch matmuls apart) and
-   launches. Then one step's loss and gradients through the
+   the step's device-busy ms and the ms and launches of K6 (its two torch
+   matmuls apart), K9 and K10. Then one step's loss and gradients through the
    kernels (bf16) and through the plain versions (bf16) are each held to a
    plain f32 step on the same batch, t and x0 (random full-strength weights).
 5. Trains the chart autoencoder at full width (the port's
@@ -162,7 +166,7 @@ INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # launches from Python, whose host cost exceeds their run time (the
 # backward wrappers launch several kernels and torch ops a call)
 GRAPH_TIMED = ("flash_attention", "swiglu", "film_layer", "swiglu_bwd", "swiglu_bwd_full",
-               "film_layer_bwd", "film_qkv_bwd")
+               "film_layer_bwd", "film_qkv_bwd", "fused_attention_fwd", "fused_attention_bwd")
 # the forward core's kernels (K4, K2) are held to the plain version in f32 on
 # the same bf16 inputs: their error's mean within SLICE_MEAN_RATIO and max
 # within SLICE_MAX_RATIO of the plain bf16 path's (they keep v, g and h in
@@ -235,6 +239,8 @@ LATENT_FAMILIES = {
 DENOISER_FAMILIES = {
     "K6 core": r"bwd_conv_kernel|bwd_mid_kernel<false|ffn_bwd_grad_kernel|bwd_finish_plain_kernel"
                r"|swiglu_bwd_kernel",
+    "K9": r"fused_attention_fwd_kernel",
+    "K10": r"fused_attention_bwd_kernel",
 }
 
 
@@ -844,7 +850,11 @@ def main() -> int:
             raise RuntimeError(f"{name} {label}: two launches differ")
 
     H_ATT = 16
-    for i, (label, Bt, Lt) in enumerate((("B128 L152 H16", 128, 152), ("B4 L77 H16", 4, 77))):
+    # the training shape, a ragged L77, and the edges of one to four 64-row
+    # tiles up to the kernels' longest
+    attention_shapes = [("B128 L152 H16", 128, 152), ("B4 L77 H16", 4, 77)] + [
+        (f"B2 L{n} H16", 2, n) for n in (1, 63, 64, 65, 192, 193, 256)]
+    for i, (label, Bt, Lt) in enumerate(attention_shapes):
         qkv = rnd(Bt, Lt, 3 * H_ATT * 64, scale=0.7)
         qg, kg = (1 + rnd(64, scale=0.1, dtype=torch.float32) for _ in range(2))
         fwd_args = (qkv, qg, kg, H_ATT)
@@ -856,6 +866,11 @@ def main() -> int:
         log(f"fused_attention_fwd {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
         if not (bool(torch.isfinite(res[0]).all()) and err <= tol):
             raise RuntimeError(f"fused_attention_fwd {label}: kernel disagrees with its plain version")
+        check_rerun("fused_attention_fwd", label, fused_attention.fused_attention_fwd_cuda,
+                    fwd_args, res)
+        bare, no_lse = fused_attention.fused_attention_fwd_cuda(*fwd_args, residuals=False)
+        if no_lse is not None or not torch.equal(bare, res[0]):
+            raise RuntimeError(f"fused_attention_fwd {label}: the residual-free forward differs")
         grad = rnd(Bt, Lt, H_ATT * 64)
         bwd_args = (qkv, grad, *res, qg, kg, H_ATT)
         got = fused_attention.fused_attention_bwd_cuda(*bwd_args)
@@ -864,13 +879,15 @@ def main() -> int:
             fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg, kg, H_ATT),
             fused_attention.fused_attention_bwd_plain(*bwd_args),
         )
+        check_rerun("fused_attention_bwd", label, fused_attention.fused_attention_bwd_cuda,
+                    bwd_args, got)
         attn_flops = 4 * Bt * H_ATT * Lt * Lt * 64
         record("fused_attention_fwd", label, i,
-               cuda_ms(fused_attention.fused_attention_fwd_cuda, fwd_args),
-               cuda_ms(fused_attention.rope_attention_plain, fwd_args), err, attn_flops,
+               graph_ms(fused_attention.fused_attention_fwd_cuda, fwd_args),
+               graph_ms(fused_attention.rope_attention_plain, fwd_args), err, attn_flops,
                moved_bytes(*fwd_args, *res))
         record("fused_attention_bwd", label, i,
-               cuda_ms(fused_attention.fused_attention_bwd_cuda, bwd_args),
+               graph_ms(fused_attention.fused_attention_bwd_cuda, bwd_args),
                backward_ms("fused_attention_bwd",
                            lambda a, b, c: fused_attention.rope_attention_plain(a, b, c, H_ATT),
                            (qkv, qg, kg), grad),

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels, in
 // inline PTX: mbarriers, TMA tensor loads and stores, 3-D tensor-map
-// encoding on the host, wgmma shared-memory descriptors, the m64n64k16 bf16
-// products and their fence / commit / wait.
+// encoding on the host, wgmma shared-memory descriptors, the m64n32k16,
+// m64n64k16 and m64n128k16 bf16 products and their fence / commit / wait.
 //
 // Conventions:
 // - Tiles are 64 bf16 columns (128 bytes) wide and loaded with
@@ -223,6 +223,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_bt(float (&d)[32], const uint
 
 #undef ODT_WGMMA_D32
 #undef ODT_WGMMA_D32_OPERANDS
+
+// D (64 x 32 f32, 16 registers a thread) = A B (+ D if scale_d), bf16 in;
+// A (64 x 16) and B (16 x 32) from shared memory, both K-major (B: 32 rows
+// of a 128-byte-swizzled tile, starting on an 8-row group). Thread t holds
+// d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column
+// 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 #define ODT_WGMMA_D64                                                 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "               \

@@ -48,8 +48,8 @@ _SIGNATURES = {
     "odt_ffn_weight_maps": [_P, _P, _I, _I, _P],
     "odt_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_swiglu_bwd": [_P] * 15 + [_I] * 10 + [_P],
-    "odt_fused_attention_fwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
-    "odt_fused_attention_bwd": [_P] * 15 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_fused_attention_fwd": [_P] * 7 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_fused_attention_bwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_film_layer_bwd": [_P] * 28 + [_I] * 11 + [_P],
     "odt_swiglu_bwd_full": [_P] * 19 + [_I] * 12 + [_P],
     "odt_film_qkv_fwd": [_P] * 7 + [_I] * 5 + [_P],

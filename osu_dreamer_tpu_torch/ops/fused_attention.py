@@ -14,21 +14,27 @@ softmax, the probability matmul in the input dtype.
 ``fused_attention_fwd_kernel`` (K9) and whose backward is
 ``fused_attention_bwd_kernel`` (K10), bf16 and head dim 64 only (anything else
 raises); a CPU tensor to ``rope_attention_plain``, differentiated by autograd.
+The forward's one residual is the f32 log-sum-exp of each query row, written
+only when a gradient will be taken; the backward normalises and rotates q
+and k again from the raw rows with the forward's own code.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
 from .long_attention import HEAD_DIM, attention_plain
+from .swiglu import _cached
 
 # the JAX package's gate (its backward's VMEM budget), kept so both packages
 # take the fused path at the same shapes
 MAX_FUSED_LEN = 256
-# what the CUDA kernels' shared memory holds: a head's L rotated keys, values
-# and score rows (csrc/fused_attention.cu)
+# what the CUDA kernels' shared memory holds: a head's L rows of q, k, v and
+# dO, up to four 64-row tiles each (csrc/fused_attention.cu)
 MAX_KERNEL_LEN = 256
 
 
@@ -66,6 +72,26 @@ def rope_tables(L: int, D: int, device, dtype: torch.dtype) -> tuple[torch.Tenso
     return angles.cos().to(dtype), angles.sin().to(dtype)
 
 
+@functools.cache
+def kernel_tables(L: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rope_tables(L, 64)`` in bf16 on ``device``, built once per (L,
+    device): the first call, before any graph capture, makes them (at most
+    MAX_KERNEL_LEN lengths a device); the kernels only read them"""
+    return rope_tables(L, HEAD_DIM, device, torch.bfloat16)
+
+
+def kernel_gammas(q_gamma: torch.Tensor, k_gamma: torch.Tensor,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """the two (64,) gains in bf16 on ``device``, once per version of the
+    pair (the weight-pack cache of ops/swiglu.py, held by ``q_gamma``)"""
+    if q_gamma.shape != (HEAD_DIM,) or k_gamma.shape != (HEAD_DIM,):
+        raise ValueError(f"gammas must be ({HEAD_DIM},), got {tuple(q_gamma.shape)}, "
+                         f"{tuple(k_gamma.shape)}")
+    return _cached("att_gammas", (q_gamma, k_gamma), torch.bfloat16, lambda: tuple(
+        g.to(device=device, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma)),
+        owner=q_gamma)
+
+
 def rope(x: torch.Tensor) -> torch.Tensor:
     """rotary position embedding over (B, L, H, D) with even D"""
     _, L, _, D = x.shape
@@ -94,21 +120,19 @@ def rope_attention_plain(qkv: torch.Tensor, q_gamma: torch.Tensor, k_gamma: torc
 
 
 def fused_attention_fwd_plain(qkv, q_gamma, k_gamma, n_heads):
-    """the forward kernel's outputs in plain PyTorch: (out, lse, rq, rk, iq,
-    ik) with lse (B, H, L) the f32 log-sum-exp of each query's scaled logits,
-    rq/rk (B, L, H*D) the rotated q/k, iq/ik (B, L, H) the f32 1/rms"""
+    """the forward kernel's outputs in plain PyTorch: (out, lse) with lse
+    (B, H, L) the f32 log-sum-exp of each query's scaled logits, the one
+    residual the backward reads (it normalises and rotates q and k again)"""
     q, k, _ = _split_heads(qkv, n_heads)
-    B, L, H, D = q.shape
+    D = q.shape[-1]
     rq, rk = rope(rms_norm(q, q_gamma)), rope(rms_norm(k, k_gamma))
     s = torch.einsum("bqhd,bkhd->bhqk", rq.float(), rk.float()) / D**0.5
-    inv = [torch.rsqrt(t.float().square().mean(-1) + 1e-6) for t in (q, k)]
-    return (rope_attention_plain(qkv, q_gamma, k_gamma, n_heads), s.logsumexp(-1),
-            rq.reshape(B, L, H * D), rk.reshape(B, L, H * D), *inv)
+    return rope_attention_plain(qkv, q_gamma, k_gamma, n_heads), s.logsumexp(-1)
 
 
-def fused_attention_bwd_plain(qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gamma, n_heads):
+def fused_attention_bwd_plain(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
     """the backward kernel's outputs (dqkv, dq_gamma, dk_gamma) in plain
-    PyTorch: autograd through ``rope_attention_plain`` (the residuals are
+    PyTorch: autograd through ``rope_attention_plain`` (out and lse are
     accepted for the kernel's signature and not read)"""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (qkv, q_gamma, k_gamma)]
@@ -127,27 +151,25 @@ def _check_kernel_shapes(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int
     return B, L, n_heads, HEAD_DIM
 
 
-def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads):
-    """K9, csrc/fused_attention.cu: bf16 packed qkv -> (out, lse, rq, rk, iq,
-    ik) as ``fused_attention_fwd_plain`` returns them"""
+def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = True):
+    """K9, csrc/fused_attention.cu: bf16 packed qkv -> (out, lse) as
+    ``fused_attention_fwd_plain`` returns them; with ``residuals`` False the
+    kernel writes out alone and lse is None (no gradient will be taken)"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
     dev = qkv.device
-    cos, sin = rope_tables(L, D, dev, torch.bfloat16)
-    gq, gk = (g.to(device=dev, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma))
-    if gq.shape != (D,) or gk.shape != (D,):
-        raise ValueError(f"gammas must be ({D},), got {tuple(q_gamma.shape)}, {tuple(k_gamma.shape)}")
-    out, rq, rk = (torch.empty(B, L, H * D, dtype=torch.bfloat16, device=dev) for _ in range(3))
-    iq, ik = (torch.empty(B, L, H, dtype=torch.float32, device=dev) for _ in range(2))
-    lse = torch.empty(B, H, L, dtype=torch.float32, device=dev)
+    cos, sin = kernel_tables(L, dev)
+    gq, gk = kernel_gammas(q_gamma, k_gamma, dev)
+    out = torch.empty(B, L, H * D, dtype=torch.bfloat16, device=dev)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=dev) if residuals else None
     run(
         "odt_fused_attention_fwd", "fused_attention_fwd", dev,
-        *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, out, lse, rq, rk, iq, ik)),
-        B, L, H, D**-0.5,
+        *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, out)),
+        None if lse is None else lse.data_ptr(), B, L, H, D**-0.5,
     )
-    return out, lse, rq, rk, iq, ik
+    return out, lse
 
 
-def fused_attention_bwd_cuda(qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gamma, n_heads):
+def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
     """K10, csrc/fused_attention.cu: -> (dqkv bf16, dq_gamma f32, dk_gamma
     f32); the per-(batch, head) gamma partials are summed here"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
@@ -155,53 +177,57 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gam
     grad = grad.to(torch.bfloat16).contiguous()
     for name, t, dtype, shape in (("grad", grad, torch.bfloat16, (B, L, H * D)),
                                   ("out", out, torch.bfloat16, (B, L, H * D)),
-                                  ("lse", lse, torch.float32, (B, H, L)),
-                                  ("rq", rq, torch.bfloat16, (B, L, H * D)),
-                                  ("rk", rk, torch.bfloat16, (B, L, H * D)),
-                                  ("iq", iq, torch.float32, (B, L, H)),
-                                  ("ik", ik, torch.float32, (B, L, H))):
+                                  ("lse", lse, torch.float32, (B, H, L))):
         check_cuda(name, t, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    cos, sin = rope_tables(L, D, dev, torch.bfloat16)
-    gq, gk = (g.to(device=dev, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma))
+    cos, sin = kernel_tables(L, dev)
+    gq, gk = kernel_gammas(q_gamma, k_gamma, dev)
     dqkv = torch.empty_like(qkv)
     dgq, dgk = (torch.empty(B * H, D, dtype=torch.float32, device=dev) for _ in range(2))
     run(
         "odt_fused_attention_bwd", "fused_attention_bwd", dev,
-        *(t.data_ptr() for t in (qkv, grad, out, lse, rq, rk, iq, ik, gq, gk, cos, sin,
-                                 dqkv, dgq, dgk)),
+        *(t.data_ptr() for t in (qkv, grad, out, lse, gq, gk, cos, sin, dqkv, dgq, dgk)),
         B, L, H, D**-0.5,
     )
     return dqkv, dgq.sum(0), dgk.sum(0)
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """whether autograd will differentiate through an op on ``tensors``"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class FusedNormRopeAttention(torch.autograd.Function):
-    """K9 forward, K10 backward; the residuals of the forward (lse, rq, rk,
-    iq, ik) and its output feed the backward"""
+    """K9 forward, K10 backward; the forward's output and lse feed the
+    backward"""
 
     @staticmethod
     def forward(ctx, qkv, q_gamma, k_gamma, n_heads):
-        out, *res = fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads)
-        ctx.save_for_backward(qkv, q_gamma, k_gamma, out, *res)
+        out, lse = fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads)
+        ctx.save_for_backward(qkv, q_gamma, k_gamma, out, lse)
         ctx.n_heads = n_heads
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        qkv, q_gamma, k_gamma, out, lse, rq, rk, iq, ik = ctx.saved_tensors
-        dqkv, dgq, dgk = fused_attention_bwd_cuda(
-            qkv, grad, out, lse, rq, rk, iq, ik, q_gamma, k_gamma, ctx.n_heads
-        )
+        qkv, q_gamma, k_gamma, out, lse = ctx.saved_tensors
+        dqkv, dgq, dgk = fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma,
+                                                  ctx.n_heads)
         return dqkv.to(qkv.dtype), dgq.to(q_gamma.dtype), dgk.to(k_gamma.dtype), None
 
 
 def fused_norm_rope_attention(qkv: torch.Tensor, q_gamma: torch.Tensor, k_gamma: torch.Tensor,
                               n_heads: int) -> torch.Tensor:
     """packed (B, L, 3*H*D) -> (B, L, H*D): kernels for CUDA tensors, the
-    plain version (autograd) for CPU tensors"""
+    plain version (autograd) for CPU tensors. As the JAX ``_fwd_impl``
+    saves residuals only under its VJP, the forward kernel writes lse only
+    when a gradient will be taken (grad mode on and an input requiring
+    grad); under ``no_grad`` or ``inference_mode`` it writes out alone"""
     if qkv.is_cuda:
-        return FusedNormRopeAttention.apply(qkv, q_gamma, k_gamma, n_heads)
+        if needs_grad(qkv, q_gamma, k_gamma):
+            return FusedNormRopeAttention.apply(qkv, q_gamma, k_gamma, n_heads)
+        return fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals=False)[0]
     if qkv.device.type != "cpu":
         raise ValueError(f"fused_norm_rope_attention: no implementation for device {qkv.device}")
     return rope_attention_plain(qkv, q_gamma, k_gamma, n_heads)

@@ -1,0 +1,378 @@
+"""The fused norm + RoPE attention kernels' numerics (csrc/fused_attention.cu:
+K9 forward, K10 backward), emulated on the CPU in their tile order, and
+their shared-memory and register plan, before any card runs them.
+
+The forward (``fwd_emulation``), per (batch row, head) and 64-row query
+tile: q and k normalised and rotated once (f32 1/rms, bf16(x / rms),
+bf16(* gamma), bf16 rotary products and sums); a first sweep of S tiles for
+each row's maximum and sum (log2 units, as the kernel's ex2); a second
+sweep of 32-key halves forming P = exp(s - m) / l, normalised before its
+single bf16 rounding, and O += P V in f32. It is held to
+``rope_attention_plain`` in bf16 under chip_smoke.py's forward rule (4 ulp
+of the output's largest magnitude).
+
+The backward (``bwd_emulation``): rq/rk recomputed by the forward's own
+normalisation (the residual contract: the forward saves only lse), delta =
+rowsum(dO O); per 64-key tile and query tile S^T and dP^T, P^T = exp(S^T
+scale - lse), dS^T = P^T (dP^T - delta) scale (exactly 0 at L = 1, a softmax
+over one key), both rounded to bf16 once,
+dV += P^T dO and dK += dS^T Q in f32, each dS^T tile stored; dQ from the
+stored tiles in the kernel's order (two passes of two key tiles at L >
+192); the tiled norm + RoPE backward in f32. It is held to f32 autograd of
+``rope_attention_plain`` under GRAD_REL (every gradient's max abs error
+within 3 % of its largest f32 magnitude), next to the plain bf16 autograd
+under the same rule.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from osu_dreamer_tpu_torch.ops import fused_attention as fa
+from test_torch_modules import N, T
+
+torch.set_num_threads(1)
+
+BF = torch.bfloat16
+TILE = 64
+D = 64
+EPS = 1e-6
+LOG2E = 1.4426950408889634
+NEG = -1e30
+SCALE = D**-0.5
+GRAD_REL = 0.03
+BF16_ULPS = 4
+MAX_SMEM = 232448   # a block's shared memory on an H100
+SM_SMEM = 233472    # an SM's (228 KB), of which each resident block reserves 1 KB
+SM_REGS = 65536
+CSRC = Path(fa.__file__).parent.parent / "csrc"
+
+# (B, L, H): the training shape's length at two heads, one row, and the
+# ragged edges of one, two, three and four 64-row tiles
+SHAPES = [(2, 152, 2), (1, 1, 1), (1, 63, 1), (1, 64, 1), (1, 65, 1), (1, 192, 1), (1, 193, 1),
+          (1, 256, 1)]
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(BF).float()
+
+
+def _inputs(B: int, L: int, H: int, seed: int = 0):
+    """bf16 qkv and output gradient, gammas holding bf16 values (as the
+    kernels read them), from a numpy seed"""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(0.7 * rng.standard_normal((B, L, 3 * H * D), dtype=np.float32)).to(BF)
+    qg, kg = (_bf(torch.from_numpy(1 + 0.2 * rng.standard_normal(D, dtype=np.float32)))
+              for _ in range(2))
+    go = torch.from_numpy(rng.standard_normal((B, L, H * D), dtype=np.float32)).to(BF)
+    return qkv, qg, kg, go
+
+
+def _heads(x: torch.Tensor, H: int, part: int) -> torch.Tensor:
+    """part (0 q, 1 k, 2 v) of packed (B, L, n H D) as (B, H, L, D) f32"""
+    B, L, _ = x.shape
+    return x[..., part * H * D:(part + 1) * H * D].reshape(B, L, H, D).permute(0, 2, 1, 3).float()
+
+
+def _pad(x: torch.Tensor, rows: int, value: float = 0.0) -> torch.Tensor:
+    """rows past L of (..., L) or (..., L, D) as the kernels see them"""
+    if x.dim() == 3:
+        return F.pad(x, (0, rows - x.shape[-1]), value=value)
+    return F.pad(x, (0, 0, 0, rows - x.shape[-2]), value=value)
+
+
+def _tables(L: int) -> tuple[torch.Tensor, torch.Tensor]:
+    cos, sin = fa.rope_tables(L, D, "cpu", BF)
+    return cos.float(), sin.float()
+
+
+def norm_rope_emulation(x: torch.Tensor, gamma: torch.Tensor):
+    """``norm_rope_tiles``: raw rows (B, H, L, D) -> (rotated rows, 1/rms)"""
+    L = x.shape[-2]
+    inv = 1.0 / torch.sqrt(x.square().sum(-1) / D + EPS)
+    n = _bf(_bf(x * inv[..., None]) * gamma.float())
+    n1, n2 = n[..., :D // 2], n[..., D // 2:]
+    c, s = _tables(L)
+    r = torch.cat([_bf(_bf(n1 * c) - _bf(n2 * s)), _bf(_bf(n1 * s) + _bf(n2 * c))], -1)
+    return r, inv
+
+
+def fwd_emulation(qkv: torch.Tensor, qg, kg, H: int):
+    """K9's order -> (out bf16 (B, L, H D), lse (B, H, L))"""
+    B, L, _ = qkv.shape
+    nt = -(-L // TILE)
+    Lp = nt * TILE
+    rq, _ = norm_rope_emulation(_heads(qkv, H, 0), qg)
+    rk, _ = norm_rope_emulation(_heads(qkv, H, 1), kg)
+    rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2), Lp)
+    c2 = SCALE * LOG2E
+    keys = torch.arange(Lp)
+    out, lse = torch.zeros(B, H, Lp, D), torch.zeros(B, H, Lp)
+    for w in range(nt):
+        qw = rq[..., w * TILE:(w + 1) * TILE, :]
+        m, l = torch.full((B, H, TILE), NEG), torch.zeros(B, H, TILE)
+        for t in range(nt):  # sweep 1: row maxima and sums, online
+            s = qw @ rk[..., t * TILE:(t + 1) * TILE, :].transpose(-1, -2)
+            s = torch.where(keys[t * TILE:(t + 1) * TILE] < L, s, NEG)
+            mx = torch.maximum(m, s.amax(-1))
+            l = l * torch.exp2((m - mx) * c2) + torch.exp2(s * c2 - (mx * c2)[..., None]).sum(-1)
+            m = mx
+        o = torch.zeros(B, H, TILE, D)
+        for k0 in range(0, Lp, TILE // 2):  # sweep 2: 32 keys at a time
+            if k0 >= L:
+                continue
+            s = qw @ rk[..., k0:k0 + TILE // 2, :].transpose(-1, -2)
+            p = torch.exp2(s * c2 - (m * c2)[..., None]) * (1.0 / l)[..., None]
+            p = torch.where(keys[k0:k0 + TILE // 2] < L, p, 0.0)
+            o = o + _bf(p) @ v[..., k0:k0 + TILE // 2, :]
+        out[..., w * TILE:(w + 1) * TILE, :] = o
+        lse[..., w * TILE:(w + 1) * TILE] = m * SCALE + torch.log(l)
+    out = out[..., :L, :].permute(0, 2, 1, 3).reshape(B, L, H * D).to(BF)
+    return out, lse[..., :L]
+
+
+def norm_rope_bwd_emulation(d: torch.Tensor, x: torch.Tensor, inv: torch.Tensor, gamma):
+    """``norm_rope_bwd_tile``: the f32 gradient of the rotated rows back
+    through the inverse rotation and the gamma-scaled RMS norm ->
+    (dx f32 (B, H, L, D), the gamma gradient (D,))"""
+    c, s = _tables(x.shape[-2])
+    d1, d2 = d[..., :D // 2], d[..., D // 2:]
+    gn = torch.cat([d1 * c + d2 * s, d2 * c - d1 * s], -1)
+    iv = inv[..., None]
+    dgamma = (gn * x * iv).sum((0, 1, 2))
+    gh = gn * gamma.float()
+    m = (gh * x).sum(-1, keepdim=True) / D
+    return gh * iv - x * iv**3 * m, dgamma
+
+
+def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, qg,
+                  kg, H: int):
+    """K10's order -> (dqkv bf16, dq_gamma, dk_gamma)"""
+    B, L, _ = qkv.shape
+    nt = -(-L // TILE)
+    nw = 2 if nt == 4 else nt  # consumer warpgroups: one key tile each, a pass
+    Lp = nt * TILE
+    q, k = _heads(qkv, H, 0), _heads(qkv, H, 1)
+    rq, iq = norm_rope_emulation(q, qg)  # recomputed: the forward's own rounding
+    rk, ik = norm_rope_emulation(k, kg)
+    rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2), Lp)
+    do, o = _pad(_heads(go, H, 0), Lp), _pad(_heads(out, H, 0), Lp)
+    delta = (do * o).sum(-1)
+    lse2 = _pad(lse * LOG2E, Lp, float("inf"))
+    c2 = SCALE * LOG2E
+    ds_scale = SCALE if L > 1 else 0.0  # a softmax over one key: dS is exactly 0
+
+    def tile(x: torch.Tensor, i: int) -> torch.Tensor:
+        return x[..., i * TILE:(i + 1) * TILE, :]
+
+    dq, dk, dv = (torch.zeros(B, H, Lp, D) for _ in range(3))
+    for p in range(nt // nw):
+        stored = {}
+        for w in range(nw):  # phase A: key tile kt against every query tile
+            kt = p * nw + w
+            key_ok = (kt * TILE + torch.arange(TILE) < L)[:, None]
+            for j in range(nt):
+                st = tile(rk, kt) @ tile(rq, j).transpose(-1, -2)
+                dpt = tile(v, kt) @ tile(do, j).transpose(-1, -2)
+                lj = lse2[..., j * TILE:(j + 1) * TILE, None].transpose(-1, -2)
+                pt = torch.where(key_ok, torch.exp2(st * c2 - lj), 0.0)
+                dst = _bf(pt * (dpt - delta[..., None, j * TILE:(j + 1) * TILE]) * ds_scale)
+                dv[..., kt * TILE:(kt + 1) * TILE, :] += _bf(pt) @ tile(do, j)
+                dk[..., kt * TILE:(kt + 1) * TILE, :] += dst @ tile(rq, j)
+                stored[w, j] = dst
+        for j in range(nt):  # phase B: dQ from the stored dS^T tiles
+            for w in range(nw):
+                dq[..., j * TILE:(j + 1) * TILE, :] += stored[w, j].transpose(-1, -2) @ tile(rk, p * nw + w)
+    dxq, dgq = norm_rope_bwd_emulation(dq[..., :L, :], q, iq, qg)
+    dxk, dgk = norm_rope_bwd_emulation(dk[..., :L, :], k, ik, kg)
+    dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(B, L, H * D) for t in (dxq, dxk, dv[..., :L, :])],
+                     -1)
+    return dqkv.to(BF), dgq, dgk
+
+
+def _ulp_tol(want: torch.Tensor) -> float:
+    return BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("B,L,H", SHAPES)
+def test_forward_emulation_holds_the_plain_rule(B, L, H):
+    """K9's order against ``rope_attention_plain`` in bf16: out within 4 ulp
+    of its largest magnitude, lse against the plain forward's (f32)"""
+    qkv, qg, kg, _ = _inputs(B, L, H, seed=L)
+    out, lse = fwd_emulation(qkv, qg, kg, H)
+    want, want_lse = fa.fused_attention_fwd_plain(qkv, qg, kg, H)
+    assert out.shape == want.shape and lse.shape == want_lse.shape == (B, H, L)
+    assert (out.float() - want.float()).abs().max().item() <= _ulp_tol(want.float())
+    torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("B,L,H", SHAPES)
+def test_backward_emulation_holds_grad_rel(B, L, H):
+    """K10's order against f32 autograd of the plain version: every gradient
+    within GRAD_REL of its largest f32 magnitude, as the plain bf16 autograd
+    is"""
+    qkv, qg, kg, go = _inputs(B, L, H, seed=1000 + L)
+    out, lse = fwd_emulation(qkv, qg, kg, H)
+    got = bwd_emulation(qkv, go, out, lse, qg, kg, H)
+    ref = fa.fused_attention_bwd_plain(qkv.float(), go.float(), out, lse, qg, kg, H)
+    plain = fa.fused_attention_bwd_plain(qkv, go, out, lse, qg, kg, H)
+    for name, g, r, p in zip(("dqkv", "dq_gamma", "dk_gamma"), got, ref, plain):
+        g, r, p = g.float(), r.float(), p.float()
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        scale = r.abs().max().item()
+        assert (g - r).abs().max().item() <= GRAD_REL * scale, name
+        assert (p - r).abs().max().item() <= GRAD_REL * scale, name
+
+
+def test_norm_rope_emulation_is_the_plain_rotation():
+    """``norm_rope_tiles``' order (f32 1/rms, then the bf16 roundings of the
+    plain version), which both kernels run so that the backward recomputes
+    the forward's rq/rk: within one bf16 rounding of ``rope(rms_norm(.))``,
+    and its 1/rms that of ``rms_norm``'s f32 statistics"""
+    qkv, qg, _, _ = _inputs(2, 77, 2, seed=3)
+    q = _heads(qkv, 2, 0)
+    got, inv = norm_rope_emulation(q, qg)
+    plain = fa.rope(fa.rms_norm(q.to(BF).permute(0, 2, 1, 3), qg)).permute(0, 2, 1, 3).float()
+    assert (got - plain).abs().max().item() <= 2.0 ** (np.floor(np.log2(plain.abs().max().item())) - 7)
+    torch.testing.assert_close(inv, torch.rsqrt(q.square().mean(-1) + EPS), rtol=1e-6, atol=0)
+
+
+# ---- the plan: the kernels' shared memory and registers, from the source ----
+
+def _cu() -> str:
+    return (CSRC / "fused_attention.cu").read_text()
+
+
+def _c_to_py(expr: str) -> str:
+    """a C++ integer expression of fused_attention.cu as Python: casts
+    dropped, sizeof(float) 4, right-nested ``a ? b : c`` chains"""
+    expr = expr.replace("sizeof(float)", "4").replace("sizeof(bf16)", "2")
+    expr = re.sub(r"\((?:size_t|int|uint32_t)\)", "", expr).replace("/", "//")
+    expr = " ".join(expr.split())
+    if "?" in expr:
+        cond, rest = expr.split("?", 1)
+        then, other = rest.split(":", 1)
+        return f"({_c_to_py(then)} if {_c_to_py(cond)} else {_c_to_py(other)})"
+    return f"({expr})"
+
+
+def _source_plan(nt: int) -> dict:
+    """the kernels' launch shape and shared memory at ``nt`` 64-row tiles,
+    evaluated from fused_attention.cu's own expressions"""
+    src = _cu()
+    env: dict = {}
+    for name in ("kAtD", "kAtRows", "kAtTile"):
+        env[name] = eval(_c_to_py(re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1]), env)
+    env["nt"] = env["NT"] = nt
+    nw_expr = re.search(r"constexpr int bwd_warpgroups\(int nt\) \{ return ([^;]+); \}", src)[1]
+    env["bwd_warpgroups"] = lambda n: eval(_c_to_py(nw_expr), {"nt": n})
+    fwd = eval(_c_to_py(re.search(r"constexpr size_t fwd_smem\(int nt\) \{\s*return ([^;]+);",
+                                  src)[1]), env)
+    body = re.search(r"constexpr AttnBwdSmem\(int nt\) \{(.*?)\n  \}", src, re.S)[1]
+    lay = dict(env, q=0)
+    for name, expr in re.findall(r"(\w+) = ([^;]+);", body):
+        lay[name] = eval(_c_to_py(expr), lay)
+    fwd_bounds = re.search(r"__launch_bounds__\(([^,]+), ([^)]+)\)\nfused_attention_fwd_kernel",
+                           src)
+    bwd_bounds = re.search(r"__launch_bounds__\(([^,]+), ([^)]+)\)\nfused_attention_bwd_kernel",
+                           src)
+    return {"fwd_threads": eval(_c_to_py(fwd_bounds[1]), env),
+            "fwd_blocks": eval(_c_to_py(fwd_bounds[2]), env), "fwd_smem": fwd,
+            "bwd_threads": eval(_c_to_py(bwd_bounds[1]), env),
+            "bwd_blocks": eval(_c_to_py(bwd_bounds[2]), env), "bwd_smem": lay["total"],
+            "nw": env["bwd_warpgroups"](nt)}
+
+
+def plan(L: int) -> dict:
+    """the Python mirror: one CTA per (head, batch row); the forward one
+    warpgroup per 64-row tile at two CTAs an SM up to three tiles; the
+    backward one warpgroup per key tile (two passes of two at four tiles),
+    one CTA an SM. Shared memory: the forward Q, K, V tiles; the backward
+    Q, K, V, dO tiles, one pass's dS^T tiles, four f32 rows (lse, delta,
+    1/rms of q and k), the per-warp gamma partials; both an mbarrier slot
+    and 1024 bytes to align the base"""
+    nt = -(-L // TILE)
+    nw = 2 if nt == 4 else nt
+    tile = TILE * D * 2
+    return {"fwd_threads": 128 * nt, "fwd_blocks": {1: 4, 2: 3, 3: 2, 4: 1}[nt],
+            "fwd_smem": 3 * nt * tile + 64 + 1024,
+            "bwd_threads": 128 * nw, "bwd_blocks": 1,
+            "bwd_smem": (4 + nw) * nt * tile + 4 * nt * TILE * 4 + 2 * nw * 4 * D * 4 + 64 + 1024,
+            "nw": nw}
+
+
+def _reg_cap(threads: int, blocks: int) -> int:
+    """registers a thread under __launch_bounds__(threads, blocks): whole
+    groups of 8, at most 255"""
+    return min(255, SM_REGS // (threads * blocks) // 8 * 8)
+
+
+@pytest.mark.parametrize("nt", [1, 2, 3, 4])
+def test_plan_mirrors_the_source(nt):
+    """the Python plan is the source's, and the launch bounds leave the
+    accumulators room: the forward's O (32 f32 a thread), a 32-key S half
+    (16) and its packed P (8); the backward's S^T, dP^T, dK and dV (128),
+    plus dQ (32 a query tile it owns) where two passes hold it across phase
+    A; 16 registers spare for addresses and indices either way. Resident
+    forward CTAs fit an SM's shared memory"""
+    mine, src = plan(nt * TILE), _source_plan(nt)
+    assert mine == src
+    assert _reg_cap(mine["fwd_threads"], mine["fwd_blocks"]) >= 32 + 16 + 8 + 16
+    nw = mine["nw"]
+    held_dq = 32 * (nt // nw) if nt // nw > 1 else 0
+    assert _reg_cap(mine["bwd_threads"], mine["bwd_blocks"]) >= 128 + held_dq + 16
+    assert mine["fwd_blocks"] * (mine["fwd_smem"] + 1024) <= SM_SMEM
+
+
+def test_every_length_fits_shared_memory():
+    """L 1..256 (``MAX_KERNEL_LEN``, the route's whole range) fits a block's
+    232,448 bytes in both kernels"""
+    assert fa.MAX_KERNEL_LEN == 4 * TILE
+    for L in range(1, fa.MAX_KERNEL_LEN + 1):
+        p = plan(L)
+        assert p["fwd_smem"] <= MAX_SMEM and p["bwd_smem"] <= MAX_SMEM, L
+    assert plan(fa.MAX_KERNEL_LEN)["bwd_smem"] == _source_plan(4)["bwd_smem"]
+
+
+# ---- the residual rule and the JAX Pallas kernels themselves ----
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference", "frozen"])
+def test_residuals_only_when_a_gradient_will_be_taken(mode):
+    """``needs_grad`` decides whether the forward kernel writes lse (the JAX
+    ``_fwd_impl(save_residuals=...)`` rule): only with grad mode on and an
+    input that requires grad"""
+    qkv, qg, kg, _ = _inputs(1, 8, 2)
+    qg = qg.clone().requires_grad_(mode != "frozen")
+    ctx = {"no_grad": torch.no_grad(), "inference": torch.inference_mode()}.get(mode)
+    if ctx is None:
+        assert fa.needs_grad(qkv, qg, kg) == (mode == "grad")
+    else:
+        with ctx:
+            assert not fa.needs_grad(qkv, qg, kg)
+
+
+def test_port_matches_the_pallas_kernels_in_interpret_mode():
+    """the port's plain forward and backward against the JAX Pallas kernels
+    themselves (``fused_norm_rope_attention(..., interpret=True)`` and its
+    ``jax.vjp``) at (B, L, H) = (1, 77, 2), numpy-seeded f32 inputs (1e-4:
+    the Pallas kernels form the rotation and the head statistics as
+    matrix products, and L = 77 is padded to 80 inside them)"""
+    from osu_dreamer_tpu.ops.fused_attention import fused_norm_rope_attention as jfused
+
+    rng = np.random.default_rng(77)
+    qkv = 0.7 * rng.standard_normal((1, 77, 384), dtype=np.float32)
+    qg, kg = (1 + 0.2 * rng.standard_normal(D, dtype=np.float32) for _ in range(2))
+    go = rng.standard_normal((1, 77, 128), dtype=np.float32)
+    want, vjp = jax.vjp(lambda a, b, c: jfused(a, b, c, 2, True), qkv, qg, kg)
+    out, lse = fa.fused_attention_fwd_plain(T(qkv), T(qg), T(kg), 2)
+    np.testing.assert_allclose(N(out), np.asarray(want), atol=1e-4)
+    grads = fa.fused_attention_bwd_plain(T(qkv), T(go), out, lse, T(qg), T(kg), 2)
+    for name, g, w in zip(("dqkv", "dq_gamma", "dk_gamma"), grads, vjp(go)):
+        np.testing.assert_allclose(N(g), np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=name)

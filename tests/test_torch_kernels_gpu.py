@@ -266,24 +266,55 @@ def _grads_close(got, want) -> None:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,H", [(2, 77, 2), (1, 20, 4), (2, 256, 2)])
+@pytest.mark.parametrize("B,L,H", [(2, 77, 2), (1, 20, 4), (2, 256, 2), (2, 152, 2), (1, 1, 1),
+                                   (1, 63, 1), (1, 64, 1), (1, 65, 1), (1, 192, 1), (1, 193, 1),
+                                   (1, 256, 1), (2, 256, 8)])
 def test_fused_attention_kernels_match_plain_on_gpu(B, L, H):
-    """K9 forward (4 ulp) and K10 gradients (GRAD_REL) at ragged lengths and
-    the longest the kernels take"""
+    """K9 forward (4 ulp) and K10 gradients (GRAD_REL) at ragged lengths (the
+    edges of one to four 64-row tiles) and the longest the kernels take;
+    both rerun bit-identically"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     gen = torch.Generator(device="cuda").manual_seed(1)
     qkv = (torch.randn(B, L, 3 * H * 64, generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
     qg, kg = (1 + 0.2 * torch.randn(64, generator=gen, device="cuda") for _ in range(2))
     res = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, H)
-    want = fused_attention.rope_attention_plain(qkv, qg, kg, H).float()
+    want, want_lse = fused_attention.fused_attention_fwd_plain(qkv, qg, kg, H)
     torch.cuda.synchronize()
+    want = want.float()
     tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
     assert (res[0].float() - want).abs().max().item() <= tol
+    assert (res[1] - want_lse).abs().max().item() <= 2e-3
+    assert all(torch.equal(a, b) for a, b in
+               zip(res, fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, H)))
     grad = torch.randn(B, L, H * 64, generator=gen, device="cuda").to(torch.bfloat16)
-    _grads_close(fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H),
-                 fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg,
-                                                           kg, H))
+    got = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
+    _grads_close(got, fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res,
+                                                                qg, kg, H))
+    again = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_fused_attention_forward_without_residuals_on_gpu():
+    """where no gradient will be taken the forward kernel writes out alone,
+    and that out is the training forward's, bit for bit"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    qkv = (torch.randn(3, 152, 3 * 4 * 64, generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
+    qg, kg = (1 + 0.2 * torch.randn(64, generator=gen, device="cuda") for _ in range(2))
+    out, lse = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, 4, residuals=False)
+    assert lse is None
+    assert torch.equal(out, fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, 4)[0])
+    leaves = [t.clone().requires_grad_() for t in (qkv, qg, kg)]
+    before = _build.launches["fused_attention_fwd"]
+    with torch.no_grad():
+        inference = fused_attention.fused_norm_rope_attention(*leaves, 4)
+    training = fused_attention.fused_norm_rope_attention(*leaves, 4)
+    assert _build.launches["fused_attention_fwd"] == before + 2
+    assert training.requires_grad and not inference.requires_grad
+    assert torch.equal(inference, out) and torch.equal(training.detach(), out)
 
 
 @pytest.mark.gpu

@@ -132,7 +132,7 @@ def _cuda_wrappers():
     z = torch.zeros(1, 16, dtype=torch.bfloat16)
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
     qkv = torch.zeros(1, 8, 384, dtype=torch.bfloat16)
-    g, lse, inv = torch.ones(64), torch.zeros(1, 2, 8), torch.ones(1, 8, 2)
+    g, lse = torch.ones(64), torch.zeros(1, 2, 8)
     o = qkv[..., :128].contiguous()
     xq, zq = torch.zeros(1, 8, 128, dtype=torch.bfloat16), torch.zeros(1, 128)
     wq, bq = torch.zeros(128, 384), torch.zeros(384)
@@ -144,8 +144,7 @@ def _cuda_wrappers():
         "resonator": lambda: resonate_cuda(torch.zeros(1, 8, 98)),
         "swiglu_bwd": lambda: swiglu_bwd_cuda(x, *w[:5], x),
         "fused_attention_fwd": lambda: fused_attention_fwd_cuda(qkv, g, g, 2),
-        "fused_attention_bwd": lambda: fused_attention_bwd_cuda(qkv, o, o, lse, o, o, inv, inv,
-                                                                g, g, 2),
+        "fused_attention_bwd": lambda: fused_attention_bwd_cuda(qkv, o, o, lse, g, g, 2),
         "swiglu_bwd_full": lambda: swiglu_bwd_full_cuda(x, *w[:5], x),
         "film_qkv_fwd": lambda: film_qkv_fwd_cuda(xq, zq, zq, xq, wq, bq),
         "film_qkv_bwd": lambda: film_qkv_bwd_cuda(xq, zq, zq, xq, wq, bq, qkv),
@@ -246,11 +245,10 @@ def test_fused_attention_plain_matches_jax_reference():
     want, vjp = jax.vjp(lambda a, b, c: rope_attention_reference(a, b, c, 2), qkv, qg, kg)
     got = fused_norm_rope_attention(T(qkv), T(qg), T(kg), 2)
     np.testing.assert_allclose(N(got), np.asarray(want), atol=1e-5)
-    out, lse, rq, rk, iq, ik = fused_attention_fwd_plain(T(qkv), T(qg), T(kg), 2)
+    out, lse = fused_attention_fwd_plain(T(qkv), T(qg), T(kg), 2)
     np.testing.assert_array_equal(N(out), N(got))
-    assert lse.shape == (2, 2, 77) and rq.shape == rk.shape == (2, 77, 128)
-    assert iq.shape == ik.shape == (2, 77, 2)
-    grads = fused_attention_bwd_plain(T(qkv), T(go), out, lse, rq, rk, iq, ik, T(qg), T(kg), 2)
+    assert lse.shape == (2, 2, 77)
+    grads = fused_attention_bwd_plain(T(qkv), T(go), out, lse, T(qg), T(kg), 2)
     for name, g, w in zip(("dqkv", "dq_gamma", "dk_gamma"), grads, vjp(go)):
         np.testing.assert_allclose(N(g), np.asarray(w), atol=1e-5, rtol=1e-5, err_msg=name)
 

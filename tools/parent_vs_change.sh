@@ -47,11 +47,11 @@ echo "change: GPU tests rc $rc, $(tail -1 "$out/gpu_tests.log")"
 [ $rc -eq 0 ] || status=1
 smoke "$change" change2
 smoke "$parent" parent2
-main='^(swiglu|film_layer) B(4 L759 C512|128 L152 C512 \(training\)|4 L20493 FiLM|64 L1026 FiLM \(latent training\)): kernel'
+main='^(swiglu|film_layer) B(4 L759 C512|128 L152 C512 \(training\)|4 L20493 FiLM|64 L1026 FiLM \(latent training\)): kernel|^fused_attention_(fwd|bwd) B128 L152 H16: kernel'
 for run in parent1 change1 change2 parent2; do
   echo "== $run"
   grep -E "$main|^swiglu plan|that request on the device|^fit-(denoiser|latent) \(|chip_smoke wall time" \
     "$out/$run.log" | cut -c1-400
-  grep -E "^K[356] |one step under" "$out/${run}_steps.log" | cut -c1-400
+  grep -E "^K([356]|9|10) |one step under" "$out/${run}_steps.log" | cut -c1-400
 done
 exit $status

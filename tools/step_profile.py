@@ -11,8 +11,10 @@ two trees are timed by the same code. It prints the card's name and power
 limit, then:
 - K3 (film-layer backward) at B64 L1026 and B64 L38, C 128, K6 (SwiGLU
   partial backward, its two torch matmuls included) at B128 L152 C512 and
-  K5 at B128 L152 C384: device ms a call over replays of a CUDA graph of 20
-  calls, then each kernel's device ms a call (torch.profiler over 5 calls);
+  K5 at B128 L152 C384, and the fused norm + RoPE attention forward (K9)
+  and backward (K10) at B128 L152 H16: device ms a call over replays of a
+  CUDA graph of 20 calls, then each kernel's device ms a call
+  (torch.profiler over 5 calls);
 - one full-width latent train step (the package config, B32 x 2052) and one
   denoiser step (B128 x L152, width 512) on a random batch, seeded, after
   two warm-up steps, under torch.profiler: device-busy ms and the FFN
@@ -53,7 +55,7 @@ def main() -> int:
     from osu_dreamer_tpu_torch.models.latent.train import (
         Batch, LatentTrainArgs, init_latent_training,
     )
-    from osu_dreamer_tpu_torch.ops import film_layer, swiglu
+    from osu_dreamer_tpu_torch.ops import film_layer, fused_attention, swiglu
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict, load_yaml_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -104,7 +106,16 @@ def main() -> int:
         args = (rnd(128, 152, C), *ffn(C, H)[:5], rnd(128, 152, C))
         print(f"{name} B128 L152 C{C} H{H}: {smoke.graph_ms(fn, args):.4f} ms (graph replay); by "
               f"kernel, ms: {kernels(fn, args)} [{smi}]", flush=True)
-    del args
+    qkv = rnd(128, 152, 3 * 16 * 64, scale=0.7)
+    qg, kg = (1 + rnd(64, scale=0.1, dtype=torch.float32) for _ in range(2))
+    res = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, 16)
+    for name, fn, args in (
+            ("K9 fused_attention_fwd", fused_attention.fused_attention_fwd_cuda, (qkv, qg, kg, 16)),
+            ("K10 fused_attention_bwd", fused_attention.fused_attention_bwd_cuda,
+             (qkv, rnd(128, 152, 16 * 64), *res, qg, kg, 16))):
+        print(f"{name} B128 L152 H16: {smoke.graph_ms(fn, args):.4f} ms (graph replay); by kernel, "
+              f"ms: {kernels(fn, args)} [{smi}]", flush=True)
+    del args, qkv, res
     torch.cuda.empty_cache()
 
     def profile(what, state, step, batch, families) -> None:
