@@ -19,7 +19,8 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    K11/K12 at C 640 and 1024, and at widths whose last 64-column box runs
    past C: K4 at C 96, K2 at C 32; the FFN and prologue backward kernels K3,
    K5, K6 and K12 and the fused attention K9/K10 also by graph replay, as
-   their plain versions) and, for the flash attention, torch's
+   their plain versions; the resonator K1 and the prologue forward K11 too,
+   each also bit-identical on rerun) and, for the flash attention, torch's
    scaled_dot_product_attention as a yardstick: the
    inference kernels at the inference slice's shapes (the film layer also at
    latent training's B64 L1026; the flash attention also at B1 L2500, B4 L65
@@ -33,8 +34,11 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    also with zero FiLM), the full SwiGLU backward (K5) at the width-384
    denoiser's B128 L152 C384 H1024, and the fused norm + FiLM + qkv prologue
    forward (K11) and backward (K12) at B128 L152 and B4 L759 (C 512, F 3072),
-   ragged, and at C 384. The backward kernels' and K9's reruns must be
-   bit-identical.
+   ragged, and at C 384 (K11 also at L 1, 63, 64, 65 and 129, and its y
+   must equal K12's recomputed y bit for bit). The resonator at the
+   request's S2 K20480, at S1 K1, S3 K63/64/65/129 and S1 K20481, also within
+   1e-5 of an f64 doubling scan. The backward kernels' and K9's reruns must
+   be bit-identical.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
    reduction of the split plans timed apart by torch.profiler.
@@ -51,8 +55,10 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    attention and the SwiGLU 264 times a request, the film layer 48), the
    prologue kernels not. One more request runs under torch.profiler, which
    gives the device-busy, flash attention, SwiGLU and film-layer
-   milliseconds of a request. Then one request with
-   OSU_DREAMER_FUSED_PROLOGUE=1: K11 must launch. Then an 8 x 64-head
+   milliseconds of a request (and the resonator's: one launch a request).
+   Then requests with OSU_DREAMER_FUSED_PROLOGUE=1: K11 must launch 264
+   times a request; one under torch.profiler gives its device busy and K11's
+   ms. Then an 8 x 64-head
    attention at L 300 (past K9/K10's range) answers through K7 within the
    f32 rule, and fit-denoiser's check refuses that shape.
 4. Trains the denoiser at full width (the port's models/diffusion/config.yml:
@@ -165,8 +171,12 @@ INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
 # launches from Python, whose host cost exceeds their run time (the
 # backward wrappers launch several kernels and torch ops a call)
-GRAPH_TIMED = ("flash_attention", "swiglu", "film_layer", "swiglu_bwd", "swiglu_bwd_full",
-               "film_layer_bwd", "film_qkv_bwd", "fused_attention_fwd", "fused_attention_bwd")
+GRAPH_TIMED = ("resonator", "flash_attention", "swiglu", "film_layer", "film_qkv_fwd",
+               "swiglu_bwd", "swiglu_bwd_full", "film_layer_bwd", "film_qkv_bwd",
+               "fused_attention_fwd", "fused_attention_bwd")
+# forward kernels whose second launch must be bit-identical (fixed-order
+# sums, no float atomics)
+RERUN_EXACT = ("resonator", "film_qkv_fwd", "swiglu", "film_layer")
 # the forward core's kernels (K4, K2) are held to the plain version in f32 on
 # the same bf16 inputs: their error's mean within SLICE_MEAN_RATIO and max
 # within SLICE_MAX_RATIO of the plain bf16 path's (they keep v, g and h in
@@ -180,6 +190,10 @@ FILM_PER_REQUEST = 48
 # one flash attention per backbone layer (8) per denoiser pass (33: the
 # initial u estimate and 32 steps)
 FLASH_PER_REQUEST = 8 * (STEPS + 1)
+# with the fused prologue, one K11 per backbone layer per denoiser pass; one
+# resonator launch a request
+PROLOGUE_PER_REQUEST = 8 * (STEPS + 1)
+RESONATOR_PER_REQUEST = 1
 TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd")
 LATENT_KERNELS = ("film_layer", "film_layer_bwd")
 PROLOGUE_KERNELS = ("film_qkv_fwd", "film_qkv_bwd")
@@ -693,6 +707,19 @@ def main() -> int:
         return (rnd(B, L, C), rnd(B, C, scale=0.3), rnd(B, C, scale=0.3), rnd(B, L, C, scale=0.5),
                 rnd(C, F, scale=C**-0.5).float(), rnd(F, scale=0.1).float())
 
+    def resonate_f64(frames):
+        """the resonator states in f64: the contribution product, then a
+        doubling scan with powers of A squared in f64"""
+        alpha, b = spectrogram.resonator_poles()
+        j = np.arange(98)
+        w = torch.from_numpy(alpha[None, :] * b[None, :] ** (97 - j)[:, None]).to(dev)
+        y = torch.complex(frames.double() @ w.real, frames.double() @ w.imag)
+        a, d = torch.from_numpy(b**98).to(dev), 1
+        while d < y.shape[1]:
+            y = torch.cat([y[:, :d], y[:, d:] + a * y[:, :-d]], dim=1)
+            a, d = a * a, 2 * d
+        return torch.view_as_real(y)
+
     def sdpa(q, k, v):
         """the library yardstick of K7/K8: (B, L, H, D) in torch's (B, H, L, D)"""
         return torch.nn.functional.scaled_dot_product_attention(
@@ -703,8 +730,11 @@ def main() -> int:
     # name -> (kernel, plain, [(label, args)], the operations of a call and
     # the peak rate of their type); the first shape is the JSON line's
     cases = {
+        # the request's two 2-minute songs; one frame; ragged and exact
+        # 128-frame chunks; a 2-minute song and one frame
         "resonator": (resonator.resonate_cuda, resonator.resonate_plain, [
-            ("S2 K20480", (rnd(S, 20480, 98, scale=0.3, dtype=torch.float32),)),
+            (f"S{n} K{k}", (rnd(n, k, 98, scale=0.3, dtype=torch.float32),))
+            for n, k in ((S, 20480), (1, 1), (3, 63), (3, 64), (3, 65), (3, 129), (1, 20481))
         ], lambda a: (4 * a[0].numel() * N_BINS + 8 * a[0].shape[0] * a[0].shape[1] * N_BINS,
                       F32_PEAK)),
         "film_layer": (film_layer.film_layer_cuda, film_layer.film_layer_plain, [
@@ -738,7 +768,9 @@ def main() -> int:
             ("B128 L152 C384 F3072", prologue_args(128, 152, 384)),
             ("B128 L152 C640 F3072 (widened)", prologue_args(128, 152, 640)),
             ("B4 L759 C1024 F1920 (widened)", prologue_args(B, 759, 1024, 1920)),
-        ], lambda a: (2 * a[0].numel() * a[4].shape[1], BF16_PEAK)),
+        ] + [(f"B4 L{n} C512 F3072 (tile edges)", prologue_args(B, n, 512))
+             for n in (1, 63, 64, 65, 129)],
+         lambda a: (2 * a[0].numel() * a[4].shape[1], BF16_PEAK)),
     }
     library = {"flash_attention": sdpa}
 
@@ -774,8 +806,6 @@ def main() -> int:
                         and ek.max() <= SLICE_MAX_RATIO * ep.max()):
                     raise RuntimeError(f"{name} {label}: kernel farther from the f32 version than "
                                        "the plain bf16 path")
-                if not torch.equal(kernel(*args), out):
-                    raise RuntimeError(f"{name} {label}: two launches differ")
                 del ref, ek, ep
             else:
                 tol = (F32_ATOL if name == "resonator"
@@ -783,6 +813,14 @@ def main() -> int:
                 log(f"{name} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
                 if not err <= tol:
                     raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
+            if name == "resonator":
+                e64 = (got.double() - resonate_f64(args[0])).abs().max().item()
+                log(f"{name} {label}: max_abs_err {e64:.3g} vs an f64 doubling scan (tolerance "
+                    f"{F32_ATOL})")
+                if not e64 <= F32_ATOL:
+                    raise RuntimeError(f"{name} {label}: kernel disagrees with the f64 scan")
+            if name in RERUN_EXACT and not torch.equal(kernel(*args), out):
+                raise RuntimeError(f"{name} {label}: two launches differ")
             worst = max(worst, err)
             timer = graph_ms if name in GRAPH_TIMED else cuda_ms
             ms, plain_ms = timer(kernel, args), timer(plain, args)
@@ -800,6 +838,16 @@ def main() -> int:
                                  **work_bound}
             del out, got, want
         results[name]["max_abs_err"] = worst
+
+    # the y K11 multiplies is the y K12's row pass recomputes, bit for bit
+    args = prologue_args(B, 759, 512)
+    y11, y12 = (torch.empty(B * 759, 512, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    film_qkv.film_qkv_fwd_cuda(*args, y_out=y11)
+    film_qkv.film_qkv_bwd_cuda(*args, rnd(B, 759, 3072), y_out=y12)
+    if not torch.equal(y11, y12):
+        raise RuntimeError("film_qkv_fwd: its y differs from the backward's recomputed y")
+    log("film_qkv_fwd B4 L759 C512: its y equals film_qkv_bwd's recomputed y bit for bit")
+    del args, y11, y12
 
     # ---- 1a. K4's plans at the sampler's and the training shape ----
     ffn_plans(swiglu, graph_ms, rnd, ffn, B, smi)
@@ -1074,7 +1122,8 @@ def main() -> int:
     if missing or stray:
         raise RuntimeError(f"the inference path never launched {missing} or launched {stray}")
     for name, per_request in (("flash_attention", FLASH_PER_REQUEST),
-                              ("swiglu", SWIGLU_PER_REQUEST), ("film_layer", FILM_PER_REQUEST)):
+                              ("swiglu", SWIGLU_PER_REQUEST), ("film_layer", FILM_PER_REQUEST),
+                              ("resonator", RESONATOR_PER_REQUEST)):
         if launches_infer[name] != per_request * len(runs):
             raise RuntimeError(f"{launches_infer[name]} {name} launches in {len(runs)} requests, "
                                f"not {per_request} each")
@@ -1099,9 +1148,10 @@ def main() -> int:
         # dimension across CTAs, the reduction after it), by template flag
         _, swiglu_ms, n_swiglu = device_busy(trace, "ffn_core_kernel<false", "ffn_reduce_kernel<false")
         _, film_ms, n_film = device_busy(trace, "ffn_core_kernel<true", "ffn_reduce_kernel<true")
+        _, res_ms, n_res = device_busy(trace, "resonate")
     check_request("request, under torch.profiler", 1.0, wall, out_frames, outs)
     log(f"that request on the device: busy {busy_ms:.2f} ms (kernels and copies, union) over "
-        f"{n_kernels} kernels, flash "
+        f"{n_kernels} kernels, resonator {res_ms:.4f} ms over {n_res} kernels, flash "
         f"attention {flash_ms:.2f} ms over {n_flash} kernels ({_build.launches['flash_attention']}"
         f" launches counted), SwiGLU {swiglu_ms:.2f} ms over {n_swiglu} kernels "
         f"({_build.launches['swiglu']} launches counted), film layer {film_ms:.2f} ms over "
@@ -1114,17 +1164,29 @@ def main() -> int:
         raise RuntimeError(f"the profiled request ran {n_flash} flash attention kernels, not "
                            f"{FLASH_PER_REQUEST}")
 
-    # one request with the fused prologue (K11 in every backbone layer)
+    # one request with the fused prologue (K11 in every backbone layer), then
+    # one more under torch.profiler: device busy and K11's ms
     with fused_prologue():
         request(1.0, SEED)  # warm-up
         _build.reset_launches()
         wall, out_frames, outs = request(1.0, SEED + 1)
-    launches_prologue = dict(_build.launches)
-    check_request("request, OSU_DREAMER_FUSED_PROLOGUE=1", 1.0, wall, out_frames, outs)
-    log(f"launches during that request: {launches_prologue}; film_qkv_fwd "
-        f"{launches_prologue['film_qkv_fwd']} per request")
-    if launches_prologue["film_qkv_fwd"] == 0 or launches_prologue["film_qkv_bwd"]:
-        raise RuntimeError("the prologue request did not run through the prologue forward alone")
+        launches_prologue = dict(_build.launches)
+        check_request("request, OSU_DREAMER_FUSED_PROLOGUE=1", 1.0, wall, out_frames, outs)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                wall, out_frames, outs = request(1.0, SEED + 1)
+            trace = Path(tmpdir) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            busy_ms, k11_ms, n_k11 = device_busy(trace, "film_qkv_fwd_kernel")
+    check_request("request, OSU_DREAMER_FUSED_PROLOGUE=1, under torch.profiler", 1.0, wall,
+                  out_frames, outs)
+    log(f"launches during that request: {launches_prologue}; under torch.profiler: device busy "
+        f"{busy_ms:.2f} ms, film_qkv_fwd {k11_ms:.2f} ms over {n_k11} kernels [{smi}]")
+    if (launches_prologue["film_qkv_fwd"] != PROLOGUE_PER_REQUEST or n_k11 != PROLOGUE_PER_REQUEST
+            or launches_prologue["film_qkv_bwd"]):
+        raise RuntimeError(f"the prologue request ran {launches_prologue['film_qkv_fwd']} prologue "
+                           f"forwards ({n_k11} profiled), not {PROLOGUE_PER_REQUEST}, or a backward")
     del model, reference, sample
     torch.cuda.empty_cache()
 

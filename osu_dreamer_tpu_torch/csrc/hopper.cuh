@@ -93,6 +93,15 @@ __device__ __forceinline__ void tma_store_commit_and_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
+// the same in two steps: commit now, and wait (before the source is written
+// again) until no committed group has yet to read its source
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // order this thread's generic-proxy shared-memory writes before later
 // async-proxy (TMA, wgmma) reads
 __device__ __forceinline__ void fence_proxy_async() {

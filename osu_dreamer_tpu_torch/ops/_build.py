@@ -42,7 +42,7 @@ launches: dict[str, int] = {name: 0 for name in KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "odt_resonate": [_P] * 8 + [_I, _I, _P],
+    "odt_resonate": [_P] * 7 + [_I, _I, _P],
     "odt_film_layer_fwd": [_P] * 14 + [_I] * 8 + [_P],
     "odt_swiglu_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "odt_ffn_weight_maps": [_P, _P, _I, _I, _P],
@@ -52,7 +52,7 @@ _SIGNATURES = {
     "odt_fused_attention_bwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
     "odt_film_layer_bwd": [_P] * 28 + [_I] * 11 + [_P],
     "odt_swiglu_bwd_full": [_P] * 19 + [_I] * 12 + [_P],
-    "odt_film_qkv_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "odt_film_qkv_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "odt_film_qkv_bwd": [_P] * 15 + [_I] * 5 + [_P],
 }
 

@@ -21,16 +21,52 @@ from __future__ import annotations
 import torch
 
 from ._build import check_cuda, run
-from .swiglu import gemm_splits, shrink_tile_to_budget
+from .swiglu import _MAX_SMEM, gemm_splits, shrink_tile_to_budget
 
-# rows per block of the forward kernel (csrc/film_qkv.cu kFqRows); a block
-# never crosses a batch row
-ROWS = 64
-# the widest C the kernels take (csrc/film_qkv.cu kFqMaxV, FqBwdWide)
+# the widest C the kernels take (csrc/film_qkv.cu: the forward's y tile,
+# the backward's FqBwdWide)
 MAX_C = 1024
-# blocks the forward aims for: about two waves on the card's 132 SMs (short
-# inputs split the projection's columns across blocks)
-_FWD_BLOCKS = 2 * 132
+# csrc/film_qkv.cu's forward plan: 128 output columns a work item, a ring of
+# 16 KB stages, 8 KB (64 x 64 bf16) tiles, at most 8 stages
+FWD_COLS = 128
+_TILE_BYTES = 64 * 64 * 2
+_STAGE_BYTES = 2 * _TILE_BYTES
+_MAX_STAGES = 8
+
+
+def fwd_plan(B: int, L: int, C: int, F: int, sms: int = 132) -> dict[str, int]:
+    """the forward kernel's plan (csrc/film_qkv.cu ``fqf_warpgroups``,
+    ``FqfLayout``, ``fqf_stages``): consumer warpgroups of 64 rows, ring
+    stages, shared-memory bytes, row tiles, (row tile, column group) work
+    items and persistent CTAs"""
+    nwg = 2 if C <= 512 else 1
+    # y tiles, epilogue tiles, 1/rms rows, barriers, the base's alignment slack
+    fixed = ((C // 64) * nwg * _TILE_BYTES + nwg * 2 * _TILE_BYTES + 64 * nwg * 4
+             + (2 * _MAX_STAGES + 2) * 8 + 1024)
+    stages = min(_MAX_STAGES, (_MAX_SMEM - fixed) // _STAGE_BYTES) if fixed <= _MAX_SMEM else 0
+    tiles = -(-(B * L) // (64 * nwg))
+    items = tiles * (F // FWD_COLS)
+    return {"warpgroups": nwg, "rows": 64 * nwg, "stages": stages,
+            "smem": fixed + stages * _STAGE_BYTES, "tiles": tiles, "items": items,
+            "ctas": min(items, sms)}
+
+
+def fwd_items(tiles: int, ngrp: int, ctas: int) -> list[list[int]]:
+    """each forward CTA's work items in order, item = tile ngrp + column
+    group (csrc/film_qkv.cu): tiles // ctas whole tiles, then a share of one
+    of the tiles left over, whose column groups that tile's CTAs split"""
+    whole, left = divmod(tiles, ctas)
+    out = []
+    for b in range(ctas):
+        items = list(range(b * whole * ngrp, (b + 1) * whole * ngrp))
+        if left:
+            t = b * left // ctas
+            b0 = -(-t * ctas // left)
+            n = -(-(t + 1) * ctas // left) - b0
+            first = (ctas * whole + t) * ngrp
+            items += range(first + (b - b0) * ngrp // n, first + (b - b0 + 1) * ngrp // n)
+        out.append(items)
+    return out
 
 
 def bwd_rows(C: int) -> int:
@@ -88,16 +124,18 @@ def film_qkv_bwd_plain(x, scale, shift, add, kernel, bias, grad_out):
         return torch.autograd.grad(film_qkv_plain(*leaves), leaves, grad_out)
 
 
-def _check_inputs(x, scale, shift, add, kernel, bias) -> list[torch.Tensor]:
+def _check_inputs(x, scale, shift, add, kernel, bias, align: int) -> list[torch.Tensor]:
     """raise unless the operands fit bf16 (B, L, C) x as the kernels read them
-    -> [scale, shift, add, kernel, bias] in bf16, contiguous"""
+    -> [scale, shift, add, kernel, bias] in bf16, contiguous, each base
+    ``align``-byte aligned (a copy where it is not): 16 for the forward's TMA
+    boxes and 16-byte loads, 32 for the backward's wmma loads of W"""
     check_cuda("x", x, torch.bfloat16, 3)
     B, L, C = x.shape
     F = kernel.shape[-1]
     if C % 64 or C > MAX_C:
         raise ValueError(f"channels {C} must be a multiple of 64 and at most {MAX_C}")
-    if F % 128:
-        raise ValueError(f"projection width {F} must be a multiple of 128")
+    if F % FWD_COLS:
+        raise ValueError(f"projection width {F} must be a multiple of {FWD_COLS}")
     shapes = {"scale": (scale, (B, C)), "shift": (shift, (B, C)), "add": (add, (B, L, C)),
               "kernel": (kernel, (C, F)), "bias": (bias, (F,))}
     out = []
@@ -106,31 +144,42 @@ def _check_inputs(x, scale, shift, add, kernel, bias) -> list[torch.Tensor]:
             raise ValueError(f"{name} must be {shape} on {x.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
         t = t.to(torch.bfloat16).contiguous()
-        out.append(t.clone() if t.data_ptr() % 32 else t)  # wmma loads need 32-byte alignment
+        out.append(t.clone() if t.data_ptr() % align else t)
     return out
 
 
-def film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias) -> torch.Tensor:
-    """K11, csrc/film_qkv.cu: bf16 (B, L, C) -> (B, L, F)"""
-    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias)
+def _check_y_out(y_out: torch.Tensor, B: int, L: int, C: int) -> None:
+    check_cuda("y_out", y_out, torch.bfloat16, 2)
+    if tuple(y_out.shape) != (B * L, C):
+        raise ValueError(f"y_out must be {(B * L, C)}, got {tuple(y_out.shape)}")
+
+
+def film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias,
+                      y_out: torch.Tensor | None = None) -> torch.Tensor:
+    """K11, csrc/film_qkv.cu: bf16 (B, L, C) -> (B, L, F). ``y_out`` (B L, C)
+    bf16, a test hook: the kernel writes there the y it multiplies"""
+    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias, 16)
     B, L, C = x.shape
     F = kernel.shape[1]
-    tiles = B * -(-L // ROWS)
-    groups = max(1, min(F // 128, -(-_FWD_BLOCKS // tiles)))
+    if y_out is not None:
+        _check_y_out(y_out, B, L, C)
     out = torch.empty(B, L, F, dtype=x.dtype, device=x.device)
     run(
         "odt_film_qkv_fwd", "film_qkv_fwd", x.device,
-        *(t.data_ptr() for t in (x, scale, shift, add, kernel, bias, out)), B, L, C, F, groups,
+        *(t.data_ptr() for t in (x, scale, shift, add, kernel, bias, out)),
+        0 if y_out is None else y_out.data_ptr(), B, L, C, F,
     )
     return out
 
 
-def film_qkv_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out):
+def film_qkv_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out,
+                      y_out: torch.Tensor | None = None):
     """K12, csrc/film_qkv.cu: the tuple of ``film_qkv_bwd_plain``, dx and
     dadd bf16, every other gradient f32. One row pass writes dx, dadd, y and
     per-block partial sums; dW = y^T g (split-K) and the fixed-order sums of
-    the partials run in the same call, so two launches are bit-identical."""
-    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias)
+    the partials run in the same call, so two launches are bit-identical.
+    ``y_out`` (B L, C) bf16, a test hook: the row pass recomputes y there."""
+    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias, 32)
     B, L, C = x.shape
     F = kernel.shape[1]
     g = grad_out.to(torch.bfloat16).contiguous()
@@ -144,7 +193,11 @@ def film_qkv_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out):
     nblk = B * -(-L // bwd_rows(C))
     splits = gemm_splits(B * L, C, F)
     dx, dadd = torch.empty_like(x), torch.empty_like(x)
-    y_s = torch.empty(B * L, C, dtype=torch.bfloat16, device=dev)  # the recomputed y
+    y_s = y_out  # the recomputed y
+    if y_s is None:
+        y_s = torch.empty(B * L, C, dtype=torch.bfloat16, device=dev)
+    else:
+        _check_y_out(y_s, B, L, C)
     part_film = torch.empty(nblk, 2 * C, **f32)  # per block: dscale, dshift
     part_db = torch.empty(nblk, F, **f32)
     part_w = torch.empty(splits, C, F, **f32)

@@ -22,31 +22,35 @@ import torch
 from ..audio.constants import HOP_LEN, N_BINS
 from ._build import check_cuda, run
 
-CHUNK = 64        # frames per in-chunk scan (csrc/resonator.cu kChunk)
+# the kernel's scan decomposition (csrc/resonator.cu): chunks of SEGS
+# segments of SEG_ROWS frames, a thread's bins BIN_GROUPS apart, group
+# aggregates over GROUP chunks
+SEG_ROWS = 4
+SEGS = 32
+CHUNK = SEGS * SEG_ROWS
+BIN_GROUPS = 8
+GROUP = 16
 N_LEVELS = 24     # doubling levels of the plain scan: songs up to 2^24 frames
 
 
 @cache
 def _host_tables() -> dict[str, np.ndarray]:
     """f64-derived f32 tables: W (HOP, 2F) contribution weights [re | im];
-    levels (N_LEVELS, F) complex A^(2^k); A, AT = A^CHUNK (F, 2) and
-    P (CHUNK, F, 2) = A^(i+1), as [re, im] pairs"""
+    levels (N_LEVELS, F) complex A^(2^k) (the plain scan); the kernel's
+    powers pw (rows, F, 2) [re, im]: A^k for k <= CHUNK, A^(CHUNK p) for
+    p < GROUP, A^(CHUNK GROUP)"""
     from ..audio.spectrogram import resonator_poles
 
     alpha, b = resonator_poles()
     j = np.arange(HOP_LEN)
     w = alpha[None, :] * b[None, :] ** (HOP_LEN - 1 - j)[:, None]  # (HOP, F)
     bH = b**HOP_LEN
-
-    def pairs(z: np.ndarray) -> np.ndarray:
-        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
-
+    exps = np.concatenate([np.arange(CHUNK + 1), CHUNK * np.arange(GROUP), [CHUNK * GROUP]])
+    powers = bH[None, :] ** exps[:, None]
     return {
         "W": np.concatenate([w.real, w.imag], axis=1).astype(np.float32),
         "levels": np.stack([bH ** (1 << k) for k in range(N_LEVELS)]).astype(np.complex64),
-        "A": pairs(bH),
-        "AT": pairs(bH**CHUNK),
-        "P": pairs(bH[None, :] ** (np.arange(CHUNK) + 1)[:, None]),
+        "pw": np.stack([powers.real, powers.imag], axis=-1).astype(np.float32),
     }
 
 
@@ -71,21 +75,25 @@ def resonate_plain(frames: torch.Tensor) -> torch.Tensor:
 
 
 def resonate_cuda(frames: torch.Tensor) -> torch.Tensor:
-    """the csrc/resonator.cu kernel (three launches: chunk product + scan,
-    cross-chunk carry, carry application)"""
+    """the csrc/resonator.cu kernel: one pass over the frames (after a
+    memset of its status words: a ticket, chunk and group flags, group
+    counts), carries combined in a fixed order"""
     check_cuda("frames", frames, torch.float32, 3)
     S, K, hop = frames.shape
-    if hop != HOP_LEN:
-        raise ValueError(f"frames must be (S, K, {HOP_LEN}), got {tuple(frames.shape)}")
+    if hop != HOP_LEN or K < 1:
+        raise ValueError(f"frames must be (S, K >= 1, {HOP_LEN}), got {tuple(frames.shape)}")
     t = _device_tables(frames.device)
     n_chunks = -(-K // CHUNK)
+    n_groups = n_chunks // GROUP
     out = torch.empty(S, K, N_BINS, 2, dtype=torch.float32, device=frames.device)
-    last = torch.empty(S, n_chunks, N_BINS, 2, dtype=torch.float32, device=frames.device)
-    carry = torch.empty_like(last)
+    agg = torch.empty(S, n_chunks, N_BINS, 2, dtype=torch.float32, device=frames.device)
+    gagg = torch.empty(S, max(n_groups, 1), N_BINS, 2, dtype=torch.float32, device=frames.device)
+    status = torch.empty(1 + S * (n_chunks + 2 * n_groups), dtype=torch.int32,
+                         device=frames.device)
     run(
         "odt_resonate", "resonator", frames.device,
-        frames.data_ptr(), t["W"].data_ptr(), t["A"].data_ptr(), t["AT"].data_ptr(),
-        t["P"].data_ptr(), out.data_ptr(), last.data_ptr(), carry.data_ptr(), S, K,
+        frames.data_ptr(), t["W"].data_ptr(), t["pw"].data_ptr(), out.data_ptr(),
+        agg.data_ptr(), gagg.data_ptr(), status.data_ptr(), S, K,
     )
     return out
 

@@ -560,3 +560,48 @@ def test_swiglu_bwd_core_widths_on_gpu(B, L, C, H, kernel):
     assert _build.launches[kernel] == before + 1
     _grads_close(got, swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))
     assert all(torch.equal(a, b) for a, b in zip(got, fn(x, *w, go)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,K", [(1, 1), (3, 63), (3, 64), (3, 65), (3, 127), (3, 129),
+                                 (2, 2200), (1, 4500), (1, 20481)])
+def test_resonator_ragged_shapes_on_gpu(S, K):
+    """K1 at one frame, ragged and exact 128-frame chunks, group aggregates in
+    use (2200, 4500 frames) and a 2-minute song plus one frame:
+    within 1e-5 of the plain version, and a second launch bit-identical (the
+    carries combine in a fixed order)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(K)
+    frames = torch.randn(S, K, 98, generator=gen, device="cuda") * 0.3
+    got = resonator.resonate_cuda(frames)
+    want = resonator.resonate_plain(frames)
+    torch.cuda.synchronize()
+    assert got.shape == (S, K, 72, 2) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(resonator.resonate_cuda(frames), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [384, 512, 640, 1024])
+@pytest.mark.parametrize("L", [1, 63, 64, 65])
+def test_film_qkv_fwd_widths_and_edges_on_gpu(C, L):
+    """K11 at every width class (two consumer warpgroups to C 512, one
+    past it) and the edges of a 64-row tile, three batch rows so that rows
+    of several meet in one tile: 4 ulp of the plain version, a second launch
+    bit-identical, and the y it multiplies equal bit for bit to the y K12's
+    row pass recomputes"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    B, F = 3, 3 * 4 * 64
+    args, go = _prologue_case(B, L, C, F, C + L)
+    y11 = torch.empty(B * L, C, dtype=torch.bfloat16, device="cuda")
+    y12 = torch.empty_like(y11)
+    got = film_qkv.film_qkv_fwd_cuda(*args, y_out=y11)
+    want = film_qkv.film_qkv_plain(*args).float()
+    film_qkv.film_qkv_bwd_cuda(*args, go, y_out=y12)
+    torch.cuda.synchronize()
+    tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    assert bool(torch.isfinite(got).all()) and (got.float() - want).abs().max().item() <= tol
+    assert torch.equal(film_qkv.film_qkv_fwd_cuda(*args), got)
+    assert torch.equal(y11, y12)

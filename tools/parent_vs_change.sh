@@ -52,6 +52,6 @@ for run in parent1 change1 change2 parent2; do
   echo "== $run"
   grep -E "$main|^swiglu plan|that request on the device|^fit-(denoiser|latent) \(|chip_smoke wall time" \
     "$out/$run.log" | cut -c1-400
-  grep -E "^K([356]|9|10) |one step under" "$out/${run}_steps.log" | cut -c1-400
+  grep -E "^K([1356]|9|10|11) |one step under" "$out/${run}_steps.log" | cut -c1-400
 done
 exit $status

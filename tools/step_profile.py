@@ -9,6 +9,12 @@ kernel families, which name this tree's kernels and the parent's):
 tools/parent_vs_change.sh runs it from both checkouts in one call, so the
 two trees are timed by the same code. It prints the card's name and power
 limit, then:
+- the resonator (K1) at S2 K20480 and the fused prologue forward (K11) at
+  B4 L759 and B128 L152 (C512 F3072; f32 parameters holding bf16 values, as
+  chip_smoke.py passes them): device ms a call over replays of a CUDA graph
+  of 20 calls, the plain version's the same way, then each kernel's device
+  ms a call (torch.profiler over 5 calls), so a kernel of several launches
+  shows each;
 - K3 (film-layer backward) at B64 L1026 and B64 L38, C 128, K6 (SwiGLU
   partial backward, its two torch matmuls included) at B128 L152 C512 and
   K5 at B128 L152 C384, and the fused norm + RoPE attention forward (K9)
@@ -55,7 +61,7 @@ def main() -> int:
     from osu_dreamer_tpu_torch.models.latent.train import (
         Batch, LatentTrainArgs, init_latent_training,
     )
-    from osu_dreamer_tpu_torch.ops import film_layer, fused_attention, swiglu
+    from osu_dreamer_tpu_torch.ops import film_layer, film_qkv, fused_attention, resonator, swiglu
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict, load_yaml_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,6 +101,19 @@ def main() -> int:
             times[name] = times.get(name, 0.0) + float(e["dur"]) / 1e3 / calls
         return "; ".join(f"{k} {v:.4f}" for k, v in times.items())
 
+    frames = rnd(2, 20480, 98, scale=0.3, dtype=torch.float32)
+    print(f"K1 resonator S2 K20480: {smoke.graph_ms(resonator.resonate_cuda, (frames,)):.4f} ms "
+          f"(graph replay), plain {smoke.graph_ms(resonator.resonate_plain, (frames,)):.4f} ms; by "
+          f"kernel, ms: {kernels(resonator.resonate_cuda, (frames,))} [{smi}]", flush=True)
+    for B, L in ((4, 759), (128, 152)):
+        args = (rnd(B, L, 512), rnd(B, 512, scale=0.3), rnd(B, 512, scale=0.3),
+                rnd(B, L, 512, scale=0.5), rnd(512, 3072, scale=512**-0.5).float(),
+                rnd(3072, scale=0.1).float())
+        print(f"K11 film_qkv_fwd B{B} L{L} C512 F3072: "
+              f"{smoke.graph_ms(film_qkv.film_qkv_fwd_cuda, args):.4f} ms (graph replay), plain "
+              f"{smoke.graph_ms(film_qkv.film_qkv_plain, args):.4f} ms; by kernel, ms: "
+              f"{kernels(film_qkv.film_qkv_fwd_cuda, args)} [{smi}]", flush=True)
+    del frames, args
     for B, L in ((64, 1026), (64, 38)):
         args = (rnd(B, L, 128), *(rnd(B, 128, scale=0.3) for _ in range(3)),
                 1 + rnd(128, scale=0.1), 1 + rnd(128, scale=0.1), *ffn(128, 341), rnd(B, L, 128))
