@@ -34,10 +34,11 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    also with zero FiLM), the full SwiGLU backward (K5) at the width-384
    denoiser's B128 L152 C384 H1024, and the fused norm + FiLM + qkv prologue
    forward (K11) and backward (K12) at B128 L152 and B4 L759 (C 512, F 3072),
-   ragged, and at C 384 (K11 also at L 1, 63, 64, 65 and 129, and its y
-   must equal K12's recomputed y bit for bit). The resonator at the
-   request's S2 K20480, at S1 K1, S3 K63/64/65/129 and S1 K20481, also within
-   1e-5 of an f64 doubling scan. The backward kernels' and K9's reruns must
+   ragged, and at C 384 (K11 also at L 1, 63, 64, 65 and 129, K12 at B3 L1
+   C512, L129 C640 and L65 C1024, tiles straddling batch rows at every
+   cluster width, and K11's y must equal K12's recomputed y bit for bit).
+   The resonator at the request's S2 K20480, at S1 K1, S3 K63/64/65/129 and
+   S1 K20481, also within 1e-5 of an f64 doubling scan. The backward kernels' and K9's reruns must
    be bit-identical.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
@@ -89,8 +90,10 @@ nothing of JAX; without a card it exits nonzero and prints no result.
 6. Trains the denoiser as in 4 on phase 4's corpus with
    OSU_DREAMER_FUSED_PROLOGUE=1, 2 warm-up and 10 timed steps, at the shipped
    width 512 (K11, K12, K4, K6, K9 and K10 must launch, K5 not) and at width
-   384 (``backbone_dim: 384``; K5 instead of K6), each followed by the
-   one-step check of 4.
+   384 (``backbone_dim: 384``; K5 instead of K6); at width 512 one more
+   step runs under torch.profiler (device-busy ms, K12's and K11's ms and
+   launches, as phase 4 gives K6's); each followed by the one-step check of
+   4.
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -255,6 +258,14 @@ DENOISER_FAMILIES = {
                r"|swiglu_bwd_kernel",
     "K9": r"fused_attention_fwd_kernel",
     "K10": r"fused_attention_bwd_kernel",
+}
+# the fused prologue's kernels in a profiled width-512 denoiser step with
+# OSU_DREAMER_FUSED_PROLOGUE=1 (this tree's and the parent's names; there
+# gemm_tn runs for K12 alone, K6 taking its weight products in torch)
+PROLOGUE_FAMILIES = {
+    "K11": r"film_qkv_fwd_kernel",
+    "K12": r"film_qkv_bwd_kernel|fq_y_kernel|fq_film_reduce_kernel|fq_reduce_kernel|gemm_tn_kernel"
+           r"|splitk_reduce_kernel",
 }
 
 
@@ -990,11 +1001,16 @@ def main() -> int:
                backward_ms("film_layer_bwd", film_layer.film_layer_plain, args, go), worst_bwd,
                ffn_flops(Bt * Lt, C, int(C * 8 / 3), 5, 9, 3), moved_bytes(*args, go, *got))
 
-    # ---- 1d. the prologue backward at the denoiser's training shape ----
+    # ---- 1d. the prologue backward at the denoiser's training shape, a
+    # ragged L77, C 384 and 640, then tiles straddling batch rows at every
+    # cluster width (two CTAs a tile at C 512, three at 640, four at 1024) ----
     for i, (label, Bt, Lt, C) in enumerate((("B128 L152 C512 F3072", 128, 152, 512),
                                             ("B4 L77 C512 F3072", 4, 77, 512),
                                             ("B128 L152 C384 F3072", 128, 152, 384),
-                                            ("B128 L152 C640 F3072 (widened)", 128, 152, 640))):
+                                            ("B128 L152 C640 F3072 (widened)", 128, 152, 640),
+                                            ("B3 L1 C512 F3072 (ragged)", 3, 1, 512),
+                                            ("B3 L129 C640 F3072 (ragged)", 3, 129, 640),
+                                            ("B3 L65 C1024 F3072 (ragged)", 3, 65, 1024))):
         args, go = prologue_args(Bt, Lt, C), rnd(Bt, Lt, 3072)
         got = film_qkv.film_qkv_bwd_cuda(*args, go)
         worst_bwd = check_grads(
@@ -1310,7 +1326,8 @@ def main() -> int:
                 f"fit-denoiser, fused prologue, width {width}", diffusion_fit.run, cfg, dev, smi,
                 workdir, f"depth 8, width {width}, 16 x 64 heads, B128 x L152, bf16, "
                 "OSU_DREAMER_FUSED_PROLOGUE=1", must, denoiser_losses, denoiser_losses,
-                timed=PROLOGUE_TIMED, absent=absent)
+                timed=PROLOGUE_TIMED, absent=absent,
+                families={**DENOISER_FAMILIES, **PROLOGUE_FAMILIES} if width == 512 else None)
             denoiser_step(f"fit-denoiser, fused prologue, width {width}", cfg)
         steps_on[width] = (ms, peak)
         for k, n in launched.items():

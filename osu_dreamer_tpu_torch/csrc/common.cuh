@@ -8,13 +8,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 
 namespace odt {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // Shared memory a block may use on Hopper (232,448 bytes, opt-in above 48 KB).
 constexpr size_t kMaxSmem = 232448;
@@ -30,10 +28,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// Byte offsets of shared-memory sub-buffers are kept on 128-byte boundaries:
-// wmma fragment loads need 32-byte aligned tile pointers.
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
 // The current device's streaming multiprocessors (queried once; 0 on error).
 // Persistent grids and hidden splits are sized from it.

@@ -40,49 +40,75 @@
 // W over 2-CTA clusters (CTAs on two row tiles in lockstep) measured slower:
 // the W stream is not what limits it.
 //
-// Backward (film_qkv_bwd_kernel, then a split-K product and two reductions).
-// The Pallas kernel keeps dW (C x F f32), db and the per-batch-row dscale and
-// dshift in accumulators across its ordered grid. Hopper blocks run in no
-// order, and the gradients must repeat bit for bit, so there are no float
-// atomics. One block owns 64 rows of ONE batch row, so it reads its (1 +
-// scale, shift) row once and its film partial sums never mix batch rows;
-// rows past L are neither read as data nor written. The row kernel
-// recomputes y with fq_row (written to a bf16 scratch), forms
-// dy = g W^T (g staged through shared memory in 64-column chunks with
-// cp.async, two buffers; W fragments from L2; each warp owns up to four
-// 16-column tiles of dy for all 64 rows), then per row writes dadd = dy, and
-// dx = inv dxn - inv^3 x mean(dxn x) with dxn = dy (1 + scale), and per block
-// the column sums of dy (dshift) and dy xn (dscale, with xn in f32 as the
-// Pallas kernel takes it) and of g (db). dW = y^T g is csrc/gemm_tn.cuh's
-// split-K tensor-core product, and the block partials are summed in index
-// order by a small kernel. Past C 512 (up to 1024, every width the JAX
-// `_prologue_ok` admits) the row kernel takes 32 rows a block and a warp up
-// to 8 dy column tiles (FqBwdWide), so its f32 dy rows fit shared memory.
+// Backward (K12): a y pass, the row pass (film_qkv_bwd_kernel, TMA + wgmma),
+// dW on csrc/gemm_tn.cuh, two fixed-order reductions. Per row the Pallas
+// kernel recomputes y, forms dy = g W^T, writes dadd = dy and
+// dx = inv dxn - inv^3 x mean_C(dxn x) with dxn = dy (1 + scale), and sums
+// dy (dshift) and dy xn (dscale) per batch row and g (db) over all rows; it
+// carries those sums and dW = y^T g across its ordered grid. Hopper blocks
+// run in no order and the gradients must repeat bit for bit, so there are no
+// float atomics: partial sums go to scratch and are summed in index order.
+//
+// - y pass (fq_y_kernel): a warp a row, fq_row's order and fq_vec, so the y
+//   K11 multiplies is the y written here bit for bit; it also writes 1/rms
+//   of the row. A pass of its own keeps the row recompute (latency-bound
+//   loads of x and add, at 60 MB about 18 us at the training shape) off the
+//   consumers of the row pass, at the price of reading x once more there.
+// - row pass: dy = g W^T on wgmma, g (B L, F) as wgmma's K-major A operand
+//   and W (C, F) as stored, the K-major B operand of W^T. Rows are flat over
+//   B L in tiles of 128 (two consumer warpgroups of 64 rows). dy of 64 rows x
+//   C columns in f32 takes C / 2 registers a thread of a warpgroup, so a CTA
+//   holds at most 256 columns (four 64-column boxes, 128 accumulator
+//   registers): the ceil(C / 256) CTAs of a tile form a cluster and split
+//   its columns (fqb_cluster, fqb_boxes: C 384 two CTAs of 3 boxes, C 512
+//   two of 4, C 640 three of 4, C 1024 four of 4; where the last CTA's
+//   boxes run past C the TMA fills W with zeros and those columns are not
+//   written). Each CTA streams its W columns once per 128-row tile (at
+//   64-row tiles the W pass from L2 gives the tensor cores too few
+//   operations a byte). One producer thread issues, per 64 columns of F, a
+//   128 x 64 g box and the CTA's W boxes into one ring stage, and after a
+//   tile's last such stage its x boxes and the scale rows of its first 8
+//   batch rows. The consumers run one m64 n(64 nb) k16 product a k16 step
+//   (n256 at C 512), release the previous stage, and meanwhile sum the g
+//   box's columns for db (each CTA of the cluster every n-th box of F, a
+//   reduce-scatter over the row lanes), so g is read for db from shared
+//   memory. The g tile is not multicast: a cluster's CTAs take the same
+//   tile at the same time and the second read hits L2. Persistent clusters
+//   (as many as the device holds at once) walk tiles cid, cid + P, ...
+//   Epilogue, per thread two rows and 16 columns a box, x and scale read
+//   from the tile's x and scale boxes: dadd = bf16(dy) and each row's
+//   partial sum of dxn x over the CTA's columns; the row sums go to every
+//   CTA of the cluster (st.shared::cluster and a release-arrive on each
+//   one's mbarrier, the exchange buffers alternating by tile so that a
+//   peer's next write never meets a read), each CTA adds the n partials in
+//   rank order, so all of them use the same mean; then dx. dadd and dx
+//   leave box by box through a staging tile in coalesced 16-byte stores.
+//   The film sums are split at batch-row boundaries (a tile, even a warp's
+//   16 rows, may hold rows of several batch rows): each warp sums its rows
+//   of each batch row it meets into one partial per (warp, batch row), a
+//   reduce-scatter over its 8 row lanes; fq_film_reduce_kernel sums each
+//   batch row's partials in warp order, fq_reduce_kernel db's half tiles in
+//   eight fixed runs.
 //
 // What bounds them on the H100: at B128 L152 C512 F3072 the forward's product
-// is 61.2 GFLOP against 162 MB of inputs and outputs (62 us vs 48 us: compute)
-// and the backward's two products 122.4 GFLOP against 209 MB (124 us vs 62
-// us). The forward's W (3 MB) streams from L2 once per row tile (152 x 3 MB
-// at B128 L152), about as many bytes a second as the tensor cores' rate
-// asks; the backward's row kernel still reads its W fragments from L2 into
-// mma.sync by every block.
+// is 61.2 GFLOP against 162 MB of inputs and outputs (62 us vs 48 us: compute);
+// the backward's row pass 61.2 GFLOP against about 220 MB (62 us vs 66 us)
+// and dW another 61.2 GFLOP over 140 MB. The forward's W (3 MB) streams
+// from L2 once per row tile (152 x 3 MB at B128 L152), about as many bytes a
+// second as the tensor cores' rate asks; the backward's row pass the same.
+// The row pass takes about 0.18 ms there (NVIDIA H100 80GB HBM3, 700 W,
+// tools/step_profile.py): per 128-row tile about 75k cycles of products,
+// fed at about 38 bytes a cycle an SM (the ring, not the tensor cores, sets
+// it; the db sums add about 14k), and 45k of epilogue. Three choices keep
+// the epilogue and the ring from stalling: the shared-memory base is aligned
+// by an offset, since a round trip through an integer turns every shared
+// access into a generic one; the scale's fallback load is predicated in
+// PTX, since a load issued speculatively after the cluster's acquire,
+// which empties L1, costs an L2 round trip a value; and the consumers sum
+// db, since producer warps doing it held each stage until their slowest.
 #include "gemm_tn.cuh"
 
 namespace odt {
-
-constexpr int kFqWarps = 8;
-constexpr int kFqThreads = kFqWarps * 32;
-constexpr int kFqChunk = 64;                  // g columns per staged chunk (backward)
-constexpr int kFqLdg = kFqChunk + 8;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // ---- y, shared by K11 and K12 (K12 recomputes K11's y bit for bit) ----
 
@@ -444,195 +470,438 @@ film_qkv_fwd_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_const
 
 // ------------------------------------------------------------ backward ----
 
-// the backward's shape: rows per block, dy column tiles per warp (C <= 16 x
-// 8 x MaxCT) and 16-byte vectors per lane and row (C <= 256 MaxV). 64 rows
-// up to C 512; wider (to C 1024, as far as the JAX feasibility reaches) 32
-// rows, so that the f32 dy rows and the warps' partial sums fit shared memory
-template <int Rows, int MaxCT, int MaxV>
-struct FqBwdShape {
-  static constexpr int kRows = Rows, kRT = Rows / 16, kMaxCT = MaxCT, kMaxV = MaxV;
+// the y K11 multiplies and 1 / rms of each row: a warp a row (fq_row)
+__global__ void __launch_bounds__(256)
+fq_y_kernel(const bf16* __restrict__ x, const bf16* __restrict__ add, const bf16* __restrict__ scale,
+            const bf16* __restrict__ shift, bf16* __restrict__ y, float* __restrict__ rinv, int BL,
+            int L, int C) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= BL) return;
+  const size_t p = (size_t)row * C, b = (size_t)(row / L) * C;
+  const float inv = fq_row<4>(x + p, add + p, scale + b, shift + b, C, y + p);
+  if (threadIdx.x % 32 == 0) rinv[row] = inv;
+}
+
+constexpr int kFqbRows = 128;                   // rows a tile: two consumer warpgroups of 64
+constexpr int kFqbMaxBoxes = 4;                 // 64-column boxes of dy a CTA (128 registers)
+constexpr int kFqbMaxCluster = 4;               // CTAs a tile (C 1024)
+constexpr uint32_t kFqbTile = 64 * 64 * 2;      // a 64 x 64 bf16 128-byte-swizzled tile
+constexpr int kFqbMaxStages = 8;
+constexpr int kFqbWarps = 8;                    // consumer warps
+constexpr int kFqbScaleRows = 8;                // batch rows of scale a tile brings (a 1 KB box)
+
+// the CTAs of a tile's cluster and the 64-column boxes of dy each holds
+// (ops/film_qkv.py bwd_plan mirrors them)
+inline int fqb_cluster(int C) { return (C / 64 + kFqbMaxBoxes - 1) / kFqbMaxBoxes; }
+inline int fqb_boxes(int C) { return (C / 64 + fqb_cluster(C) - 1) / fqb_cluster(C); }
+
+// batch rows the 16 flat rows of a consumer warp can meet: ceil(15 / L) + 1
+inline int fqb_segments(int L) { return (14 + L) / L + 1; }
+
+// byte offsets from the 1024-aligned base: the ring (a stage: the 128-row g
+// box, then nb W boxes; after a tile's products, its x boxes), the output
+// staging tile (two 64 x 64 halves, one a warpgroup), the exchanged row sums
+// (two buffers x the cluster's CTAs x 128 rows), the barriers
+struct FqbLayout {
+  size_t stage, out, xch, bars, total;
+  __host__ __device__ FqbLayout(int nb, int stages) {
+    stage = (size_t)(2 + nb) * kFqbTile;
+    out = (size_t)stages * stage;
+    xch = out + 2 * kFqbTile;
+    bars = xch + (size_t)2 * kFqbMaxCluster * kFqbRows * sizeof(float);
+    total = bars + (2 * kFqbMaxStages + 2) * sizeof(uint64_t) + 1024;  // + slack to align the base
+  }
 };
-using FqBwdNarrow = FqBwdShape<64, 4, 2>;
-using FqBwdWide = FqBwdShape<32, 8, 4>;
 
-struct FqBwdSmem {
-  size_t gbuf, dys, part, rows, total;
-  __host__ __device__ FqBwdSmem(int C, int R) {
-    gbuf = 0;
-    dys = align128((size_t)2 * R * kFqLdg * sizeof(bf16));
-    part = dys + align128((size_t)R * C * sizeof(float));
-    rows = part + align128((size_t)kFqWarps * 2 * C * sizeof(float));
-    total = rows + R * sizeof(float);
-  }
+inline int fqb_stages(int nb) {
+  const size_t fixed = FqbLayout(nb, 0).total;
+  if (fixed > kMaxSmem) return 0;
+  const size_t n = (kMaxSmem - fixed) / FqbLayout(nb, 0).stage;
+  return (int)(n < kFqbMaxStages ? n : kFqbMaxStages);
+}
+
+struct FqbArgs {
+  const bf16* scale;  // (B, C)
+  bf16* dx;           // (B L, C)
+  bf16* dadd;         // (B L, C)
+  const float* rinv;  // (B L): 1 / rms of each row, from the y pass
+  float* part_film;   // (8 tiles, S, 2C): [dscale | dshift] of each (warp, batch row of its rows)
+  float* part_db;     // (2 tiles, F): column sums of g, each half tile
+  int BL, L, C, F, S, n, stages;
 };
 
-template <class Sh>
-__global__ void __launch_bounds__(kFqThreads)
-film_qkv_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
-                    const bf16* __restrict__ shift, const bf16* __restrict__ add,
-                    const bf16* __restrict__ w, const bf16* __restrict__ g,
-                    bf16* __restrict__ dx, bf16* __restrict__ dadd, bf16* __restrict__ y_s,
-                    float* __restrict__ part_film, float* __restrict__ part_db, int L, int C,
-                    int F) {
-  constexpr int kFqRows = Sh::kRows, kFqRT = Sh::kRT, kFqMaxCT = Sh::kMaxCT, kFqMaxV = Sh::kMaxV;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const FqBwdSmem lay(C, kFqRows);
-  bf16* gbuf = reinterpret_cast<bf16*>(smem + lay.gbuf);
-  float* dys = reinterpret_cast<float*>(smem + lay.dys);
-  float* ps = reinterpret_cast<float*>(smem + lay.part);
-  float* rowinv = reinterpret_cast<float*>(smem + lay.rows);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t0 = blockIdx.x * kFqRows, b = blockIdx.y;
-  const int blk = b * gridDim.x + blockIdx.x;
-  const int rows = min(kFqRows, L - t0), rt = (rows + 15) / 16;
-  const int nv = C / 8;
-  const bf16* sc = scale + (size_t)b * C;
-  const bf16* sh = shift + (size_t)b * C;
+// the bf16 pair at p where `on`, else zeros: a predicated load the compiler
+// cannot issue speculatively (after the cluster's acquire, which empties L1,
+// an unneeded load of the scale costs an L2 round trip a value)
+__device__ __forceinline__ __nv_bfloat162 fqb_ld2_if(const bf16* p, bool on) {
+  uint32_t v = 0;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q ld.global.nc.b32 %0, [%1];\n}"
+      : "+r"(v)
+      : "l"(p), "r"((int)on));
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
 
-  // g chunk f0.. of this block's rows into buffer buf (rows past L zero)
-  auto load_chunk = [&](int buf, int f0) {
-    for (int idx = threadIdx.x; idx < kFqRows * (kFqChunk / 8); idx += kFqThreads) {
-      const int e = idx / (kFqChunk / 8), v = (idx % (kFqChunk / 8)) * 8;
-      const bool ok = e < rows;
-      const bf16* src = g + ((size_t)b * L + t0 + (ok ? e : 0)) * F + f0 + v;
-      cp_async16(gbuf + (buf * kFqRows + e) * kFqLdg + v, src, ok);
-    }
-    cp_async_commit();
-  };
-  load_chunk(0, 0);
-
-  // ---- recompute y (to the scratch for dW = y^T g) and each row's 1 / rms
-  for (int e = warp; e < rows; e += kFqWarps) {
-    const size_t p = (size_t)b * L + t0 + e;
-    const float inv = fq_row<kFqMaxV>(x + p * C, add + p * C, sc, sh, C, y_s + p * C);
-    if (lane == 0) rowinv[e] = inv;
-  }
-
-  // ---- dy = g W^T: warp owns the column tiles warp + 8 ci, all row fragments
-  const int nct = C / 16;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fy[kFqMaxCT][kFqRT];
+// v summed over the lanes that differ in lane bit `mask`, half of v kept:
+// the lane with the bit set keeps the upper half. v[0, N / 2) holds the
+// kept half's sums (a fixed pairing, so reruns are bit-identical).
+template <int N>
+__device__ __forceinline__ void fqb_halve(float (&v)[N], int mask) {
+  const bool up = threadIdx.x & mask;
 #pragma unroll
-  for (int ci = 0; ci < kFqMaxCT; ++ci)
-#pragma unroll
-    for (int i = 0; i < kFqRT; ++i) wmma::fill_fragment(fy[ci][i], 0.f);
-  const int nch = F / kFqChunk;
-  for (int ch = 0; ch < nch; ++ch) {
-    if (ch + 1 < nch) {
-      load_chunk((ch + 1) & 1, (ch + 1) * kFqChunk);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* gb = gbuf + (ch & 1) * kFqRows * kFqLdg;
-#pragma unroll
-    for (int kk = 0; kk < kFqChunk; kk += 16) {
-      const int f = ch * kFqChunk + kk;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw[kFqMaxCT];
-#pragma unroll
-      for (int ci = 0; ci < kFqMaxCT; ++ci) {
-        const int ct = warp + ci * kFqWarps;
-        if (ct < nct) wmma::load_matrix_sync(bw[ci], w + (size_t)ct * 16 * F + f, F);
-      }
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[kFqRT];
-#pragma unroll
-      for (int i = 0; i < kFqRT; ++i)
-        if (i < rt) wmma::load_matrix_sync(a[i], gb + i * 16 * kFqLdg + kk, kFqLdg);
-#pragma unroll
-      for (int ci = 0; ci < kFqMaxCT; ++ci) {
-        if (warp + ci * kFqWarps >= nct) break;
-#pragma unroll
-        for (int i = 0; i < kFqRT; ++i)
-          if (i < rt) wmma::mma_sync(fy[ci][i], a[i], bw[ci], fy[ci][i]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-#pragma unroll
-  for (int ci = 0; ci < kFqMaxCT; ++ci) {
-    const int ct = warp + ci * kFqWarps;
-    if (ct >= nct) break;
-#pragma unroll
-    for (int i = 0; i < kFqRT; ++i)
-      if (i < rt) wmma::store_matrix_sync(dys + i * 16 * C + ct * 16, fy[ci][i], C,
-                                          wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // ---- per row (one warp): dadd, dx and the column partials of dscale, dshift
-  float psc[kFqMaxV][8] = {}, psh[kFqMaxV][8] = {};
-  for (int e = warp; e < rows; e += kFqWarps) {
-    const size_t p = (size_t)b * L + t0 + e;
-    const float inv = rowinv[e];
-    float xv[kFqMaxV][8], dxn[kFqMaxV][8], sm = 0.f;
-#pragma unroll
-    for (int j = 0; j < kFqMaxV; ++j) {
-      const int v = lane + 32 * j;
-      if (v >= nv) break;
-      const int4 rx = *reinterpret_cast<const int4*>(x + p * C + v * 8);
-      const int4 rs = *reinterpret_cast<const int4*>(sc + v * 8);
-      const bf16 *xb = reinterpret_cast<const bf16*>(&rx), *sb = reinterpret_cast<const bf16*>(&rs);
-      const float4 d0 = *reinterpret_cast<const float4*>(dys + e * C + v * 8);
-      const float4 d1 = *reinterpret_cast<const float4*>(dys + e * C + v * 8 + 4);
-      const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-      int4 packed;
-      bf16* o = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        xv[j][q] = __bfloat162float(xb[q]);
-        psh[j][q] += d[q];
-        psc[j][q] += d[q] * (xv[j][q] * inv);
-        dxn[j][q] = d[q] * (1.f + __bfloat162float(sb[q]));
-        sm += dxn[j][q] * xv[j][q];
-        o[q] = __float2bfloat16(d[q]);
-      }
-      *reinterpret_cast<int4*>(dadd + p * C + v * 8) = packed;
-    }
-    const float m = warp_sum(sm) / C;
-#pragma unroll
-    for (int j = 0; j < kFqMaxV; ++j) {
-      const int v = lane + 32 * j;
-      if (v >= nv) break;
-      int4 packed;
-      bf16* o = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        o[q] = __float2bfloat16(inv * dxn[j][q] - inv * inv * inv * xv[j][q] * m);
-      *reinterpret_cast<int4*>(dx + p * C + v * 8) = packed;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kFqMaxV; ++j) {
-    const int v = lane + 32 * j;
-    if (v >= nv) break;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      ps[warp * 2 * C + v * 8 + q] = psc[j][q];
-      ps[warp * 2 * C + C + v * 8 + q] = psh[j][q];
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < 2 * C; idx += kFqThreads) {
-    float acc = 0.f;
-    for (int wi = 0; wi < kFqWarps; ++wi) acc += ps[wi * 2 * C + idx];
-    part_film[(size_t)blk * 2 * C + idx] = acc;
-  }
-  // ---- the column sums of g over the block's rows (db)
-  for (int f = threadIdx.x; f < F; f += kFqThreads) {
-    float acc = 0.f;
-    for (int e = 0; e < rows; ++e) acc += ldf(g + ((size_t)b * L + t0 + e) * F + f);
-    part_db[(size_t)blk * F + f] = acc;
+  for (int k = 0; k < N / 2; ++k) {
+    const float keep = up ? v[k + N / 2] : v[k], send = up ? v[k] : v[k + N / 2];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
   }
 }
 
-// out[b][i] = sum over t < T of part[b][t][i], in order of t
+// dy (64 rows x NB 64 columns) += A B over one k16 step: one product of N 64 NB
+template <int NB>
+__device__ __forceinline__ void fqb_mma(float (&d)[NB * 32], uint64_t a, uint64_t b, int scale) {
+  if constexpr (NB == 4) hopper::wgmma_m64n256k16_ss(d, a, b, scale);
+  else if constexpr (NB == 3) hopper::wgmma_m64n192k16_ss(d, a, b, scale);
+  else if constexpr (NB == 2) hopper::wgmma_m64n128k16_ss(d, a, b, scale);
+  else hopper::wgmma_m64n64k16_ss(d, a, b, scale);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(384, 1)
+film_qkv_bwd_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_s,
+                    const FqbArgs a) {
+  using namespace hopper;
+  // a tile's x boxes (128 rows x 64 columns, 16 KB) ride the ring after its
+  // products, kXper to a stage, in kE stages; the last of them also brings
+  // the scale of the tile's first kFqbScaleRows batch rows (NB 1 KB boxes,
+  // at kSOff)
+  constexpr int kXper = NB == 2 ? 1 : (2 + NB) / 2, kE = (NB + kXper - 1) / kXper;
+  constexpr int kSOff = (NB - (kE - 1) * kXper) * 2 * kFqbTile;
+  static_assert(kSOff + NB * kFqbScaleRows * 128 <= (2 + NB) * kFqbTile, "scale boxes fit");
+  // the base aligned to 1024 by an offset, not through an integer, so that
+  // the compiler keeps every pointer below in the shared space (ld.shared /
+  // st.shared; a generic access to shared memory is several times slower)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const FqbLayout lay(NB, a.stages);
+  float* xch = reinterpret_cast<float*>(smem + lay.xch);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + kFqbMaxStages;
+  uint64_t* xfull = empty + kFqbMaxStages;  // two: the exchange buffers
+  const uint32_t rank = cluster_rank();
+  const int n = a.n, cid = blockIdx.x / n, P = gridDim.x / n, nst = a.stages;
+  const int ntiles = (a.BL + kFqbRows - 1) / kFqbRows, nks = a.F / 64;
+  const int c0 = (int)rank * NB * 64;  // the CTA's first column of dy
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kFqbWarps);  // one arrival per consumer warp
+    }
+    mbar_init(&xfull[0], n * kFqbWarps);  // every consumer warp of every CTA of the cluster
+    mbar_init(&xfull[1], n * kFqbWarps);
+    mbar_fence_init();
+  }
+  cluster_sync();  // the peers' barriers exist before any arrival from this CTA
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      // one thread issues every load, in the order consumed
+      int it = 0;
+      auto stage = [&](uint32_t bytes) {
+        const int st = it % nst;
+        if (it >= nst) mbar_wait(&empty[st], (it / nst - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], bytes);
+        ++it;
+        return st;
+      };
+      for (int tile = cid; tile < ntiles; tile += P) {
+        for (int ks = 0; ks < nks; ++ks) {
+          const int st = stage((2 + NB) * kFqbTile);
+          unsigned char* dst = smem + (size_t)st * lay.stage;
+          tma_load_3d(dst, &tm_g, &full[st], ks * 64, tile * kFqbRows, 0);
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            tma_load_3d(dst + (2 + j) * kFqbTile, &tm_w, &full[st], ks * 64, c0 + j * 64, 0);
+        }
+        for (int e = 0; e < kE; ++e) {  // the x boxes inside C, then the scale boxes
+          int real = 0;
+          for (int j = e * kXper; j < min(NB, (e + 1) * kXper); ++j) real += c0 + 64 * j < a.C;
+          const int boxes = (c0 + 64 * NB <= a.C ? NB : (a.C - c0) / 64);
+          const int st = stage(real * 2 * kFqbTile + (e == kE - 1 ? boxes * kFqbScaleRows * 128 : 0));
+          unsigned char* dst = smem + (size_t)st * lay.stage;
+          for (int j = e * kXper; j < min(NB, (e + 1) * kXper); ++j)
+            if (c0 + 64 * j < a.C)
+              tma_load_3d(dst + (j - e * kXper) * 2 * kFqbTile, &tm_x, &full[st], c0 + 64 * j,
+                          tile * kFqbRows, 0);
+          if (e == kE - 1)
+            for (int j = 0; j < boxes; ++j)
+              tma_load_3d(dst + kSOff + j * kFqbScaleRows * 128, &tm_s, &full[st], c0 + 64 * j,
+                          tile * kFqbRows / a.L, 0);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int tid = threadIdx.x % 128, lane = tid % 32, cw = threadIdx.x / 32;
+  const int r0 = 16 * (cw % 4) + lane / 4;  // this thread's rows of its warpgroup: r0, r0 + 8
+  const int cq = 2 * (lane % 4);            // and its columns of each 8-column group: cq, cq + 1
+  unsigned char* ob = smem + lay.out + wg * kFqbTile;  // this warpgroup's output staging
+  int it = 0, tc = 0;
+  for (int tile = cid; tile < ntiles; tile += P, ++tc) {
+    // ---- dy (64 rows x NB 64 columns a warpgroup) = g W^T over F: one
+    // m64 n(64 NB) k16 product a k16 step, W's NB boxes as one K-major B
+    float acc[NB * 32];
+    for (int ks = 0; ks < nks; ++ks, ++it) {
+      const int st = it % nst;
+      mbar_wait(&full[st], (it / nst) & 1);
+      const unsigned char* stg = smem + (size_t)st * lay.stage;
+      const uint64_t ad = wgmma_desc(stg + wg * kFqbTile, 16, 1024);
+      const uint64_t bd = wgmma_desc(stg + 2 * kFqbTile, 16, 1024);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fqb_mma<NB>(acc, ad + 2 * kk, bd + 2 * kk, (ks | kk) != 0);
+      wgmma_commit();
+      if (ks > 0) {
+        wgmma_wait<1>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % nst]);
+      }
+      // db while the products run (after the last stage's release, so that
+      // it does not hold the ring): this CTA sums every n-th g box of F,
+      // each warpgroup its 64 rows, warp wq columns 16 wq.. (lane: 8
+      // columns, rows lane / 2 + 16 i), then over the 16 row lanes (a
+      // reduce-scatter); one partial a (tile, warpgroup)
+      if (ks % n == (int)rank) {
+        const unsigned char* gt = stg + wg * kFqbTile;
+        const int v = 2 * (cw % 4) + lane % 2, rg = lane / 2;
+        float s8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rg + 16 * i;
+          const int4 raw = *reinterpret_cast<const int4*>(gt + r * 128 + (((v ^ r) & 7) << 4));
+          const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 f = __bfloat1622float2(e[q]);
+            s8[2 * q] += f.x;
+            s8[2 * q + 1] += f.y;
+          }
+        }
+        fqb_halve(s8, 2);  // lane bits 1, 2, 3 each halve the 8 sums, bit 4 adds
+        fqb_halve(reinterpret_cast<float(&)[4]>(s8), 4);
+        fqb_halve(reinterpret_cast<float(&)[2]>(s8), 8);
+        s8[0] += __shfl_xor_sync(0xffffffffu, s8[0], 16);
+        if (lane < 16)  // column 8 v + 4 bit1 + 2 bit2 + bit3
+          a.part_db[((size_t)tile * 2 + wg) * a.F + ks * 64 + v * 8 + 4 * ((lane >> 1) & 1) +
+                    2 * ((lane >> 2) & 1) + ((lane >> 3) & 1)] = s8[0];
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % nst]);
+    // the tile's x boxes
+    const int xst = it % nst;  // the x stages: xst, xst + 1, .. (mod nst)
+#pragma unroll
+    for (int e = 0; e < kE; ++e, ++it) mbar_wait(&full[it % nst], (it / nst) & 1);
+    auto xstage = [&](int e) { return smem + (size_t)((xst + e) % nst) * lay.stage; };
+
+    // ---- epilogue. thread t holds acc[32 j + 4 q + e] at row r0 + 8 (e / 2)
+    // of its warpgroup, column c0 + 64 j + 8 q + cq + e % 2; x comes from
+    // the swizzled x boxes at the same place, dadd and dx leave through the
+    // staging tile
+    const int row0 = tile * kFqbRows;
+    const int ra = row0 + 64 * wg + r0, rb = ra + 8;
+    const bool va = ra < a.BL, vb = rb < a.BL;
+    const int ba = va ? ra / a.L : -1, bb = vb ? rb / a.L : -1;
+    const bf16* sa = a.scale + (size_t)(va ? ba : 0) * a.C;
+    const bf16* sb = a.scale + (size_t)(vb ? bb : 0) * a.C;
+    const float ia = va ? a.rinv[ra] : 0.f, ib = vb ? a.rinv[rb] : 0.f;
+    // the batch rows of this warp's 16 rows (warp-uniform; none past B L)
+    const int w0 = row0 + 16 * cw, w1 = min(a.BL - 1, w0 + 15);
+    const int wb0 = w0 / a.L, wb1 = w0 < a.BL ? w1 / a.L : wb0 - 1;
+    float* film = a.part_film + ((size_t)tile * kFqbWarps + cw) * a.S * 2 * a.C;
+    // x and scale at the thread's rows ra, rb (h 0, 1) and columns c0 + 64 j
+    // + 8 q + cq, + 1, read where they are used: x from the swizzled x box;
+    // the scale from the scale boxes, or from global memory for a warp with
+    // rows past the tile's first kFqbScaleRows batch rows
+    const int b0 = row0 / a.L;  // the first batch row of the tile
+    const int sra = va ? ba - b0 : 0, srb = vb ? bb - b0 : 0;
+    const bool slow = __any_sync(0xffffffffu, sra >= kFqbScaleRows || srb >= kFqbScaleRows);
+    const unsigned char* scl = xstage(kE - 1) + kSOff;
+    auto xpair = [&](int j, int q, int h) {
+      const unsigned char* xt = xstage(j / kXper) + (j % kXper) * 2 * kFqbTile + wg * kFqbTile;
+      return __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xt + swizzle128(r0 + 8 * h, 8 * q + cq)));
+    };
+    auto spair = [&](int j, int q, int h) {
+      const __nv_bfloat162 g = fqb_ld2_if((h ? sb : sa) + c0 + 64 * j + 8 * q + cq, slow);
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+          scl + j * kFqbScaleRows * 128 +
+          swizzle128(min(h ? srb : sra, kFqbScaleRows - 1), 8 * q + cq));
+      return __bfloat1622float2(slow ? g : v);
+    };
+    // box j of dadd or dx (two values a row): into the staging tile, then
+    // rows of 16-byte chunks to global memory (8 threads a 128-byte row)
+    auto store_box = [&](bf16* out, int j, auto value) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float2 va2 = value(q, 0), vb2 = value(q, 1);
+        *reinterpret_cast<__nv_bfloat162*>(ob + swizzle128(r0, 8 * q + cq)) =
+            __floats2bfloat162_rn(va2.x, va2.y);
+        *reinterpret_cast<__nv_bfloat162*>(ob + swizzle128(r0 + 8, 8 * q + cq)) =
+            __floats2bfloat162_rn(vb2.x, vb2.y);
+      }
+      fqf_wg_sync(wg);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tid / 8 + 16 * i, row = row0 + 64 * wg + r;
+        const int4 chunk = *reinterpret_cast<const int4*>(ob + swizzle128(r, (tid % 8) * 8));
+        if (row < a.BL)
+          *reinterpret_cast<int4*>(out + (size_t)row * a.C + c0 + 64 * j + (tid % 8) * 8) = chunk;
+      }
+      fqf_wg_sync(wg);  // the staging tile is read before the next box writes it
+    };
+    // 16 film sums (index 2 q + e: column 8 q + cq + e) over the 8 row lanes
+    // (lane bits 2, 3, 4), a reduce-scatter; the lane stores its two at
+    // column 8 (k0 / 2) + cq, k0 = 8 bit2 + 4 bit3 + 2 bit4
+    auto film_store = [&](float (&v)[16], float* dst) {
+      fqb_halve(v, 4);
+      fqb_halve(reinterpret_cast<float(&)[8]>(v), 8);
+      fqb_halve(reinterpret_cast<float(&)[4]>(v), 16);
+      const int k0 = 8 * ((lane >> 2) & 1) + 4 * ((lane >> 3) & 1) + 2 * ((lane >> 4) & 1);
+      *reinterpret_cast<float2*>(dst + 8 * (k0 / 2) + cq) = make_float2(v[0], v[1]);
+    };
+
+    // pass 1: dadd = dy; each row's partial sum of dxn x over this CTA's
+    // columns; the warp's film sums, one partial per batch row of its rows
+    float pa = 0.f, pb = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (c0 + 64 * j >= a.C) continue;  // a box past C (zero W rows)
+      store_box(a.dadd, j, [&](int q, int h) {
+        return make_float2(acc[32 * j + 4 * q + 2 * h], acc[32 * j + 4 * q + 2 * h + 1]);
+      });
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float* d = &acc[32 * j + 4 * q];
+        const float2 x0 = xpair(j, q, 0), s0 = spair(j, q, 0);
+        const float2 x1 = xpair(j, q, 1), s1 = spair(j, q, 1);
+        pa += d[0] * (1.f + s0.x) * x0.x;
+        pa += d[1] * (1.f + s0.y) * x0.y;
+        pb += d[2] * (1.f + s1.x) * x1.x;
+        pb += d[3] * (1.f + s1.y) * x1.y;
+      }
+      for (int b = wb0; b <= wb1; ++b) {
+        const bool ua = ba == b, ub = bb == b;
+        float* dst = film + (size_t)(b - wb0) * 2 * a.C + c0 + 64 * j;
+        float v[16];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {  // dshift: dy
+          const float* d = &acc[32 * j + 4 * q];
+          v[2 * q] = (ua ? d[0] : 0.f) + (ub ? d[2] : 0.f);
+          v[2 * q + 1] = (ua ? d[1] : 0.f) + (ub ? d[3] : 0.f);
+        }
+        film_store(v, dst + a.C);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {  // dscale: dy xn, xn = x / rms in f32
+          const float* d = &acc[32 * j + 4 * q];
+          const float2 x0 = xpair(j, q, 0), x1 = xpair(j, q, 1);
+          v[2 * q] = (ua ? d[0] * (x0.x * ia) : 0.f) + (ub ? d[2] * (x1.x * ib) : 0.f);
+          v[2 * q + 1] = (ua ? d[1] * (x0.y * ia) : 0.f) + (ub ? d[3] * (x1.y * ib) : 0.f);
+        }
+        film_store(v, dst);
+      }
+    }
+    pa += __shfl_xor_sync(0xffffffffu, pa, 1);
+    pa += __shfl_xor_sync(0xffffffffu, pa, 2);
+    pb += __shfl_xor_sync(0xffffffffu, pb, 1);
+    pb += __shfl_xor_sync(0xffffffffu, pb, 2);
+
+    // the warp's 16 row partials to every CTA of the cluster (lane k to CTA
+    // k), xch[buf][rank][16 cw..]; then this CTA's n partials in rank order
+    const int buf = tc & 1;
+    float v[16];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = __shfl_sync(0xffffffffu, pa, 4 * e);
+      v[e + 8] = __shfl_sync(0xffffffffu, pb, 4 * e);
+    }
+    if (lane < n) {
+      const uint32_t dst =
+          cluster_addr(xch + ((size_t)buf * kFqbMaxCluster + rank) * kFqbRows + 16 * cw, lane);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        st_cluster_v4(dst + 16 * k, v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+      mbar_arrive_cluster(cluster_addr(&xfull[buf], lane));
+    }
+    mbar_wait_cluster(&xfull[buf], (tc >> 1) & 1);
+    float ma = 0.f, mb = 0.f;
+    for (int k = 0; k < n; ++k) {
+      ma += xch[((size_t)buf * kFqbMaxCluster + k) * kFqbRows + 64 * wg + r0];
+      mb += xch[((size_t)buf * kFqbMaxCluster + k) * kFqbRows + 64 * wg + r0 + 8];
+    }
+    ma /= a.C;
+    mb /= a.C;
+
+    // pass 2: dx = inv dxn - inv^3 x mean(dxn x)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (c0 + 64 * j >= a.C) continue;
+      store_box(a.dx, j, [&](int q, int h) {
+        const float* d = &acc[32 * j + 4 * q + 2 * h];
+        const float2 x = xpair(j, q, h), sc = spair(j, q, h);
+        const float inv = h ? ib : ia, m = h ? mb : ma;
+        const float n0 = d[0] * (1.f + sc.x), n1 = d[1] * (1.f + sc.y);
+        return make_float2(inv * n0 - inv * inv * inv * x.x * m, inv * n1 - inv * inv * inv * x.y * m);
+      });
+    }
+    // the x boxes are read
+    __syncwarp();
+#pragma unroll
+    for (int e = kE; e > 0; --e)
+      if (lane == 0) mbar_arrive(&empty[(it - e) % nst]);
+  }
+}
+
+// film[b][i] = the sum of the warps' partials of batch row b, in order of
+// (tile, warp): a warp's 16 rows hold partial b - (its first row) / L
 __global__ void __launch_bounds__(256)
-fq_reduce_kernel(const float* __restrict__ part, int T, int n, float* __restrict__ out) {
+fq_film_reduce_kernel(const float* __restrict__ part, int L, int S, int n,
+                      float* __restrict__ out) {
   const int i = blockIdx.x * 256 + threadIdx.x, b = blockIdx.y;
   if (i >= n) return;
+  const long long r0 = (long long)b * L, r1 = r0 + L - 1;
   float acc = 0.f;
-  for (int t = 0; t < T; ++t) acc += part[((size_t)b * T + t) * n + i];
+  for (long long w = r0 / 16; w <= r1 / 16; ++w) {  // warps of 16 rows, flat
+    const long long first = 16 * w;
+    acc += part[(size_t)(w * S + (b - first / L)) * n + i];
+  }
   out[(size_t)b * n + i] = acc;
+}
+
+// out[i] = sum over t < T of part[t][i]: eight runs of t, each summed in
+// order by a thread, then the eight in order (a block: 32 columns x 8 runs)
+__global__ void __launch_bounds__(256)
+fq_reduce_kernel(const float* __restrict__ part, int T, int n, float* __restrict__ out) {
+  __shared__ float runs[8][32];
+  const int c = threadIdx.x % 32, r = threadIdx.x / 32, i = blockIdx.x * 32 + c;
+  float acc = 0.f;
+  if (i < n)
+    for (int t = r * T / 8; t < (r + 1) * T / 8; ++t) acc += part[(size_t)t * n + i];
+  runs[r][c] = acc;
+  __syncthreads();
+  if (r == 0 && i < n) {
+    acc = runs[0][c];
+    for (int k = 1; k < 8; ++k) acc += runs[k][c];
+    out[i] = acc;
+  }
 }
 
 }  // namespace odt
@@ -668,38 +937,61 @@ extern "C" int odt_film_qkv_fwd(const void* x, const void* scale, const void* sh
 
 // g (B, L, F) bf16 is the output gradient. -> dx, dadd (B, L, C) bf16; dw
 // (C, F), db (F) and film (B, 2C) = [dscale | dshift] f32. Scratch: y_s
-// (B L, C) bf16, part_film (blocks, 2C), part_db (blocks, F) and part_w
-// (S, C, F) f32, blocks = B ceil(L / 64).
+// (B L, C) bf16, rinv (B L), part_film, part_db (2 tiles, F)
+// and part_w (S_w, C, F) f32, tiles = ceil(B L / 128), S = fqb_segments(L):
+// part_film (8 tiles, S, 2C) holds a partial per (consumer warp, batch row of
+// its 16 rows).
+// Every base 16-byte aligned (TMA and 16-byte loads).
 extern "C" int odt_film_qkv_bwd(const void* x, const void* scale, const void* shift,
                                 const void* add, const void* w, const void* g, void* dx,
-                                void* dadd, void* y_s, void* part_film, void* part_db,
+                                void* dadd, void* y_s, void* rinv, void* part_film, void* part_db,
                                 void* part_w, void* dw, void* db, void* film, int B, int L, int C,
                                 int F, int S, void* stream) {
   using namespace odt;
-  if (B < 1 || L < 1 || C % 64 || C > 1024 || F % kFqChunk || S < 1)
+  if (B < 1 || L < 1 || C < 64 || C % 64 || C > 1024 || F < 128 || F % 128 || S < 1)
     return (int)cudaErrorInvalidValue;
-  // the rows per block follow C (ops/film_qkv.py bwd_rows)
-  const int rows = C <= 512 ? FqBwdNarrow::kRows : FqBwdWide::kRows;
-  const FqBwdSmem lay(C, rows);
-  const int nT = (L + rows - 1) / rows;
+  const int BL = B * L, ntiles = (BL + kFqbRows - 1) / kFqbRows;
+  const int n = fqb_cluster(C), nb = fqb_boxes(C), stages = fqb_stages(nb);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  auto row_pass = [&](auto kernel) {
-    return launch(kernel, dim3(nT, B), dim3(kFqThreads), lay.total, s, (const bf16*)x,
-                  (const bf16*)scale, (const bf16*)shift, (const bf16*)add, (const bf16*)w,
-                  (const bf16*)g, (bf16*)dx, (bf16*)dadd, (bf16*)y_s, (float*)part_film,
-                  (float*)part_db, L, C, F);
-  };
-  cudaError_t err = C <= 512 ? row_pass(film_qkv_bwd_kernel<FqBwdNarrow>)
-                             : row_pass(film_qkv_bwd_kernel<FqBwdWide>);
+  fq_y_kernel<<<(BL + 7) / 8, 256, 0, s>>>((const bf16*)x, (const bf16*)add, (const bf16*)scale,
+                                           (const bf16*)shift, (bf16*)y_s, (float*)rinv, BL, L, C);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)g, F, B * L, C, F, S, (float*)part_w,
+  CUtensorMap mg, mw, mx, ms;
+  err = hopper::tma_map_bf16_3d(&mg, g, F, BL, 1, 64, kFqbRows);
+  if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&mw, w, F, C, 1, 64, 64);
+  if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&mx, x, C, BL, 1, 64, kFqbRows);
+  if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&ms, scale, C, B, 1, 64, kFqbScaleRows);
+  if (err != cudaSuccess) return (int)err;
+  const FqbArgs args{(const bf16*)scale, (bf16*)dx, (bf16*)dadd, (const float*)rinv,
+                     (float*)part_film, (float*)part_db,
+                     BL, L, C, F, fqb_segments(L), n, stages};
+  const size_t smem = FqbLayout(nb, stages).total;
+  auto row_pass = [&](auto kernel) {
+    // as many clusters as the device holds at once (queried once a width class)
+    static int held[kFqbMaxCluster + 1] = {};
+    if (held[n] == 0) held[n] = hopper::max_active_clusters(kernel, dim3(384), n, smem);
+    if (held[n] < 1) return cudaErrorInvalidConfiguration;
+    const int clusters = ntiles < held[n] ? ntiles : held[n];
+    return hopper::launch_cluster(kernel, dim3(clusters * n), dim3(384), n, smem, s, mg, mw, mx,
+                                  ms, args);
+  };
+  switch (nb) {
+    case 1: err = row_pass(film_qkv_bwd_kernel<1>); break;
+    case 2: err = row_pass(film_qkv_bwd_kernel<2>); break;
+    case 3: err = row_pass(film_qkv_bwd_kernel<3>); break;
+    default: err = row_pass(film_qkv_bwd_kernel<4>); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)g, F, BL, C, F, S, (float*)part_w,
                        (float*)dw, s);
   if (err != cudaSuccess) return (int)err;
-  fq_reduce_kernel<<<dim3((2 * C + 255) / 256, B), 256, 0, s>>>((const float*)part_film, nT,
-                                                                 2 * C, (float*)film);
+  fq_film_reduce_kernel<<<dim3((2 * C + 255) / 256, B), 256, 0, s>>>(
+      (const float*)part_film, L, fqb_segments(L), 2 * C, (float*)film);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fq_reduce_kernel<<<dim3((F + 255) / 256, 1), 256, 0, s>>>((const float*)part_db, B * nT, F,
-                                                             (float*)db);
+  fq_reduce_kernel<<<(F + 31) / 32, 256, 0, s>>>((const float*)part_db, 2 * ntiles, F,
+                                                  (float*)db);
   return (int)cudaGetLastError();
 }

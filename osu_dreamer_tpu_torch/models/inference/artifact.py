@@ -108,11 +108,15 @@ def _check_unchunked(tree: Any) -> None:
             _check_unchunked(value)
 
 
-def load_inference(path: str | Path, device: torch.device | str = "cpu",
+def load_inference(path: str | Path, device: torch.device | str = "cuda",
                    dtype: torch.dtype | None = None) -> LDM:
     """read a ``.odt`` written by osu_dreamer_tpu's ``build_artifact_bytes``
-    -> an ``LDM`` on ``device`` (f32 parameters; compute dtype ``dtype``,
-    by default f32 on the CPU and bf16 elsewhere)"""
+    -> an ``LDM`` on ``device`` (a CUDA card unless ``cpu`` is asked for;
+    f32 parameters; compute dtype ``dtype``, by default f32 on the CPU and
+    bf16 elsewhere)"""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to load on the CPU")
     payload = _unpack(Path(path).read_bytes())
     if payload.get("version") != ARTIFACT_VERSION:
         raise ValueError(f"unsupported artifact version {payload.get('version')}")

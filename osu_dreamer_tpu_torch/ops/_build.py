@@ -53,7 +53,7 @@ _SIGNATURES = {
     "odt_film_layer_bwd": [_P] * 28 + [_I] * 11 + [_P],
     "odt_swiglu_bwd_full": [_P] * 19 + [_I] * 12 + [_P],
     "odt_film_qkv_fwd": [_P] * 8 + [_I] * 4 + [_P],
-    "odt_film_qkv_bwd": [_P] * 15 + [_I] * 5 + [_P],
+    "odt_film_qkv_bwd": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 

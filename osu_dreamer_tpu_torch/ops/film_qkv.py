@@ -24,7 +24,7 @@ from ._build import check_cuda, run
 from .swiglu import _MAX_SMEM, gemm_splits, shrink_tile_to_budget
 
 # the widest C the kernels take (csrc/film_qkv.cu: the forward's y tile,
-# the backward's FqBwdWide)
+# the backward's four-CTA clusters)
 MAX_C = 1024
 # csrc/film_qkv.cu's forward plan: 128 output columns a work item, a ring of
 # 16 KB stages, 8 KB (64 x 64 bf16) tiles, at most 8 stages
@@ -32,6 +32,13 @@ FWD_COLS = 128
 _TILE_BYTES = 64 * 64 * 2
 _STAGE_BYTES = 2 * _TILE_BYTES
 _MAX_STAGES = 8
+# and its backward's (``FqbLayout``, ``fqb_*``): 128-row tiles, at most four
+# 64-column boxes of dy a CTA and four CTAs a tile, 8 consumer warps of 16
+# rows each
+BWD_ROWS = 128
+_BWD_MAX_BOXES = 4
+_BWD_MAX_CLUSTER = 4
+_BWD_WARPS = 8
 
 
 def fwd_plan(B: int, L: int, C: int, F: int, sms: int = 132) -> dict[str, int]:
@@ -69,10 +76,31 @@ def fwd_items(tiles: int, ngrp: int, ctas: int) -> list[list[int]]:
     return out
 
 
-def bwd_rows(C: int) -> int:
-    """rows per block of the backward's row kernel (csrc/film_qkv.cu
-    FqBwdNarrow / FqBwdWide)"""
-    return 64 if C <= 512 else 32
+def bwd_plan(B: int, L: int, C: int, F: int, held: int | None = None) -> dict[str, int]:
+    """the backward row pass's plan (csrc/film_qkv.cu ``fqb_cluster``,
+    ``fqb_boxes``, ``fqb_segments``, ``FqbLayout``, ``fqb_stages``): the CTAs
+    of a tile's cluster, the 64-column boxes of dy a CTA, ring stages,
+    shared-memory bytes, 128-row tiles, the batch rows a consumer warp's 16
+    rows can meet (its film partials) and the persistent clusters (``held``:
+    as many as the device holds at once, by default one CTA an SM of 132)"""
+    n = -(-(C // 64) // _BWD_MAX_BOXES)
+    nb = -(-(C // 64) // n)
+    stage = (2 + nb) * _TILE_BYTES
+    # the output staging tile, the exchanged row sums, barriers, alignment slack
+    fixed = (2 * _TILE_BYTES + 2 * _BWD_MAX_CLUSTER * BWD_ROWS * 4 + (2 * _MAX_STAGES + 2) * 8
+             + 1024)
+    stages = min(_MAX_STAGES, (_MAX_SMEM - fixed) // stage)
+    tiles = -(-(B * L) // BWD_ROWS)
+    clusters = min(tiles, 132 // n if held is None else held)
+    return {"cluster": n, "boxes": nb, "stages": stages, "smem": fixed + stages * stage,
+            "tiles": tiles, "segments": (14 + L) // L + 1, "clusters": clusters,
+            "ctas": clusters * n}
+
+
+def bwd_tiles(tiles: int, clusters: int) -> list[list[int]]:
+    """each backward cluster's row tiles in order (csrc/film_qkv.cu: cluster
+    c takes c, c + clusters, ...)"""
+    return [list(range(c, tiles, clusters)) for c in range(clusters)]
 
 
 # The JAX prologue's feasibility rule, copied from osu_dreamer_tpu/ops/
@@ -124,11 +152,11 @@ def film_qkv_bwd_plain(x, scale, shift, add, kernel, bias, grad_out):
         return torch.autograd.grad(film_qkv_plain(*leaves), leaves, grad_out)
 
 
-def _check_inputs(x, scale, shift, add, kernel, bias, align: int) -> list[torch.Tensor]:
+def _check_inputs(x, scale, shift, add, kernel, bias) -> list[torch.Tensor]:
     """raise unless the operands fit bf16 (B, L, C) x as the kernels read them
     -> [scale, shift, add, kernel, bias] in bf16, contiguous, each base
-    ``align``-byte aligned (a copy where it is not): 16 for the forward's TMA
-    boxes and 16-byte loads, 32 for the backward's wmma loads of W"""
+    16-byte aligned (a copy where it is not), as the TMA boxes and 16-byte
+    loads of both kernels read them"""
     check_cuda("x", x, torch.bfloat16, 3)
     B, L, C = x.shape
     F = kernel.shape[-1]
@@ -144,7 +172,7 @@ def _check_inputs(x, scale, shift, add, kernel, bias, align: int) -> list[torch.
             raise ValueError(f"{name} must be {shape} on {x.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
         t = t.to(torch.bfloat16).contiguous()
-        out.append(t.clone() if t.data_ptr() % align else t)
+        out.append(t.clone() if t.data_ptr() % 16 else t)
     return out
 
 
@@ -158,7 +186,7 @@ def film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias,
                       y_out: torch.Tensor | None = None) -> torch.Tensor:
     """K11, csrc/film_qkv.cu: bf16 (B, L, C) -> (B, L, F). ``y_out`` (B L, C)
     bf16, a test hook: the kernel writes there the y it multiplies"""
-    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias, 16)
+    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias)
     B, L, C = x.shape
     F = kernel.shape[1]
     if y_out is not None:
@@ -175,22 +203,23 @@ def film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias,
 def film_qkv_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out,
                       y_out: torch.Tensor | None = None):
     """K12, csrc/film_qkv.cu: the tuple of ``film_qkv_bwd_plain``, dx and
-    dadd bf16, every other gradient f32. One row pass writes dx, dadd, y and
-    per-block partial sums; dW = y^T g (split-K) and the fixed-order sums of
-    the partials run in the same call, so two launches are bit-identical.
-    ``y_out`` (B L, C) bf16, a test hook: the row pass recomputes y there."""
-    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias, 32)
+    dadd bf16, every other gradient f32. A y pass recomputes y and 1/rms; the
+    row pass (dy = g W^T on wgmma) writes dx, dadd and partial sums; dW =
+    y^T g (split-K) and the fixed-order sums of the partials run in the same
+    call, so two launches are bit-identical. ``y_out`` (B L, C) bf16, a test
+    hook: the y pass recomputes y there."""
+    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias)
     B, L, C = x.shape
     F = kernel.shape[1]
     g = grad_out.to(torch.bfloat16).contiguous()
     if g.shape != (B, L, F) or g.device != x.device:
         raise ValueError(f"grad_out must be {(B, L, F)} on {x.device}, "
                          f"got {tuple(g.shape)} on {g.device}")
-    if g.data_ptr() % 32:
+    if g.data_ptr() % 16:
         g = g.clone()
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    nblk = B * -(-L // bwd_rows(C))
+    plan = bwd_plan(B, L, C, F)
     splits = gemm_splits(B * L, C, F)
     dx, dadd = torch.empty_like(x), torch.empty_like(x)
     y_s = y_out  # the recomputed y
@@ -198,13 +227,16 @@ def film_qkv_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out,
         y_s = torch.empty(B * L, C, dtype=torch.bfloat16, device=dev)
     else:
         _check_y_out(y_s, B, L, C)
-    part_film = torch.empty(nblk, 2 * C, **f32)  # per block: dscale, dshift
-    part_db = torch.empty(nblk, F, **f32)
+    rinv = torch.empty(B * L, **f32)
+    # per (consumer warp, batch row of its 16 rows): dscale, dshift; per
+    # half tile: db
+    part_film = torch.empty(_BWD_WARPS * plan["tiles"], plan["segments"], 2 * C, **f32)
+    part_db = torch.empty(2 * plan["tiles"], F, **f32)
     part_w = torch.empty(splits, C, F, **f32)
     dw, db, film = torch.empty(C, F, **f32), torch.empty(F, **f32), torch.empty(B, 2 * C, **f32)
     run(
         "odt_film_qkv_bwd", "film_qkv_bwd", dev,
-        *(t.data_ptr() for t in (x, scale, shift, add, kernel, g, dx, dadd, y_s, part_film,
+        *(t.data_ptr() for t in (x, scale, shift, add, kernel, g, dx, dadd, y_s, rinv, part_film,
                                  part_db, part_w, dw, db, film)),
         B, L, C, F, splits,
     )

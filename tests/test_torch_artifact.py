@@ -76,6 +76,41 @@ def test_odt_roundtrip_matches_jax(tmp_path, half):
     np.testing.assert_allclose(N(lab_t), np.asarray(lab_j), atol=1e-3)
 
 
+def _tiny_odt(tmp_path):
+    from osu_dreamer_tpu.models.inference.artifact import build_artifact_bytes
+
+    args, tree = full_tree(33)
+    path = tmp_path / "tiny.odt"
+    path.write_bytes(build_artifact_bytes(args, tree))
+    return path
+
+
+def test_load_inference_defaults_to_the_card(tmp_path):
+    """with no device asked for, ``load_inference`` loads onto the card, as
+    the port's other entry points run there; without one it raises (as
+    ``fit.run`` does) rather than load on the CPU unasked"""
+    from osu_dreamer_tpu_torch.models.inference.artifact import load_inference
+
+    path = _tiny_odt(tmp_path)
+    if torch.cuda.is_available():
+        model = load_inference(path)
+        assert next(model.parameters()).is_cuda and model.dtype == torch.bfloat16
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device: pass device='cpu'"):
+        load_inference(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_inference(path, "cuda")
+
+
+def test_load_inference_on_the_cpu_when_asked(tmp_path):
+    """``device="cpu"`` still loads: f32 parameters and compute on the CPU"""
+    from osu_dreamer_tpu_torch.models.inference.artifact import load_inference
+
+    model = load_inference(_tiny_odt(tmp_path), "cpu")
+    assert model.dtype == torch.float32
+    assert all(p.device.type == "cpu" and p.dtype == torch.float32 for p in model.parameters())
+
+
 def test_bridge_accounts_for_every_leaf():
     """an unknown leaf, a missing parameter or a wrong shape raises; every
     leaf of the tree, the latent model's chart encoder included, maps onto

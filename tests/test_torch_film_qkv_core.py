@@ -50,10 +50,10 @@ def _inputs(B: int, L: int, C: int, F: int, seed: int = 0) -> list[torch.Tensor]
             r(C, F, scale=C**-0.5), r(F, scale=0.1)]
 
 
-def build_y(x, add, sc, sh):
-    """rows of y as the kernel builds them: lane l sums x^2 over its 8-column
-    vectors l + 32 j in order, the lanes meet in a butterfly (16, 8, 4, 2,
-    1), then 1/rms and the bf16 chain"""
+def row_inv(x: torch.Tensor) -> torch.Tensor:
+    """1/rms of each row of x (n, C) as the kernels take it (``fq_row``'s
+    order): lane l sums x^2 over its 8-column vectors l + 32 j in order, the
+    lanes meet in a butterfly (16, 8, 4, 2, 1) -> (n, 1) f32"""
     n, C = x.shape
     sq = (x.float() ** 2).numpy().reshape(n, C // 8, 8)
     lanes = np.zeros((n, 32), dtype=np.float32)
@@ -62,7 +62,12 @@ def build_y(x, add, sc, sh):
             lanes[:, v % 32] += sq[:, v, q]
     for o in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[:, np.arange(32) ^ o]
-    inv = torch.rsqrt(torch.from_numpy(lanes[:, :1]) / C + 1e-6)
+    return torch.rsqrt(torch.from_numpy(lanes[:, :1]) / C + 1e-6)
+
+
+def build_y(x, add, sc, sh):
+    """rows of y as the kernel builds them: ``row_inv``, then the bf16 chain"""
+    inv = row_inv(x)
     y = _bf(_bf(x.float() * inv) * _bf(1 + sc.float()))
     return _bf(_bf(y + sh.float()) + add.float())
 

@@ -170,7 +170,7 @@ def test_wide_attention_inference_takes_the_flash_kernel_on_gpu(monkeypatch):
 def test_widened_backward_kernels_on_gpu():
     """the widths where the JAX package runs Pallas and the port's kernels
     were widened: K6 at C 640 (48-row blocks), K11/K12 at C 640 F 3072 and C
-    1024 F 1920 (32-row backward blocks)"""
+    1024 F 1920 (K12 in clusters of three and four CTAs)"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -605,3 +605,40 @@ def test_film_qkv_fwd_widths_and_edges_on_gpu(C, L):
     assert bool(torch.isfinite(got).all()) and (got.float() - want).abs().max().item() <= tol
     assert torch.equal(film_qkv.film_qkv_fwd_cuda(*args), got)
     assert torch.equal(y11, y12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [384, 512, 640, 1024])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 129])
+def test_film_qkv_bwd_widths_and_edges_on_gpu(C, L):
+    """K12 at every cluster width (two CTAs a tile at C 384 and 512, three
+    at 640, four at 1024) and the edges of a 64- and a 128-row tile, three
+    batch rows so that tiles straddle them (at L 1 one tile holds all
+    three): the six gradients within GRAD_REL of f32 autograd of the plain
+    version, a second launch bit-identical, and the y its y pass recomputes
+    equal bit for bit to the y K11 multiplies"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    B, F = 3, 3 * 4 * 64
+    args, go = _prologue_case(B, L, C, F, 2 * C + L)
+    y11 = torch.empty(B * L, C, dtype=torch.bfloat16, device="cuda")
+    y12 = torch.empty_like(y11)
+    film_qkv.film_qkv_fwd_cuda(*args, y_out=y11)
+    grads = film_qkv.film_qkv_bwd_cuda(*args, go, y_out=y12)
+    torch.cuda.synchronize()
+    _grads_close(grads, film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()))
+    assert all(torch.equal(a, b) for a, b in zip(grads, film_qkv.film_qkv_bwd_cuda(*args, go)))
+    assert torch.equal(y11, y12)
+
+
+@pytest.mark.gpu
+def test_film_qkv_bwd_persistent_clusters_on_gpu():
+    """more 128-row tiles than clusters the card holds at once (B64 L152
+    C512: 76 tiles, at most 66 two-CTA clusters at once), so some take two
+    and the exchange buffers alternate: GRAD_REL, bit-identical rerun"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _prologue_case(64, 152, 512, 3072, 9)
+    grads = film_qkv.film_qkv_bwd_cuda(*args, go)
+    _grads_close(grads, film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()))
+    assert all(torch.equal(a, b) for a, b in zip(grads, film_qkv.film_qkv_bwd_cuda(*args, go)))
