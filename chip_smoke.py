@@ -62,6 +62,19 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    ms. Then an 8 x 64-head
    attention at L 300 (past K9/K10's range) answers through K7 within the
    f32 rule, and fit-denoiser's check refuses that shape.
+3a. Runs ``predict`` (``cli.run_predict``) on phase 3's model from WAV files
+   to .osz mapsets: two 120 s songs and one 30 s song written as 44.1 kHz
+   stereo 16-bit WAV under build/smoke_predict/, rows 5 9 8 4 6 and
+   3 7 6 3 5, 32 steps, --batch-songs 2 --serialize-workers 2 --seed 0,
+   OSU_DREAMER_TIMING=1. The native library (slider fitter, WAV decoder,
+   resampler) must load. The launches must be one resonator, 48 film
+   layers and 264 SwiGLUs a batch and 264 of the attention kernel that
+   attention_route names for each batch's latent length (K7 for the 120 s
+   pair, K9 for the 30 s song); each .osz must hold its WAV and one .osu a
+   row, each equal to decode_osu_entry run in this process on the chart
+   run_predict fetched; a second run with the same seed must write the
+   same texts; then one song with --snap-divisor 4 --serialize-workers 1.
+   Prints the timing lines and the wall per map.
 4. Trains the denoiser at full width (the port's models/diffusion/config.yml:
    depth 8, width 512, 16 x 64 heads, batch 128 x 152, bf16 compute, f32
    parameters) through ``fit.run`` on a seeded synthetic cached-latent
@@ -107,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -209,6 +223,12 @@ PROLOGUE_TRAINING = {
 # the latent phase's corpus: 32 mapsets x 2 maps x 12 windows of 2052
 # frames; 2 mapsets held out, 30 x 2 x 12 = 720 training windows, 22 batches
 LATENT_CORPUS = (32, 2, 2052 * 12)
+# phase 3a: predict's songs (seconds; the 120 s pair is one batch, the 30 s
+# song one of its own, whose latent length routes attention to K9), written
+# as 44.1 kHz stereo 16-bit WAV so that the WAV parser and the resampler run
+PREDICT_SONGS = (SONG_SECONDS, SONG_SECONDS, 30.0)
+PREDICT_DIFFS = [(5.0, 9.0, 8.0, 4.0, 6.0), (3.0, 7.0, 6.0, 3.0, 5.0)]
+WAV_RATE = 44100
 
 
 def log(msg: str) -> None:
@@ -425,6 +445,140 @@ def synth_wave(seed: int, seconds: float, sr: int) -> np.ndarray:
         i = int(onset * sr)
         wave[i : i + 400] += 0.6 * burst
     return wave.astype(np.float32)
+
+
+def write_song(path: Path, seconds: float, seed: int) -> Path:
+    """``synth_wave`` as a 44.1 kHz stereo 16-bit WAV (stdlib ``wave``)"""
+    mono = synth_wave(seed, seconds, WAV_RATE).astype(np.float64)
+    stereo = np.stack([mono, 0.9 * mono], axis=1) / max(1.0, float(np.abs(mono).max()))
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(WAV_RATE)
+        w.writeframes(np.round(stereo * 32767).astype("<i2").tobytes())
+    return path
+
+
+def predict_phase(model, dev, smi: str) -> dict[str, int]:
+    """phase 3a: ``run_predict`` from WAV files to .osz mapsets on the
+    full-width model; -> the kernel launches of its first run"""
+    import os
+    import zipfile
+
+    import torch
+
+    from osu_dreamer_tpu_torch import native
+    from osu_dreamer_tpu_torch.audio.constants import SR
+    from osu_dreamer_tpu_torch.audio.spectrogram import prep_wave_for_model
+    from osu_dreamer_tpu_torch.cli import run_predict
+    from osu_dreamer_tpu_torch.models.inference.sampler import dequantize_chart
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.ops.fused_attention import attention_route
+    from osu_dreamer_tpu_torch.signal.serialize import decode_osu_entry
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the native library (slider fitter, WAV decoder) is not available")
+    log(f"native library {native.build('osudreamer_native.cpp').relative_to(ROOT)} ready in "
+        f"{time.perf_counter() - t0:.1f} s; libav shim available: {native.av_available()}")
+    workdir = ROOT / "build" / "smoke_predict"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    songs = [write_song(workdir / f"song{i}.wav", seconds, SEED + 10 + i)
+             for i, seconds in enumerate(PREDICT_SONGS)]
+
+    # each batch's launches: one resonator, the latent U-Net's film layers,
+    # and per backbone layer and denoiser pass one SwiGLU and the attention
+    # kernel attention_route names for the batch's latent length
+    chunk = model.args.latent.chunk_size
+    backbone = model.args.diffusion.backbone
+    expected = dict.fromkeys(_build.KERNELS, 0)
+    routes = []
+    for batch in ([0, 1], [2]):
+        out_frames = {prep_wave_for_model(np.zeros(-(-int(PREDICT_SONGS[i] * WAV_RATE) * SR
+                                                      // WAV_RATE), np.float32), chunk)[3]
+                      for i in batch}
+        (L,) = {f // chunk for f in out_frames}
+        route = attention_route(L, backbone.n_heads, backbone.head_dim, "cuda")
+        routes.append((L, route))
+        expected["resonator"] += RESONATOR_PER_REQUEST
+        expected["film_layer"] += FILM_PER_REQUEST
+        expected["swiglu"] += SWIGLU_PER_REQUEST
+        expected["fused_attention_fwd" if route == "fused" else "flash_attention"] += \
+            FLASH_PER_REQUEST
+
+    def run(files, **options):
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            t = time.perf_counter()
+            done = run_predict(model, files, PREDICT_DIFFS, STEPS, seed=SEED, device=dev,
+                               **options)
+            return done, time.perf_counter() - t
+        finally:
+            os.chdir(cwd)
+
+    def check(done, files, snap_divisor=0) -> list[dict[str, str]]:
+        """one .osz a song holding its WAV and one .osu a difficulty row,
+        each equal to decode_osu_entry run here on the fetched chart"""
+        texts, objects = [], []
+        if [d.audio_file for d in done] != list(files):
+            raise RuntimeError(f"run_predict answered {[d.audio_file for d in done]}")
+        for d in done:
+            with zipfile.ZipFile(d.osz) as z:
+                members = z.namelist()
+                entries = {n: z.read(n).decode() for n in members if n.endswith(".osu")}
+            if d.audio_file.name not in members or len(entries) != len(PREDICT_DIFFS):
+                raise RuntimeError(f"{d.osz.name} holds {members}")
+            chart = dequantize_chart(d.hit_u8, d.xy_i16)[:, : d.frames].transpose(0, 2, 1)
+            for i, (row, sig) in enumerate(zip(d.labels, chart)):
+                name, text = decode_osu_entry(d.title, d.artist, d.audio_file.name, i, row, sig,
+                                              snap_divisor=snap_divisor)
+                if entries.get(name) != text:
+                    raise RuntimeError(f"{d.osz.name}: {name} differs from the in-process "
+                                       "serialization of its fetched chart")
+                missing = [s for s in ("[General]", "[Metadata]", "[Difficulty]",
+                                       "[TimingPoints]", "[HitObjects]") if s not in text]
+                if missing:
+                    raise RuntimeError(f"{name} lacks {missing}")
+                objects.append(len(text.split("[HitObjects]\n")[1].strip().splitlines()))
+            texts.append(entries)
+        log(f"hit objects per .osu: {objects}")
+        return texts
+
+    saved = os.environ.get("OSU_DREAMER_TIMING")
+    os.environ["OSU_DREAMER_TIMING"] = "1"
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        done, wall = run(songs, serialize_workers=2, batch_songs=2)
+        launched = dict(_build.launches)
+        texts = check(done, songs)
+        n_maps = len(songs) * len(PREDICT_DIFFS)
+        log(f"predict: {len(songs)} songs ({' + '.join(f'{s:.0f} s' for s in PREDICT_SONGS)}) "
+            f"x {len(PREDICT_DIFFS)} difficulties, {STEPS} steps, --batch-songs 2 "
+            f"--serialize-workers 2: {wall:.2f} s wall, {wall / n_maps * 1e3:.0f} ms per map "
+            f"[{smi}]")
+        log(f"predict latent lengths and attention routes by batch: {routes}; launches "
+            f"{launched}")
+        if launched != expected:
+            raise RuntimeError(f"predict launched {launched}, not {expected}")
+        again, wall2 = run(songs, serialize_workers=2, batch_songs=2)
+        if check(again, songs) != texts:
+            raise RuntimeError("a second predict with the same seed wrote other .osu texts")
+        log(f"predict with the same seed again: the same .osu texts; {wall2:.2f} s wall, "
+            f"{wall2 / n_maps * 1e3:.0f} ms per map [{smi}]")
+        snapped, wall3 = run(songs[2:], serialize_workers=1, snap_divisor=4)
+        check(snapped, songs[2:], snap_divisor=4)
+        log(f"predict --snap-divisor 4 --serialize-workers 1, one {PREDICT_SONGS[2]:.0f} s song: "
+            f"{wall3:.2f} s wall [{smi}]")
+    finally:
+        if saved is None:
+            del os.environ["OSU_DREAMER_TIMING"]
+        else:
+            os.environ["OSU_DREAMER_TIMING"] = saved
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launched
 
 
 def randomize_(model, gen) -> None:
@@ -1203,6 +1357,9 @@ def main() -> int:
             or launches_prologue["film_qkv_bwd"]):
         raise RuntimeError(f"the prologue request ran {launches_prologue['film_qkv_fwd']} prologue "
                            f"forwards ({n_k11} profiled), not {PROLOGUE_PER_REQUEST}, or a backward")
+
+    # ---- 3a. predict: WAV files -> .osz mapsets through run_predict ----
+    launches_predict = predict_phase(model, dev, smi)
     del model, reference, sample
     torch.cuda.empty_cache()
 
@@ -1338,8 +1495,8 @@ def main() -> int:
             f"width {w} prologue on {ms:.2f} ms/step, peak {peak:.2f} GiB"
             for w, (ms, peak) in steps_on.items()) + f" [{smi}]")
 
-    paths = (launches_infer, launches_prologue, launches_train, launches_latent,
-             launches_prologue_train)
+    paths = (launches_infer, launches_prologue, launches_predict, launches_train,
+             launches_latent, launches_prologue_train)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:

@@ -1,1 +1,1 @@
-"""Audio constants and the resonator spectrogram."""
+"""Audio constants, decoding and the resonator spectrogram."""

@@ -21,6 +21,11 @@ MS_PER_FRAME = 6
 HOP_LEN = (SR * MS_PER_FRAME + 500) // 1000  # 98 samples
 
 
+def get_frame_times(num_frames: int) -> np.ndarray:
+    """millisecond timestamps of the first `num_frames` frames"""
+    return np.arange(num_frames) * HOP_LEN / SR * 1000.0
+
+
 def resonator_freqs() -> np.ndarray:
     """the 72 log-spaced resonator center frequencies (Hz)"""
     return np.geomspace(F_MIN, F_MAX, N_BINS, endpoint=False).astype(np.float32)

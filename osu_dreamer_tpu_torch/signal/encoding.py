@@ -1,8 +1,8 @@
 """Beatmap signal channels and the quantized map file, read side.
 
-Copy of osu_dreamer_tpu/signal/encoding.py ``Channel`` and ``read_beatmap``
-(that module imports jaxtyping; tests/test_torch_data.py pins this copy to
-it): 9 channels (7 hit + cursor x, y), a map file is an npz of uint8 ``hit``
+Copy of osu_dreamer_tpu/signal/encoding.py ``Channel``, ``HitChannels`` and
+``read_beatmap`` (that module imports jaxtyping; tests/test_torch_data.py
+pins this copy to it): 9 channels (7 hit + cursor x, y), a map file is an npz of uint8 ``hit``
 (7, L), min-max-normalised uint16 ``xy`` (2, L) with ``xy_min``/``xy_rng``
 (2, 1), and the 5 ``labels``.
 """
@@ -25,6 +25,16 @@ class Channel(IntEnum):
     X = 7
     Y = 8
 
+
+HitChannels = [
+    Channel.ONSET,
+    Channel.COMBO,
+    Channel.SLIDE,
+    Channel.SUSTAIN,
+    Channel.WHISTLE,
+    Channel.FINISH,
+    Channel.CLAP,
+]
 
 HIT_DTYPE = np.uint8
 XY_DTYPE = np.uint16

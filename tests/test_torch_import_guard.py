@@ -5,7 +5,8 @@ A subprocess makes each of those unimportable, imports every module of
 osu_dreamer_tpu_torch (the inference slice and the training modules:
 train/, data/, ops/, models/diffusion/, models/latent/, cli), drives a tiny
 slice (init_random weights, two songs x two difficulties, CFG on) through
-``build_batch_sampler`` on the CPU, trains a tiny denoiser and a tiny chart
+``build_batch_sampler`` on the CPU, runs ``run_predict`` on one WAV to an
+.osz (in-process serialization), trains a tiny denoiser and a tiny chart
 autoencoder for two steps each through their ``fit.run`` (configs as dicts:
 reading YAML needs yaml), runs encode-latents on the latter's checkpoint, and
 takes one attention forward and backward through the fused prologue
@@ -68,8 +69,31 @@ SCRIPT = textwrap.dedent(
     assert hit.shape == (4, preps[0][3], 7) and hit.dtype == torch.uint8
     assert xy.shape == (4, preps[0][3], 2) and xy.dtype == torch.int16
     assert lab.shape == (4, 5) and bool(torch.isfinite(lab).all())
+    import os
     import tempfile
+    import wave
+    import zipfile
     from pathlib import Path
+    from osu_dreamer_tpu_torch.cli import run_predict
+
+    with tempfile.TemporaryDirectory() as tmp:
+        song = Path(tmp) / "song.wav"
+        with wave.open(str(song), "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(44100)
+            w.writeframes((rng.normal(size=(2 * 44100, 2)) * 3000).astype("<i2").tobytes())
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            done = run_predict(model, [song], [[5.0, 9, 8, 4, 6]], 2, seed=0,
+                               serialize_workers=1, device="cpu")
+        finally:
+            os.chdir(cwd)
+        with zipfile.ZipFile(done[0].osz) as z:
+            members = z.namelist()
+        assert len(done) == 1 and "song.wav" in members, members
+        assert sum(n.endswith(".osu") for n in members) == 1, members
     from osu_dreamer_tpu_torch.data.synth import write_latent_corpus
     from osu_dreamer_tpu_torch.models.diffusion.fit import run
 

@@ -84,6 +84,8 @@ def test_copied_constants_match_jax():
                  "MS_PER_FRAME", "HOP_LEN"):
         assert getattr(tc, name) == getattr(jc, name), name
     np.testing.assert_array_equal(tc.resonator_freqs(), jc.resonator_freqs())
+    for n in (0, 1, 20480):
+        np.testing.assert_array_equal(tc.get_frame_times(n), jc.get_frame_times(n))
     assert ts.Q_FACTOR == js.Q_FACTOR and ts.WAVE_BUCKET == js.WAVE_BUCKET
     freqs = jc.resonator_freqs().astype(np.float64)
     np.testing.assert_array_equal(ts.resonator_alphas(freqs), js.resonator_alphas(freqs))
