@@ -37,9 +37,10 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    ragged, and at C 384 (K11 also at L 1, 63, 64, 65 and 129, K12 at B3 L1
    C512, L129 C640 and L65 C1024, tiles straddling batch rows at every
    cluster width, and K11's y must equal K12's recomputed y bit for bit).
-   The resonator at the request's S2 K20480, at S1 K1, S3 K63/64/65/129 and
-   S1 K20481, also within 1e-5 of an f64 doubling scan. The backward kernels' and K9's reruns must
-   be bit-identical.
+   The resonator at the request's S2 K20480, at S1 K1, S3 K63/64/65/129,
+   S1 K20481 and at generate-data's S1 K10240 (one 60 s song) and S1
+   K100352 (a 10-minute song), also within 1e-5 of an f64 doubling scan.
+   The backward kernels' and K9's reruns must be bit-identical.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
    reduction of the split plans timed apart by torch.profiler.
@@ -107,6 +108,24 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    step runs under torch.profiler (device-busy ms, K12's and K11's ms and
    launches, as phase 4 gives K6's); each followed by the one-step check of
    4.
+7. Drives the training pipeline from audio through the functions the CLI
+   commands call. build_library writes 12 synthetic mapsets of 60 s (3
+   difficulties each) as 16,384 Hz WAV under build/; generate-data
+   --songs-dir builds the dataset on the card (one K1 launch a mapset and no
+   other kernel; one song's spec.npy within one uint8 step of make_spec on
+   the CPU), and make_spec's ms a song is timed. fit-latent,
+   encode-latents, fit-denoiser and fit-style then run at the widths of
+   the shipped configs on the 27 training maps (3 mapsets held out), each
+   batch cut to 8 and each stage to 6 steps (every loss finite, best and
+   last written, the stage's training kernels launching, none for the
+   style prior). export-inference runs in f32 and with --half, and
+   load_inference on the card must give back the checkpoints' tensors (the
+   latent stage's live, the others' EMA; their bf16 with --half) bit for
+   bit. predict runs on the exported artifact over one song x 2 rows at 32
+   steps with its launches counted; each .osu must parse with Beatmap or be
+   refused only for a hold spanning the next onset, which the JAX
+   serializer also writes from barely trained weights. Prints each step's
+   wall.
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -229,6 +248,25 @@ LATENT_CORPUS = (32, 2, 2052 * 12)
 PREDICT_SONGS = (SONG_SECONDS, SONG_SECONDS, 30.0)
 PREDICT_DIFFS = [(5.0, 9.0, 8.0, 4.0, 6.0), (3.0, 7.0, 6.0, 3.0, 5.0)]
 WAV_RATE = 44100
+# phase 7: build_library's mapsets (3 difficulties each) of 60 s, written
+# as WAV at the model's 16,384 Hz; the configs' max_val_frac 0.3 holds out
+# 3 mapsets, leaving 27 training maps of one window each (max_per_map 1).
+# Each stage's batch is cut to PIPELINE_BATCH (3 batches an epoch) and its
+# steps to TRAIN_WARMUP + PIPELINE_TIMED; the full batches stay timed in
+# phases 4-6
+PIPELINE_MAPSETS = 12
+PIPELINE_SECONDS = 60.0
+PIPELINE_BATCH = 8
+PIPELINE_TIMED = 4
+
+
+def spec_frames(seconds: float) -> int:
+    """make_spec's frames for a song of ``seconds``: whole 6 s buckets of
+    1024 frames"""
+    return 1024 * -(-int(seconds * 16384) // (98 * 1024))
+
+
+PIPELINE_SPEC_FRAMES = spec_frames(PIPELINE_SECONDS)
 
 
 def log(msg: str) -> None:
@@ -812,6 +850,203 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
     return {k: launches_train[k] + launches_encode[k] for k in _build.KERNELS}
 
 
+def pipeline_phase(dev, smi: str) -> dict[str, int]:
+    """phase 7: the training pipeline from audio, through the functions the
+    CLI commands call: build_library, generate-data on the card, fit-latent,
+    encode-latents, fit-denoiser and fit-style at the shipped configs'
+    widths, export-inference in f32 and bf16, and predict on the exported
+    artifact -> the kernel launches of those runs"""
+    import hashlib
+    import io
+    import os
+    import zipfile
+
+    import torch
+
+    from osu_dreamer_tpu_torch.audio.decode import load_wave
+    from osu_dreamer_tpu_torch.audio.io import write_spec
+    from osu_dreamer_tpu_torch.audio.spectrogram import make_spec, prep_wave_for_model
+    from osu_dreamer_tpu_torch.cli import generate_data, main as cli_main, run_predict
+    from osu_dreamer_tpu_torch.data.synth import DIFFS_PER_MAPSET, build_library
+    from osu_dreamer_tpu_torch.models.diffusion import fit as diffusion_fit
+    from osu_dreamer_tpu_torch.models.inference.artifact import load_inference
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.models.latent.encode import encode_latents
+    from osu_dreamer_tpu_torch.models.latent.train import LOSS_COMPONENTS
+    from osu_dreamer_tpu_torch.models.style import fit as style_fit
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.ops.fused_attention import attention_route
+    from osu_dreamer_tpu_torch.osu import Beatmap, BeatmapParseError
+    from osu_dreamer_tpu_torch.train.checkpoint import load_train_checkpoint
+    from osu_dreamer_tpu_torch.utils import load_yaml_config
+
+    root = ROOT / "build" / "smoke_pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    songs, data = root / "Songs", root / "data"
+    walls: dict[str, float] = {}
+    launched = dict.fromkeys(_build.KERNELS, 0)
+
+    def count(run: dict[str, int]) -> None:
+        for k, n in run.items():
+            launched[k] += n
+
+    t0 = time.perf_counter()
+    build_library(songs, PIPELINE_MAPSETS, PIPELINE_SECONDS, SEED)
+    walls["build_library"] = time.perf_counter() - t0
+    n_want = PIPELINE_MAPSETS * DIFFS_PER_MAPSET
+
+    # generate-data: one resonator launch a mapset, nothing else on the card
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    n_maps = generate_data(data, num_workers=4, songs_dir=songs, device=dev)
+    walls["generate-data"] = time.perf_counter() - t0
+    gen = dict(_build.launches)
+    count(gen)
+    log(f"generate-data --songs-dir: {n_maps} maps of {PIPELINE_MAPSETS} mapsets in "
+        f"{walls['generate-data']:.2f} s; launches {gen} [{smi}]")
+    if (n_maps != n_want or gen["resonator"] != PIPELINE_MAPSETS
+            or any(n for k, n in gen.items() if k != "resonator")):
+        raise RuntimeError(f"generate-data wrote {n_maps} maps (want {n_want}) with launches "
+                           f"{gen} (want one resonator a mapset)")
+    # one song's spec.npy against the plain path on the CPU, both quantized
+    song = sorted(songs.iterdir())[0] / "audio.wav"
+    wave = load_wave(song)
+    card = np.load(data / hashlib.md5(song.read_bytes()).hexdigest()[:16] / "spec.npy")
+    buf = io.BytesIO()
+    write_spec(buf, make_spec(wave, "cpu"))
+    buf.seek(0)
+    plain = np.load(buf)
+    step = int(np.abs(card.astype(np.int16) - plain.astype(np.int16)).max())
+    log(f"generate-data spec.npy {card.shape} vs make_spec on the CPU (plain scan), both "
+        f"uint8: max |diff| {step} step(s), {int((card != plain).sum())} of {card.size} "
+        "values differ (tolerance 1 step)")
+    if card.shape != plain.shape or step > 1:
+        raise RuntimeError("generate-data's spectrogram differs from the plain path's")
+    make_spec(wave, dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        make_spec(wave, dev)
+    spec_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"make_spec of one {PIPELINE_SECONDS:.0f} s song ({PIPELINE_SPEC_FRAMES} frames, K1 "
+        f"at S1 K{PIPELINE_SPEC_FRAMES}): {spec_ms:.2f} ms a song, host clock around 5 calls "
+        f"(upload, K1, normalisation, download) [{smi}]")
+
+    def stage_cfg(fit_module, **cuts) -> dict:
+        cfg = load_yaml_config(fit_module.CONFIG)
+        log(f"phase 7 cut of {fit_module.__name__.split('.')[-2]}: batch_size "
+            f"{cfg['data']['batch_size']} -> {PIPELINE_BATCH}, steps -> "
+            f"{TRAIN_WARMUP + PIPELINE_TIMED}" + "".join(f", {k} {v}" for k, v in cuts.items()))
+        cfg["data"].update(data_dir=str(data), batch_size=PIPELINE_BATCH, **cuts)
+        return cfg
+
+    def fit_stage(name, fit_module, cfg, shape, kernels, loss_keys, absent) -> None:
+        t0 = time.perf_counter()
+        runs, _, _ = fit_timed(name, fit_module.run, cfg, dev, smi, root / name, shape, kernels,
+                               loss_keys, loss_keys, timed=PIPELINE_TIMED, absent=absent)
+        walls[name] = time.perf_counter() - t0
+        count(runs)
+
+    denoiser_losses = ("loss", "osl", "del", "u_mape")
+    cfg = stage_cfg(latent_fit, max_per_map=1)
+    fit_stage("fit-latent", latent_fit, cfg, f"B{PIPELINE_BATCH} x L{cfg['data']['seq_len']}, "
+              "bf16", LATENT_KERNELS, ("loss", *LOSS_COMPONENTS, "s_reg"), ())
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    n_encoded = encode_latents(root / "fit-latent" / "runs" / "best", data, device=dev)
+    torch.cuda.synchronize()
+    walls["encode-latents"] = time.perf_counter() - t0
+    count(_build.launches)
+    if n_encoded != n_want or _build.launches["film_layer"] == 0:
+        raise RuntimeError(f"encode-latents encoded {n_encoded} maps, launches {_build.launches}")
+    cfg = stage_cfg(diffusion_fit, max_per_map=1)
+    fit_stage("fit-denoiser", diffusion_fit, cfg, f"B{PIPELINE_BATCH} x L{cfg['data']['seq_len']}"
+              ", bf16", TRAINING_KERNELS, denoiser_losses, PROLOGUE_KERNELS + ("swiglu_bwd_full",))
+    fit_stage("fit-style", style_fit, stage_cfg(style_fit), f"B{PIPELINE_BATCH}, bf16", (),
+              denoiser_losses, _build.KERNELS)
+
+    # export-inference in f32 and bf16: load_inference on the card must give
+    # back the latent stage's live tensors and the others' EMA tensors
+    ckpts = [root / stage / "runs" / "best" for stage in ("fit-latent", "fit-denoiser", "fit-style")]
+    states = [load_train_checkpoint(c)[0] for c in ckpts]
+    want = {f"{part}.{k}": v for part, sd in (("latent", states[0]["params"]),
+                                               ("diffusion", states[1]["ema_params"]),
+                                               ("style", states[2]["ema_params"]))
+            for k, v in sd.items()}
+    artifacts = {}
+    for half in (False, True):
+        out = root / ("inference_bf16.odt" if half else "inference.odt")
+        t0 = time.perf_counter()
+        cli_main(["export-inference", "--latent-ckpt-path", str(ckpts[0]), "--denoiser-ckpt-path",
+                  str(ckpts[1]), "--style-ckpt-path", str(ckpts[2]), "--output-path", str(out)]
+                 + (["--half"] if half else []))
+        walls["export-inference" + (" --half" if half else "")] = time.perf_counter() - t0
+        got = load_inference(out, dev).state_dict()
+        differ = [k for k, v in want.items()
+                  if not torch.equal(got[k].cpu(), v.to(torch.bfloat16).float() if half else v)]
+        log(f"export-inference{' --half' if half else ''}: {out.stat().st_size / 2**20:.1f} MiB; "
+            f"load_inference on the card: {len(got)} tensors, {len(differ)} differ from the "
+            f"checkpoints' ({'bf16 of ' if half else ''}latent live, denoiser and style EMA)")
+        if set(got) != set(want) or differ:
+            raise RuntimeError(f"the exported artifact does not reload the checkpoints: {differ[:5]}")
+        artifacts[half] = out
+
+    # predict on the exported artifact: one song, two rows, 32 steps
+    model = load_inference(artifacts[False], dev)
+    chunk = model.args.latent.chunk_size
+    L = prep_wave_for_model(wave, chunk)[3] // chunk
+    backbone = model.args.diffusion.backbone
+    route = attention_route(L, backbone.n_heads, backbone.head_dim, "cuda")
+    expected = dict.fromkeys(_build.KERNELS, 0)
+    expected.update(resonator=RESONATOR_PER_REQUEST, film_layer=FILM_PER_REQUEST,
+                    swiglu=SWIGLU_PER_REQUEST)
+    expected["fused_attention_fwd" if route == "fused" else "flash_attention"] = FLASH_PER_REQUEST
+    workdir = root / "predict"
+    workdir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        (done,) = run_predict(model, [song], PREDICT_DIFFS, STEPS, seed=SEED, serialize_workers=1,
+                              device=dev)
+        walls["predict"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    pred = dict(_build.launches)
+    count(pred)
+    if pred != expected:
+        raise RuntimeError(f"predict on the exported artifact launched {pred}, not {expected}")
+    parsed, overlaps, objects = 0, 0, []
+    with zipfile.ZipFile(done.osz) as z:
+        texts = [z.read(n).decode() for n in z.namelist() if n.endswith(".osu")]
+    if len(texts) != len(PREDICT_DIFFS):
+        raise RuntimeError(f"{done.osz.name} holds {len(texts)} .osu files")
+    for text in texts:
+        objects.append(len(text.split("[HitObjects]\n")[1].strip().splitlines()))
+        try:
+            Beatmap(text)
+            parsed += 1
+        except BeatmapParseError as e:
+            # weights a few steps from random can decode a hold spanning the
+            # next onset, which the strict parser refuses; the JAX package's
+            # serializer writes the same (tests/test_end_to_end.py:265-276)
+            if "starts before previous hit object ends" not in str(e):
+                raise
+            overlaps += 1
+    log(f"predict on the exported artifact: one {PIPELINE_SECONDS:.0f} s song x "
+        f"{len(PREDICT_DIFFS)} rows, {STEPS} steps, latent L {L} ({route} attention): "
+        f"{walls['predict']:.2f} s; launches {pred}; .osu files {len(texts)}, hit objects "
+        f"{objects}, parsed by Beatmap {parsed}, refused for an overlapping hold {overlaps}")
+    del model
+    torch.cuda.empty_cache()
+    log("phase 7 walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; make_spec {spec_ms:.2f} ms a song [{smi}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -896,10 +1131,12 @@ def main() -> int:
     # the peak rate of their type); the first shape is the JSON line's
     cases = {
         # the request's two 2-minute songs; one frame; ragged and exact
-        # 128-frame chunks; a 2-minute song and one frame
+        # 128-frame chunks; a 2-minute song and one frame; generate-data's
+        # 60 s and 10-minute songs (make_spec: one song, its 6 s buckets)
         "resonator": (resonator.resonate_cuda, resonator.resonate_plain, [
             (f"S{n} K{k}", (rnd(n, k, 98, scale=0.3, dtype=torch.float32),))
-            for n, k in ((S, 20480), (1, 1), (3, 63), (3, 64), (3, 65), (3, 129), (1, 20481))
+            for n, k in ((S, 20480), (1, 1), (3, 63), (3, 64), (3, 65), (3, 129), (1, 20481),
+                         (1, PIPELINE_SPEC_FRAMES), (1, spec_frames(600.0)))
         ], lambda a: (4 * a[0].numel() * N_BINS + 8 * a[0].shape[0] * a[0].shape[1] * N_BINS,
                       F32_PEAK)),
         "film_layer": (film_layer.film_layer_cuda, film_layer.film_layer_plain, [
@@ -1495,8 +1732,11 @@ def main() -> int:
             f"width {w} prologue on {ms:.2f} ms/step, peak {peak:.2f} GiB"
             for w, (ms, peak) in steps_on.items()) + f" [{smi}]")
 
+    # ---- 7. the training pipeline from audio to a .osz ----
+    launches_pipeline = pipeline_phase(dev, smi)
+
     paths = (launches_infer, launches_prologue, launches_predict, launches_train,
-             launches_latent, launches_prologue_train)
+             launches_latent, launches_prologue_train, launches_pipeline)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:

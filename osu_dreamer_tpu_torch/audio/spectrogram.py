@@ -7,7 +7,9 @@ so the loudest real frame of each song maps to 1 and 60 dB below it to 0.
 
 ``resonator_alphas`` and ``prep_wave_for_model`` are numpy, copied from the
 JAX module (tests pin them to it); ``spec_for_model_batch`` is the device part
-and never leaves the device.
+and never leaves the device. ``make_spec`` is the dataset build's host entry:
+one float wave in, its (F, frames) spectrogram out, normalised over every
+frame of its padded bucket as the JAX ``make_spec`` does.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.resonator import resonate_frames
+from ..utils.device import resolve_device
 from .constants import HOP_LEN, SR, resonator_freqs
 
 # constant-Q quality factor: each bin's bandwidth spans one bin spacing
@@ -51,6 +54,26 @@ def prep_wave_for_model(wave: np.ndarray, chunk: int) -> tuple[np.ndarray, int, 
     n_frames = padded_len // HOP_LEN
     out_frames = -(-n_frames // chunk) * chunk
     return buf, real_frames, n_frames, out_frames
+
+
+def make_spec(wave: np.ndarray, device: torch.device | str = "cuda") -> np.ndarray:
+    """(N,) float wave at SR -> (F, ceil(N / HOP_LEN)) f32 in [0, 1] on the
+    host, computed on ``device`` (a CUDA card unless ``cpu`` is asked for):
+    the wave zero-padded to a multiple of WAVE_BUCKET, its resonator states
+    (the kernel on the card), log power normalised so the loudest frame of
+    the padded bucket maps to 1 and 60 dB below it to 0, then cropped"""
+    device = resolve_device(device, "featurize")
+    n = len(wave)
+    n_frames = max(1, int(np.ceil(n / HOP_LEN)))
+    padded_len = int(np.ceil(max(n, 1) / WAVE_BUCKET)) * WAVE_BUCKET
+    buf = np.zeros(padded_len, dtype=np.float32)
+    buf[:n] = wave
+    frames = torch.from_numpy(buf).to(device).reshape(1, padded_len // HOP_LEN, HOP_LEN)
+    states = resonate_frames(frames)[0]  # (K, F, 2)
+    power = (states[..., 0].square() + states[..., 1].square()).clamp_min(1e-10)
+    sig = torch.log10(power) - torch.log10(power.max())
+    sig = ((15.0 * sig + 60.0) / 60.0).clamp(0.0, 1.0)
+    return sig[:n_frames].T.cpu().numpy()
 
 
 def spec_for_model_batch(

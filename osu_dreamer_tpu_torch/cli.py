@@ -1,8 +1,10 @@
 """The port's command line (``python -m osu_dreamer_tpu_torch <command>``).
 
 Counterpart of osu_dreamer_tpu/cli/commands.py for the commands ported so
-far: ``fit-latent``, ``encode-latents``, ``fit-denoiser`` and ``predict``.
-argparse keeps the port free of click.
+far: ``generate-data``, ``fit-latent``, ``encode-latents``, ``fit-denoiser``,
+``fit-style``, ``export-inference`` and ``predict``. argparse keeps the port
+free of click; ``generate-data`` prints a count of the maps written where the
+JAX package shows a tqdm bar.
 """
 
 from __future__ import annotations
@@ -30,6 +32,13 @@ def _existing_file(path: str) -> Path:
     p = _existing(path)
     if not p.is_file():
         raise argparse.ArgumentTypeError(f"{path} is not a file")
+    return p
+
+
+def _existing_dir(path: str) -> Path:
+    p = _existing(path)
+    if not p.is_dir():
+        raise argparse.ArgumentTypeError(f"{path} is not a directory")
     return p
 
 
@@ -101,11 +110,10 @@ def run_predict(
     from .audio.spectrogram import prep_wave_for_model
     from .models.inference.sampler import build_batch_sampler, dequantize_chart
     from .signal.serialize import decode_osu_entry
+    from .utils.device import resolve_device
     from .utils.procpool import spawn_serialize_pool
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to predict on the CPU")
+    device = resolve_device(device, "predict")
     model_device = next(model.parameters()).device
     if model_device.type != device.type:
         raise ValueError(f"the model is on {model_device}, not {device}")
@@ -289,16 +297,45 @@ def _resolve_metadata(audio_file: Path, title: str | None, artist: str | None):
     return title, artist
 
 
+def generate_data(data_dir: Path, num_workers: int = 2, force: bool = False,
+                  songs_dir: Path | None = None, device="cuda") -> int:
+    """build the training dataset from a local library (``songs_dir``) or
+    the HF stream, printing a running count -> maps written"""
+    from .data.ingest import build_dataset
+
+    n = 0
+    for n, _ in enumerate(build_dataset(data_dir, num_workers, force, songs_dir, device=device),
+                          start=1):
+        if n % 100 == 0:
+            print(f"  {n} maps written", flush=True)
+    print(f"wrote {n} maps to {data_dir}")
+    return n
+
+
 def main(argv: list[str] | None = None) -> None:
     from .models.diffusion.fit import CONFIG as DENOISER_CONFIG
     from .models.latent.fit import CONFIG as LATENT_CONFIG
+    from .models.style.fit import CONFIG as STYLE_CONFIG
 
     parser = argparse.ArgumentParser(prog="osu_dreamer_tpu_torch")
     commands = parser.add_subparsers(dest="command", required=True)
     device_help = "torch device (default cuda; the CPU only when asked for)"
+    gen = commands.add_parser(
+        "generate-data", help="build the training dataset (a local mapset library with "
+                              "--songs-dir, else the HF beatmap corpus stream)")
+    gen.add_argument("--data-dir", type=Path, default=Path("./data"),
+                     help="output directory for pre-processed training samples")
+    gen.add_argument("--num-workers", type=_at_least(1), default=2,
+                     help="host worker threads for beatmap parsing/encoding")
+    gen.add_argument("--force", action="store_true", help="overwrite existing pre-processed maps")
+    gen.add_argument("--songs-dir", type=_existing_dir, default=None,
+                     help="ingest a local library (.osz archives / osu! Songs folders) instead "
+                          "of streaming the HF corpus")
+    gen.add_argument("--device", default="cuda", help=device_help)
     for name, config, text in (("fit-latent", LATENT_CONFIG, "train the stage-1 chart autoencoder"),
                                ("fit-denoiser", DENOISER_CONFIG,
-                                "train the stage-2 latent denoiser")):
+                                "train the stage-2 latent denoiser"),
+                               ("fit-style", STYLE_CONFIG, "train the stage-3 style prior")):
         cmd = commands.add_parser(name, help=text)
         cmd.add_argument("-c", "--config", type=_existing, default=config,
                          help="training config file")
@@ -313,6 +350,18 @@ def main(argv: list[str] | None = None) -> None:
                         help="pre-processed dataset directory")
     encode.add_argument("--force", action="store_true", help="overwrite existing cached latents")
     encode.add_argument("--device", default="cuda", help=device_help)
+
+    export = commands.add_parser(
+        "export-inference", help="merge the three training checkpoints into one inference "
+                                 "artifact")
+    for stage in ("latent", "denoiser", "style"):
+        export.add_argument(f"--{stage}-ckpt-path", type=_existing,
+                            default=Path(f"runs/{stage}/best"), help=f"{stage} checkpoint")
+    export.add_argument("--output-path", type=Path, default=Path("inference.odt"),
+                        help="artifact output path")
+    export.add_argument("--half", action="store_true",
+                        help="store bf16 weights (half the size; the card computes in bf16)")
+    export.add_argument("--device", default="cuda", help=device_help)
 
     predict = commands.add_parser(
         "predict", help="generate osu!std beatmaps from audio: one .osz mapset per song")
@@ -361,8 +410,20 @@ def main(argv: list[str] | None = None) -> None:
         n = encode_latents(args.latent_ckpt_path, args.data_dir, args.force, args.device)
         print(f"encoded {n} maps")
         return
+    if args.command == "generate-data":
+        generate_data(args.data_dir, args.num_workers, args.force, args.songs_dir, args.device)
+        return
+    if args.command == "export-inference":
+        from .models.inference.artifact import save_inference
+
+        save_inference(args.latent_ckpt_path, args.denoiser_ckpt_path, args.style_ckpt_path,
+                       args.output_path, half=args.half, device=args.device)
+        print(f"wrote {args.output_path}")
+        return
     if args.command == "fit-latent":
         from .models.latent.fit import run
-    else:
+    elif args.command == "fit-denoiser":
         from .models.diffusion.fit import run
+    else:
+        from .models.style.fit import run
     run(args.config, str(args.ckpt_path) if args.ckpt_path else None, args.device)

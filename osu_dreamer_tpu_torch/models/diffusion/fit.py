@@ -26,6 +26,7 @@ from ...ops.fused_attention import MAX_KERNEL_LEN, attention_route
 from ...train.loop import FitArgs, Stage, check_single_device, fit
 from ...train.state import TrainState
 from ...utils import dataclass_from_dict, load_yaml_config
+from ...utils.device import resolve_device
 from .model import DiffusionModelArgs
 from .train import DiffusionTrainArgs, LatentBatch, diffusion_loss, init_diffusion_training
 
@@ -66,9 +67,7 @@ def run(
     package's config.yml, or the parsed dict) says, on ``device`` (a CUDA
     card unless ``cpu`` is asked for); ``on_step(step, metrics)`` runs after
     every step"""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    device = resolve_device(device, "train")
     cfg = config if isinstance(config, dict) else load_yaml_config(config or CONFIG)
     model_args = dataclass_from_dict(DiffusionModelArgs, cfg.get("model", {}))
     train_args = dataclass_from_dict(DiffusionTrainArgs, cfg.get("train", {}))

@@ -1,15 +1,21 @@
 """Weights for the port's LDM: from a flax parameter tree, from a ``.odt``
-inference artifact written by the JAX package, or seeded random.
+inference artifact (written by either package), or seeded random; and the
+``.odt`` writer, ``save_inference``, that merges the port's three training
+checkpoints into one artifact.
 
 The port's modules carry the flax parameter names and layouts, so the flax
 tree ``{"params": {"latent", "diffusion", "style"}}`` flattens onto
 ``LDM.state_dict()`` key for key, the latent model's chart encoder included.
 One thing differs: flax ``nn.Conv`` kernels (kh, kw, in, out) become torch's
-(out, in, kh, kw).
+(out, in, kh, kw). The writer is a copy of osu_dreamer_tpu/models/inference/
+artifact.py ``save_inference`` and ``build_artifact_bytes`` in flax's
+msgpack layout, so the JAX package's ``load_inference`` reads what it writes
+(tests/test_torch_export.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Any
@@ -17,7 +23,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ...train.checkpoint import load_train_checkpoint
 from ...utils import dataclass_from_dict
+from ...utils.device import resolve_device
 from ..latent.model import Conv2d
 from .model import LDM, LDMArgs
 
@@ -78,6 +86,92 @@ def from_flax_params(tree: dict, model: torch.nn.Module) -> dict[str, torch.Tens
     return out
 
 
+def to_flax_params(model: torch.nn.Module) -> dict:
+    """the inverse of ``from_flax_params``: ``model``'s state dict as a
+    flax parameter tree ``{"params": {...}}`` nested by ``.``, conv kernels
+    back in flax's (kh, kw, in, out) layout; leaves stay torch tensors"""
+    conv_kernels = _conv_kernels(model)
+    params: dict = {}
+    for key, t in model.state_dict().items():
+        *path, name = key.split(".")
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = (t.permute(2, 3, 1, 0) if key in conv_kernels else t).detach().contiguous()
+    return {"params": params}
+
+
+def _encode_ext(x: Any) -> Any:
+    """torch tensors as flax.serialization's msgpack ext record 1: (shape,
+    dtype name, raw C-order bytes), bf16 by the name ``bfloat16``"""
+    import msgpack
+
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"cannot serialize {type(x).__name__}")
+    x = x.detach().cpu().contiguous()
+    if x.dtype == torch.bfloat16:
+        name, raw = "bfloat16", x.view(torch.int16).numpy().tobytes()
+    else:
+        arr = x.numpy()
+        name, raw = arr.dtype.name, arr.tobytes()
+    return msgpack.ExtType(1, msgpack.packb((list(x.shape), name, raw), use_bin_type=True))
+
+
+def build_artifact_bytes(hparams: LDMArgs, ldm_params: dict) -> bytes:
+    """``{"version", "hparams" (JSON), "params" (msgpack of the tree)}`` as
+    flax's ``msgpack_serialize`` writes it"""
+    import msgpack
+
+    payload = {
+        "version": ARTIFACT_VERSION,
+        "hparams": json.dumps(dataclasses.asdict(hparams)),
+        "params": msgpack.packb(ldm_params, default=_encode_ext, use_bin_type=True),
+    }
+    return msgpack.packb(payload, use_bin_type=True)
+
+
+def _to_half(tree: dict) -> dict:
+    """f32 leaves cast to bf16 (inference computes in bf16 on the card;
+    halves the artifact)"""
+    return {k: _to_half(v) if isinstance(v, dict)
+            else v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+            for k, v in tree.items()}
+
+
+def save_inference(
+    latent_ckpt_path: str | Path,
+    denoiser_ckpt_path: str | Path,
+    style_ckpt_path: str | Path,
+    output_path: str | Path,
+    half: bool = False,
+    device: torch.device | str = "cuda",
+) -> None:
+    """merge three training checkpoints (the latent model's live weights,
+    the denoiser's and the style prior's EMA weights) into one inference
+    artifact, assembled on ``device`` (a CUDA card unless ``cpu`` is asked
+    for); ``half`` stores bf16"""
+    device = resolve_device(device, "export")
+    (latent, latent_hp), (denoiser, denoiser_hp), (style, style_hp) = (
+        load_train_checkpoint(p, device)
+        for p in (latent_ckpt_path, denoiser_ckpt_path, style_ckpt_path))
+    defaults = LDMArgs()
+    hparams = LDMArgs(
+        latent=dataclass_from_dict(type(defaults.latent), latent_hp["model"]),
+        diffusion=dataclass_from_dict(type(defaults.diffusion), denoiser_hp["model"]),
+        style=dataclass_from_dict(type(defaults.style), style_hp["model"]),
+    )
+    parts = {"latent": latent["params"],
+             "diffusion": denoiser["ema_params"] or denoiser["params"],
+             "style": style["ema_params"] or style["params"]}
+    # loading into the LDM checks every key and shape against the hparams
+    model = LDM(hparams, torch.float32).to(device)
+    model.load_state_dict({f"{part}.{k}": v for part, sd in parts.items() for k, v in sd.items()})
+    ldm_params = to_flax_params(model)
+    if half:
+        ldm_params = _to_half(ldm_params)
+    Path(output_path).write_bytes(build_artifact_bytes(hparams, ldm_params))
+
+
 def _decode_ext(code: int, data: bytes) -> Any:
     """flax.serialization's msgpack ext records: 1 ndarray, 3 numpy scalar,
     each packed as (shape, dtype name, raw bytes)"""
@@ -110,13 +204,11 @@ def _check_unchunked(tree: Any) -> None:
 
 def load_inference(path: str | Path, device: torch.device | str = "cuda",
                    dtype: torch.dtype | None = None) -> LDM:
-    """read a ``.odt`` written by osu_dreamer_tpu's ``build_artifact_bytes``
+    """read a ``.odt`` written by ``build_artifact_bytes`` (either package's)
     -> an ``LDM`` on ``device`` (a CUDA card unless ``cpu`` is asked for;
     f32 parameters; compute dtype ``dtype``, by default f32 on the CPU and
     bf16 elsewhere)"""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to load on the CPU")
+    device = resolve_device(device, "load")
     payload = _unpack(Path(path).read_bytes())
     if payload.get("version") != ARTIFACT_VERSION:
         raise ValueError(f"unsupported artifact version {payload.get('version')}")

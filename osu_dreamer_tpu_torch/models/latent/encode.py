@@ -14,7 +14,6 @@ outputs are kept unless ``force``.
 
 from __future__ import annotations
 
-import json
 from pathlib import Path
 
 import numpy as np
@@ -22,7 +21,9 @@ import torch
 
 from ...data.pipeline import pad_to_multiple
 from ...signal.encoding import read_beatmap
+from ...train.checkpoint import load_train_checkpoint
 from ...utils import dataclass_from_dict
+from ...utils.device import resolve_device
 from .model import LatentModel, LatentModelArgs
 
 BUCKET_CHUNKS = 64
@@ -31,10 +32,8 @@ BUCKET_CHUNKS = 64
 def load_latent_model(ckpt_path: str | Path, device: torch.device, dtype: torch.dtype
                       ) -> LatentModel:
     """the model of a ``fit-latent`` checkpoint directory, on ``device``"""
-    ckpt_path = Path(ckpt_path)
-    hparams = json.loads((ckpt_path / "meta.json").read_text())["hparams"]
+    state, hparams = load_train_checkpoint(ckpt_path)
     model = LatentModel(dataclass_from_dict(LatentModelArgs, hparams["model"]), dtype)
-    state = torch.load(ckpt_path / "state.pt", map_location="cpu", weights_only=True)
     model.load_state_dict(state["params"])
     return model.to(device).eval()
 
@@ -42,9 +41,7 @@ def load_latent_model(ckpt_path: str | Path, device: torch.device, dtype: torch.
 def encode_latents(ckpt_path: str | Path, data_dir: str | Path, force: bool = False,
                    device: torch.device | str = "cuda") -> int:
     """-> the number of maps encoded"""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to encode on the CPU")
+    device = resolve_device(device, "encode")
     map_files = sorted(Path(data_dir).rglob("*.map.npy"))
     if not map_files:
         raise FileNotFoundError(f"no pre-processed maps found in {data_dir}")

@@ -25,6 +25,7 @@ from ...signal.encoding import Channel
 from ...train.loop import FitArgs, Stage, check_single_device, fit
 from ...train.state import TrainState
 from ...utils import dataclass_from_dict, load_yaml_config
+from ...utils.device import resolve_device
 from .model import LatentModel, LatentModelArgs
 from .train import Batch, LatentTrainArgs, init_latent_training
 
@@ -87,9 +88,7 @@ def run(
     package's config.yml, or the parsed dict) says, on ``device`` (a CUDA card
     unless ``cpu`` is asked for); ``on_step(step, metrics)`` runs after every
     step"""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    device = resolve_device(device, "train")
     cfg = config if isinstance(config, dict) else load_yaml_config(config or CONFIG)
     model_args = dataclass_from_dict(LatentModelArgs, cfg.get("model", {}))
     train_args = dataclass_from_dict(LatentTrainArgs, cfg.get("train", {}))

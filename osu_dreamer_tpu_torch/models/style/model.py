@@ -4,7 +4,8 @@ Counterpart of osu_dreamer_tpu/models/style/model.py: labels embedded with
 random Fourier features and a per-label projection (a negative label selects
 the learned null row), a FiLM-gated MLP that predicts the distance u and the
 direction v, and self-calibrating sphere tracing with optional
-classifier-free guidance over the null labels.
+classifier-free guidance over the null labels. ``init_params`` draws flax's
+initialisation of ``StyleModel.init``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ...nn.norm import rms_norm
 from ...signal.constants import NUM_LABELS
 
 _T99 = 0.9110007125548362
+_U_BIAS_INIT = -0.4328
 
 
 @dataclass
@@ -56,11 +58,31 @@ class StyleModel(nn.Module):
         self.null_labels = nn.Parameter(torch.zeros(NUM_LABELS, a.h_dim))
         self.proj_in = Dense(a.style_dim, a.h_dim, dtype)
         for i in range(a.depth):
-            self.add_module(f"film{i}", Dense(a.h_dim, 3 * a.h_dim, dtype))
+            self.add_module(f"film{i}", Dense(a.h_dim, 3 * a.h_dim, dtype, zero_init=True))
             self.add_module(f"block{i}", MLP(a.h_dim, a.expand * a.h_dim, a.h_dim, dtype))
         self.out_gamma = nn.Parameter(torch.ones(a.h_dim))
-        self.proj_out = Dense(a.h_dim, a.style_dim, dtype)
-        self.u_out = Dense(a.h_dim, 1, dtype)
+        self.proj_out = Dense(a.h_dim, a.style_dim, dtype, zero_init=True)
+        self.u_out = Dense(a.h_dim, 1, dtype, zero_init=True, bias_init=_U_BIAS_INIT)
+
+    def init_params(self, generator: torch.Generator) -> "StyleModel":
+        """flax's initialisation of ``StyleModel.init``: xavier-uniform
+        ``label_proj_w`` (fans over its (label, feature, out) axes), zero
+        ``label_proj_b``, ``null_labels`` N(0, 1) / sqrt(h_dim), lecun_normal
+        ``proj_in`` and block kernels, zero FiLM, ``proj_out`` and ``u_out``
+        kernels, the u_out bias at -0.4328, unit ``out_gamma``; drawn from
+        ``generator`` in module order"""
+        a = self.args
+        with torch.no_grad():
+            fan_in, fan_out = NUM_LABELS * a.label_features, NUM_LABELS * a.h_dim
+            limit = (6.0 / (fan_in + fan_out)) ** 0.5
+            self.label_proj_w.uniform_(-limit, limit, generator=generator)
+            self.label_proj_b.zero_()
+            self.null_labels.normal_(generator=generator).mul_(a.h_dim**-0.5)
+            self.out_gamma.fill_(1.0)
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+        return self
 
     def embed_labels(self, labels: torch.Tensor) -> torch.Tensor:
         """(B, 5) in [0, 10] (or < 0 for "unspecified") -> (B, h_dim), f32"""

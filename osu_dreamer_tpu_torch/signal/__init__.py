@@ -1,2 +1,3 @@
-"""Signal codec: chart widths and channels, the map-file reader, hit
-decoding, tempo inference, the .osu serializer and the MAP slider fitter."""
+"""Signal codec: chart widths and channels, the map-file writer and reader,
+the hit, cursor and timing encoders, hit decoding, tempo inference, the .osu
+serializer and the MAP slider fitter."""

@@ -1,22 +1,31 @@
-"""Hit-signal decoding: 7 per-frame channels -> discrete hit events.
+"""Hit-signal codec: 7 per-frame channels <-> discrete hit events.
 
-Copy of the decode side of osu_dreamer_tpu/signal/hits.py (the encode side,
-``hit_signal`` and ``events_signal``, is not ported yet): peaks of height
-0.7 by ``find_peaks``, rising/falling extent pairs at 0.5, flags and extents
-attached to the nearest onset within +-2 frames, holds shorter than 4 frames
-kept as circles, sustains without a slide as spinners, and ``num_slides =
-round(sustain / slide)``.
+Copy of osu_dreamer_tpu/signal/hits.py with the jaxtyping annotations
+dropped (tests/test_torch_codec_encode.py and tests/test_torch_serialize.py
+pin it to the original).
+- Encode: gaussian bumps (sigma 10 ms) max-pooled over event times, each
+  touching only the frames within 5 sigma of its event (beyond that the
+  bump is below 4e-6, which the uint8 map file rounds to 0); binary
+  in-interval extent masks; the 7-row stack.
+- Decode: peaks of height 0.7 by ``find_peaks``, rising/falling extent
+  pairs at 0.5, flags and extents attached to the nearest onset within +-2
+  frames, holds shorter than 4 frames kept as circles, sustains without a
+  slide as spinners, and ``num_slides = round(sustain / slide)``.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import TYPE_CHECKING, Sequence, Union
 
 import numpy as np
 
 from .constants import HIT_DIM
 from .encoding import Channel
 
+if TYPE_CHECKING:
+    from ..osu import Beatmap
+
+EVENT_SIGMA_MS = 10.0
 PEAK_HEIGHT = 0.7
 ONSET_TOL_FRAMES = 2
 MIN_SUSTAIN_FRAMES = 4
@@ -27,6 +36,71 @@ Hit = Union[
     tuple[int, bool, bool, bool, bool],
     tuple[int, bool, bool, bool, bool, int, int],
 ]
+
+
+# ----------------------------------------------------------------- encoding --
+
+
+def events_signal(
+    ts: Sequence[float],
+    frame_times: np.ndarray,
+    sigma: float = EVENT_SIGMA_MS,
+) -> np.ndarray:
+    """gaussian bump (max-pooled) at each event time; windowed to +-5 sigma"""
+    sig = np.zeros_like(frame_times)
+    if len(ts) == 0:
+        return sig
+
+    frame_ms = frame_times[1] - frame_times[0] if len(frame_times) > 1 else 1.0
+    halfwidth = max(1, int(np.ceil(5.0 * sigma / frame_ms)))
+
+    ts_arr = np.asarray(ts, dtype=float)
+    centers = np.searchsorted(frame_times, ts_arr)
+    window = np.arange(-halfwidth, halfwidth + 1)
+    idx = np.clip(centers[:, None] + window[None, :], 0, len(frame_times) - 1)
+    vals = np.exp(-0.5 * ((ts_arr[:, None] - frame_times[idx]) / sigma) ** 2)
+    np.maximum.at(sig, idx.ravel(), vals.ravel())
+    return sig
+
+
+def extents_signal(
+    regions: Sequence[tuple[float, float]], frame_times: np.ndarray
+) -> np.ndarray:
+    """1 on frames with start <= t < end for any region, else 0"""
+    sig = np.zeros_like(frame_times)
+    for start, end in regions:
+        i0 = int(np.searchsorted(frame_times, start, side="left"))
+        i1 = int(np.searchsorted(frame_times, end, side="left"))
+        sig[i0:i1] = 1.0
+    return sig
+
+
+def hit_signal(bm: "Beatmap", frame_times: np.ndarray) -> np.ndarray:
+    """(7, L) stack: onsets / new combos / first-slide / sustains / 3 hit sounds"""
+    assert frame_times.ndim == 1, f"frame_times must be 1-D, got {frame_times.shape}"
+    from ..osu import Slider, Spinner
+
+    objs = bm.hit_objects
+    return np.stack(
+        [
+            events_signal([o.t for o in objs], frame_times),
+            events_signal([o.t for o in objs if o.new_combo], frame_times),
+            extents_signal(
+                [(o.t, o.t + o.slide_duration) for o in objs if isinstance(o, Slider)],
+                frame_times,
+            ),
+            extents_signal(
+                [(o.t, o.end_time()) for o in objs if isinstance(o, (Slider, Spinner))],
+                frame_times,
+            ),
+            events_signal([o.t for o in objs if o.whistle], frame_times),
+            events_signal([o.t for o in objs if o.finish], frame_times),
+            events_signal([o.t for o in objs if o.clap], frame_times),
+        ]
+    )
+
+
+# ----------------------------------------------------------------- decoding --
 
 
 def decode_events(sig: np.ndarray) -> list[int]:

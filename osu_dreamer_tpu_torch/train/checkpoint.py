@@ -61,6 +61,15 @@ def restore_train_state(path: str | Path, state: TrainState) -> TrainState:
     return state
 
 
+def load_train_checkpoint(path: str | Path, map_location: torch.device | str = "cpu"
+                          ) -> tuple[dict, dict[str, Any]]:
+    """a checkpoint directory -> (``TrainState.state_dict()`` as saved, on
+    ``map_location``; its hyperparameters)"""
+    path = Path(path).absolute()
+    state = torch.load(path / _STATE_FILE, map_location=map_location, weights_only=True)
+    return state, json.loads((path / _META_FILE).read_text())["hparams"]
+
+
 def read_progress(path: str | Path) -> dict[str, int]:
     """data-stream position stored with a checkpoint (empty when saved
     without it)"""

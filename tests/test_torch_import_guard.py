@@ -3,14 +3,18 @@ jaxtyping, click, msgpack, yaml or the JAX package.
 
 A subprocess makes each of those unimportable, imports every module of
 osu_dreamer_tpu_torch (the inference slice and the training modules:
-train/, data/, ops/, models/diffusion/, models/latent/, cli), drives a tiny
-slice (init_random weights, two songs x two difficulties, CFG on) through
+train/, data/ with the dataset build, ops/, signal/ with its encode side,
+models/diffusion/, models/latent/, models/style/, cli), drives a tiny slice
+(init_random weights, two songs x two difficulties, CFG on) through
 ``build_batch_sampler`` on the CPU, runs ``run_predict`` on one WAV to an
 .osz (in-process serialization), trains a tiny denoiser and a tiny chart
 autoencoder for two steps each through their ``fit.run`` (configs as dicts:
-reading YAML needs yaml), runs encode-latents on the latter's checkpoint, and
-takes one attention forward and backward through the fused prologue
-(ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1).
+reading YAML needs yaml), runs encode-latents on the latter's checkpoint,
+builds a dataset from a synthetic library (``generate_data``), trains a tiny
+style prior for two steps, and takes one attention forward and backward
+through the fused prologue (ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1).
+The ``.odt`` reader and writer need msgpack, which is blocked here; they are
+exercised by tests/test_torch_export.py and on the card by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -128,6 +132,22 @@ SCRIPT = textwrap.dedent(
         assert state.step == 2 and (Path(tmp) / "latent" / "best" / "state.pt").exists()
         assert encode_latents(Path(tmp) / "latent" / "best", Path(tmp) / "signals",
                               device="cpu") == 6
+
+        from osu_dreamer_tpu_torch.cli import generate_data
+        from osu_dreamer_tpu_torch.data.synth import build_library
+        from osu_dreamer_tpu_torch.models.style.fit import run as run_style
+
+        build_library(Path(tmp) / "Songs", 2, seconds=6.0)
+        assert generate_data(Path(tmp) / "built", songs_dir=Path(tmp) / "Songs",
+                             device="cpu") == 6
+        state = run_style({{
+            "data": {{"data_dir": str(Path(tmp) / "data"), "batch_size": 2}},
+            "fit": {{"run_dir": str(Path(tmp) / "style"), "max_steps": 2,
+                     "monitor": "val/energy_dist"}},
+            "model": {{"style_dim": 8, "label_features": 16, "h_dim": 16, "depth": 1,
+                       "expand": 2}},
+        }}, device="cpu")
+        assert state.step == 2 and (Path(tmp) / "style" / "best" / "state.pt").exists()
 
     import os
     from osu_dreamer_tpu_torch.nn import attention
