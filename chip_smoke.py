@@ -126,6 +126,25 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    refused only for a hold spanning the next onset, which the JAX
    serializer also writes from barely trained weights. Prints each step's
    wall.
+8. Serves phase 3's model, written as a .odt under build/smoke_serve/,
+   through ``serve``'s GeneratorService (device cuda, max_batch 4, 25 ms
+   batch window, 2 decode workers) behind its HTTP front end on a socket:
+   one warm-up request, then at once four unseeded requests with rows
+   5 9 8 4 6 and 3 7 6 3 5 on two 60 s songs and one three-row request on
+   a 60 s song, then one seeded request on a 30 s song (44.1 kHz stereo
+   WAVs), 32 steps; /healthz, /stats, a bad diff (400) and an unknown path
+   (404). Unless it already holds two, the burst's first dispatch holds the
+   dispatcher until two two-row requests are queued behind it (their
+   uploads' decoding spreads over the host's cores by more than a dispatch
+   takes). Every 200 must be
+   an .osz holding the WAV and one .osu a row; the two-row requests must
+   share fewer dispatches than requests and the three-row one ride alone; /stats must count no error and no padded row;
+   each dispatch must launch one resonator, 48 film layers, 264 SwiGLUs and
+   264 of the attention kernel attention_route names (K7 for the 60 s
+   songs, K9 for the 30 s one); the seeded request's .osu texts must equal
+   decode_osu_entry of build_batch_sampler's chart on the service's model
+   for the same wave, rows and seed. Prints each request's wall, their p50
+   and max, maps a minute over the burst, and the batches and rows.
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -133,6 +152,7 @@ and last ``{"ok": true, "device": {...}}``. Any failure raises.
 
 from __future__ import annotations
 
+import io
 import json
 import shutil
 import subprocess
@@ -267,6 +287,15 @@ def spec_frames(seconds: float) -> int:
 
 
 PIPELINE_SPEC_FRAMES = spec_frames(PIPELINE_SECONDS)
+# phase 8: serve's songs (seconds), written as predict's are: two 60 s songs
+# (latent L past K9's 256: K7) and a 30 s one (K9). The burst: four
+# concurrent unseeded two-row requests on the 60 s songs beside one
+# three-row request, then one seeded request on the 30 s song
+SERVE_SONGS = (60.0, 60.0, 30.0)
+SERVE_TWO_ROW = 4
+SERVE_THREE_ROWS = [(5.0, 9.0, 8.0, 4.0, 6.0), (3.0, 7.0, 6.0, 3.0, 5.0),
+                    (4.0, 8.0, 7.0, 4.0, 5.0)]
+SERVE_SEED = 1234
 
 
 def log(msg: str) -> None:
@@ -1047,6 +1076,242 @@ def pipeline_phase(dev, smi: str) -> dict[str, int]:
     return launched
 
 
+def write_serve_artifact(model) -> Path:
+    """phase 3's model as the ``.odt`` phase 8 serves (f32 parameters, as
+    export-inference writes them)"""
+    from osu_dreamer_tpu_torch.models.inference.artifact import (
+        build_artifact_bytes, to_flax_params,
+    )
+
+    path = ROOT / "build" / "smoke_serve" / "model.odt"
+    shutil.rmtree(path.parent, ignore_errors=True)
+    path.parent.mkdir(parents=True)
+    path.write_bytes(build_artifact_bytes(model.args, to_flax_params(model)))
+    return path
+
+
+def serve_phase(odt: Path, dev, smi: str) -> dict[str, int]:
+    """phase 8: ``serve``'s service and HTTP front end on the card, driven
+    over a socket by concurrent clients -> the kernel launches of the burst
+    and the seeded request"""
+    import threading
+    import urllib.error
+    import urllib.request
+    import zipfile
+
+    import torch
+
+    from osu_dreamer_tpu_torch.audio.constants import HOP_LEN
+    from osu_dreamer_tpu_torch.audio.decode import load_wave
+    from osu_dreamer_tpu_torch.audio.spectrogram import prep_wave_for_model
+    from osu_dreamer_tpu_torch.models.inference.sampler import (
+        build_batch_sampler, dequantize_chart,
+    )
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.ops.fused_attention import attention_route
+    from osu_dreamer_tpu_torch.serve import GeneratorService, MapServer
+    from osu_dreamer_tpu_torch.signal.serialize import decode_osu_entry
+
+    workdir = odt.parent
+    songs = [write_song(workdir / f"song{i}.wav", seconds, SEED + 20 + i)
+             for i, seconds in enumerate(SERVE_SONGS)]
+    t_phase = time.perf_counter()
+    service = GeneratorService(odt, device=dev, max_batch=4, batch_window_ms=25,
+                               serialize_workers=2)
+    t_start = time.perf_counter() - t_phase
+    # each dispatch's (S, D, out_frames), seen where the dispatcher calls the
+    # sampler. Unless it already holds two two-row requests, the burst's first
+    # dispatch holds the dispatcher until two of them are queued behind it:
+    # the uploads' decoding spreads over the host's cores by seconds, more
+    # than a dispatch takes, and co-batching is then the service's to show,
+    # not the host's timing
+    dispatches: list[tuple[int, int, int]] = []
+    burst_gate = threading.Event()
+    sample = service._sample
+
+    def recorded(waves, real, labels, generator, n_frames, out_frames, *rest):
+        if burst_gate.is_set():
+            burst_gate.clear()
+            paired = labels.shape[0] >= 2 and labels.shape[1] == 2
+            deadline = time.monotonic() + (0.0 if paired else 120.0)
+            while time.monotonic() < deadline:
+                with service._cond:
+                    if sum(len(r.labels) == 2 for r in service._pending) >= 2:
+                        break
+                time.sleep(0.002)
+        dispatches.append((labels.shape[0], labels.shape[1], out_frames))
+        return sample(waves, real, labels, generator, n_frames, out_frames, *rest)
+
+    service._sample = recorded
+    server = MapServer(service, port=0)
+    server.start_background()
+    host, port = server.address
+
+    def call(path: str, body: bytes | None = None) -> tuple[int, bytes, float]:
+        t = time.perf_counter()
+        req = urllib.request.Request(f"http://{host}:{port}{path}", data=body,
+                                     method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.read(), time.perf_counter() - t
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), time.perf_counter() - t
+
+    def generate(song: Path, rows, seed: int | None = None) -> tuple[bytes, float]:
+        query = "&".join([f"sample_steps={STEPS}", f"name={song.name}"]
+                         + ["diff=" + ",".join(f"{v:g}" for v in row) for row in rows]
+                         + ([f"seed={seed}"] if seed is not None else []))
+        code, body, wall = call(f"/generate?{query}", song.read_bytes())
+        if code != 200:
+            raise RuntimeError(f"{song.name} x {len(rows)} rows answered {code}: {body[:300]!r}")
+        with zipfile.ZipFile(io.BytesIO(body)) as z:
+            members = z.namelist()
+        if song.name not in members or sum(n.endswith(".osu") for n in members) != len(rows):
+            raise RuntimeError(f"{song.name} x {len(rows)} rows: the .osz holds {members}")
+        return body, wall
+
+    def stats() -> dict:
+        code, body, _ = call("/stats")
+        if code != 200:
+            raise RuntimeError(f"/stats answered {code}")
+        return json.loads(body)
+
+    try:
+        code, body, _ = call("/healthz")
+        health = json.loads(body)
+        backend = "gpu" if dev.type == "cuda" else "cpu"
+        if code != 200 or not health["ok"] or health["backend"] != backend or health["devices"] != 1:
+            raise RuntimeError(f"/healthz answered {code}: {health}")
+        log(f"serve: service started in {t_start:.2f} s (load_inference of a "
+            f"{odt.stat().st_size / 2**20:.1f} MiB .odt, kernel library, 2 decode workers); "
+            f"/healthz {health}")
+        _, wall = generate(songs[2], PREDICT_DIFFS)  # warm-up: the first dispatch
+        log(f"serve warm-up request ({SERVE_SONGS[2]:.0f} s song x {len(PREDICT_DIFFS)} rows, "
+            f"{STEPS} steps): {wall:.2f} s [{smi}]")
+
+        before = stats()
+        dispatches.clear()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        burst_gate.set()
+        jobs = [(songs[i % 2], PREDICT_DIFFS) for i in range(SERVE_TWO_ROW)]
+        jobs.append((songs[0], SERVE_THREE_ROWS))
+        walls: list[float] = [0.0] * len(jobs)
+        failures: list[BaseException] = []
+        start = threading.Barrier(len(jobs) + 1)
+
+        def client(i: int) -> None:
+            start.wait()
+            try:
+                walls[i] = generate(*jobs[i])[1]
+            except BaseException as e:  # noqa: BLE001 — raised below
+                failures.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        start.wait()
+        t_burst = time.perf_counter()
+        for t in threads:
+            t.join()
+        burst = time.perf_counter() - t_burst
+        if failures:
+            raise failures[0]
+        burst_dispatches = list(dispatches)
+
+        seeded, seeded_wall = generate(songs[2], PREDICT_DIFFS, SERVE_SEED)
+        torch.cuda.synchronize()
+        launched = dict(_build.launches)
+        after = stats()
+        code_bad, body_bad, _ = call("/generate?diff=1,2", b"x" * 64)
+        code_404, _, _ = call("/nope")
+        if code_bad != 400 or b"diff" not in body_bad or code_404 != 404:
+            raise RuntimeError(f"a bad diff answered {code_bad} {body_bad!r}, an unknown path "
+                               f"{code_404}")
+
+        n_maps = sum(len(rows) for _, rows in jobs)
+        batches = after["batches"] - before["batches"]
+        rows = after["batched_rows"] - before["batched_rows"]
+        log(f"serve burst: {SERVE_TWO_ROW} unseeded 2-row requests on two "
+            f"{SERVE_SONGS[0]:.0f} s songs + one 3-row request, {STEPS} steps, max_batch 4, "
+            f"25 ms window: request walls " + ", ".join(f"{w:.2f}" for w in walls)
+            + f" s (p50 {float(np.median(walls)):.2f}, max {max(walls):.2f}); burst "
+            f"{burst:.2f} s, {n_maps} maps, {n_maps / burst * 60:.1f} maps/min; dispatches "
+            f"(songs, rows, frames) {burst_dispatches} [{smi}]")
+        log(f"serve seeded request ({SERVE_SONGS[2]:.0f} s song x {len(PREDICT_DIFFS)} rows): "
+            f"{seeded_wall:.2f} s; /stats over the burst and it: {batches} batches, {rows} rows, "
+            f"padded_rows {after['padded_rows']}, errors {after['errors']}; after: {after}")
+
+        two_row = [(S, D) for S, D, _ in burst_dispatches if D == len(PREDICT_DIFFS)]
+        three_row = [(S, D) for S, D, _ in burst_dispatches if D == len(SERVE_THREE_ROWS)]
+        if (sum(S for S, _ in two_row) != SERVE_TWO_ROW or len(two_row) >= SERVE_TWO_ROW
+                or three_row != [(1, len(SERVE_THREE_ROWS))]
+                or len(two_row) + len(three_row) != len(burst_dispatches)):
+            raise RuntimeError(f"the burst was dispatched as {burst_dispatches}: the two-row "
+                               "requests must share dispatches, the three-row one ride alone")
+        if (batches != len(burst_dispatches) + 1 or rows != len(jobs) + 1
+                or after["errors"] or after["padded_rows"]):
+            raise RuntimeError(f"/stats over the burst: {before} -> {after}")
+        if after["requests"] - before["requests"] != len(jobs) + 1:
+            raise RuntimeError("the stats count other requests than the burst's")
+
+        # one resonator, 48 film layers, and per backbone layer and denoiser
+        # pass one SwiGLU and one of the attention kernel attention_route
+        # names for the dispatch's latent length
+        chunk = service.model.args.latent.chunk_size
+        backbone = service.model.args.diffusion.backbone
+        expected = dict.fromkeys(_build.KERNELS, 0)
+        routes = []
+        for _, _, out_frames in burst_dispatches + [dispatches[-1]]:
+            route = attention_route(out_frames // chunk, backbone.n_heads, backbone.head_dim,
+                                    "cuda")
+            routes.append((out_frames // chunk, route))
+            expected["resonator"] += RESONATOR_PER_REQUEST
+            expected["film_layer"] += FILM_PER_REQUEST
+            expected["swiglu"] += SWIGLU_PER_REQUEST
+            expected["fused_attention_fwd" if route == "fused" else "flash_attention"] += \
+                FLASH_PER_REQUEST
+        log(f"serve launches over {len(routes)} dispatches (latent L, attention) {routes}: "
+            f"{launched}")
+        if launched != expected:
+            raise RuntimeError(f"serve launched {launched}, not {expected}")
+        if routes[-1][1] != "fused" or any(r != "long" for _, r in routes[:-1]):
+            raise RuntimeError(f"serve's attention routes {routes}: K7 for the 60 s songs, K9 "
+                               "for the 30 s one")
+
+        # the seeded request against the sampler on the service's model, same
+        # wave, rows and generator seed, serialized here
+        t = time.perf_counter()
+        wave = load_wave(songs[2])
+        load_s = time.perf_counter() - t
+        buf, real_frames, n_frames, out_frames = prep_wave_for_model(wave, chunk)
+        hit, xy, lab = build_batch_sampler(service.model)(
+            torch.from_numpy(buf)[None].to(dev), torch.tensor([real_frames], device=dev),
+            torch.tensor([PREDICT_DIFFS], dtype=torch.float32, device=dev),
+            torch.Generator(dev).manual_seed(SERVE_SEED), n_frames, out_frames, STEPS, 1.0)
+        chart = dequantize_chart(hit.cpu().numpy(), xy.cpu().numpy())
+        frames = max(1, -(-len(wave) // HOP_LEN))
+        signals = chart[:, :frames].transpose(0, 2, 1)
+        with zipfile.ZipFile(io.BytesIO(seeded)) as z:
+            entries = {n: z.read(n).decode() for n in z.namelist() if n.endswith(".osu")}
+        for i, (row, sig) in enumerate(zip(lab.float().cpu().numpy(), signals)):
+            name, text = decode_osu_entry(songs[2].stem, "Unknown Artist", songs[2].name, i, row,
+                                          sig)
+            if entries.get(name) != text:
+                raise RuntimeError(f"the seeded request's {name} differs from the sampler's chart "
+                                   "on the service's model, serialized here")
+        log(f"serve seeded request: its {len(entries)} .osu texts equal decode_osu_entry of "
+            f"build_batch_sampler's chart for the same wave, rows and seed, bit for bit; "
+            f"load_wave of its song here {load_s:.2f} s")
+    finally:
+        server.close()
+    if service._pool is not None or service._dispatcher.is_alive():
+        raise RuntimeError("the service did not stop its pool and dispatcher")
+    log(f"phase 8 wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1597,6 +1862,7 @@ def main() -> int:
 
     # ---- 3a. predict: WAV files -> .osz mapsets through run_predict ----
     launches_predict = predict_phase(model, dev, smi)
+    serve_odt = write_serve_artifact(model)
     del model, reference, sample
     torch.cuda.empty_cache()
 
@@ -1735,8 +2001,11 @@ def main() -> int:
     # ---- 7. the training pipeline from audio to a .osz ----
     launches_pipeline = pipeline_phase(dev, smi)
 
+    # ---- 8. serve: the resident service over HTTP, concurrent clients ----
+    launches_serve = serve_phase(serve_odt, dev, smi)
+
     paths = (launches_infer, launches_prologue, launches_predict, launches_train,
-             launches_latent, launches_prologue_train, launches_pipeline)
+             launches_latent, launches_prologue_train, launches_pipeline, launches_serve)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:

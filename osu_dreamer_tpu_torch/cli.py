@@ -394,7 +394,49 @@ def main(argv: list[str] | None = None) -> None:
     predict.add_argument("--batch-songs", type=_at_least(1), default=1,
                          help="songs of one length class sampled together")
     predict.add_argument("--device", default="cuda", help=device_help)
+
+    serve = commands.add_parser(
+        "serve", help="run a resident map-generation HTTP service (POST /generate)")
+    serve.add_argument("--model-path", type=_existing_file, required=True,
+                       help="trained inference artifact (export-inference output)")
+    serve.add_argument("--host", default="127.0.0.1", help="bind address")
+    serve.add_argument("--port", type=int, default=8787, help="bind port")
+    serve.add_argument("--max-batch", type=_at_least(1), default=4,
+                       help="max concurrent songs batched into one device dispatch")
+    serve.add_argument("--batch-window-ms", type=float, default=25.0,
+                       help="how long the dispatcher waits to widen a batch")
+    serve.add_argument("--infer-tempo", action="store_true",
+                       help="infer real timing points from the predicted onset envelope")
+    serve.add_argument("--snap-divisor", type=_at_least(0), default=0,
+                       help="snap hit times to 1/N of the inferred beat; implies "
+                            "--infer-tempo. 0 = off")
+    serve.add_argument("--devices", type=_at_least(1), default=None,
+                       help="cards to spread request batches over (default: one; more "
+                            "is not ported yet)")
+    serve.add_argument("--serialize-workers", type=_at_least(1), default=None,
+                       help=".osu-decode worker processes (default: one per core, up to "
+                            "4; 1 disables the pool)")
+    serve.add_argument("--device", default="cuda", help=device_help)
     args = parser.parse_args(argv)
+
+    if args.command == "serve":
+        from .serve import GeneratorService, MapServer
+
+        service = GeneratorService(
+            args.model_path, max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+            infer_tempo=args.infer_tempo, snap_divisor=args.snap_divisor, devices=args.devices,
+            serialize_workers=args.serialize_workers, device=args.device)
+        server = MapServer(service, host=args.host, port=args.port)
+        bound_host, bound_port = server.address
+        print(f"serving on http://{bound_host}:{bound_port} (POST /generate, GET /healthz /stats)",
+              flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            print("shutting down")
+        finally:
+            server.close()
+        return
 
     if args.command == "predict":
         from .models.inference.artifact import load_inference

@@ -4,7 +4,8 @@ jaxtyping, click, msgpack, yaml or the JAX package.
 A subprocess makes each of those unimportable, imports every module of
 osu_dreamer_tpu_torch (the inference slice and the training modules:
 train/, data/ with the dataset build, ops/, signal/ with its encode side,
-models/diffusion/, models/latent/, models/style/, cli), drives a tiny slice
+models/diffusion/, models/latent/, models/style/, serve/ with its HTTP front
+end, cli), drives a tiny slice
 (init_random weights, two songs x two difficulties, CFG on) through
 ``build_batch_sampler`` on the CPU, runs ``run_predict`` on one WAV to an
 .osz (in-process serialization), trains a tiny denoiser and a tiny chart
@@ -14,7 +15,8 @@ builds a dataset from a synthetic library (``generate_data``), trains a tiny
 style prior for two steps, and takes one attention forward and backward
 through the fused prologue (ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1).
 The ``.odt`` reader and writer need msgpack, which is blocked here; they are
-exercised by tests/test_torch_export.py and on the card by chip_smoke.py.
+exercised by tests/test_torch_export.py and on the card by chip_smoke.py, and
+so is the serving service, which loads a ``.odt`` (tests/test_torch_serve.py).
 """
 
 from __future__ import annotations
@@ -153,6 +155,7 @@ SCRIPT = textwrap.dedent(
     from osu_dreamer_tpu_torch.nn import attention
 
     assert "osu_dreamer_tpu_torch.ops.film_qkv" in names
+    assert {{"osu_dreamer_tpu_torch.serve.service", "osu_dreamer_tpu_torch.serve.http"}} <= set(names)
     os.environ["OSU_DREAMER_FUSED_PROLOGUE"] = "1"
     seen = []
     dispatch = attention.film_qkv
