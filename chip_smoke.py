@@ -145,6 +145,24 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    decode_osu_entry of build_batch_sampler's chart on the service's model
    for the same wave, rows and seed. Prints each request's wall, their p50
    and max, maps a minute over the burst, and the batches and rows.
+9. Trains on two ranks (``parallel/``): one card each where two are
+   visible (NCCL), else both on card 0 over gloo, said before the phase.
+   (a) ``fit-denoiser`` at the shipped config with ``parallel: {dp: 2}``
+   through ``fit.run``, which spawns the ranks, 6 steps; (b) the same with
+   ``parallel: {sp: 2}`` (76 frames a rank: ring attention, the SwiGLU
+   kernel on 80-row halo'd shards), 6 steps; (c) ``fit-latent`` at its
+   shipped config with ``dp: 2``, 4 steps; (b) and (c) in one spawn of the
+   script's own ranks. Every step of every rank must launch exactly K4,
+   K6, K9 and K10 8 times under DP, K4 and K6 8 times and no K9/K10 under
+   SP, K2 and K3 88 times in the latent step, and nothing else; the ranks'
+   losses must be equal, and each fit checks that its ranks end with the
+   same parameters bit for bit. Then one step of each (dp 2, sp 2, latent
+   dp 2) on random full-strength weights is held to the f32 plain
+   one-process step on the same batch and draws: its loss terms and
+   averaged gradients within PARALLEL_RATIO of the one-process kernel
+   step's error. Prints ms/step per rank (host clock after 2 warm-ups), the
+   gradient all-reduce's ms and, under SP, the ring's and the halos' ms a
+   step (CUDA events). Phases 4-7 set ``parallel: {dp: 1}``.
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -152,6 +170,7 @@ and last ``{"ok": true, "device": {...}}``. Any failure raises.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import shutil
@@ -648,6 +667,33 @@ def predict_phase(model, dev, smi: str) -> dict[str, int]:
     return launched
 
 
+@contextmanager
+def plain_ops():
+    """every kernel dispatch swapped for its plain version (the SwiGLU,
+    attention and prologue backward then come from autograd of the plain
+    ones)"""
+    from osu_dreamer_tpu_torch.audio import spectrogram
+    from osu_dreamer_tpu_torch.nn import attention, blocks
+    from osu_dreamer_tpu_torch.ops import (
+        film_layer, film_qkv, fused_attention, long_attention, resonator, swiglu,
+    )
+
+    saved = (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
+             attention.fused_norm_rope_attention, attention.film_qkv,
+             spectrogram.resonate_frames)
+    blocks.film_layer, blocks.swiglu = film_layer.film_layer_plain, swiglu.swiglu_plain
+    attention.long_flash_attention = long_attention.attention_plain
+    attention.fused_norm_rope_attention = fused_attention.rope_attention_plain
+    attention.film_qkv = film_qkv.film_qkv_plain
+    spectrogram.resonate_frames = resonator.resonate_plain
+    try:
+        yield
+    finally:
+        (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
+         attention.fused_norm_rope_attention, attention.film_qkv,
+         spectrogram.resonate_frames) = saved
+
+
 def randomize_(model, gen) -> None:
     """random full-strength weights in place: fan-in scaled normal kernels,
     1 + 0.1 N gains, 0.1 N other vectors (flax's zero-initialised layers
@@ -666,35 +712,39 @@ def randomize_(model, gen) -> None:
             p.copy_(draw)
 
 
-def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False) -> None:
+def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False,
+               ratios: tuple[float, float] = (SLICE_MEAN_RATIO, SLICE_MAX_RATIO),
+               labels: tuple[str, str] = ("kernels", "plain bf16")) -> None:
     """one train step's (loss terms, flat gradients) through the kernels and
     through the plain versions (bf16), each held to the plain f32 step: the
-    kernels' gradients within SLICE_MEAN_RATIO (mean) / SLICE_MAX_RATIO (max)
-    of the plain path's error; their loss terms each within SLICE_MAX_RATIO
-    of the plain path's error or LOSS_FLOOR of the f32 value, or with
-    ``pool_terms`` the terms' relative errors (floored at LOSS_FLOOR) pooled
-    under the gradients' mean / max rule"""
+    kernels' gradients within ``ratios`` (mean, max: by default
+    SLICE_MEAN_RATIO / SLICE_MAX_RATIO) of the plain path's error; their loss
+    terms each within the max ratio of the plain path's error or LOSS_FLOOR
+    of the f32 value, or with ``pool_terms`` the terms' relative errors
+    (floored at LOSS_FLOOR) pooled under the gradients' mean / max rule.
+    ``labels`` name the two paths in the log and the errors"""
     import torch
 
+    mean_ratio, max_ratio = ratios
     ref_terms, ref_grads = ref
     (kt, kg), (pt, pg) = (((t - ref_terms).abs(), (g - ref_grads).abs()) for t, g in (kernels, plain))
     if pool_terms:
         kr, pr = ((e / ref_terms.abs()).clamp_min(LOSS_FLOOR) for e in (kt, pt))
-        terms_ok = bool(kr.mean() <= SLICE_MEAN_RATIO * pr.mean()
-                        and kr.max() <= SLICE_MAX_RATIO * pr.max())
+        terms_ok = bool(kr.mean() <= mean_ratio * pr.mean() and kr.max() <= max_ratio * pr.max())
     else:
-        terms_ok = bool((kt <= torch.maximum(SLICE_MAX_RATIO * pt, LOSS_FLOOR * ref_terms.abs())).all())
+        terms_ok = bool((kt <= torch.maximum(max_ratio * pt, LOSS_FLOOR * ref_terms.abs())).all())
+    a, b = labels
     log(f"{what}: one train step vs the f32 plain step: loss terms ({', '.join(names)}) f32 "
-        f"{ref_terms.tolist()}, |err| kernels {kt.tolist()} plain bf16 {pt.tolist()}; "
+        f"{ref_terms.tolist()}, |err| {a} {kt.tolist()} {b} {pt.tolist()}; "
         f"gradients ({ref_grads.numel()} values, max |f32| {ref_grads.abs().max().item():.4g}) "
-        f"kernels mean {kg.mean().item():.4g} max {kg.max().item():.4g}, plain bf16 mean "
+        f"{a} mean {kg.mean().item():.4g} max {kg.max().item():.4g}, {b} mean "
         f"{pg.mean().item():.4g} max {pg.max().item():.4g}")
     if not terms_ok:
-        raise RuntimeError(f"{what}: the kernel path's loss is farther from the f32 step than "
-                           "the plain bf16 path's")
-    if not (kg.mean() <= SLICE_MEAN_RATIO * pg.mean() and kg.max() <= SLICE_MAX_RATIO * pg.max()):
-        raise RuntimeError(f"{what}: the kernel path's gradients are farther from the f32 step "
-                           "than the plain bf16 path's")
+        raise RuntimeError(f"{what}: the {a} path's loss is farther from the f32 step than "
+                           f"the {b} path's")
+    if not (kg.mean() <= mean_ratio * pg.mean() and kg.max() <= max_ratio * pg.max()):
+        raise RuntimeError(f"{what}: the {a} path's gradients are farther from the f32 step "
+                           f"than the {b} path's")
 
 
 def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: str,
@@ -963,6 +1013,7 @@ def pipeline_phase(dev, smi: str) -> dict[str, int]:
 
     def stage_cfg(fit_module, **cuts) -> dict:
         cfg = load_yaml_config(fit_module.CONFIG)
+        cfg["parallel"] = {"dp": 1}
         log(f"phase 7 cut of {fit_module.__name__.split('.')[-2]}: batch_size "
             f"{cfg['data']['batch_size']} -> {PIPELINE_BATCH}, steps -> "
             f"{TRAIN_WARMUP + PIPELINE_TIMED}" + "".join(f", {k} {v}" for k, v in cuts.items()))
@@ -1310,6 +1361,305 @@ def serve_phase(odt: Path, dev, smi: str) -> dict[str, int]:
     log(f"phase 8 wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
     shutil.rmtree(workdir, ignore_errors=True)
     return launched
+
+
+# phase 9: data and sequence parallelism on two ranks, one card each where
+# two are visible, else both on card 0 over gloo (NCCL refuses two ranks on
+# one card). The denoiser at full width with dp 2 through fit.run (which
+# spawns its ranks) and with sp 2, then the latent stage with dp 2; per rank
+# and step each kernel must launch exactly as often as below (every other
+# kernel not at all), and each parallel step must stay within PARALLEL_RATIO
+# (mean and max) of the one-process kernel step's error against the f32
+# plain step on the same weights, batch and draws
+PARALLEL_STEPS = 6
+PARALLEL_LATENT_STEPS = 4
+PARALLEL_RATIO = 1.5
+DP_DENOISER_LAUNCHES = {"swiglu": 8, "swiglu_bwd": 8, "fused_attention_fwd": 8,
+                        "fused_attention_bwd": 8}
+SP_DENOISER_LAUNCHES = {"swiglu": 8, "swiglu_bwd": 8}  # ring attention: no K9/K10
+LATENT_STEP_LAUNCHES = {"film_layer": 88, "film_layer_bwd": 88}
+
+
+def rank_probe(outdir: str, step: int, metrics: dict) -> None:
+    """``on_step`` of a phase-9 rank: after the step's device work, the host
+    clock, the rank's kernel launches so far, the loss, and the collectives'
+    CUDA-event ms since the warm-up (timed from its end on), appended to
+    ``outdir``/rank<r>.jsonl"""
+    import torch
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.parallel.collectives import comm_timer
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    record = {"step": step, "t": time.perf_counter(), "launches": dict(_build.launches),
+              "loss": float(metrics["loss"]), "comm": comm_timer.ms()}
+    if step == TRAIN_WARMUP:
+        comm_timer.reset()
+        comm_timer.enabled = True
+    Path(outdir).mkdir(parents=True, exist_ok=True)
+    with open(Path(outdir) / f"rank{dist.get_rank()}.jsonl", "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def read_probe(outdir: Path, what: str, steps: int, want: dict[str, int], smi: str
+               ) -> dict[str, int]:
+    """the phase-9 records of a two-rank fit: every step's launches on every
+    rank exactly ``want`` (other kernels 0), the losses finite and equal on
+    the ranks; logs ms/step per rank over the steps after TRAIN_WARMUP and
+    the collectives' ms a step -> the launches of both ranks"""
+    from osu_dreamer_tpu_torch.ops import _build
+
+    total = dict.fromkeys(_build.KERNELS, 0)
+    losses = []
+    timed = steps - TRAIN_WARMUP
+    for rank in range(2):
+        records = [json.loads(line) for line in open(outdir / f"rank{rank}.jsonl")]
+        if [r["step"] for r in records] != list(range(1, steps + 1)):
+            raise RuntimeError(f"{what}: rank {rank} ran steps {[r['step'] for r in records]}")
+        before = dict.fromkeys(_build.KERNELS, 0)
+        expected = {k: want.get(k, 0) for k in _build.KERNELS}
+        for r in records:
+            step_launches = {k: r["launches"][k] - before[k] for k in _build.KERNELS}
+            if step_launches != expected:
+                raise RuntimeError(f"{what}: rank {rank} step {r['step']} launched "
+                                   f"{step_launches}, not {expected}")
+            before = r["launches"]
+        losses.append([r["loss"] for r in records])
+        ms = (records[-1]["t"] - records[TRAIN_WARMUP - 1]["t"]) / timed * 1e3
+        comm = ", ".join(f"{kind} {v[0] / timed:.2f} ms ({v[1] // timed} a step)"
+                         for kind, v in sorted(records[-1]["comm"].items()))
+        log(f"{what}, rank {rank}: {ms:.2f} ms/step over {timed} steps after {TRAIN_WARMUP} "
+            f"warm-up (host clock); collectives a step (CUDA events): {comm} [{smi}]")
+        for k in _build.KERNELS:
+            total[k] += records[-1]["launches"][k]
+    if not np.isfinite(losses).all() or losses[0] != losses[1]:
+        raise RuntimeError(f"{what}: the ranks' losses {losses}")
+    log(f"{what}: per rank and step {want} launches, every other kernel none; losses "
+        f"{[round(x, 5) for x in losses[0]]} on both ranks")
+    return total
+
+
+def denoiser_parallel_check(cfg: dict, devices: list[str], smi: str) -> None:
+    """phase 9's one-step check of the denoiser at full width (B128 L152):
+    the dp 2 and the sp 2 step's loss terms and averaged gradients, each
+    within PARALLEL_RATIO of the one-process kernel step's error against the
+    f32 plain step on the same random full-strength weights, batch, t and x0
+    (in each rank; rank 0 compares)"""
+    import torch
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel, DiffusionModelArgs
+    from osu_dreamer_tpu_torch.models.diffusion.train import (
+        DiffusionTrainArgs, LatentBatch, step_gradients,
+    )
+    from osu_dreamer_tpu_torch.parallel import ParallelArgs, build_parallelism
+    from osu_dreamer_tpu_torch.train.state import stratified_logit_normal_t
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    dev = torch.device(devices[dist.get_rank()])
+    md = cfg["model"]
+    model_args = dataclass_from_dict(DiffusionModelArgs, md)
+    train_args = dataclass_from_dict(DiffusionTrainArgs, cfg["train"])
+    bf16_model = DiffusionModel(model_args, torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    randomize_(bf16_model, gen)
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
+    batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
+                        z=z / z.square().mean(-1, keepdim=True).sqrt(),
+                        s=torch.randn(Bt, md["style_dim"], generator=gen, device=dev),
+                        labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    t_inj = stratified_logit_normal_t(Bt, gen, dev)
+    x0_inj = torch.randn(batch.z.shape, generator=gen, device=dev)
+    names = ("loss", "osl", "del", "u_mape")
+
+    def flat(metrics, grads):
+        return (torch.stack([metrics[k].float() for k in names]),
+                torch.cat([g.flatten().float() for g in grads]))
+
+    spread = {}
+    for label, args in (("dp 2", {"dp": 2}), ("sp 2", {"sp": 2})):
+        par = build_parallelism(ParallelArgs(**args), Bt, devices)
+        local = par.shard_batch(batch, seq_fields=(0, 1))
+        spread[label] = flat(*step_gradients(bf16_model, local, train_args, None, t_inj, x0_inj,
+                                             par))
+    if dist.get_rank() == 0:
+        f32_model = DiffusionModel(model_args, torch.float32).to(dev)
+        f32_model.load_state_dict(bf16_model.state_dict())
+        with plain_ops():
+            ref = flat(*step_gradients(f32_model, batch, train_args, None, t_inj, x0_inj))
+        del f32_model
+        one = flat(*step_gradients(bf16_model, batch, train_args, None, t_inj, x0_inj))
+        for label, got in spread.items():
+            check_step(f"phase 9 fit-denoiser {label}", names, ref, got, one,
+                       ratios=(PARALLEL_RATIO, PARALLEL_RATIO),
+                       labels=(f"{label} ranks", "one-process kernels"))
+    del bf16_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def latent_parallel_check(cfg: dict, devices: list[str]) -> None:
+    """phase 9's one-step check of the latent stage at full width (B32
+    L2052): the dp 2 step (the MMD over the gathered style codes) held as
+    ``denoiser_parallel_check`` holds the denoiser's, its 13 terms pooled
+    as in phase 5"""
+    import torch
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModel, LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import (
+        LOSS_COMPONENTS, LOSS_WEIGHTS, Batch, LatentTrainArgs, draw_latent, latent_loss,
+    )
+    from osu_dreamer_tpu_torch.parallel import ParallelArgs, build_parallelism
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    dev = torch.device(devices[dist.get_rank()])
+    model_args = dataclass_from_dict(LatentModelArgs, cfg["model"])
+    train_args = dataclass_from_dict(LatentTrainArgs, cfg["train"])
+    bf16_model = LatentModel(model_args, torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    randomize_(bf16_model, gen)
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    batch = Batch(audio=torch.rand(Bt, Lt, 72, generator=gen, device=dev),
+                  chart=torch.rand(Bt, Lt, 9, generator=gen, device=dev),
+                  labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    draws = draw_latent(2 * Bt, model_args.style_dim, Lt // 2 // model_args.chunk_size,
+                        model_args.emb_dim, gen, dev)
+    weights = torch.from_numpy(LOSS_WEIGHTS).to(dev)
+
+    def terms_and_grads(model, batch, par=None):
+        comps, _, s_reg = latent_loss(model, batch, train_args, draws=draws, par=par)
+        total = (weights * comps / comps.detach().clamp_min(1e-8)).sum()
+        total = total + train_args.s_reg_weight * s_reg
+        grads = list(torch.autograd.grad(total, list(model.parameters()),
+                                         materialize_grads=True))
+        if par is not None:
+            grads = par.average_gradients(grads)
+        terms = torch.cat([comps.detach().float(), torch.stack([s_reg, total]).detach().float()])
+        return terms, torch.cat([g.flatten().float() for g in grads])
+
+    par = build_parallelism(ParallelArgs(dp=2), Bt, devices)
+    spread = terms_and_grads(bf16_model, par.shard_batch(batch), par)
+    if dist.get_rank() == 0:
+        f32_model = LatentModel(model_args, torch.float32).to(dev)
+        f32_model.load_state_dict(bf16_model.state_dict())
+        with plain_ops():
+            ref = terms_and_grads(f32_model, batch)
+        del f32_model
+        check_step("phase 9 fit-latent dp 2", (*LOSS_COMPONENTS, "s_reg", "loss"), ref, spread,
+                   terms_and_grads(bf16_model, batch), pool_terms=True,
+                   ratios=(PARALLEL_RATIO, PARALLEL_RATIO),
+                   labels=("dp 2 ranks", "one-process kernels"))
+    del bf16_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def parallel_rank(workdir: str, sp_cfg: dict, latent_cfg: dict, denoiser_cfg: dict,
+                  devices: list[str], smi: str) -> None:
+    """phase 9 (b) and (c) and the one-step checks, in each of two ranks:
+    the sp 2 denoiser and the dp 2 latent stage through their ``fit.run``
+    (each finding the process group joined), then the checks"""
+    import torch
+
+    from osu_dreamer_tpu_torch.models.diffusion import fit as diffusion_fit
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, fit_module, cfg in (("probe_sp", diffusion_fit, sp_cfg),
+                                  ("probe_latent", latent_fit, latent_cfg)):
+        _build.reset_launches()
+        state = fit_module.run(cfg, device=devices[0], devices=devices,
+                               on_step=functools.partial(rank_probe, str(Path(workdir) / name)))
+        del state
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    denoiser_parallel_check(denoiser_cfg, devices, smi)
+    latent_parallel_check(latent_cfg, devices)
+
+
+def parallel_phase(dev, smi: str) -> dict[str, int]:
+    """phase 9: parallel training on the card -> the kernel launches of the
+    three parallel fits' ranks"""
+    import torch
+
+    from osu_dreamer_tpu_torch.data.synth import write_latent_corpus, write_signal_corpus
+    from osu_dreamer_tpu_torch.models.diffusion import fit as diffusion_fit
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.parallel.distributed import backend_for, launch
+    from osu_dreamer_tpu_torch.utils import load_yaml_config
+
+    t_phase = time.perf_counter()
+    devices = ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0", "cuda:0"]
+    shared = backend_for([torch.device(d) for d in devices]) == "gloo"
+    log(f"phase 9: two ranks on {devices}: " + (
+        "they share one card and talk over gloo (CUDA tensors staged through the host for "
+        "point-to-point sends)" if shared else "one card each, over NCCL"))
+    workdir = ROOT / "build" / "smoke_parallel"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    denoiser_cfg = load_yaml_config(diffusion_fit.CONFIG)
+    md = denoiser_cfg["model"]
+    write_latent_corpus(workdir / "latents", 64, 4, 152 * 12, md["a_dim"], md["emb_dim"],
+                        md["style_dim"], SEED)
+    denoiser_cfg["data"].update(data_dir=str(workdir / "latents"), max_per_map=-1,
+                                max_val_count=2)
+    latent_cfg = load_yaml_config(latent_fit.CONFIG)
+    write_signal_corpus(workdir / "signals", *LATENT_CORPUS, SEED)
+    latent_cfg["data"].update(data_dir=str(workdir / "signals"), max_per_map=-1,
+                              max_val_count=2)
+    latent_cfg["fit"].update(run_dir=str(workdir / "runs_latent"),
+                             max_steps=PARALLEL_LATENT_STEPS, log_every=5)
+    latent_cfg["parallel"] = {"dp": 2}
+
+    def with_parallel(parallel: dict, run_dir: str) -> dict:
+        cfg = json.loads(json.dumps(denoiser_cfg))
+        cfg["fit"].update(run_dir=str(workdir / run_dir), max_steps=PARALLEL_STEPS, log_every=5)
+        cfg["parallel"] = parallel
+        return cfg
+
+    # (a) dp 2 through fit.run, as a user runs it: run spawns the ranks
+    t0 = time.perf_counter()
+    state = diffusion_fit.run(with_parallel({"dp": 2}, "runs_dp"), device=dev, devices=devices,
+                              on_step=functools.partial(rank_probe, str(workdir / "probe_dp")))
+    if state.step != PARALLEL_STEPS:
+        raise RuntimeError(f"fit-denoiser dp 2 ended at step {state.step}")
+    del state
+    torch.cuda.empty_cache()
+    log(f"phase 9 (a) fit-denoiser dp 2 (width 512, 16 x 64 heads, B128 x L152, 64 rows a "
+        f"rank, bf16): {PARALLEL_STEPS} steps, {time.perf_counter() - t0:.1f} s wall with the "
+        f"spawn, validation and rank 0's state read back")
+    launches = read_probe(workdir / "probe_dp", "fit-denoiser dp 2", PARALLEL_STEPS,
+                          DP_DENOISER_LAUNCHES, smi)
+
+    # (b) sp 2 and (c) the latent stage at dp 2, then the one-step checks,
+    # in one spawn of two ranks
+    t0 = time.perf_counter()
+    launch(parallel_rank, (str(workdir), with_parallel({"sp": 2}, "runs_sp"), latent_cfg,
+                           denoiser_cfg, devices, smi),
+           devices, 2, deadline_s=900)
+    log(f"phase 9 (b, c) and the one-step checks: {time.perf_counter() - t0:.1f} s wall")
+    for name, what, steps, want in (
+            ("probe_sp", "fit-denoiser sp 2 (76 frames a rank, K4/K6 on 80-row halo'd shards)",
+             PARALLEL_STEPS, SP_DENOISER_LAUNCHES),
+            ("probe_latent", "fit-latent dp 2 (B32 x L2052, 16 rows a rank)",
+             PARALLEL_LATENT_STEPS, LATENT_STEP_LAUNCHES)):
+        for k, n in read_probe(workdir / name, what, steps, want, smi).items():
+            launches[k] += n
+    for run_dir in ("runs_dp", "runs_sp", "runs_latent"):
+        if not (workdir / run_dir / "last" / "state.pt").exists():
+            raise RuntimeError(f"phase 9: rank 0 wrote no {run_dir}/last")
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 9 wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
 
 
 def main() -> int:
@@ -1697,26 +2047,6 @@ def main() -> int:
         real = torch.tensor([p[1] for p in preps], device=dev)
         return waves, real, preps[0][2], preps[0][3]
 
-    @contextmanager
-    def plain_ops():
-        """every kernel dispatch swapped for its plain version (the SwiGLU,
-        attention and prologue backward then come from autograd of the plain
-        ones)"""
-        saved = (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
-                 attention.fused_norm_rope_attention, attention.film_qkv,
-                 spectrogram.resonate_frames)
-        blocks.film_layer, blocks.swiglu = film_layer.film_layer_plain, swiglu.swiglu_plain
-        attention.long_flash_attention = long_attention.attention_plain
-        attention.fused_norm_rope_attention = fused_attention.rope_attention_plain
-        attention.film_qkv = film_qkv.film_qkv_plain
-        spectrogram.resonate_frames = resonator.resonate_plain
-        try:
-            yield
-        finally:
-            (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
-             attention.fused_norm_rope_attention, attention.film_qkv,
-             spectrogram.resonate_frames) = saved
-
     small = upload([synth_wave(SEED + 10 + i, 6.0, SR) for i in range(S)])
     reference = LDM(args, torch.float32).to(dev).eval()
     reference.load_state_dict(model.state_dict())
@@ -1914,6 +2244,7 @@ def main() -> int:
 
     def denoiser_config(width: int) -> dict:
         cfg = load_yaml_config(diffusion_fit.CONFIG)
+        cfg["parallel"] = {"dp": 1}  # one card, however many are visible
         cfg["model"]["backbone_dim"] = width
         cfg["data"].update(data_dir=str(workdir / "data"), max_per_map=-1, max_val_count=2)
         return cfg
@@ -1972,7 +2303,8 @@ def main() -> int:
     # ---- 5. full-width latent training through fit.run, then encode-latents ----
     from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
 
-    launches_latent = train_latent(dev, smi, plain_ops, load_yaml_config(latent_fit.CONFIG),
+    launches_latent = train_latent(dev, smi, plain_ops,
+                                   {**load_yaml_config(latent_fit.CONFIG), "parallel": {"dp": 1}},
                                    LATENT_CORPUS, ROOT / "build" / "smoke_latent")
 
     # ---- 6. denoiser training with the fused prologue, widths 512 and 384 ----
@@ -2004,8 +2336,12 @@ def main() -> int:
     # ---- 8. serve: the resident service over HTTP, concurrent clients ----
     launches_serve = serve_phase(serve_odt, dev, smi)
 
+    # ---- 9. parallel training: dp and sp ranks at full width ----
+    launches_parallel = parallel_phase(dev, smi)
+
     paths = (launches_infer, launches_prologue, launches_predict, launches_train,
-             launches_latent, launches_prologue_train, launches_pipeline, launches_serve)
+             launches_latent, launches_prologue_train, launches_pipeline, launches_serve,
+             launches_parallel)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:

@@ -6,8 +6,16 @@ Counterpart of osu_dreamer_tpu/models/diffusion/model.py (``BackboneLayer``,
 latent x_t the model predicts the distance u to the data manifold and the
 direction field v; sampling steps ``x <- x - eta * u * v`` with eta
 calibrated on the device from the first prediction. ``forward`` is the
-training call; ``init_params`` draws flax's initialisation. The
-sequence-parallel branches and dropout of the JAX module are not ported.
+training call; ``init_params`` draws flax's initialisation. Dropout is not
+ported.
+
+Sequence parallelism: every call takes ``sp``, the group of ranks the window
+length is sharded over (the JAX ``backbone.seq_axis``), each rank holding its
+span. Attention becomes ring attention at the shard's global rotary offset,
+the SwiGLU convs and the u-head's two radius-1 convs read halos from their
+neighbours (each u-head conv its own 1-frame halo, so the second conv's edge
+neighbour is a literal zero as in the unsharded stack), and the u-head's time
+mean is all-reduced, so every rank carries the same u.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from torch import nn
 from ...nn.attention import RoPEAttention
 from ...nn.blocks import Dense, DepthwiseConv, SwiGLU
 from ...nn.norm import rms_norm
+from ...ops.ring_attention import halo_exchange
+from ...parallel.collectives import all_reduce_sum, group_rank, group_size
 
 _T99 = 0.9110007125548362
 # softplus(bias) = .5  =>  u starts at its marginal mean E[1-t]*u_scale
@@ -79,13 +89,14 @@ class BackboneLayer(nn.Module):
         self.film_ffn = Dense(cond_dim, 3 * dim, dtype, zero_init=True)
         self.ffn = SwiGLU(dim, args.expand, args.radius, dtype)
 
-    def forward(self, x: torch.Tensor, audio: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, audio: torch.Tensor, cond: torch.Tensor,
+                sp=None) -> torch.Tensor:
         scale, shift, gate = self.film_attn(cond).chunk(3, dim=-1)
-        h = self.attn(x, film=(scale, shift), add=self.audio_proj(audio))
+        h = self.attn(x, film=(scale, shift), add=self.audio_proj(audio), sp=sp)
         x = x + rms_norm(h) * gate[:, None, :]
         scale, shift, gate = self.film_ffn(cond).chunk(3, dim=-1)
         h = rms_norm(x) * (1 + scale[:, None, :]) + shift[:, None, :]
-        h = self.ffn(h)
+        h = self.ffn(h, sp=sp)
         return x + rms_norm(h) * gate[:, None, :]
 
 
@@ -97,9 +108,10 @@ class Backbone(nn.Module):
         for i in range(args.depth):
             self.add_module(f"layer{i}", BackboneLayer(dim, a_dim, cond_dim, args, dtype))
 
-    def forward(self, x: torch.Tensor, audio: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, audio: torch.Tensor, cond: torch.Tensor,
+                sp=None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"layer{i}")(x, audio, cond)
+            x = getattr(self, f"layer{i}")(x, audio, cond, sp)
         return rms_norm(x)
 
 
@@ -114,17 +126,19 @@ class UConvs(nn.Module):
         self.layers_3 = DepthwiseConv(u_dim, 3, dtype)
         self.layers_4 = Dense(u_dim, u_dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.silu(self.layers_1(self.layers_0(x)))
-        return F.silu(self.layers_4(self.layers_3(x)))
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """``sp``: each radius-1 conv reads its own 1-frame halo"""
+        if sp is None:
+            x = F.silu(self.layers_1(self.layers_0(x)))
+            return F.silu(self.layers_4(self.layers_3(x)))
+        x = F.silu(self.layers_1(self.layers_0(halo_exchange(x, 1, sp))[:, 1:-1]))
+        return F.silu(self.layers_4(self.layers_3(halo_exchange(x, 1, sp))[:, 1:-1]))
 
 
 class DiffusionModel(nn.Module):
     def __init__(self, args: DiffusionModelArgs, dtype: torch.dtype):
         super().__init__()
         a = args
-        if a.backbone.seq_axis is not None:
-            raise ValueError("sequence parallelism (backbone.seq_axis) is not ported")
         self.args = args
         self.audio_in = Dense(a.a_dim, a.a_dim, dtype)
         self.style_in = Dense(a.style_dim, a.global_cond_dim, dtype)
@@ -146,25 +160,27 @@ class DiffusionModel(nn.Module):
         return self
 
     def forward(self, audio: torch.Tensor, style: torch.Tensor, xt: torch.Tensor,
-                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                train: bool = False, sp=None) -> tuple[torch.Tensor, torch.Tensor]:
         """the training call: -> (u (B,) f32, v (B, l, E)). ``train`` only
         guards dropout, which is not ported: with backbone.dropout > 0 a
         training call raises (at dropout 0 both modes compute the same)"""
         if train and self.args.backbone.dropout > 0:
             raise NotImplementedError("training with backbone.dropout > 0 is not ported")
-        return self.predict(*self.precompute_cond(audio, style), xt)
+        return self.predict(*self.precompute_cond(audio, style), xt, sp)
 
     def precompute_cond(self, audio: torch.Tensor, style: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """project the conditioning once per sample"""
         return F.silu(self.audio_in(audio)), F.silu(self.style_in(style))
 
-    def predict(self, audio_c: torch.Tensor, cond_g: torch.Tensor, xt: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+    def predict(self, audio_c: torch.Tensor, cond_g: torch.Tensor, xt: torch.Tensor,
+                sp=None) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (u (B,) f32, v (B, l, E))"""
-        h = self.net(self.proj_in(xt), audio_c, cond_g)
+        h = self.net(self.proj_in(xt), audio_c, cond_g, sp)
         v = self.proj_out(h)
-        f = self.u_convs(xt).mean(dim=1)
+        f = self.u_convs(xt, sp).mean(dim=1)
+        if sp is not None:  # the global time mean on every rank
+            f = all_reduce_sum(f, sp) / group_size(sp)
         scale, shift = self.u_film(cond_g).chunk(2, dim=-1)
         f = f * (1 + scale) + shift
         u = self.args.u_scale * F.softplus(self.u_out(f).float())[:, 0]
@@ -177,24 +193,30 @@ class DiffusionModel(nn.Module):
         num_steps: int,
         x0: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        sp=None,
     ) -> torch.Tensor:
         """sphere tracing from ``x0`` (drawn N(0, 1) from ``generator`` when
         not given). eta stays a device tensor and the loop is a fixed Python
-        loop, so sampling never waits on the host; x stays f32."""
+        loop, so sampling never waits on the host; x stays f32. With ``sp``,
+        ``audio`` is this rank's span and ``x0`` the GLOBAL noise (B, l x
+        ranks, E), drawn or given, of which the rank takes its span: the
+        sharded sampler equals the unsharded one for the same noise."""
         if audio.dim() != 3 or audio.shape[-1] != self.args.a_dim:
             raise ValueError(f"audio must be (#B, l, {self.args.a_dim}), got {tuple(audio.shape)}")
         if style.shape[-1] != self.args.style_dim:
             raise ValueError(f"bad style shape {tuple(style.shape)}")
-        B = style.shape[0]
+        B, l = style.shape[0], audio.shape[1]
         if x0 is None:
-            x0 = torch.randn(B, audio.shape[1], self.args.emb_dim, generator=generator,
+            x0 = torch.randn(B, l * group_size(sp), self.args.emb_dim, generator=generator,
                              device=audio.device)
+        if sp is not None:
+            x0 = x0[:, group_rank(sp) * l:(group_rank(sp) + 1) * l]
         audio_c, cond_g = self.precompute_cond(audio, style)
         sqrt_c0 = sqrt(self.args.c0)
-        u0 = self.predict(audio_c, cond_g, x0)[0].mean()
+        u0 = self.predict(audio_c, cond_g, x0, sp)[0].mean()
         eta = 1.0 - (sqrt_c0 / u0.clamp_min(sqrt_c0 + 1e-6)) ** (1.0 / num_steps)
         x = x0
         for _ in range(num_steps):
-            u, v = self.predict(audio_c, cond_g, x)
+            u, v = self.predict(audio_c, cond_g, x, sp)
             x = x - eta * u[:, None, None] * v.float()
         return x

@@ -1,4 +1,4 @@
-"""fit-latent: config -> chart-signal streams -> train loop, on one device.
+"""fit-latent: config -> chart-signal streams -> train loop.
 
 Counterpart of osu_dreamer_tpu/models/latent/fit.py. Validation parity: each
 held-out full map at batch 1, bucket-padded (edge replication) to a multiple
@@ -6,23 +6,28 @@ of 2 * chunk * BUCKET_CHUNKS frames and scored under its valid-length mask:
 threshold-free onset soft-Dice, cursor velocity R^2, their harmonic-mean
 ``eval/score`` (the checkpoint monitor, max mode), cursor pixel MAE, label MAE
 (on ``decode``'s clipped labels) and the smallest per-dimension z variance.
-Out of scope: the per-epoch reconstruction figure, and any ``parallel`` block
-other than one device (``parallel.sp`` raises as in the JAX package).
+The ``parallel:`` block's ``dp`` trains on that many ranks, one a device
+(parallel/config.py; the MMD over the global batch); ``parallel.sp`` raises
+as in the JAX package, ``tp`` as not ported. Out of scope: the per-epoch
+reconstruction figure.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ...data.pipeline import batched, hold_out_mapsets, pad_to_multiple, prefetch, signal_windows
+from ...data.pipeline import (
+    batched, count_signal_windows, hold_out_mapsets, pad_to_multiple, prefetch, signal_windows,
+)
 from ...nn.schedule import lr_at
 from ...signal.encoding import Channel
-from ...train.loop import FitArgs, Stage, check_single_device, fit
+from ...train.checkpoint import restore_train_state
+from ...train.loop import FitArgs, Stage, fit, parallel_context
 from ...train.state import TrainState
 from ...utils import dataclass_from_dict, load_yaml_config
 from ...utils.device import resolve_device
@@ -83,40 +88,54 @@ def run(
     resume_from: str | None = None,
     device: torch.device | str = "cuda",
     on_step: Optional[Callable[[int, dict], None]] = None,
+    devices: Optional[Sequence[torch.device | str]] = None,
 ) -> TrainState:
     """train the chart autoencoder as ``config`` (a YAML file, by default the
     package's config.yml, or the parsed dict) says, on ``device`` (a CUDA card
     unless ``cpu`` is asked for); ``on_step(step, metrics)`` runs after every
-    step"""
+    step (in every rank when the run is spread); ``devices`` and the return
+    of a spread run as in models/diffusion/fit.py ``run``"""
     device = resolve_device(device, "train")
     cfg = config if isinstance(config, dict) else load_yaml_config(config or CONFIG)
     model_args = dataclass_from_dict(LatentModelArgs, cfg.get("model", {}))
     train_args = dataclass_from_dict(LatentTrainArgs, cfg.get("train", {}))
     data_args = dataclass_from_dict(LatentDataArgs, cfg.get("data", {}))
     fit_args = dataclass_from_dict(FitArgs, cfg.get("fit", {}))
-    parallel = cfg.get("parallel") or {}
-    if parallel.get("sp", 1) not in (1, None):
+    par, device = parallel_context(cfg, data_args.batch_size, device, devices)
+    if par.sp_axis is not None:
         raise ValueError("parallel.sp applies to the denoiser stage only (its backbone is "
                          "sequence-parallel-aware); this stage scales via dp/tp")
-    check_single_device(parallel)
     chunk2 = 2 * model_args.chunk_size
     if data_args.seq_len % chunk2:
         raise ValueError(f"seq_len {data_args.seq_len} must be a multiple of {chunk2}")
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    if par.needs_launch:
+        par.launch(run, cfg, resume_from, device, on_step, devices)
+        state, _ = init_latent_training(model_args, train_args, fit_args.seed, device, dtype)
+        return restore_train_state(Path(fit_args.run_dir) / "last", state)
 
     train_sets, val_sets = hold_out_mapsets(
         Path(data_args.data_dir), "*.map.npy", data_args.max_val_count, data_args.max_val_frac,
     )
-    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     state, train_step = init_latent_training(model_args, train_args, fit_args.seed, device,
-                                             dtype)
+                                             dtype, par)
+
+    # multi-host: every host's epoch truncated to the same step count
+    lockstep = par.lockstep_steps(count_signal_windows(
+        train_sets, data_args.seq_len, data_args.max_per_map, shard=par.input_shard,
+    )) if par.process_count > 1 else None
 
     def train_stream(epoch: int) -> Iterator[Batch]:
         stream = signal_windows(
             train_sets, data_args.seq_len, shuffle_buffer=data_args.shuffle_buffer,
             max_per_map=data_args.max_per_map, seed=fit_args.seed + epoch,
+            shard=par.input_shard,
         )
-        for b in prefetch(batched(stream, data_args.batch_size)):
-            yield Batch(*(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in b))
+        batches = par.lockstep_stream(prefetch(batched(stream, par.local_batch_size)),
+                                      lockstep)
+        for b in batches:
+            yield Batch(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                          for x in par.shard_batch(b)))
 
     bucket = chunk2 * BUCKET_CHUNKS
 
@@ -155,4 +174,4 @@ def run(
         lr_schedule=lambda step: lr_at(step, train_args.opt.lr, train_args.opt.schedule),
         on_step=on_step,
     )
-    return fit(stage, fit_args, resume_from)
+    return fit(stage, fit_args, resume_from, par)

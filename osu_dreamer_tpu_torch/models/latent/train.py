@@ -15,10 +15,19 @@ The loss's seven draws (prior normal, s noise, z noise, s-mask uniform,
 s replacement normal, span uniform, start uniform) come from the state's
 generator unless given as ``LatentDraws`` (the parity tests draw them the
 JAX way).
+
+Data-parallel steps (``par``): the draws are made at the global batch and
+each rank takes its rows (the MMD's prior stays whole); the style codes are
+gathered over the data ranks, so the MMD runs over the global batch as GSPMD
+computes it in the JAX package, and the loss components are all-reduced into
+their global values (the label loss as a global sum over a global count).
+Every rank so holds the same loss; the gradients are averaged over the
+ranks. The style swap stays local: a pair is the two halves of one window.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from ...nn.mmd import mmd_imq
+from ...parallel.collectives import all_gather_rows, all_reduce_sum
 from ...signal.constants import HIT_DIM
 from ...train.state import OptimizerArgs, TrainState, make_optimizer
 from .model import LatentModel, LatentModelArgs
@@ -112,18 +122,26 @@ def latent_loss(
     generator: torch.Generator | None = None,
     train: bool = True,
     draws: LatentDraws | None = None,
+    par=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], torch.Tensor]:
-    """-> (loss components (11,), aux metrics, s_reg loss)"""
+    """-> (loss components (11,), aux metrics, s_reg loss); under ``par``
+    ``batch`` is this rank's rows and ``draws`` are at the global batch"""
     audio = _split_halves(batch.audio)
     chart = _split_halves(batch.chart)
     labels = batch.labels.repeat_interleave(2, dim=0)
     B2 = chart.shape[0]
+    group = par.data_group if par is not None else None
+    n_data = par.n_data if par is not None else 1
 
     z, s = model.encode_chart(chart)
     if draws is None:
-        draws = draw_latent(B2, s.shape[-1], z.shape[1], z.shape[2], generator, chart.device)
+        draws = draw_latent(B2 * n_data, s.shape[-1], z.shape[1], z.shape[2], generator,
+                            chart.device)
 
-    s_reg = mmd_imq(s, draws.prior)
+    s_reg = mmd_imq(all_gather_rows(s.float(), group), draws.prior)
+    if par is not None:
+        draws = draws._replace(**{k: par.take_rows(getattr(draws, k), B2)
+                                  for k in LatentDraws._fields if k != "prior"})
     s = _swap_style_pairs(s)
 
     s_masked = torch.zeros(B2, dtype=torch.bool, device=chart.device)
@@ -160,7 +178,15 @@ def latent_loss(
     # labels, skipping rows whose style was replaced by a prior sample
     label_err = ((pred_labels.float() - labels) ** 2).mean(dim=1)
     kept = ~s_masked
-    label_loss = torch.where(kept, label_err, 0.0).sum() / kept.sum().clamp_min(1)
+    label_sum, label_count = torch.where(kept, label_err, 0.0).sum(), kept.sum().float()
+    if group is not None:
+        # the global means of the data ranks' equal shares; the label loss
+        # over the global count of kept rows
+        local = torch.stack([*hit_losses, *cursor_losses, label_sum, label_count])
+        total = all_reduce_sum(local, group)
+        hit_losses, cursor_losses = total[:7] / n_data, total[7:10] / n_data
+        label_sum, label_count = total[10], total[11]
+    label_loss = label_sum / label_count.clamp_min(1)
 
     components = torch.stack([*hit_losses, *cursor_losses, label_loss])
     aux = {name: components[i] for i, name in enumerate(LOSS_COMPONENTS)}
@@ -168,34 +194,48 @@ def latent_loss(
     return components, aux, s_reg
 
 
-def make_train_step(args: LatentTrainArgs):
+@functools.cache
+def _loss_weights(device: torch.device) -> torch.Tensor:
+    """LOSS_WEIGHTS on ``device``, copied there once"""
+    return torch.from_numpy(LOSS_WEIGHTS).to(device)
+
+
+def step_gradients(state: TrainState, batch: Batch, args: LatentTrainArgs,
+                   draws: LatentDraws | None = None, par=None
+                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor], list[torch.Tensor]]:
+    """one step's loss components (detached), metrics and parameter
+    gradients (averaged over the ranks under ``par``), each component
+    normalised by its running magnitude in the state (the raw components on
+    the first step) -> (components, metrics, gradients)"""
+    params = list(state.model.parameters())
+    components, aux, s_reg = latent_loss(state.model, batch, args, state.generator, True,
+                                         draws, par)
+    detached = components.detach()
+    ema = torch.where(state.loss_ema_ready, state.loss_ema, detached)
+    total = (_loss_weights(detached.device) * components / ema.clamp_min(1e-8)).sum()
+    total = total + args.s_reg_weight * s_reg
+    aux["loss"] = total
+    # the audio encoder's last downsample feeds only encode-latents' h: its
+    # gradient is zero, as JAX's
+    grads = list(torch.autograd.grad(total, params, materialize_grads=True))
+    if par is not None:
+        grads = par.average_gradients(grads)
+    return detached, {k: v.detach() for k, v in aux.items()}, grads
+
+
+def make_train_step(args: LatentTrainArgs, par=None):
     """-> step(state, batch, draws=None) -> metrics: one update of the state
-    in place (loss gradient, clip + AdamW, loss EMA, step + 1)"""
-    weights: dict[torch.device, torch.Tensor] = {}
+    in place (loss gradient, clip + AdamW, loss EMA, step + 1); under ``par``
+    ``batch`` is this rank's rows and ``draws`` are global"""
 
     def train_step(state: TrainState, batch: Batch, draws: LatentDraws | None = None) -> dict:
-        params = list(state.model.parameters())
-        components, aux, s_reg = latent_loss(state.model, batch, args, state.generator, True,
-                                             draws)
-        detached = components.detach()
-        dev = detached.device
-        if dev not in weights:
-            weights[dev] = torch.from_numpy(LOSS_WEIGHTS).to(dev)
-        # each component normalised by its running magnitude; the first step
-        # falls back to the raw components
-        ema = torch.where(state.loss_ema_ready, state.loss_ema, detached)
-        total = (weights[dev] * components / ema.clamp_min(1e-8)).sum()
-        total = total + args.s_reg_weight * s_reg
-        aux["loss"] = total
-        # the audio encoder's last downsample feeds only encode-latents' h:
-        # its gradient is zero, as JAX's
-        grads = torch.autograd.grad(total, params, materialize_grads=True)
-        state.opt.step(list(grads))
+        detached, metrics, grads = step_gradients(state, batch, args, draws, par)
+        state.opt.step(grads)
         state.loss_ema = torch.where(state.loss_ema_ready,
                                      state.loss_ema * 0.99 + detached * 0.01, detached)
         state.loss_ema_ready = torch.ones_like(state.loss_ema_ready)
         state.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        return metrics
 
     return train_step
 
@@ -206,10 +246,11 @@ def init_latent_training(
     seed: int,
     device: torch.device | str,
     dtype: torch.dtype,
+    par=None,
 ):
     """-> (state, train_step). The parameters are drawn on the CPU from
-    ``seed`` (flax's initialisation); the steps' generator lives on
-    ``device``, seeded ``seed + 1``; no EMA model"""
+    ``seed`` (flax's initialisation, the same on every rank); the steps'
+    generator lives on ``device``, seeded ``seed + 1``; no EMA model"""
     model = LatentModel(model_args, dtype).init_params(torch.Generator().manual_seed(seed))
     model = model.to(device)
     state = TrainState(
@@ -221,4 +262,4 @@ def init_latent_training(
         loss_ema=torch.ones(len(LOSS_COMPONENTS), device=device),
         loss_ema_ready=torch.zeros((), dtype=torch.bool, device=device),
     )
-    return state, make_train_step(train_args)
+    return state, make_train_step(train_args, par)

@@ -7,6 +7,9 @@ dropout (each of the 5 labels independently replaced by -1 with probability
 0.2 while training), AdamW with optax's semantics and an EMA copy updated
 every step. ``t``, ``s0`` and the dropout mask are drawn from the state's
 generator unless given (the parity tests inject them drawn the JAX way).
+Data-parallel steps (``par``): the three draws are made at the global batch
+and each rank takes its rows; the metrics are averaged over the data ranks
+and the gradients over all ranks.
 
 The validation suite on the EMA model (``evaluate_style``) draws a stack of
 samples per label row and scores it against the real codes
@@ -50,22 +53,28 @@ def style_loss(
     t: torch.Tensor | None = None,
     s0: torch.Tensor | None = None,
     drop: torch.Tensor | None = None,
+    par=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """-> (loss, {"loss", "osl", "del", "u_mape"}); ``t`` (B,), ``s0`` (B, S)
-    and the label-dropout mask ``drop`` (B, NUM_LABELS) are drawn from
+    """-> (loss, {"loss", "osl", "del", "u_mape"}) over this rank's rows;
+    ``t`` (B,), ``s0`` (B, S) and the label-dropout mask ``drop`` (B,
+    NUM_LABELS), at the global batch under ``par``, are drawn from
     ``generator`` unless given (no dropout unless ``train``)"""
     B, dev = s1.shape[0], s1.device
+    n = par.n_data if par is not None else 1
+    take = (lambda x: par.take_rows(x, B)) if par is not None else (lambda x: x)
     if t is None:
-        t = stratified_logit_normal_t(B, generator, dev)
+        t = stratified_logit_normal_t(B * n, generator, dev)
     s1 = s1.float()
     if s0 is None:
-        s0 = torch.randn(s1.shape, generator=generator, device=dev)
+        s0 = torch.randn((B * n, s1.shape[1]), generator=generator, device=dev)
+    t, s0 = take(t), take(s0)
     st = s0 + t[:, None] * (s1 - s0)
 
     if train and args.label_drop_prob > 0:
         if drop is None:
-            drop = torch.rand(labels.shape, generator=generator, device=dev) < args.label_drop_prob
-        labels = torch.where(drop, torch.full_like(labels, -1.0), labels)
+            drop = torch.rand((B * n, labels.shape[1]), generator=generator,
+                              device=dev) < args.label_drop_prob
+        labels = torch.where(take(drop), torch.full_like(labels, -1.0), labels)
 
     u_pred, v_pred = model(st, labels)
     v_pred = v_pred.float()
@@ -85,21 +94,32 @@ def style_loss(
     return loss, {"loss": loss, "osl": osl, "del": del_, "u_mape": u_mape}
 
 
-def make_train_step(args: StyleTrainArgs):
+def step_gradients(model: StyleModel, batch, args: StyleTrainArgs,
+                   generator: torch.Generator | None = None, t=None, s0=None, drop=None,
+                   par=None) -> tuple[dict[str, torch.Tensor], list[torch.Tensor]]:
+    """one step's metrics (averaged over the data ranks) and parameter
+    gradients (averaged over all ranks) -> (metrics, gradients)"""
+    s, labels = batch
+    loss, aux = style_loss(model, s, labels, args, generator, t=t, s0=s0, drop=drop, par=par)
+    grads = list(torch.autograd.grad(loss, list(model.parameters())))
+    if par is None:
+        return {k: v.detach() for k, v in aux.items()}, grads
+    return par.mean_over_data(aux), par.average_gradients(grads)
+
+
+def make_train_step(args: StyleTrainArgs, par=None):
     """-> step(state, (s, labels), t=None, s0=None, drop=None) -> metrics:
     one update of the state in place (loss gradient, clip + AdamW, EMA,
-    step + 1)"""
+    step + 1); under ``par`` the batch is this rank's rows and the draws are
+    global"""
 
     def train_step(state: TrainState, batch, t=None, s0=None, drop=None) -> dict:
-        s, labels = batch
-        params = list(state.model.parameters())
-        loss, aux = style_loss(state.model, s, labels, args, state.generator, t=t, s0=s0,
-                               drop=drop)
-        grads = torch.autograd.grad(loss, params)
-        state.opt.step(list(grads))
+        metrics, grads = step_gradients(state.model, batch, args, state.generator, t, s0, drop,
+                                        par)
+        state.opt.step(grads)
         ema_update(state.ema_model, state.model, args.ema_decay)
         state.step += 1
-        return {k: v.detach() for k, v in aux.items()}
+        return metrics
 
     return train_step
 
@@ -110,6 +130,7 @@ def init_style_training(
     seed: int,
     device: torch.device | str,
     dtype: torch.dtype,
+    par=None,
 ):
     """-> (state, train_step). The parameters are drawn on the CPU from
     ``seed`` (flax's initialisation, the same on every device); the steps'
@@ -124,7 +145,7 @@ def init_style_training(
         ema_model=ema,
         generator=torch.Generator(device=device).manual_seed(seed + 1),
     )
-    return state, make_train_step(train_args)
+    return state, make_train_step(train_args, par)
 
 
 # ------------------------------------------------------------ validation --

@@ -8,7 +8,10 @@ embedding, softmax attention, output projection. ``attention_route``
 holds (and, on the card, the kernels take the shape) the attention goes
 straight off the packed projection through ``fused_norm_rope_attention``
 (forward and backward kernels); elsewhere it normalises and rotates here and
-takes the forward-only ``long_flash_attention`` (ops/long_attention.py). On
+takes the forward-only ``long_flash_attention`` (ops/long_attention.py).
+With a sequence-parallel group (``sp``) the route is not asked: q and k are
+normalised and rotated here at the shard's global offset and go through
+``ring_attention`` (ops/ring_attention.py), as in the JAX package. On
 the FiLM path the norm, FiLM, add and qkv projection run as one fused
 prologue (ops/film_qkv.py) where ``prologue_ok`` holds: the JAX package's
 opt-in setting ``OSU_DREAMER_FUSED_PROLOGUE=1`` and its feasibility rule.
@@ -24,6 +27,8 @@ from torch import nn
 from ..ops.film_qkv import feasible_bwd_tile, feasible_fwd_tile, film_qkv
 from ..ops.fused_attention import attention_route, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
+from ..ops.ring_attention import ring_attention
+from ..parallel.collectives import group_rank
 from .blocks import Dense
 from .norm import rms_norm
 
@@ -61,10 +66,12 @@ class RoPEAttention(nn.Module):
         x: torch.Tensor,
         film: tuple[torch.Tensor, torch.Tensor] | None = None,
         add: torch.Tensor | None = None,
+        sp=None,
     ) -> torch.Tensor:
         """``film=(scale, shift)`` (each (B, C)) applies the caller's pre-norm
         FiLM before the qkv projection; ``add`` is a position-local stream
-        added after it"""
+        added after it; ``sp``: the sequence-parallel group ``x``'s length is
+        sharded over (this rank's span of the window)"""
         dt = self.dtype
         B, L, C = x.shape
         H, D = self.n_heads, self.head_dim
@@ -80,6 +87,12 @@ class RoPEAttention(nn.Module):
             if add is not None:
                 h = h + add.to(dt)
             qkv = self.qkv(h)
+        if sp is not None:
+            q, k, v = (t.reshape(B, L, H, D) for t in qkv.split(H * D, dim=-1))
+            offset = group_rank(sp) * L
+            q = rope(rms_norm(q, self.q_gamma), offset)
+            k = rope(rms_norm(k, self.k_gamma), offset)
+            return self.out(ring_attention(q, k, v, sp).reshape(B, L, H * D))
         if attention_route(L, H, D, x.device.type) == "fused":
             return self.out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
         q, k, v = qkv.split(H * D, dim=-1)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.film_layer import film_layer
+from ..ops.ring_attention import halo_exchange
 from ..ops.swiglu import swiglu
 from .norm import RMSNorm
 
@@ -124,8 +125,17 @@ class SwiGLU(nn.Module):
         return (self.dw_kernel, self.dw_bias, self.vg_kernel, self.vg_bias,
                 self.out_kernel, self.out_bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x.to(self.dtype), *self.weights())
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """``sp``: the sequence-parallel group ``x``'s length is sharded
+        over. The kernel then runs on the shard with ``radius`` halo frames
+        from each neighbour (``halo_exchange``) and the shard's rows are
+        kept: every stage after the depthwise conv is per frame, so they are
+        the unsharded rows"""
+        x = x.to(self.dtype)
+        if sp is None:
+            return swiglu(x, *self.weights())
+        r = (self.dw_kernel.shape[0] - 1) // 2
+        return swiglu(halo_exchange(x, r, sp), *self.weights())[:, r:r + x.shape[1]]
 
 
 class FilmStack(nn.Module):

@@ -65,10 +65,13 @@ def attention_route(L: int, n_heads: int, head_dim: int, device_type: str) -> st
     return "fused" if fits and L <= MAX_KERNEL_LEN else "long"
 
 
-def rope_tables(L: int, D: int, device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin), each (L, D/2) in ``dtype``: f32 angles rounded once"""
+def rope_tables(L: int, D: int, device, dtype: torch.dtype,
+                offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (L, D/2) in ``dtype`` for positions ``offset`` ..
+    ``offset + L - 1``: f32 angles rounded once"""
     inv_freq = 10000.0 ** (torch.arange(0, D, 2, dtype=torch.float32, device=device) / -D)
-    angles = torch.arange(L, dtype=torch.float32, device=device)[:, None] * inv_freq[None, :]
+    positions = torch.arange(L, dtype=torch.float32, device=device) + offset
+    angles = positions[:, None] * inv_freq[None, :]
     return angles.cos().to(dtype), angles.sin().to(dtype)
 
 
@@ -92,12 +95,13 @@ def kernel_gammas(q_gamma: torch.Tensor, k_gamma: torch.Tensor,
         owner=q_gamma)
 
 
-def rope(x: torch.Tensor) -> torch.Tensor:
-    """rotary position embedding over (B, L, H, D) with even D"""
+def rope(x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """rotary position embedding over (B, L, H, D) with even D; ``offset``
+    shifts the positions (a sequence-parallel shard's global index)"""
     _, L, _, D = x.shape
     if D % 2:
         raise ValueError("head_dim must be even")
-    cos, sin = rope_tables(L, D, x.device, x.dtype)
+    cos, sin = rope_tables(L, D, x.device, x.dtype, offset)
     cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

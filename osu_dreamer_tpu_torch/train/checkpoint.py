@@ -82,15 +82,17 @@ def read_progress(path: str | Path) -> dict[str, int]:
 class BestCheckpointKeeper:
     """the single best checkpoint by a monitored metric plus a rolling
     ``last`` for resume (saved at most every ``min_save_interval_s``; a new
-    best always saves)"""
+    best always saves). ``write`` False (a rank other than 0): tracks the
+    best metric and writes nothing"""
 
     def __init__(self, run_dir: str | Path, monitor: str, mode: str = "min",
-                 min_save_interval_s: float = 0.0):
+                 min_save_interval_s: float = 0.0, write: bool = True):
         if mode not in ("min", "max"):
             raise ValueError(f"monitor mode must be min or max, got {mode!r}")
         self.run_dir = Path(run_dir)
         self.monitor, self.mode = monitor, mode
         self.min_save_interval_s = min_save_interval_s
+        self.write = write
         self._last_save_t = -float("inf")
         self.best_metric: Optional[float] = None
         best_meta = self.best_path / _META_FILE
@@ -116,6 +118,10 @@ class BestCheckpointKeeper:
             or (self.mode == "max" and value > self.best_metric)
         )
         now = time.monotonic()
+        if not self.write:
+            if improved:
+                self.best_metric = value
+            return improved
         if not improved and now - self._last_save_t < self.min_save_interval_s:
             return False
         save_train_checkpoint(self.last_path, state, hparams, value, progress)

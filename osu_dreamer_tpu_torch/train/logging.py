@@ -10,8 +10,14 @@ from typing import Any, Mapping
 
 
 class MetricsLogger:
-    def __init__(self, run_dir: str | Path):
+    """``write`` False (a rank other than 0): logs nothing"""
+
+    def __init__(self, run_dir: str | Path, write: bool = True):
         self.run_dir = Path(run_dir)
+        self.write = write
+        self._writer = None
+        if not write:
+            return
         self.run_dir.mkdir(parents=True, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
@@ -21,6 +27,8 @@ class MetricsLogger:
             self._writer = None
 
     def scalars(self, values: Mapping[str, Any], step: int, prefix: str = "") -> None:
+        if not self.write:
+            return
         for name, value in values.items():
             tag = f"{prefix}{name}" if prefix else name
             v = float(value)

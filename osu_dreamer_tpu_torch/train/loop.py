@@ -1,10 +1,18 @@
 """Generic fit loop: epochs of steps, validation, checkpoints, early stop.
 
-Counterpart of osu_dreamer_tpu/train/loop.py on one device: per-step
-logging (train/ prefix), validation every ``val_every`` epochs (and on the
-final one), best-by-metric checkpointing with a rolling ``last``, early
-stopping, exact resume from the stored stream position. ``max_steps`` stops
-a run after that many steps.
+Counterpart of osu_dreamer_tpu/train/loop.py: per-step logging (train/
+prefix), validation every ``val_every`` epochs (and on the final one),
+best-by-metric checkpointing with a rolling ``last``, early stopping, exact
+resume from the stored stream position. ``max_steps`` stops a run after that
+many steps.
+
+In a run spread over ranks (``par``) every rank runs the loop in lockstep:
+rank 0 alone validates (its metrics are broadcast, so early stopping agrees)
+and writes the logs and checkpoints, the others waiting at a barrier after
+each write; every rank resumes from the same checkpoint; at the end the
+ranks' parameters must be equal bit for bit. A failing rank raises at once
+(its final save is left out, since the other ranks are not there to meet
+it).
 """
 
 from __future__ import annotations
@@ -14,8 +22,13 @@ import time
 from contextlib import nullcontext
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional, Sequence
 
+import torch
+
+from ..parallel.config import ParallelArgs, Parallelism, build_parallelism
+from ..parallel.distributed import visible_devices
+from ..utils.config import dataclass_from_dict
 from .checkpoint import BestCheckpointKeeper, read_progress, restore_train_state
 from .logging import MetricsLogger
 from .profiling import StepTimer, device_trace
@@ -54,25 +67,33 @@ class Stage:
     on_step: Optional[Callable[[int, dict], None]] = None
 
 
-def check_single_device(parallel: dict) -> None:
-    """accept only a ``parallel`` block that means one device"""
-    unsupported = {
-        key: value for key, value in parallel.items()
-        if not ((key == "dp" and value in (-1, 1)) or (key in ("tp", "sp") and value == 1)
-                or (key in ("coordinator", "process_id") and value is None)
-                or (key == "num_processes" and value in (None, 1)))
-    }
-    if unsupported:
-        raise NotImplementedError(
-            f"parallel training is not ported (this port trains on one device): {unsupported}"
-        )
+def parallel_context(cfg: dict, batch_size: int, device: torch.device,
+                     devices: Optional[Sequence[torch.device | str]] = None
+                     ) -> tuple[Parallelism, torch.device]:
+    """a fit's ``parallel:`` block resolved over ``devices`` (by default
+    every visible device of ``device``'s type) -> (the context, the device
+    this process trains on: its rank's inside a rank, else ``device``)"""
+    par = build_parallelism(dataclass_from_dict(ParallelArgs, cfg.get("parallel") or {}),
+                            batch_size, devices or visible_devices(device))
+    return par, par.device if par.rank is not None else device
 
 
-def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> TrainState:
+def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None,
+        par: Optional[Parallelism] = None) -> TrainState:
     run_dir = Path(args.run_dir)
-    logger = MetricsLogger(run_dir / "tb")
+    spread = par is not None and par.world_size > 1
+    writer = par is None or par.is_writer
+    say = print if writer else (lambda *a, **k: None)
+    logger = MetricsLogger(run_dir / "tb", write=writer)
     keeper = BestCheckpointKeeper(run_dir, args.monitor, args.monitor_mode,
-                                  args.save_last_every_s)
+                                  args.save_last_every_s, write=writer)
+
+    def save(metrics: dict[str, float]) -> bool:
+        improved = keeper.update(state, stage.hparams, metrics, progress)
+        if spread:
+            par.barrier()
+        return improved
+
     state = stage.state
     start_epoch = skip_batches = 0
     if resume_from:
@@ -80,8 +101,8 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> Train
         prog = read_progress(resume_from)
         start_epoch = int(prog.get("epoch", 0))
         skip_batches = int(prog.get("batch_in_epoch", 0))
-        print(f"resumed from {resume_from} at step {state.step}"
-              + (f" (epoch {start_epoch}, {skip_batches} batches in)" if prog else ""))
+        say(f"resumed from {resume_from} at step {state.step}"
+            + (f" (epoch {start_epoch}, {skip_batches} batches in)" if prog else ""))
 
     best = keeper.best_metric
     stale_epochs = 0
@@ -89,6 +110,7 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> Train
     stop = False
     timer = StepTimer()
     progress = {"epoch": epoch, "batch_in_epoch": skip_batches}
+    failed = True
     try:
         while not stop and (args.max_epochs < 0 or epoch < args.max_epochs):
             epoch_t0 = time.time()
@@ -139,19 +161,21 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> Train
             run_val = (epoch + 1) % max(1, args.val_every) == 0 or is_final
             val_metrics: dict[str, float] = {}
             if run_val and stage.validate is not None:
-                val_metrics = stage.validate(state)
+                val_metrics = stage.validate(state) if writer else {}
+                if spread:
+                    val_metrics = par.broadcast(val_metrics)
                 logger.scalars(val_metrics, state.step)
             # after a completed epoch e a restart begins cleanly at epoch e+1;
             # a max_steps stop mid-epoch keeps the mid-epoch position
             if epoch_complete:
                 progress = {"epoch": epoch + 1, "batch_in_epoch": 0}
-            improved = keeper.update(state, stage.hparams, val_metrics, progress)
+            improved = save(val_metrics)
             logger.flush()
             monitored = val_metrics.get(args.monitor)
-            print(f"[{stage.name}] epoch {epoch}: {n_batches} steps in "
-                  f"{time.time() - epoch_t0:.1f}s"
-                  + (f" | {args.monitor}={monitored:.5f}" if monitored is not None else "")
-                  + (" *best*" if improved else ""))
+            say(f"[{stage.name}] epoch {epoch}: {n_batches} steps in "
+                f"{time.time() - epoch_t0:.1f}s"
+                + (f" | {args.monitor}={monitored:.5f}" if monitored is not None else "")
+                + (" *best*" if improved else ""))
 
             if args.early_stop_patience > 0 and monitored is not None:
                 better = (best is None
@@ -164,15 +188,25 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None) -> Train
                 else:
                     stale_epochs += 1
                     if stale_epochs >= args.early_stop_patience:
-                        print(f"[{stage.name}] early stop: {args.monitor} stale for "
-                              f"{stale_epochs} epochs")
+                        say(f"[{stage.name}] early stop: {args.monitor} stale for "
+                            f"{stale_epochs} epochs")
                         stop = True
             epoch += 1
+        failed = False
     except KeyboardInterrupt:
-        print(f"[{stage.name}] interrupted at step {state.step}; last checkpoint kept")
+        failed = False
+        say(f"[{stage.name}] interrupted at step {state.step}; last checkpoint kept")
     finally:
         # always leave a current `last` with the exact stream position
-        keeper.min_save_interval_s = 0.0
-        keeper.update(state, stage.hparams, {}, progress)
+        if not (failed and spread):
+            keeper.min_save_interval_s = 0.0
+            save({})
         logger.close()
+    if spread:
+        tensors = list(state.model.parameters())
+        if state.ema_model is not None:
+            tensors += list(state.ema_model.parameters())
+        digest = par.check_replicas(tensors)
+        say(f"[{stage.name}] {par.world_size} ranks hold the same parameters "
+            f"(sha256 {digest[:16]})")
     return state

@@ -12,8 +12,10 @@ end, cli), drives a tiny slice
 autoencoder for two steps each through their ``fit.run`` (configs as dicts:
 reading YAML needs yaml), runs encode-latents on the latter's checkpoint,
 builds a dataset from a synthetic library (``generate_data``), trains a tiny
-style prior for two steps, and takes one attention forward and backward
-through the fused prologue (ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1).
+style prior for two steps, takes one attention forward and backward
+through the fused prologue (ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1),
+resolves a data-parallel config (parallel/) and runs ring attention and the
+halo exchange (ops/ring_attention.py) on one rank.
 The ``.odt`` reader and writer need msgpack, which is blocked here; they are
 exercised by tests/test_torch_export.py and on the card by chip_smoke.py, and
 so is the serving service, which loads a ``.odt`` (tests/test_torch_serve.py).
@@ -156,6 +158,17 @@ SCRIPT = textwrap.dedent(
 
     assert "osu_dreamer_tpu_torch.ops.film_qkv" in names
     assert {{"osu_dreamer_tpu_torch.serve.service", "osu_dreamer_tpu_torch.serve.http"}} <= set(names)
+    parallel = {{"osu_dreamer_tpu_torch.parallel." + m
+                for m in ("config", "distributed", "mesh", "collectives")}}
+    assert parallel | {{"osu_dreamer_tpu_torch.ops.ring_attention"}} <= set(names)
+    from osu_dreamer_tpu_torch.ops.ring_attention import halo_exchange, ring_attention
+    from osu_dreamer_tpu_torch.parallel import ParallelArgs, build_parallelism
+
+    par = build_parallelism(ParallelArgs(dp=2), 8, ["cpu", "cpu"])
+    assert par.world_size == 2 and par.needs_launch
+    qkv = [torch.randn(2, 6, 2, 8, generator=gen, requires_grad=True) for _ in range(3)]
+    ring_attention(*qkv, None).square().sum().backward()
+    assert halo_exchange(torch.ones(1, 4, 2), 2, None).shape == (1, 8, 2)
     os.environ["OSU_DREAMER_FUSED_PROLOGUE"] = "1"
     seen = []
     dispatch = attention.film_qkv

@@ -318,8 +318,9 @@ def test_batched_pairs_drops_the_last_partial_batch():
 
 def test_fit_style_cli_and_refusals(tmp_path, capsys):
     """the CLI trains on the CPU when asked and writes both checkpoints with
-    val/energy_dist monitored; a CUDA run without a card and parallelism
-    raise instead of running something else"""
+    val/energy_dist monitored; a CUDA run without a card, parallel blocks the
+    one CPU device cannot hold and tensor parallelism raise instead of running
+    something else"""
     from osu_dreamer_tpu_torch.cli import main
     from osu_dreamer_tpu_torch.models.style.fit import run
 
@@ -334,8 +335,19 @@ def test_fit_style_cli_and_refusals(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run(cfg)
-    for value in ({"dp": 2}, {"tp": 2}, {"num_processes": 2}):
-        with pytest.raises(NotImplementedError, match="parallel"):
+    # the JAX refusals over one CPU device; tensor parallelism names its slice;
+    # num_processes without a coordinator is ignored, as jax.distributed
+    # ignores it there: one process on one device
+    bad = [({"dp": 2}, ValueError, r"parallel.dp=2 but only 1 devices"),
+           ({"tp": 2}, NotImplementedError, r"parallel.tp > 1 is not ported.*Queue 1 item 8"),
+           ({"coordinator": "127.0.0.1:1", "num_processes": 2, "process_id": 0, "dp": 1},
+            ValueError, "divergent")]
+    for value, error, match in bad:
+        with pytest.raises(error, match=match):
             run({**cfg, "parallel": value}, device="cpu")
+    from osu_dreamer_tpu_torch.parallel import ParallelArgs, build_parallelism
+
+    par = build_parallelism(ParallelArgs(num_processes=2), cfg["data"]["batch_size"])
+    assert (par.world_size, par.process_count, par.input_shard) == (1, 1, None)
     with pytest.raises(ValueError, match="parallel.sp"):
         run({**cfg, "parallel": {"sp": 2}}, device="cpu")
