@@ -6,9 +6,10 @@
 from the root of a checkout. It needs one CUDA card, ``nvcc`` for sm_90a and
 nothing of JAX; without a card it exits nonzero and prints no result.
 
-1. Builds the eleven CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
-   per source, in parallel; printing the build seconds) and holds each
-   against its plain PyTorch version on the card (bf16; f32 for the
+1. Builds the CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
+   per source, in parallel; printing the build seconds: the twelve ported
+   TPU kernels in eleven entries, and the TP forms of K4, K6, K2 and K3)
+   and holds each against its plain PyTorch version on the card (bf16; f32 for the
    resonator; TF32 off; the SwiGLU and film-layer forward kernels against
    the plain version in f32, within 1.1x mean / 1.5x max of the plain bf16
    path's error, and bit-identical on rerun), timing both with CUDA events
@@ -43,7 +44,18 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    The backward kernels' and K9's reruns must be bit-identical.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
-   reduction of the split plans timed apart by torch.profiler.
+   reduction of the split plans timed apart by torch.profiler. Then (1e)
+   the four TP forms (parallel/tp.py) on two slices of the hidden units:
+   K4's and K6's at B128 L152 C512 (H 683 and 682), K2's and K3's at the
+   latent stage's four levels B64 L1026, L342, L114, L38 C128 (H 171 and
+   170): each slice's first phase against its plain version in f32 (its
+   f32 workspace, or dY partial and weight gradients, within GRAD_REL),
+   the slices' sums through the second phase against the f32 plain
+   one-rank function (the forwards within the f32 rule, beside the
+   one-rank kernel too; the backwards within GRAD_REL), the ranks'
+   finishes and every rerun bit-identical,
+   one rank's form (both phases on its own partials) timed by graph replay
+   beside its plain version and the bound of the slice's work.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -163,6 +175,21 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    step's error. Prints ms/step per rank (host clock after 2 warm-ups), the
    gradient all-reduce's ms and, under SP, the ring's and the halos' ms a
    step (CUDA events). Phases 4-7 set ``parallel: {dp: 1}``.
+10. Trains with tensor parallelism on two ranks, placed as in 9: (a)
+   ``fit-denoiser`` at the shipped config with ``parallel: {tp: 2}``
+   through ``fit.run`` (8 of the 16 heads and 683/682 of the 1365 hidden
+   units a rank), 6 steps, rank 0's gathered checkpoint read back into a
+   one-process state; (b) ``fit-latent`` at its shipped config with
+   ``tp: 2`` (171/170 of 341), 4 steps, in one spawn of the script's own
+   ranks with the one-step checks. Every step of every rank must launch
+   exactly the K4 and K6 TP forms and K9/K10 8 times each (no one-rank
+   K4/K6), the K2 and K3 TP forms 88 times in the latent step, and
+   nothing else; the ranks' losses must be equal, each fit checks its
+   replicas (the whole-model leaves on every rank, the slices across the
+   data group), and one step of each on random full-strength weights is
+   held to the f32 plain one-process step within PARALLEL_RATIO of the
+   one-process kernel step's error. Prints ms/step per rank (host clock
+   after 2 warm-ups) and the TP all-reduces' ms a step (CUDA events).
 
 Prints the card's name and power limit, one JSON line of per-kernel results,
 and last ``{"ok": true, "device": {...}}``. Any failure raises.
@@ -241,6 +268,13 @@ KERNEL_META = {
                         "osu_dreamer_tpu/ops/swiglu.py:313"),
     "film_qkv_fwd": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:122"),
     "film_qkv_bwd": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:235"),
+    "swiglu_tp": ("osu_dreamer_tpu_torch/csrc/swiglu.cu", "osu_dreamer_tpu/ops/swiglu.py:135"),
+    "swiglu_bwd_tp": ("osu_dreamer_tpu_torch/csrc/swiglu_bwd.cu",
+                      "osu_dreamer_tpu/ops/swiglu.py:492"),
+    "film_layer_tp": ("osu_dreamer_tpu_torch/csrc/film_layer.cu",
+                      "osu_dreamer_tpu/ops/film_layer.py:401"),
+    "film_layer_bwd_tp": ("osu_dreamer_tpu_torch/csrc/film_layer_bwd.cu",
+                          "osu_dreamer_tpu/ops/film_layer.py:443"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
@@ -1662,6 +1696,591 @@ def parallel_phase(dev, smi: str) -> dict[str, int]:
     return launches
 
 
+# phase 1e: the FFN kernels' TP forms (parallel/tp.py) on two slices of the
+# hidden units, at the shapes of phase 10's main path: K4 and K6 at the
+# denoiser's B128 L152 C512 (H 1365: 683 and 682 a rank), K2 and K3 at the
+# latent stage's four levels B64 L1026 / L342 / L114 / L38 C128 (H 341:
+# 171 and 170). In one process: each slice's first phase against its plain
+# version, the slices' sums through the second phase against the f32 plain
+# one-rank function (and beside the one-rank kernel), reruns bit-identical,
+# and one rank's form (both phases, its own partials unsummed) timed by
+# graph replay
+TP_FORMS = ("swiglu_tp", "swiglu_bwd_tp", "film_layer_tp", "film_layer_bwd_tp")
+TP_RANKS = 2
+TP_DENOISER = (128, 152, 512, 1365)  # B, L, C, H
+# a forward's first phase leaves its workspace, one f32 plane (the kernel
+# folds its hidden slices into it), held part by part to the forward cores'
+# f32 rule: K4's from x; K2's from the y it stores, and that y from x. (From
+# x, K2's sums of s^2 follow y's bf16 rounding, which the kernel and the
+# plain bf16 path round at other points: a full run read 1.73x the plain
+# path's max error there at 0.70x its mean, so the rule holds each stage.)
+WORKSPACE = ("s W_out partial", "sums of s^2 partial")
+TP_LATENT = (128, 341, ((64, 1026), (64, 342), (64, 114), (64, 38)))  # C, H, (B, L) a level
+
+
+def tp_slices(H: int, tp: int = TP_RANKS):
+    """per rank the splits of (vg_kernel, vg_bias, out_kernel) of H units"""
+    from osu_dreamer_tpu_torch.parallel.tp import Split, even_split
+
+    out = []
+    for r in range(tp):
+        lo, hi = even_split(H, tp, r)
+        out.append((Split(1, 2, 1, H, lo, hi), Split(0, 2, 1, H, lo, hi),
+                    Split(0, 1, 1, H, lo, hi)))
+    return out
+
+
+def f32_rule(what: str, got, plain, ref, yardstick: str = "plain bf16",
+             ratios: tuple[float, float] = (SLICE_MEAN_RATIO, SLICE_MAX_RATIO)) -> float:
+    """the forward cores' rule: ``got``'s error against the f32 ``ref``
+    within ``ratios`` (mean, max) of ``plain``'s -> got's max error"""
+    import torch
+
+    ek, ep = (got.float() - ref.float()).abs(), (plain.float() - ref.float()).abs()
+    log(f"{what}: vs the plain f32 version kernel mean {ek.mean().item():.4g} max "
+        f"{ek.max().item():.4g}, {yardstick} mean {ep.mean().item():.4g} max "
+        f"{ep.max().item():.4g} (limits {ratios[0]}x / {ratios[1]}x)")
+    if not (bool(torch.isfinite(got).all()) and ek.mean() <= ratios[0] * ep.mean()
+            and ek.max() <= ratios[1] * ep.max()):
+        raise RuntimeError(f"{what}: farther from the f32 version than the {yardstick}")
+    return ek.max().item()
+
+
+def workspace_rule(what: str, rows: int, C: int, got, plain, ref) -> None:
+    """a TP form's first-phase workspace (flat: s W_out, then the row sums
+    of s^2) by the forward cores' f32 rule, each part"""
+    from osu_dreamer_tpu_torch.ops.swiglu import split_partials
+
+    for name, *parts in zip(WORKSPACE, *(split_partials(b, rows, C) for b in (got, plain, ref))):
+        f32_rule(f"{what} {name}", *parts)
+
+
+def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi: str) -> None:
+    """phase 1e: the four TP forms (see TP_FORMS above); fills ``results``
+    with each form's first shape"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import film_layer as fl
+    from osu_dreamer_tpu_torch.ops import swiglu as sw
+
+    def equal_all(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def same_finish(what: str, done: list, again) -> None:
+        """the ranks' finishes on the same summed dY equal bit for bit, and
+        a rerun of rank 0's (into fresh outputs) equals them"""
+        rerun = tuple(t.clone() for t in again)
+        for i, out in enumerate(done[1:] + [rerun]):
+            diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(done[0], out)]
+            if not equal_all(done[0], out):
+                raise RuntimeError(f"{what}: {'a rerun' if i == len(done) - 1 else 'rank 1'} "
+                                   f"differs from rank 0's finish: max |diff| {diffs}, finite "
+                                   f"{[bool(torch.isfinite(t).all()) for t in out]}")
+
+    def summed(parts):
+        """the all-reduce of the ranks' dY partials, in place on each"""
+        total = sum(parts)
+        for t in parts:
+            t.copy_(total)
+
+    # ---- K4 and K6 at the denoiser's training shape ----
+    Bt, Lt, C, H = TP_DENOISER
+    K = 5
+    rows = Bt * Lt
+    x, go = rnd(Bt, Lt, C), rnd(Bt, Lt, C)
+    w = ffn(C, H)
+    w32 = [t.float() for t in w]  # the f32 parameters of training
+    splits = tp_slices(H)
+
+    def cut(weights, sp):
+        return (*weights[:2], *(s.take(t) for s, t in zip(sp, weights[2:5])), weights[5])
+
+    bufs, bufs32 = [], []
+    for r, sp in enumerate(splits):
+        ws, ws32 = cut(w, sp), cut(w32, sp)
+        buf = sw.swiglu_tp_partial_cuda(x, *ws[:5], H, TP_RANKS)
+        bufs.append(buf)
+        bufs32.append(sw.swiglu_tp_partial_plain(x.float(), *ws32[:5]))
+        workspace_rule(f"swiglu_tp B{Bt} L{Lt} C{C} slice {r} (H{ws[4].shape[0]}) first phase",
+                       rows, C, buf, sw.swiglu_tp_partial_plain(x, *ws[:5]), bufs32[-1])
+        if not torch.equal(sw.swiglu_tp_partial_cuda(x, *ws[:5], H, TP_RANKS), buf):
+            raise RuntimeError(f"swiglu_tp slice {r}: two launches differ")
+    total, total32 = bufs[0] + bufs[1], bufs32[0] + bufs32[1]
+    out = sw.swiglu_tp_finish_cuda(total, x, w[5], H)
+    if not torch.equal(sw.swiglu_tp_finish_cuda(total, x, w[5], H), out):
+        raise RuntimeError("swiglu_tp finish: two launches differ")
+    ref = sw.swiglu_plain(x.float(), *w32)
+    one = sw.swiglu_cuda(x, *w)
+    label = f"B{Bt} L{Lt} C{C} H{H} on 2 slices"
+    err = f32_rule(f"swiglu_tp {label}, summed and finished", out, sw.swiglu_plain(x, *w), ref)
+    f32_rule(f"swiglu_tp {label}, summed and finished", out, one, ref,
+             yardstick="one-rank kernel K4")
+    ws0 = cut(w, splits[0])
+
+    def k4_tp(x, *ws):
+        return sw.swiglu_tp_finish_cuda(sw.swiglu_tp_partial_cuda(x, *ws[:5], H, TP_RANKS), x,
+                                        ws[5], H)
+
+    def k4_tp_plain(x, *ws):
+        return sw.tp_out_plain(sw.swiglu_tp_partial_plain(x, *ws[:5]), x.shape, ws[5], H, x.dtype)
+
+    Hr = ws0[4].shape[0]
+    record("swiglu_tp", f"{label} (one rank's form: slice H{Hr}, its own partials)", 0,
+           graph_ms(k4_tp, (x, *ws0)), graph_ms(k4_tp_plain, (x, *ws0)), err,
+           ffn_flops(rows, C, Hr, K, 3, 1), moved_bytes(x, *ws0, out) + 2 * moved_bytes(bufs[0]))
+
+    dys, grads, finishes = [], [], []
+    for r, sp in enumerate(splits):
+        ws32 = cut(w32, sp)
+        dy, sg, fin = sw.swiglu_tp_bwd_cuda(x, *ws32[:5], go, total, H, TP_RANKS)
+        dy32, sg32 = sw.swiglu_tp_bwd_plain(x.float(), *ws32[:5], go.float(), total32, H)[:2]
+        dyp, sgp = sw.swiglu_tp_bwd_plain(x, *ws32[:5], go, total, H)[:2]
+        check_grads(f"swiglu_bwd_tp {label} slice {r} first phase",
+                    ("dY partial", "d_vg_kernel", "d_vg_bias", "d_out_kernel"),
+                    (dy.sum(0), *sg), (dy32.sum(0), *sg32), (dyp.sum(0), *sgp))
+        again = sw.swiglu_tp_bwd_cuda(x, *ws32[:5], go, total, H, TP_RANKS)
+        if not (torch.equal(again[0], dy) and equal_all(again[1], sg)):
+            raise RuntimeError(f"swiglu_bwd_tp slice {r}: two launches differ")
+        dys.append(dy)
+        grads.append(sg)
+        finishes.append(fin)
+    summed(dys)
+    done = [tuple(t.clone() for t in fin()) for fin in finishes]
+    same_finish("swiglu_bwd_tp", done, finishes[0]())
+    full = [torch.zeros_like(t) for t in w32[2:5]]
+    for sp, sg in zip(splits, grads):
+        for s, g, f in zip(sp, sg, full):
+            s.put(f, g)
+    dx, ddw, ddwb, dbout = done[0]
+    got = (dx, ddw, ddwb, *full, dbout)
+    names = ("dx", "d_dw_kernel", "d_dw_bias", "d_vg_kernel", "d_vg_bias", "d_out_kernel",
+             "d_out_bias")
+    worst = check_grads(f"swiglu_bwd_tp {label}, summed and finished", names, got,
+                        sw.swiglu_bwd_plain(x.float(), *w32[:5], go.float()),
+                        sw.swiglu_bwd_plain(x, *w32[:5], go))
+    k6 = sw.swiglu_bwd_cuda(x, *w32[:5], go)
+    log(f"swiglu_bwd_tp {label}: max |diff| to the one-rank K6 " + ", ".join(
+        f"{n} {(a.float() - b.float()).abs().max().item():.4g}" for n, a, b in zip(names, got, k6)))
+    ws0 = cut(w32, splits[0])
+
+    def k6_tp(x, *ws):
+        dy, sg, fin = sw.swiglu_tp_bwd_cuda(x, *ws[:5], ws[6], ws[7], H, TP_RANKS)
+        return (*sg, *fin())
+
+    def k6_tp_plain(x, *ws):
+        dy, sg, fin = sw.swiglu_tp_bwd_plain(x, *ws[:5], ws[6], ws[7], H)
+        return (*sg, *fin())
+
+    record("swiglu_bwd_tp", f"{label} (one rank's form: slice H{Hr}, its own dY)", 0,
+           graph_ms(k6_tp, (x, *ws0, go, total)), graph_ms(k6_tp_plain, (x, *ws0, go, total)),
+           worst, ffn_flops(rows, C, Hr, K, 8, 3),
+           moved_bytes(x, *ws0, go, total, *got) + 2 * moved_bytes(dys[0]))
+    del x, go, w, w32, bufs, bufs32, total, total32, out, ref, one, dys, grads, k6, got, full
+    torch.cuda.empty_cache()
+
+    # ---- K2 and K3 at the latent stage's four levels ----
+    C, H, levels = TP_LATENT
+    splits = tp_slices(H)
+    for i, (Bt, Lt) in enumerate(levels):
+        args = film_args(Bt, Lt, False, C)
+        x, scale, shift, gate, g1, g2, *w = args
+        go = rnd(Bt, Lt, C)
+        rows = Bt * Lt
+        label = f"B{Bt} L{Lt} C{C} H{H} on 2 slices"
+        f32args = [t.float() for t in args]
+        bufs, bufs32, ys = [], [], []
+        for r, sp in enumerate(splits):
+            ws, ws32 = cut(w, sp), cut(f32args[6:], sp)
+            buf, y = fl.film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, *ws[:5], H,
+                                                   TP_RANKS)
+            bufs32.append(fl.film_layer_tp_partial_plain(*f32args[:3], f32args[4], *ws32[:5]))
+            y_ref = sw.depthwise_conv(fl.film_in(*f32args[:3], f32args[4]), *f32args[6:8])
+            y_plain = sw.depthwise_conv(fl.film_in(x, scale, shift, g1), *w[:2])
+            f32_rule(f"film_layer_tp {label} slice {r} y", y, y_plain, y_ref)
+            workspace_rule(f"film_layer_tp {label} slice {r} first phase from its y", rows, C,
+                           buf, sw.tp_partial_plain(y, *ws[2:5]),
+                           sw.tp_partial_plain(y.float(), *ws32[2:5]))
+            again = fl.film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, *ws[:5], H,
+                                                  TP_RANKS)
+            if not (torch.equal(again[0], buf) and torch.equal(again[1], y)):
+                raise RuntimeError(f"film_layer_tp {label} slice {r}: two launches differ")
+            bufs.append(buf)
+            ys.append(y)
+        total, total32 = bufs[0] + bufs[1], bufs32[0] + bufs32[1]
+        out = fl.film_layer_tp_finish_cuda(total, x, gate, g2, w[5], H)
+        ref = fl.film_layer_plain(*f32args)
+        err = f32_rule(f"film_layer_tp {label}, summed and finished", out,
+                       fl.film_layer_plain(*args), ref)
+        f32_rule(f"film_layer_tp {label}, summed and finished", out, fl.film_layer_cuda(*args),
+                 ref, yardstick="one-rank kernel K2")
+        ws0 = cut(w, splits[0])
+        Hr = ws0[4].shape[0]
+
+        def k2_tp(x, scale, shift, gate, g1, g2, *ws):
+            buf, _ = fl.film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, *ws[:5], H,
+                                                   TP_RANKS)
+            return fl.film_layer_tp_finish_cuda(buf, x, gate, g2, ws[5], H)
+
+        def k2_tp_plain(x, scale, shift, gate, g1, g2, *ws):
+            buf = fl.film_layer_tp_partial_plain(x, scale, shift, g1, *ws[:5])
+            return fl.film_tp_out_plain(buf, x, gate, g2, ws[5], H)
+
+        f_args = (x, scale, shift, gate, g1, g2, *ws0)
+        record("film_layer_tp", f"{label} (one rank's form: slice H{Hr}, its own partials)", i,
+               graph_ms(k2_tp, f_args), graph_ms(k2_tp_plain, f_args), err,
+               ffn_flops(rows, C, Hr, 5, 3, 1),
+               moved_bytes(*f_args, out) + 2 * moved_bytes(bufs[0]) + moved_bytes(ys[0]))
+
+        dys, grads, reps, finishes = [], [], [], []
+        for r, sp in enumerate(splits):
+            ws, ws32 = cut(w, sp), cut(f32args[6:], sp)
+            dy, sg, rp, fin = fl.film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, *ws, go,
+                                                        total, ys[r], H, TP_RANKS)
+            dy32, sg32, rp32, _ = fl.film_layer_tp_bwd_plain(*f32args[:6], *ws32, go.float(),
+                                                             total32, H)
+            dyp, sgp, rpp, _ = fl.film_layer_tp_bwd_plain(x, scale, shift, gate, g1, g2, *ws, go,
+                                                          total, H)
+            check_grads(f"film_layer_bwd_tp {label} slice {r} first phase",
+                        ("dY partial", "d_vg_kernel", "d_vg_bias", "d_out_kernel", "dgate", "dg2",
+                         "d_out_bias"),
+                        (dy.sum(0), *sg, *rp), (dy32.sum(0), *sg32, *rp32),
+                        (dyp.sum(0), *sgp, *rpp))
+            again = fl.film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, *ws, go, total, ys[r],
+                                              H, TP_RANKS)
+            if not (torch.equal(again[0], dy) and equal_all(again[1], sg)
+                    and equal_all(again[2], rp)):
+                raise RuntimeError(f"film_layer_bwd_tp {label} slice {r}: two launches differ")
+            dys.append(dy)
+            grads.append(sg)
+            reps.append(rp)
+            finishes.append(fin)
+        summed(dys)
+        done = [tuple(t.clone() for t in fin()) for fin in finishes]
+        same_finish(f"film_layer_bwd_tp {label}", done, finishes[0]())
+        full = [torch.zeros_like(t) for t in f32args[8:11]]
+        for sp, sg in zip(splits, grads):
+            for s, g, f in zip(sp, sg, full):
+                s.put(f, g)
+        dx, dscale, dshift, dg1, ddw, ddwb = done[0]
+        dgate, dg2, dbout = reps[0]
+        got = (dx, dscale, dshift, dgate, dg1, dg2, ddw, ddwb, *full, dbout)
+        names = ("dx", "dscale", "dshift", "dgate", "dg1", "dg2", "d_dw_kernel", "d_dw_bias",
+                 "d_vg_kernel", "d_vg_bias", "d_out_kernel", "d_out_bias")
+        worst = check_grads(f"film_layer_bwd_tp {label}, summed and finished", names, got,
+                            fl.film_layer_bwd_plain(*f32args, go.float()),
+                            fl.film_layer_bwd_plain(*args, go))
+        k3 = fl.film_layer_bwd_cuda(*args, go)
+        log(f"film_layer_bwd_tp {label}: max |diff| to the one-rank K3 " + ", ".join(
+            f"{n} {(a.float() - b.float()).abs().max().item():.4g}"
+            for n, a, b in zip(names, got, k3)))
+
+        def k3_tp(x, scale, shift, gate, g1, g2, *ws):
+            dy, sg, rp, fin = fl.film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, *ws[:6],
+                                                        ws[6], ws[7], ws[8], H, TP_RANKS)
+            return (*sg, *rp, *fin())
+
+        def k3_tp_plain(x, scale, shift, gate, g1, g2, *ws):
+            dy, sg, rp, fin = fl.film_layer_tp_bwd_plain(x, scale, shift, gate, g1, g2, *ws[:6],
+                                                         ws[6], ws[7], H)
+            return (*sg, *rp, *fin())
+
+        b_args = (x, scale, shift, gate, g1, g2, *ws0, go, total, ys[0])
+        record("film_layer_bwd_tp", f"{label} (one rank's form: slice H{Hr}, its own dY)", i,
+               graph_ms(k3_tp, b_args), graph_ms(k3_tp_plain, b_args), worst,
+               ffn_flops(rows, C, Hr, 5, 9, 3),
+               moved_bytes(*b_args, *got) + 2 * moved_bytes(dys[0]))
+        del args, f32args, x, go, w, bufs, bufs32, ys, total, total32, out, ref, dys, got, k3
+    torch.cuda.empty_cache()
+    log(f"phase 1e: the four TP forms checked [{smi}]")
+
+
+# phase 10: tensor parallelism on two ranks, placed as phase 9's: (a)
+# fit-denoiser at the shipped config with tp 2 through fit.run (which spawns
+# its ranks), (b) fit-latent at its shipped config with tp 2 in one spawn of
+# the script's own ranks, with the one-step checks. Per rank and step the
+# kernels launch exactly as below (the TP forms, K9/K10 at 8 heads a rank,
+# no one-rank K4/K6 or K2/K3); each TP step stays within PARALLEL_RATIO of
+# the one-process kernel step's error against the f32 plain step
+TP_STEPS = 6
+TP_LATENT_STEPS = 4
+TP_DENOISER_LAUNCHES = {"swiglu_tp": 8, "swiglu_bwd_tp": 8, "fused_attention_fwd": 8,
+                        "fused_attention_bwd": 8}
+TP_LATENT_LAUNCHES = {"film_layer_tp": 88, "film_layer_bwd_tp": 88}
+
+
+def tp_model(model, devices: list[str], batch_size: int):
+    """a copy of the one-process ``model`` holding this rank's slices under
+    ``parallel: {tp: 2}`` -> (the copy, the parallel context)"""
+    import copy
+
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.nn.blocks import shard_tensor_parallel
+    from osu_dreamer_tpu_torch.parallel import ParallelArgs, build_parallelism
+
+    par = build_parallelism(ParallelArgs(tp=2), batch_size, devices)
+    sliced = copy.deepcopy(model)
+    if shard_tensor_parallel(sliced, par, devices[dist.get_rank()]) is None:
+        raise RuntimeError("phase 10: nothing of the model was split")
+    return sliced, par
+
+
+def whole_grads(model, grads) -> list:
+    """a tensor-parallel rank's gradients as the whole model's (gathered
+    over the model group)"""
+    from osu_dreamer_tpu_torch.parallel.tp import layout_of
+
+    layout = layout_of(model)
+    names = [n for n, _ in model.named_parameters()]
+    return [layout.gather(n, g) for n, g in zip(names, grads)]
+
+
+def denoiser_tp_check(cfg: dict, devices: list[str]) -> None:
+    """phase 10's one-step check of the denoiser at full width (B128 L152):
+    the tp 2 step's loss terms and gradients (gathered), within
+    PARALLEL_RATIO of the one-process kernel step's error against the f32
+    plain step on the same random full-strength weights, batch, t and x0
+    (in each rank; rank 0 compares)"""
+    import torch
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel, DiffusionModelArgs
+    from osu_dreamer_tpu_torch.models.diffusion.train import (
+        DiffusionTrainArgs, LatentBatch, step_gradients,
+    )
+    from osu_dreamer_tpu_torch.train.state import stratified_logit_normal_t
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    dev = torch.device(devices[dist.get_rank()])
+    md = cfg["model"]
+    model_args = dataclass_from_dict(DiffusionModelArgs, md)
+    train_args = dataclass_from_dict(DiffusionTrainArgs, cfg["train"])
+    bf16_model = DiffusionModel(model_args, torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    randomize_(bf16_model, gen)
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
+    batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
+                        z=z / z.square().mean(-1, keepdim=True).sqrt(),
+                        s=torch.randn(Bt, md["style_dim"], generator=gen, device=dev),
+                        labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    t_inj = stratified_logit_normal_t(Bt, gen, dev)
+    x0_inj = torch.randn(batch.z.shape, generator=gen, device=dev)
+    names = ("loss", "osl", "del", "u_mape")
+
+    def flat(metrics, grads):
+        return (torch.stack([metrics[k].float() for k in names]),
+                torch.cat([g.flatten().float() for g in grads]))
+
+    sliced, par = tp_model(bf16_model, devices, Bt)
+    metrics, grads = step_gradients(sliced, par.shard_batch(batch), train_args, None, t_inj,
+                                    x0_inj, par)
+    spread = flat(metrics, whole_grads(sliced, grads))
+    del sliced, grads
+    if dist.get_rank() == 0:
+        f32_model = DiffusionModel(model_args, torch.float32).to(dev)
+        f32_model.load_state_dict(bf16_model.state_dict())
+        with plain_ops():
+            ref = flat(*step_gradients(f32_model, batch, train_args, None, t_inj, x0_inj))
+        del f32_model
+        one = flat(*step_gradients(bf16_model, batch, train_args, None, t_inj, x0_inj))
+        check_step("phase 10 fit-denoiser tp 2", names, ref, spread, one,
+                   ratios=(PARALLEL_RATIO, PARALLEL_RATIO),
+                   labels=("tp 2 ranks", "one-process kernels"))
+    del bf16_model
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def latent_tp_check(cfg: dict, devices: list[str]) -> None:
+    """phase 10's one-step check of the latent stage at full width (B32
+    L2052), held as ``denoiser_tp_check`` holds the denoiser's, its 13 terms
+    pooled as in phase 5"""
+    import torch
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModel, LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import (
+        LOSS_COMPONENTS, LOSS_WEIGHTS, Batch, LatentTrainArgs, draw_latent, latent_loss,
+    )
+    from osu_dreamer_tpu_torch.parallel.tp import layout_of
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    dev = torch.device(devices[dist.get_rank()])
+    model_args = dataclass_from_dict(LatentModelArgs, cfg["model"])
+    train_args = dataclass_from_dict(LatentTrainArgs, cfg["train"])
+    bf16_model = LatentModel(model_args, torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    randomize_(bf16_model, gen)
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    batch = Batch(audio=torch.rand(Bt, Lt, 72, generator=gen, device=dev),
+                  chart=torch.rand(Bt, Lt, 9, generator=gen, device=dev),
+                  labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    draws = draw_latent(2 * Bt, model_args.style_dim, Lt // 2 // model_args.chunk_size,
+                        model_args.emb_dim, gen, dev)
+    weights = torch.from_numpy(LOSS_WEIGHTS).to(dev)
+
+    def terms_and_grads(model, batch, par=None):
+        comps, _, s_reg = latent_loss(model, batch, train_args, draws=draws, par=par)
+        total = (weights * comps / comps.detach().clamp_min(1e-8)).sum()
+        total = total + train_args.s_reg_weight * s_reg
+        grads = list(torch.autograd.grad(total, list(model.parameters()),
+                                         materialize_grads=True))
+        if par is not None:
+            grads = whole_grads(model, par.average_gradients(grads, layout_of(model)))
+        terms = torch.cat([comps.detach().float(), torch.stack([s_reg, total]).detach().float()])
+        return terms, torch.cat([g.flatten().float() for g in grads])
+
+    sliced, par = tp_model(bf16_model, devices, Bt)
+    spread = terms_and_grads(sliced, par.shard_batch(batch), par)
+    del sliced
+    if dist.get_rank() == 0:
+        f32_model = LatentModel(model_args, torch.float32).to(dev)
+        f32_model.load_state_dict(bf16_model.state_dict())
+        with plain_ops():
+            ref = terms_and_grads(f32_model, batch)
+        del f32_model
+        check_step("phase 10 fit-latent tp 2", (*LOSS_COMPONENTS, "s_reg", "loss"), ref, spread,
+                   terms_and_grads(bf16_model, batch), pool_terms=True,
+                   ratios=(PARALLEL_RATIO, PARALLEL_RATIO),
+                   labels=("tp 2 ranks", "one-process kernels"))
+    del bf16_model
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def reload_one_process(what: str, state, last: Path, steps: int) -> None:
+    """a tensor-parallel fit's ``last`` checkpoint (rank 0's, gathered) read
+    back into the one-process train ``state``: every tensor of its layout,
+    finite"""
+    import torch
+
+    from osu_dreamer_tpu_torch.train.checkpoint import restore_train_state
+
+    state = restore_train_state(last, state)
+    params = list(state.model.parameters())
+    if state.step != steps or not all(bool(torch.isfinite(p).all()) for p in params):
+        raise RuntimeError(f"{what}: the gathered checkpoint did not reload into a one-process "
+                           "state")
+    log(f"{what}: rank 0's gathered last checkpoint reloads into a one-process state "
+        f"({sum(p.numel() for p in params):,} parameters, step {state.step})")
+    del state, params
+    torch.cuda.empty_cache()
+
+
+def tp_rank(workdir: str, latent_cfg: dict, denoiser_cfg: dict, devices: list[str]) -> None:
+    """phase 10 (b) and the one-step checks, in each of two ranks: the tp 2
+    latent stage through its ``fit.run`` (finding the process group joined),
+    rank 0's checkpoint read back, then the checks"""
+    import torch
+    import torch.distributed as dist
+
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.reset_launches()
+    state = latent_fit.run(latent_cfg, device=devices[0], devices=devices,
+                           on_step=functools.partial(rank_probe,
+                                                     str(Path(workdir) / "probe_latent")))
+    del state
+    torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        reload_one_process("phase 10 fit-latent tp 2",
+                           latent_state(latent_cfg, torch.device(devices[0])),
+                           Path(latent_cfg["fit"]["run_dir"]) / "last",
+                           latent_cfg["fit"]["max_steps"])
+    dist.barrier()
+    denoiser_tp_check(denoiser_cfg, devices)
+    latent_tp_check(latent_cfg, devices)
+
+
+def latent_state(cfg: dict, dev):
+    """a one-process latent train state for ``cfg`` (bf16 compute)"""
+    import torch
+
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import LatentTrainArgs, init_latent_training
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    return init_latent_training(dataclass_from_dict(LatentModelArgs, cfg["model"]),
+                                dataclass_from_dict(LatentTrainArgs, cfg["train"]), 0, dev,
+                                torch.bfloat16)[0]
+
+
+def tp_phase(dev, smi: str) -> dict[str, int]:
+    """phase 10: tensor-parallel training on the card -> the kernel launches
+    of the two fits' ranks"""
+    import torch
+
+    from osu_dreamer_tpu_torch.data.synth import write_latent_corpus, write_signal_corpus
+    from osu_dreamer_tpu_torch.models.diffusion import fit as diffusion_fit
+    from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
+    from osu_dreamer_tpu_torch.parallel.distributed import backend_for, launch
+    from osu_dreamer_tpu_torch.utils import load_yaml_config
+
+    t_phase = time.perf_counter()
+    devices = ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0", "cuda:0"]
+    shared = backend_for([torch.device(d) for d in devices]) == "gloo"
+    log(f"phase 10: two tensor-parallel ranks on {devices}: " + (
+        "they share one card and talk over gloo (each all-reduce staged through the host)"
+        if shared else "one card each, over NCCL"))
+    workdir = ROOT / "build" / "smoke_tp"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    denoiser_cfg = load_yaml_config(diffusion_fit.CONFIG)
+    md = denoiser_cfg["model"]
+    write_latent_corpus(workdir / "latents", 64, 4, 152 * 12, md["a_dim"], md["emb_dim"],
+                        md["style_dim"], SEED)
+    denoiser_cfg["data"].update(data_dir=str(workdir / "latents"), max_per_map=-1,
+                                max_val_count=2)
+    denoiser_cfg["fit"].update(run_dir=str(workdir / "runs_denoiser"), max_steps=TP_STEPS,
+                               log_every=5)
+    denoiser_cfg["parallel"] = {"tp": 2}
+    latent_cfg = load_yaml_config(latent_fit.CONFIG)
+    write_signal_corpus(workdir / "signals", *LATENT_CORPUS, SEED)
+    latent_cfg["data"].update(data_dir=str(workdir / "signals"), max_per_map=-1,
+                              max_val_count=2)
+    latent_cfg["fit"].update(run_dir=str(workdir / "runs_latent"), max_steps=TP_LATENT_STEPS,
+                             log_every=5)
+    latent_cfg["parallel"] = {"tp": 2}
+
+    # (a) tp 2 through fit.run, as a user runs it: run spawns the ranks and
+    # returns rank 0's gathered checkpoint read back into a one-process state
+    t0 = time.perf_counter()
+    state = diffusion_fit.run(denoiser_cfg, device=dev, devices=devices,
+                              on_step=functools.partial(rank_probe, str(workdir / "probe_denoiser")))
+    params = list(state.model.parameters())
+    if state.step != TP_STEPS or not all(bool(torch.isfinite(p).all()) for p in params):
+        raise RuntimeError(f"fit-denoiser tp 2 ended at step {state.step} or not finite")
+    log(f"phase 10 (a) fit-denoiser tp 2 (width 512, 8 of 16 x 64 heads and 683/682 of 1365 "
+        f"hidden units a rank, B128 x L152, bf16): {TP_STEPS} steps, "
+        f"{time.perf_counter() - t0:.1f} s wall with the spawn, validation and rank 0's "
+        f"gathered checkpoint read back into a one-process state "
+        f"({sum(p.numel() for p in params):,} parameters)")
+    del state, params
+    torch.cuda.empty_cache()
+    launches = read_probe(workdir / "probe_denoiser", "fit-denoiser tp 2", TP_STEPS,
+                          TP_DENOISER_LAUNCHES, smi)
+
+    # (b) the latent stage at tp 2, then the one-step checks, in one spawn
+    t0 = time.perf_counter()
+    launch(tp_rank, (str(workdir), latent_cfg, denoiser_cfg, devices), devices, 2, deadline_s=900)
+    log(f"phase 10 (b) and the one-step checks: {time.perf_counter() - t0:.1f} s wall")
+    for k, n in read_probe(workdir / "probe_latent",
+                           "fit-latent tp 2 (B32 x L2052, 171/170 of 341 hidden units a rank)",
+                           TP_LATENT_STEPS, TP_LATENT_LAUNCHES, smi).items():
+        launches[k] += n
+    for run_dir in ("runs_denoiser", "runs_latent"):
+        if not (workdir / run_dir / "last" / "state.pt").exists():
+            raise RuntimeError(f"phase 10: rank 0 wrote no {run_dir}/last")
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2031,6 +2650,9 @@ def main() -> int:
     del args, go, got
     torch.cuda.empty_cache()
 
+    # ---- 1e. the FFN kernels' TP forms on two slices of the hidden units ----
+    tp_forms_phase(rnd, ffn, film_args, check_grads, record, results, smi)
+
     # ---- 2. small slice: through the kernels vs through the plain versions ----
     args = LDMArgs()
     model = init_random(args, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -2339,9 +2961,12 @@ def main() -> int:
     # ---- 9. parallel training: dp and sp ranks at full width ----
     launches_parallel = parallel_phase(dev, smi)
 
+    # ---- 10. tensor-parallel training: tp 2 at full width ----
+    launches_tp = tp_phase(dev, smi)
+
     paths = (launches_infer, launches_prologue, launches_predict, launches_train,
              launches_latent, launches_prologue_train, launches_pipeline, launches_serve,
-             launches_parallel)
+             launches_parallel, launches_tp)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:

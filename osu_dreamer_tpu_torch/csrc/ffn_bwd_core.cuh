@@ -86,6 +86,16 @@
 //   bit-identical gradients.
 // - The weights are the forward's pack (ops/swiglu.py ``packed_ffn_weights``):
 //   W_vg^T (2 Hp, C) and W_out^T (C, Hp), their tensor maps encoded once.
+// - Tensor parallelism (the TP forms of K6 and K3): a rank's slice of the
+//   hidden units runs the phases one at a time (``phases``). The forward's
+//   all-reduced f32 s W_out and sums of squares are the residuals that give
+//   n and m over the whole hidden width (Hm): K3's pass A is skipped (its y
+//   is the TP forward's), and K6 skips its statistics pass, taking
+//   m = (1/H) do . (s W_out) in bwd_mid_kernel as K3 does. Pass B runs on
+//   the slice; its SB dY partials are summed into one plane (tp_fold), which
+//   the caller all-reduces over the model group before the finish (SB 1), so
+//   the transposed conv and every column sum see the whole dY and agree on
+//   every rank.
 #pragma once
 
 #include "ffn_core.cuh"
@@ -127,7 +137,13 @@ struct BwdArgs {
   float* fin;         // (B, ceil(L / frows), slots, C) the finish's column partials
   bf16* dx;           // (B L, C)
   int B, L, BL, C, H, Hp, K, SA, SB, nwg, frows;
+  int Hm;  // the hidden width of n's and m's means: the whole H of a TP slice (0: H)
 };
+
+// the phases of ffn_backward: pass A (K3: the forward core; K6: the conv and,
+// without the forward's residuals, the statistics pass), the row statistics,
+// pass B, the finish
+constexpr int kBwdPassA = 1, kBwdRows = 2, kBwdPassB = 4, kBwdFinish = 8, kBwdAll = 15;
 
 // ---- the row statistics (and K3's block-norm backward) ----
 
@@ -146,7 +162,8 @@ __global__ void __launch_bounds__(256) bwd_mid_kernel(const BwdArgs a) {
     const size_t p = (size_t)b * a.L + pos;
     float ss = 0.f;
     for (int s = 0; s < a.SA; ++s) ss += a.ss[(size_t)s * a.BL + p];
-    const float n = rsqrtf(ss / a.H + kFcEps);
+    const float hm = (float)ffn_mean_h(a.H, a.Hm);
+    const float n = rsqrtf(ss / hm + kFcEps);
     float md = 0.f;
     if (FILM) {
       float oa[CQ];  // s W_out of this row, summed over the hidden slices in order
@@ -183,10 +200,20 @@ __global__ void __launch_bounds__(256) bwd_mid_kernel(const BwdArgs a) {
         md += __bfloat162float(d) * oa[q];
       }
       md = warp_sum(md);
+    } else if (a.ws != nullptr) {
+      // the forward's summed s W_out: sum_H dhn s = do . (s W_out)
+#pragma unroll
+      for (int q = 0; q < CQ; ++q) {
+        const int c = lane + 32 * q;
+        float acc = 0.f;
+        for (int s = 0; s < a.SA; ++s) acc += a.ws[((size_t)s * a.BL + p) * C + c];
+        md += ldf(a.go + p * C + c) * acc;
+      }
+      md = warp_sum(md);
     } else {
       for (int s = 0; s < a.SA; ++s) md += a.ss[((size_t)a.SA + s) * a.BL + p];  // sum dhn s
     }
-    const float m = md / a.H;
+    const float m = md / hm;
     if (lane == 0) *reinterpret_cast<float2*>(a.rows + 2 * p) = make_float2(n, n * n * n * m);
   }
   if (!FILM) return;
@@ -889,9 +916,11 @@ __global__ void __launch_bounds__(256) bwd_finish_plain_kernel(const BwdArgs a) 
 
 // Launch the backward on `stream`: pass A (K3: the forward core; K6: the
 // conv and pass B's kernel in its statistics mode), the row statistics,
-// pass B, the finish. wmaps: the pack's two weight tensor maps.
+// pass B, the finish, those of `phases`. wmaps: the pack's two weight tensor
+// maps. With a.ws set K6 reads the forward's residuals in place of its
+// statistics pass (the TP form).
 template <bool FILM>
-int ffn_backward(BwdArgs a, const void* wmaps, cudaStream_t stream) {
+int ffn_backward(BwdArgs a, const void* wmaps, cudaStream_t stream, int phases = kBwdAll) {
   const int r = a.K / 2, nch = a.Hp / 64;
   // pass B pairs two warpgroups on a row tile past C 384 to 512 (the plan
   // then gives one row warpgroup a CTA)
@@ -899,11 +928,14 @@ int ffn_backward(BwdArgs a, const void* wmaps, cudaStream_t stream) {
   if (a.K % 2 == 0 || a.K > kBfMaxK || r > kFcMaxRadius || a.C % 32 || a.C > 32 * kBmMaxCQ ||
       a.Hp % 64 || a.Hp < a.H || a.H < 1 || a.BL != a.B * a.L || a.BL < 1 || a.SA < 1 ||
       a.SA > nch || a.SB < 1 || a.SB > nch || a.nwg < 1 || a.nwg > 2 || a.frows < 1 ||
-      (pair && a.nwg != 1) || (FILM && finish_smem(a.C, a.K, a.frows) > kMaxSmem))
+      (pair && a.nwg != 1) || (FILM && finish_smem(a.C, a.K, a.frows) > kMaxSmem) ||
+      a.Hm < 0 || phases < 1 || phases > kBwdAll)
     return (int)cudaErrorInvalidValue;
+  const bool stats = !FILM && a.ws == nullptr;  // K6's statistics pass
   const int nloc_a = (nch + a.SA - 1) / a.SA, nloc_b = (nch + a.SB - 1) / a.SB;
   const int nst_a = bwd_stages(a.C, a.nwg, 0, nloc_a), nst = bwd_stages(a.C, a.nwg, pair, nloc_b);
-  if (nst < 2 || (!FILM && nst_a < 2)) return (int)cudaErrorInvalidValue;
+  if (((phases & kBwdPassB) && nst < 2) || ((phases & kBwdPassA) && stats && nst_a < 2))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   memcpy(&maps[2], wmaps, 2 * sizeof(CUtensorMap));
   cudaError_t e = hopper::tma_map_bf16_3d(&maps[0], a.y, a.C, a.BL, 1, 64, 64);
@@ -924,66 +956,75 @@ int ffn_backward(BwdArgs a, const void* wmaps, cudaStream_t stream) {
                         : launch(ffn_bwd_grad_kernel<1, S, false>, grid, dim3(256), smem, stream,
                                  maps[0], maps[1], maps[2], maps[3], a, stages);
   };
-  if constexpr (FILM) {
-    // pass A: s W_out and the sums of squares, y stored
-    FfnArgs f{};
-    f.x = a.x;
-    f.dww = a.dww;
-    f.dwb = a.dwb;
-    f.bvg = a.bvg;
-    f.scale = a.scale;
-    f.shift = a.shift;
-    f.gate = a.gate;
-    f.g1 = a.g1;
-    f.g2 = a.g2;
-    f.ws = a.ws;
-    f.ss = a.ss;
-    f.BL = a.BL;
-    f.L = a.L;
-    f.C = a.C;
-    f.H = a.H;
-    f.Hp = a.Hp;
-    f.K = a.K;
-    f.S = a.SA;
-    f.nwg = a.nwg;
-    f.ystore = 1;
-    const int err = ffn_forward<true>(f, wmaps, a.y, 128, stream);
-    if (err != 0) return err;
-  } else {
-    // y, then pass A: the sums of s^2 and dhn s
-    const size_t n8 = (size_t)a.BL * (a.C / 8);
-    const size_t blocks = (n8 + 255) / 256 < (size_t)sms * 8 ? (n8 + 255) / 256 : (size_t)sms * 8;
-    bwd_conv_kernel<<<(unsigned)blocks, 256, 0, stream>>>(a);
+  if (phases & kBwdPassA) {
+    if constexpr (FILM) {
+      // pass A: s W_out and the sums of squares, y stored
+      FfnArgs f{};
+      f.x = a.x;
+      f.dww = a.dww;
+      f.dwb = a.dwb;
+      f.bvg = a.bvg;
+      f.scale = a.scale;
+      f.shift = a.shift;
+      f.gate = a.gate;
+      f.g1 = a.g1;
+      f.g2 = a.g2;
+      f.ws = a.ws;
+      f.ss = a.ss;
+      f.BL = a.BL;
+      f.L = a.L;
+      f.C = a.C;
+      f.H = a.H;
+      f.Hp = a.Hp;
+      f.K = a.K;
+      f.S = a.SA;
+      f.nwg = a.nwg;
+      f.ystore = 1;
+      const int err = ffn_forward<true>(f, wmaps, a.y, 128, stream);
+      if (err != 0) return err;
+    } else {
+      // y, then pass A: the sums of s^2 and dhn s
+      const size_t n8 = (size_t)a.BL * (a.C / 8);
+      const size_t blocks = (n8 + 255) / 256 < (size_t)sms * 8 ? (n8 + 255) / 256 : (size_t)sms * 8;
+      bwd_conv_kernel<<<(unsigned)blocks, 256, 0, stream>>>(a);
+      e = cudaGetLastError();
+      if (e == cudaSuccess && stats)
+        e = grad(std::true_type{}, std::false_type{}, dim3(tiles, 1, a.SA), nst_a);
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  if (phases & kBwdRows) {
+    // the row statistics (K3 at its five widths)
+    const dim3 rgrid((a.L + kBmRows - 1) / kBmRows, a.B);
+#define ODT_MID(n) \
+    case n: bwd_mid_kernel<FILM, n><<<rgrid, 256, 0, stream>>>(a); break;
+    if constexpr (FILM) {
+      switch (a.C / 32) {
+        ODT_MID(1) ODT_MID(2) ODT_MID(4) ODT_MID(8) ODT_MID(12)
+        default: return (int)cudaErrorInvalidValue;
+      }
+    } else {
+      switch (a.C / 32) {
+        ODT_MID(1) ODT_MID(2) ODT_MID(3) ODT_MID(4) ODT_MID(5) ODT_MID(6) ODT_MID(7) ODT_MID(8)
+        ODT_MID(9) ODT_MID(10) ODT_MID(11) ODT_MID(12) ODT_MID(13) ODT_MID(14) ODT_MID(15)
+        ODT_MID(16) ODT_MID(17) ODT_MID(18) ODT_MID(19) ODT_MID(20)
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+#undef ODT_MID
     e = cudaGetLastError();
-    if (e == cudaSuccess) e = grad(std::true_type{}, std::false_type{}, dim3(tiles, 1, a.SA), nst_a);
     if (e != cudaSuccess) return (int)e;
   }
-  // the row statistics (K3 at its five widths)
-  const dim3 rgrid((a.L + kBmRows - 1) / kBmRows, a.B);
-#define ODT_MID(n) \
-  case n: bwd_mid_kernel<FILM, n><<<rgrid, 256, 0, stream>>>(a); break;
-  if constexpr (FILM) {
-    switch (a.C / 32) {
-      ODT_MID(1) ODT_MID(2) ODT_MID(4) ODT_MID(8) ODT_MID(12)
-      default: return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    switch (a.C / 32) {
-      ODT_MID(1) ODT_MID(2) ODT_MID(3) ODT_MID(4) ODT_MID(5) ODT_MID(6) ODT_MID(7) ODT_MID(8)
-      ODT_MID(9) ODT_MID(10) ODT_MID(11) ODT_MID(12) ODT_MID(13) ODT_MID(14) ODT_MID(15)
-      ODT_MID(16) ODT_MID(17) ODT_MID(18) ODT_MID(19) ODT_MID(20)
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-#undef ODT_MID
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   // pass B
-  if (pair)
-    e = grad(std::false_type{}, std::true_type{}, dim3(tiles, 1, a.SB), nst);
-  else
-    e = grad(std::false_type{}, std::false_type{}, dim3(tiles, (a.C + kBgCols - 1) / kBgCols, a.SB), nst);
-  if (e != cudaSuccess) return (int)e;
+  if (phases & kBwdPassB) {
+    if (pair)
+      e = grad(std::false_type{}, std::true_type{}, dim3(tiles, 1, a.SB), nst);
+    else
+      e = grad(std::false_type{}, std::false_type{}, dim3(tiles, (a.C + kBgCols - 1) / kBgCols, a.SB),
+               nst);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (!(phases & kBwdFinish)) return 0;
   // the finish
   const dim3 fgrid((a.L + a.frows - 1) / a.frows, a.B, FILM ? 1 : (a.C + 511) / 512);
   auto fin = [&](auto taps) {

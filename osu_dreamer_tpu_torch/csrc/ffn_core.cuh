@@ -58,6 +58,17 @@
 // partial outputs and sums of squares always leave through the workspace,
 // no reduction follows, and the y tiles are stored (TMA) for the weight
 // gradient.
+//
+// Tensor parallelism (the TP forms of K4 and K2, ops/swiglu.py
+// ``swiglu_tp``): a rank holds a slice of the hidden units, whole units of
+// both v and g and the matching rows of W_out. Its core runs in ``partial``
+// mode (K2's in ``ystore`` mode, whose y the backward reads): the slice's
+// f32 partial h W_out and sums of squares always leave through the
+// workspace, tp_fold sums the plan's hidden slices into one plane, the
+// caller all-reduces that plane over the model group, and
+// ffn_finish runs the reduction kernel on the sums with Hm, the whole
+// hidden width, for the mean of 1 / rms(h), and b_out added once. H and Hp
+// stay the slice's extent.
 #pragma once
 
 #include <string.h>
@@ -93,11 +104,16 @@ struct FfnArgs {
   float* ws;          // (S, B L, C) partial outputs, null when one CTA owns a row tile
   float* ss;          // (S, B L) partial sums of squares
   int BL, L, C, H, Hp, K, S;
+  int Hm;      // the hidden width 1 / rms(h) averages over: the whole H of a TP slice (0: H)
   int stages;  // ring stages
   int xres;    // K2 keeps its tile's x rows in shared memory for the residual
   int nwg;     // consumer warpgroups a CTA (64 rows each); 0: by C
   int ystore;  // the backward's first pass: y leaves through the output map
+  int partial;  // a TP slice: the partials stay in the workspace, no reduction follows
 };
+
+// the width of the RMS mean over the hidden units
+__host__ __device__ inline int ffn_mean_h(int H, int Hm) { return Hm > 0 ? Hm : H; }
 
 // the per-column vectors a CTA keeps in shared memory: b_v and b_g of its
 // hidden slice (nloc chunks, f32), b_out (f32), the conv taps and bias, K2's
@@ -573,7 +589,8 @@ ffn_core_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant_
     }
 
     // the epilogue in registers: this CTA holds the rows' whole output
-    const float inv0 = rsqrtf(tot0 / a.H + kFcEps), inv1 = rsqrtf(tot1 / a.H + kFcEps);
+    const float hm = (float)ffn_mean_h(a.H, a.Hm);
+    const float inv0 = rsqrtf(tot0 / hm + kFcEps), inv1 = rsqrtf(tot1 / hm + kFcEps);
     float s0 = 0.f, s1 = 0.f;
 #pragma unroll
     for (int q = 0; q < kNQ; ++q)
@@ -655,7 +672,7 @@ __global__ void __launch_bounds__(256) ffn_reduce_kernel(const FfnArgs a, bf16* 
   const size_t plane = (size_t)a.BL * C;
   float tot = 0.f;
   for (int s = 0; s < a.S; ++s) tot += a.ss[(size_t)s * a.BL + g];
-  const float inv = rsqrtf(tot / a.H + kFcEps);
+  const float inv = rsqrtf(tot / ffn_mean_h(a.H, a.Hm) + kFcEps);
   auto value = [&](int c) {
     float acc = 0.f;
     for (int s = 0; s < a.S; ++s) acc += a.ws[s * plane + (size_t)g * C + c];
@@ -698,9 +715,10 @@ int ffn_forward(FfnArgs a, const void* wmaps, void* out, int nc, cudaStream_t st
   const int nwg = a.nwg ? a.nwg : a.C <= 512 ? 2 : 1, rows = 64 * nwg, r = a.K / 2;
   const int groups = (a.C + nc - 1) / nc;
   const bool split = groups > 1 || a.S > 1;
+  const bool keep = a.ystore || a.partial;  // the partials stay in the workspace
   if (a.K % 2 == 0 || r > kFcMaxRadius || a.C % 16 || a.Hp % 64 || a.Hp < a.H || a.S < 1 ||
-      a.S > a.Hp / 64 || (nc != 128 && nc != 256) || (split || a.ystore) != (a.ws != nullptr) ||
-      a.BL < 1 || nwg < 1 || nwg > 2 || (nwg == 2 && a.C > 512))
+      a.S > a.Hp / 64 || (nc != 128 && nc != 256) || (split || keep) != (a.ws != nullptr) ||
+      a.BL < 1 || nwg < 1 || nwg > 2 || (nwg == 2 && a.C > 512) || a.Hm < 0)
     return (int)cudaErrorInvalidValue;
   const int nloc = (a.Hp / 64 + a.S - 1) / a.S;
   // K2 keeps its rows' x for the residual where that leaves 4 stages
@@ -738,9 +756,49 @@ int ffn_forward(FfnArgs a, const void* wmaps, void* out, int nc, cudaStream_t st
     err = a.ystore ? pick(std::true_type{}) : pick(std::false_type{});
   else
     err = a.ystore ? cudaErrorInvalidValue : pick(std::false_type{});
-  if (err != cudaSuccess || a.ws == nullptr || a.ystore) return (int)err;
+  if (err != cudaSuccess || a.ws == nullptr || keep) return (int)err;
   return (int)launch(ffn_reduce_kernel<FILM>, dim3((a.BL + 7) / 8), dim3(256), 0, stream, a,
                      (bf16*)out);
+}
+
+// a TP slice's finish, after the model group's all-reduce of its workspace:
+// the reduction kernel over the summed partials (a.S slices), 1 / rms with
+// the whole hidden width a.Hm, b_out once; K2 then its block norm and gated
+// residual (x, gate, g2)
+template <bool FILM>
+int ffn_finish(const FfnArgs& a, void* out, cudaStream_t stream) {
+  if (a.ws == nullptr || a.ss == nullptr || a.bout == nullptr || a.BL < 1 || a.C < 1 ||
+      a.S < 1 || a.Hm < 1 || (FILM && (a.x == nullptr || a.gate == nullptr || a.g2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch(ffn_reduce_kernel<FILM>, dim3((a.BL + 7) / 8), dim3(256), 0, stream, a,
+                     (bf16*)out);
+}
+
+// A TP slice's S per-slice f32 planes of n values summed in slice order into
+// one, dst[i] = src[i] + src[n + i] + ..., so the model group all-reduces a
+// single plane whatever the plan's hidden slices.
+static __global__ void __launch_bounds__(256)
+tp_fold_kernel(const float* __restrict__ src, int S, size_t n, float* __restrict__ dst) {
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n; i += (size_t)gridDim.x * 256) {
+    float acc = 0.f;
+    for (int s = 0; s < S; ++s) acc += src[(size_t)s * n + i];
+    dst[i] = acc;
+  }
+}
+
+inline cudaError_t tp_fold(const float* src, int S, size_t n, float* dst, cudaStream_t stream) {
+  if (src == nullptr || dst == nullptr || S < 1) return cudaErrorInvalidValue;
+  const size_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  return launch(tp_fold_kernel, dim3((unsigned)blocks), dim3(256), 0, stream, src, S, n, dst);
+}
+
+// a TP form's forward workspace (a.S slices of ws, then of ss) summed into
+// one plane: sum = [ws (B L, C) | ss (B L)]
+inline int tp_fold_workspace(const FfnArgs& a, float* sum, cudaStream_t stream) {
+  const size_t plane = (size_t)a.BL * a.C;
+  cudaError_t e = tp_fold(a.ws, a.S, plane, sum, stream);
+  if (e == cudaSuccess) e = tp_fold(a.ss, a.S, (size_t)a.BL, sum + plane, stream);
+  return (int)e;
 }
 
 }  // namespace odt

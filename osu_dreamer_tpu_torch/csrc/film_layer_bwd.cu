@@ -31,26 +31,16 @@
 #include "ffn_bwd_core.cuh"
 #include "gemm_tn.cuh"
 
-// The pack's b_vg (2 Hp, f32) and tensor maps (wmaps); b_out bf16 (C).
-// dx (B, L, C) bf16; the workspace of the plan (nwg consumer warpgroups a
-// CTA, SA and SB hidden slices): ws (SA, B L, C), ss (SA, B L), rows
-// (B L, 2), mid (B, ceil(L / 32), 3, C), dbvg (tiles x nwg, 2 Hp), dy
-// (SB, B L, C), fin (B, ceil(L / 32), 4 + K, C) f32; y_s, do_s (B L, C),
-// dvg_s (B L, 2 Hp), hn_s (B L, Hp) bf16; the weight products' chunk
-// partials pvg (S_vg, C, 2 Hp), pout (S_out, Hp, C) and their sums dwvg
-// (C, 2 Hp), dwout (Hp, C) f32 in the padded layout.
-extern "C" int odt_film_layer_bwd(const void* x, const void* go, const void* scale,
-                                  const void* shift, const void* gate, const void* g1,
-                                  const void* g2, const void* dww, const void* dwb,
-                                  const void* bvg, const void* bout, const void* wmaps, void* dx,
-                                  void* ws, void* ss, void* y_s, void* do_s, void* rows, void* mid,
-                                  void* dvg_s, void* hn_s, void* dbvg, void* dy, void* fin,
-                                  void* pvg, void* pout, void* dwvg, void* dwout, int B, int L,
-                                  int C, int H, int Hp, int K, int nwg, int SA, int SB, int S_vg,
-                                  int S_out, void* stream) {
-  using namespace odt;
-  if (C != 32 && C != 64 && C != 128 && C != 256 && C != 384) return (int)cudaErrorInvalidValue;
-  BwdArgs a{};
+namespace {
+
+odt::BwdArgs film_args(const void* x, const void* go, const void* scale, const void* shift,
+                       const void* gate, const void* g1, const void* g2, const void* dww,
+                       const void* dwb, const void* bvg, const void* bout, void* dx, void* ws,
+                       void* ss, void* y_s, void* do_s, void* rows, void* mid, void* dvg_s,
+                       void* hn_s, void* dbvg, void* dy, void* fin, int B, int L, int C, int H,
+                       int Hp, int K, int nwg, int SA, int SB) {
+  using odt::bf16;
+  odt::BwdArgs a{};
   a.x = (const bf16*)x;
   a.go = (const bf16*)go;
   a.scale = (const bf16*)scale;
@@ -84,13 +74,86 @@ extern "C" int odt_film_layer_bwd(const void* x, const void* go, const void* sca
   a.SA = SA;
   a.SB = SB;
   a.nwg = nwg;
-  a.frows = kBmRows;
+  a.frows = odt::kBmRows;
+  return a;
+}
+
+bool film_width(int C) { return C == 32 || C == 64 || C == 128 || C == 256 || C == 384; }
+
+// the weight products dW_vg = y^T dvg (C x 2 Hp) and dW_out = hn^T do (Hp x C)
+int film_weight_grads(const odt::BwdArgs& a, void* pvg, void* pout, void* dwvg, void* dwout,
+                      int S_vg, int S_out, cudaStream_t s) {
+  using namespace odt;
+  int err = (int)gemm_tn_splitk(a.y, a.C, a.dvg, 2 * a.Hp, a.BL, a.C, 2 * a.Hp, S_vg, (float*)pvg,
+                                (float*)dwvg, s);
+  if (err != 0) return err;
+  return (int)gemm_tn_splitk(a.hn, a.Hp, a.dout, a.C, a.BL, a.Hp, a.C, S_out, (float*)pout,
+                             (float*)dwout, s);
+}
+
+}  // namespace
+
+// The pack's b_vg (2 Hp, f32) and tensor maps (wmaps); b_out bf16 (C).
+// dx (B, L, C) bf16; the workspace of the plan (nwg consumer warpgroups a
+// CTA, SA and SB hidden slices): ws (SA, B L, C), ss (SA, B L), rows
+// (B L, 2), mid (B, ceil(L / 32), 3, C), dbvg (tiles x nwg, 2 Hp), dy
+// (SB, B L, C), fin (B, ceil(L / 32), 4 + K, C) f32; y_s, do_s (B L, C),
+// dvg_s (B L, 2 Hp), hn_s (B L, Hp) bf16; the weight products' chunk
+// partials pvg (S_vg, C, 2 Hp), pout (S_out, Hp, C) and their sums dwvg
+// (C, 2 Hp), dwout (Hp, C) f32 in the padded layout.
+extern "C" int odt_film_layer_bwd(const void* x, const void* go, const void* scale,
+                                  const void* shift, const void* gate, const void* g1,
+                                  const void* g2, const void* dww, const void* dwb,
+                                  const void* bvg, const void* bout, const void* wmaps, void* dx,
+                                  void* ws, void* ss, void* y_s, void* do_s, void* rows, void* mid,
+                                  void* dvg_s, void* hn_s, void* dbvg, void* dy, void* fin,
+                                  void* pvg, void* pout, void* dwvg, void* dwout, int B, int L,
+                                  int C, int H, int Hp, int K, int nwg, int SA, int SB, int S_vg,
+                                  int S_out, void* stream) {
+  using namespace odt;
+  if (!film_width(C)) return (int)cudaErrorInvalidValue;
+  const BwdArgs a = film_args(x, go, scale, shift, gate, g1, g2, dww, dwb, bvg, bout, dx, ws, ss,
+                              y_s, do_s, rows, mid, dvg_s, hn_s, dbvg, dy, fin, B, L, C, H, Hp, K,
+                              nwg, SA, SB);
   cudaStream_t s = (cudaStream_t)stream;
   int err = ffn_backward<true>(a, wmaps, s);
   if (err != 0) return err;
-  err = (int)gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)dvg_s, 2 * Hp, a.BL, C, 2 * Hp, S_vg,
-                            (float*)pvg, (float*)dwvg, s);
+  return film_weight_grads(a, pvg, pout, dwvg, dwout, S_vg, S_out, s);
+}
+
+// The K3 TP form, a rank's slice of the hidden units (H, padded to Hp): y_s
+// is the K2 TP form's y and ws (SA, B L, C), ss (SA, B L) its all-reduced
+// workspace, which give o, the block norm's backward and n, m over the whole
+// hidden width Hm. Phase 0: the row statistics, pass B on the slice and the
+// slice's weight products (dy (SB, B L, C) the dY partials, summed over the
+// slices into dysum (B L, C) where SB > 1, the one plane the caller
+// all-reduces over the model group); phase 1: the finish on that summed dY
+// (dx, the FiLM, pre-norm and conv column partials). The other arguments
+// as odt_film_layer_bwd's.
+extern "C" int odt_film_layer_bwd_tp(const void* x, const void* go, const void* scale,
+                                     const void* shift, const void* gate, const void* g1,
+                                     const void* g2, const void* dww, const void* dwb,
+                                     const void* bvg, const void* bout, const void* wmaps,
+                                     void* dx, void* ws, void* ss, void* y_s, void* do_s,
+                                     void* rows, void* mid, void* dvg_s, void* hn_s, void* dbvg,
+                                     void* dy, void* dysum, void* fin, void* pvg, void* pout,
+                                     void* dwvg,
+                                     void* dwout, int B, int L, int C, int H, int Hp, int Hm,
+                                     int K, int nwg, int SA, int SB, int S_vg, int S_out, int phase,
+                                     void* stream) {
+  using namespace odt;
+  if (!film_width(C) || Hm < 1 || (SB > 1 && dysum == nullptr)) return (int)cudaErrorInvalidValue;
+  BwdArgs a = film_args(x, go, scale, shift, gate, g1, g2, dww, dwb, bvg, bout, dx, ws, ss, y_s,
+                        do_s, rows, mid, dvg_s, hn_s, dbvg, dy, fin, B, L, C, H, Hp, K, nwg, SA, SB);
+  a.Hm = Hm;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (phase == 1) {
+    if (SB > 1) a.dy = (float*)dysum, a.SB = 1;
+    return ffn_backward<true>(a, wmaps, s, kBwdFinish);
+  }
+  if (phase != 0) return (int)cudaErrorInvalidValue;
+  int err = ffn_backward<true>(a, wmaps, s, kBwdRows | kBwdPassB);
+  if (err == 0 && SB > 1) err = (int)tp_fold(a.dy, SB, (size_t)a.BL * C, (float*)dysum, s);
   if (err != 0) return err;
-  return (int)gemm_tn_splitk((const bf16*)hn_s, Hp, (const bf16*)do_s, C, a.BL, Hp, C, S_out,
-                             (float*)pout, (float*)dwout, s);
+  return film_weight_grads(a, pvg, pout, dwvg, dwout, S_vg, S_out, s);
 }

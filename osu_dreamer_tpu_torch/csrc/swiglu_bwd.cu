@@ -112,3 +112,36 @@ extern "C" int odt_swiglu_bwd_full(const void* x, const void* go, const void* dw
   return (int)gemm_tn_splitk((const bf16*)hn_s, Hp, (const bf16*)go, C, B * L, Hp, C, S_out,
                              (float*)pout, (float*)dwout, s);
 }
+
+// The K6 TP form, a rank's slice of the hidden units (H, padded to Hp):
+// ws (SA, B L, C) and ss (SA, B L) are the forward's all-reduced residuals
+// (the K4 TP form's workspace), which give n and m over the whole hidden
+// width Hm. Phase 0: the conv (y), the row statistics from the residuals,
+// pass B on the slice (dvg, hn, the vg-bias partials, the dY partials dy
+// (SB, B L, C)), summed over the slices into dysum (B L, C) where SB > 1,
+// the one plane the caller all-reduces over the model group; phase 1: the
+// finish on that summed dY (dx, fin). The other arguments as
+// odt_swiglu_bwd's.
+extern "C" int odt_swiglu_bwd_tp(const void* x, const void* go, const void* dww, const void* dwb,
+                                 const void* bvg, const void* wmaps, void* dx, void* ws, void* ss,
+                                 void* y_s, void* rows, void* dvg_s, void* hn_s, void* dbvg,
+                                 void* dy, void* dysum, void* fin, int B, int L, int C, int H,
+                                 int Hp, int Hm, int K, int nwg, int SA, int SB, int frows,
+                                 int phase, void* stream) {
+  using namespace odt;
+  if (C > 640 || ws == nullptr || Hm < 1 || (SB > 1 && dysum == nullptr))
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a = swiglu_args(x, go, dww, dwb, bvg, dx, ss, y_s, rows, dvg_s, hn_s, dbvg, dy, fin, B,
+                          L, C, H, Hp, K, nwg, SA, SB, frows);
+  a.ws = (float*)ws;
+  a.Hm = Hm;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (phase == 0) {
+    const int err = ffn_backward<false>(a, wmaps, s, kBwdPassA | kBwdRows | kBwdPassB);
+    if (err != 0 || SB == 1) return err;
+    return (int)tp_fold(a.dy, SB, (size_t)a.BL * C, (float*)dysum, s);
+  }
+  if (phase != 1) return (int)cudaErrorInvalidValue;
+  if (SB > 1) a.dy = (float*)dysum, a.SB = 1;
+  return ffn_backward<false>(a, wmaps, s, kBwdFinish);
+}

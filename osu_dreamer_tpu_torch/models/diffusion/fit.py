@@ -8,10 +8,11 @@ val/loss.
 
 The ``parallel:`` block (parallel/config.py): ``dp`` trains on that many
 ranks, one a device, each on its rows of every global batch; ``sp`` shards
-the window length over sp ranks (ring attention, halo'd convs). Out of
-scope, raising: tensor parallelism, ``backbone.dropout > 0``, and windows
-that ``attention_route`` sends off the fused attention outside sequence
-parallelism (no attention backward kernel there: beyond the JAX
+the window length over sp ranks (ring attention, halo'd convs); ``tp``
+splits the attention heads and the FFN hidden units over model groups of tp
+ranks (parallel/tp.py). Out of scope, raising: ``backbone.dropout > 0``, and
+windows that ``attention_route`` sends off the fused attention outside
+sequence parallelism (no attention backward kernel there: beyond the JAX
 ``fused_attention_fits``, and on the card beyond the kernels' head dim 64
 and L <= 256).
 """

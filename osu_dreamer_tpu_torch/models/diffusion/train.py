@@ -15,7 +15,11 @@ takes its rows and its span, so every rank draws the same from its identical
 generator and a parallel step equals the single-process step on the global
 batch. Under sequence parallelism the length means are all-reduced over the
 sp group (with a backward), the per-rank batch means are averaged over the
-data ranks for the metrics, and the gradients over all ranks.
+data ranks for the metrics, and the gradients over all ranks. Under tensor
+parallelism a rank holds its slices of the attention and FFN modules
+(parallel/tp.py): a model group's ranks take the same rows and draws, the
+gradients are averaged over the data group, and the clip reads the whole
+model's norm.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from typing import NamedTuple
 
 import torch
 
+from ...nn.blocks import shard_tensor_parallel
 from ...parallel.collectives import all_reduce_sum, group_size
+from ...parallel.tp import layout_of
 from ...train.state import (
     OptimizerArgs, TrainState, ema_update, make_optimizer, stratified_logit_normal_t,
 )
@@ -105,12 +111,13 @@ def step_gradients(model: DiffusionModel, batch: LatentBatch, args: DiffusionTra
                    generator: torch.Generator | None = None, t=None, x0=None, par=None
                    ) -> tuple[dict[str, torch.Tensor], list[torch.Tensor]]:
     """one step's metrics (averaged over the data ranks) and parameter
-    gradients (averaged over all ranks) -> (metrics, gradients)"""
+    gradients (averaged over the ranks, parallel/config.py
+    ``average_gradients``) -> (metrics, gradients)"""
     loss, aux = diffusion_loss(model, batch, args, generator, t, x0, par=par)
     grads = list(torch.autograd.grad(loss, list(model.parameters())))
     if par is None:
         return {k: v.detach() for k, v in aux.items()}, grads
-    return par.mean_over_data(aux), par.average_gradients(grads)
+    return par.mean_over_data(aux), par.average_gradients(grads, layout_of(model))
 
 
 def make_train_step(args: DiffusionTrainArgs, par=None):
@@ -120,7 +127,7 @@ def make_train_step(args: DiffusionTrainArgs, par=None):
 
     def train_step(state: TrainState, batch: LatentBatch, t=None, x0=None) -> dict:
         metrics, grads = step_gradients(state.model, batch, args, state.generator, t, x0, par)
-        state.opt.step(grads)
+        state.opt.step(grads, par.grad_norm(grads, layout_of(state.model)) if par else None)
         ema_update(state.ema_model, state.model, args.ema_decay)
         state.step += 1
         return metrics
@@ -137,9 +144,11 @@ def init_diffusion_training(
     par=None,
 ):
     """-> (state, train_step). The parameters are drawn on the CPU from
-    ``seed`` (flax's initialisation, the same on every device and rank); the
-    steps' generator lives on ``device``, seeded ``seed + 1``"""
+    ``seed`` (flax's initialisation, the same on every device and rank; a
+    tensor-parallel rank keeps its slices); the steps' generator lives on
+    ``device``, seeded ``seed + 1``"""
     model = DiffusionModel(model_args, dtype).init_params(torch.Generator().manual_seed(seed))
+    shard_tensor_parallel(model, par, device)
     model = model.to(device)
     ema = copy.deepcopy(model).requires_grad_(False)
     state = TrainState(

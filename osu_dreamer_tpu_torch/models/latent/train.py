@@ -23,6 +23,10 @@ computes it in the JAX package, and the loss components are all-reduced into
 their global values (the label loss as a global sum over a global count).
 Every rank so holds the same loss; the gradients are averaged over the
 ranks. The style swap stays local: a pair is the two halves of one window.
+Under tensor parallelism (parallel/tp.py) a rank holds its slices of the
+FilmStacks' FFNs, a model group's ranks take the same rows and draws, the
+gathers and sums above run over the data group, the gradients are averaged
+over it, and the clip reads the whole model's norm.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...nn.blocks import shard_tensor_parallel
 from ...nn.mmd import mmd_imq
 from ...parallel.collectives import all_gather_rows, all_reduce_sum
+from ...parallel.tp import layout_of
 from ...signal.constants import HIT_DIM
 from ...train.state import OptimizerArgs, TrainState, make_optimizer
 from .model import LatentModel, LatentModelArgs
@@ -219,7 +225,7 @@ def step_gradients(state: TrainState, batch: Batch, args: LatentTrainArgs,
     # gradient is zero, as JAX's
     grads = list(torch.autograd.grad(total, params, materialize_grads=True))
     if par is not None:
-        grads = par.average_gradients(grads)
+        grads = par.average_gradients(grads, layout_of(state.model))
     return detached, {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -230,7 +236,7 @@ def make_train_step(args: LatentTrainArgs, par=None):
 
     def train_step(state: TrainState, batch: Batch, draws: LatentDraws | None = None) -> dict:
         detached, metrics, grads = step_gradients(state, batch, args, draws, par)
-        state.opt.step(grads)
+        state.opt.step(grads, par.grad_norm(grads, layout_of(state.model)) if par else None)
         state.loss_ema = torch.where(state.loss_ema_ready,
                                      state.loss_ema * 0.99 + detached * 0.01, detached)
         state.loss_ema_ready = torch.ones_like(state.loss_ema_ready)
@@ -250,8 +256,10 @@ def init_latent_training(
 ):
     """-> (state, train_step). The parameters are drawn on the CPU from
     ``seed`` (flax's initialisation, the same on every rank); the steps'
-    generator lives on ``device``, seeded ``seed + 1``; no EMA model"""
+    generator lives on ``device``, seeded ``seed + 1``; no EMA model; a
+    tensor-parallel rank keeps its slices"""
     model = LatentModel(model_args, dtype).init_params(torch.Generator().manual_seed(seed))
+    shard_tensor_parallel(model, par, device)
     model = model.to(device)
     state = TrainState(
         step=0,

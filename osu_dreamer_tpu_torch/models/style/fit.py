@@ -7,8 +7,8 @@ and labels, collected once, scored with the distance-marching losses on the
 EMA model (no label dropout) and with the generative metric suite
 (``evaluate_style``); the checkpoint monitor is val/energy_dist. The
 ``parallel:`` block's ``dp`` trains on that many ranks, one a device
-(parallel/config.py); ``parallel.sp`` raises as in the JAX package, ``tp``
-as not ported.
+(parallel/config.py), and ``tp`` on model groups of replicas, since no leaf
+is split; ``parallel.sp`` raises as in the JAX package.
 """
 
 from __future__ import annotations

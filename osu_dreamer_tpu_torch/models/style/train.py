@@ -9,7 +9,11 @@ every step. ``t``, ``s0`` and the dropout mask are drawn from the state's
 generator unless given (the parity tests inject them drawn the JAX way).
 Data-parallel steps (``par``): the three draws are made at the global batch
 and each rank takes its rows; the metrics are averaged over the data ranks
-and the gradients over all ranks.
+and the gradients over all ranks. No leaf of the style prior matches the
+tensor-parallel rules (parallel/tp.py): under ``tp`` every rank holds the
+whole model, a model group's ranks compute the same rows, and the gradients
+are averaged over the data group, as the JAX package's ``fit-style`` runs
+under tp.
 
 The validation suite on the EMA model (``evaluate_style``) draws a stack of
 samples per label row and scores it against the real codes
@@ -98,7 +102,8 @@ def step_gradients(model: StyleModel, batch, args: StyleTrainArgs,
                    generator: torch.Generator | None = None, t=None, s0=None, drop=None,
                    par=None) -> tuple[dict[str, torch.Tensor], list[torch.Tensor]]:
     """one step's metrics (averaged over the data ranks) and parameter
-    gradients (averaged over all ranks) -> (metrics, gradients)"""
+    gradients (averaged over the ranks, parallel/config.py
+    ``average_gradients``) -> (metrics, gradients)"""
     s, labels = batch
     loss, aux = style_loss(model, s, labels, args, generator, t=t, s0=s0, drop=drop, par=par)
     grads = list(torch.autograd.grad(loss, list(model.parameters())))

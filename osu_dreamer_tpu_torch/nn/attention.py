@@ -15,6 +15,14 @@ normalised and rotated here at the shard's global offset and go through
 the FiLM path the norm, FiLM, add and qkv projection run as one fused
 prologue (ops/film_qkv.py) where ``prologue_ok`` holds: the JAX package's
 opt-in setting ``OSU_DREAMER_FUSED_PROLOGUE=1`` and its feasibility rule.
+
+Under tensor parallelism (parallel/tp.py) the module holds its rank's heads
+(``tp``): their q, k and v columns of the packed projection and their rows
+of ``out``. The projection's input enters the model group (``enter_model``),
+the attention runs on the rank's heads (the same routes), and the out
+projection's f32 partial leaves through ``leave_model``, its bias added once
+after the sum. The prologue is off on a TP rank, as the JAX gate is under
+GSPMD.
 """
 
 from __future__ import annotations
@@ -28,23 +36,49 @@ from ..ops.film_qkv import feasible_bwd_tile, feasible_fwd_tile, film_qkv
 from ..ops.fused_attention import attention_route, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
 from ..ops.ring_attention import ring_attention
-from ..parallel.collectives import group_rank
+from ..parallel.collectives import enter_model, group_rank, leave_model
 from .blocks import Dense
 from .norm import rms_norm
 
 
-def prologue_ok(C: int, F: int) -> bool:
+def prologue_ok(C: int, F: int, sharded: bool = False) -> bool:
     """the JAX ``_prologue_ok`` (osu_dreamer_tpu/nn/attention.py), read on
     every call: ``OSU_DREAMER_FUSED_PROLOGUE=1``, lane-aligned widths and its
-    forward and backward footprints (the copied rule). Its TPU backend and
-    GSPMD tests have no counterpart here"""
-    return os.environ.get("OSU_DREAMER_FUSED_PROLOGUE", "0") == "1" and C % 128 == 0 \
-        and F % 128 == 0 and feasible_fwd_tile(C, F) is not None \
+    forward and backward footprints (the copied rule), and off on a
+    tensor-parallel rank (``sharded``), where the JAX gate reads GSPMD's
+    sharding. Its TPU backend test has no counterpart here"""
+    return os.environ.get("OSU_DREAMER_FUSED_PROLOGUE", "0") == "1" and not sharded \
+        and C % 128 == 0 and F % 128 == 0 and feasible_fwd_tile(C, F) is not None \
         and feasible_bwd_tile(C, F) is not None
 
 
+class _MmF32(torch.autograd.Function):
+    """bf16 a (M, K) @ b (K, N) on the card, accumulated and returned in f32
+    (``torch.mm``'s ``out_dtype``, which has no derivative); the backward
+    in the operands' dtype, as autograd of their bf16 product gives it"""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad = grad.to(a.dtype)
+        return grad @ b.t(), a.t() @ grad
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (a (..., K), b (K, N)) accumulated and returned in f32"""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return _MmF32.apply(a.reshape(-1, a.shape[-1]), b).view(*a.shape[:-1], b.shape[-1])
+    return (a @ b).float()
+
+
 class RoPEAttention(nn.Module):
-    """multi-head self-attention over (B, L, C) with RoPE and q/k norms"""
+    """multi-head self-attention over (B, L, C) with RoPE and q/k norms;
+    ``tp``: this rank's share of the heads (None: all of them)"""
 
     def __init__(self, in_dim: int, n_heads: int, head_dim: int, out_dim: int,
                  dtype: torch.dtype):
@@ -54,6 +88,20 @@ class RoPEAttention(nn.Module):
         self.q_gamma = nn.Parameter(torch.ones(head_dim))
         self.k_gamma = nn.Parameter(torch.ones(head_dim))
         self.out = Dense(n_heads * head_dim, out_dim, dtype)
+        self.tp = None
+
+    def tp_units(self) -> tuple[int, int]:
+        """(heads, entries a head) for parallel/tp.py"""
+        return self.n_heads, self.head_dim
+
+    def _project_out(self, y: torch.Tensor) -> torch.Tensor:
+        """the out projection; on a tensor-parallel rank the sum of the
+        ranks' f32 partials, the bias added once"""
+        if self.tp is None:
+            return self.out(y)
+        dt = self.dtype
+        part = leave_model(_mm_f32(y.to(dt), self.out.kernel.to(dt)), self.tp.group)
+        return part.to(dt) + self.out.bias.to(dt)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's init of the gains (ones); the Dense children reset themselves"""
@@ -75,7 +123,9 @@ class RoPEAttention(nn.Module):
         dt = self.dtype
         B, L, C = x.shape
         H, D = self.n_heads, self.head_dim
-        if film is not None and prologue_ok(C, 3 * H * D):
+        if self.tp is not None:
+            H = self.tp.hi - self.tp.lo
+        if film is not None and prologue_ok(C, 3 * H * D, sharded=self.tp is not None):
             a = x.new_zeros(B, L, C, dtype=dt) if add is None else add.to(dt)
             qkv = film_qkv(x.to(dt), *film, a, self.qkv.kernel, self.qkv.bias)
         else:
@@ -86,6 +136,8 @@ class RoPEAttention(nn.Module):
                 h = rms_norm(x) * (1 + scale[:, None, :].to(dt)) + shift[:, None, :].to(dt)
             if add is not None:
                 h = h + add.to(dt)
+            if self.tp is not None:
+                h = enter_model(h, self.tp.group)
             qkv = self.qkv(h)
         if sp is not None:
             q, k, v = (t.reshape(B, L, H, D) for t in qkv.split(H * D, dim=-1))
@@ -94,9 +146,9 @@ class RoPEAttention(nn.Module):
             k = rope(rms_norm(k, self.k_gamma), offset)
             return self.out(ring_attention(q, k, v, sp).reshape(B, L, H * D))
         if attention_route(L, H, D, x.device.type) == "fused":
-            return self.out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
+            return self._project_out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
         q, k, v = qkv.split(H * D, dim=-1)
         q = rope(rms_norm(q.reshape(B, L, H, D), self.q_gamma))
         k = rope(rms_norm(k.reshape(B, L, H, D), self.k_gamma))
         y = long_flash_attention(q, k, v.reshape(B, L, H, D).contiguous())
-        return self.out(y)
+        return self._project_out(y)

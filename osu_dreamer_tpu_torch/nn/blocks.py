@@ -9,6 +9,10 @@ its ``dtype`` and casts each parameter at use (a differentiable cast, so
 gradients reach the f32 parameters). ``reset_parameters(generator)``
 initialises a module as its flax counterpart does: ``lecun_normal`` kernels,
 zero biases, the layers flax zero-initialises at zero.
+
+Under tensor parallelism (parallel/tp.py ``shard_model``) a ``SwiGLU`` holds
+its rank's slice of the hidden units (``tp``) and runs the TP forms of the
+FFN kernels, and a ``FilmStack``'s FFNs the film layer's.
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.film_layer import film_layer
+from ..ops.film_layer import check_film_layer_tp, film_layer, film_layer_tp
 from ..ops.ring_attention import halo_exchange
-from ..ops.swiglu import swiglu
+from ..ops.swiglu import check_swiglu_tp, swiglu, swiglu_tp
+from ..parallel.tp import TPLayout, shard_model
 from .norm import RMSNorm
 
 # the standard deviation of a standard normal truncated to [-2, 2]
@@ -97,7 +102,8 @@ class DepthwiseConv(nn.Module):
 
 class SwiGLU(nn.Module):
     """depthwise-conv gated FFN (ops/swiglu.py) with hidden width
-    int(dim * expand * 2 / 3)"""
+    int(dim * expand * 2 / 3); ``tp``: this rank's share of the hidden units
+    (None: all of them)"""
 
     def __init__(self, dim: int, expand: int, radius: int, dtype: torch.dtype):
         super().__init__()
@@ -112,6 +118,11 @@ class SwiGLU(nn.Module):
         self.out_kernel = nn.Parameter(torch.zeros(h, dim))
         self.out_bias = nn.Parameter(torch.zeros(dim))
         self.dtype = dtype
+        self.tp = None
+
+    def tp_units(self) -> tuple[int, int]:
+        """(hidden units, entries a unit) for parallel/tp.py"""
+        return self.out_kernel.shape[0] if self.tp is None else self.tp.units, 1
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun_normal kernels (a (K, C) conv kernel has fan_in K), zero biases"""
@@ -132,6 +143,8 @@ class SwiGLU(nn.Module):
         kept: every stage after the depthwise conv is per frame, so they are
         the unsharded rows"""
         x = x.to(self.dtype)
+        if self.tp is not None:
+            return swiglu_tp(x, *self.weights(), self.tp.units, self.tp.group)
         if sp is None:
             return swiglu(x, *self.weights())
         r = (self.dw_kernel.shape[0] - 1) // 2
@@ -169,9 +182,36 @@ class FilmStack(nn.Module):
                 scale = shift = gate = zero
             else:
                 scale, shift, gate = getattr(self, f"film{i}")(cond).chunk(3, dim=-1)
-            x = film_layer(
-                x, scale, shift, gate,
-                getattr(self, f"norm{i}").gamma, getattr(self, f"blocknorm{i}").gamma,
-                *getattr(self, f"ffn{i}").weights(),
-            )
+            ffn = getattr(self, f"ffn{i}")
+            args = (x, scale, shift, gate, getattr(self, f"norm{i}").gamma,
+                    getattr(self, f"blocknorm{i}").gamma, *ffn.weights())
+            x = film_layer(*args) if ffn.tp is None else film_layer_tp(
+                *args, ffn.tp.units, ffn.tp.group)
         return self.out_norm(x)
+
+
+def check_tp_forms(model: nn.Module) -> None:
+    """raise, before a step, unless every FFN slice of a tensor-parallel
+    ``model`` fits its kernels' TP forms on the card: the film layer's in a
+    ``FilmStack``, the SwiGLU's elsewhere (a slice never runs the plain
+    version there)"""
+    film_ffns = {id(getattr(m, f"ffn{i}")) for m in model.modules()
+                 if isinstance(m, FilmStack) for i in range(m.n_layers)}
+    for m in model.modules():
+        if isinstance(m, SwiGLU) and m.tp is not None:
+            check = check_film_layer_tp if id(m) in film_ffns else check_swiglu_tp
+            check(m.dw_kernel.shape[1], m.dw_kernel.shape[0], m.tp.units, m.tp.size)
+
+
+def shard_tensor_parallel(model: nn.Module, par, device: torch.device | str
+                          ) -> TPLayout | None:
+    """this rank's slices of ``model`` (the whole model, initialised) under
+    ``par``'s tensor parallelism, checked against the kernels' TP forms when
+    it will train on the card -> its layout (None: no tensor parallelism,
+    or nothing to split)"""
+    if par is None or par.tp <= 1:
+        return None
+    layout = shard_model(model, par.model_group, par.model_rank, par.tp)
+    if layout is not None and torch.device(device).type == "cuda":
+        check_tp_forms(model)
+    return layout

@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 
 KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
            "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd", "swiglu_bwd_full",
-           "film_qkv_fwd", "film_qkv_bwd")
+           "film_qkv_fwd", "film_qkv_bwd", "swiglu_tp", "swiglu_bwd_tp", "film_layer_tp",
+           "film_layer_bwd_tp")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "odt_swiglu_bwd_full": [_P] * 19 + [_I] * 12 + [_P],
     "odt_film_qkv_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "odt_film_qkv_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    "odt_swiglu_fwd_tp": [_P] * 10 + [_I] * 10 + [_P],
+    "odt_film_layer_fwd_tp": [_P] * 16 + [_I] * 9 + [_P],
+    "odt_swiglu_bwd_tp": [_P] * 17 + [_I] * 12 + [_P],
+    "odt_film_layer_bwd_tp": [_P] * 29 + [_I] * 13 + [_P],
 }
 
 
@@ -143,12 +148,14 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> Non
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
 
 
-def run(fn_name: str, kernel: str, device: torch.device, *args) -> None:
+def run(fn_name: str, kernel: str, device: torch.device, *args, count: bool = True) -> None:
     """call a C entry point on ``device``'s current stream, raise on a
-    nonzero cudaGetLastError(), count the launch"""
+    nonzero cudaGetLastError(), count the launch (``count`` False: a later
+    phase of a launch already counted, the TP forms' second half)"""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(library(), fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
-    launches[kernel] += 1
+    if count:
+        launches[kernel] += 1

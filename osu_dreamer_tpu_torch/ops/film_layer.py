@@ -18,6 +18,17 @@ weight pack) where ``bwd_kernel_fits`` holds, else autograd of
 ``film_layer_plain`` (bf16 only; anything else raises); any other CUDA input
 runs ``film_layer_plain`` on the card, and a CPU tensor ``film_layer_plain``,
 both differentiated by autograd.
+
+Tensor parallelism (``film_layer_tp``, parallel/tp.py): a rank holds a slice
+of the FFN's hidden units. ``FilmLayerTPFunction`` runs the K2 TP form
+forward (the pre-norm, FiLM and conv on the whole x and the slice's f32
+partials, their sum over the model group, then K2's finish: 1 / rms over the
+whole hidden width, b_out once, the block norm and the gated residual) and
+the K3 TP form backward (the block norm's backward and n, m from the
+forward's summed partials, pass B on the slice, the dY sum over the model
+group, then the FiLM finish). Each piece is the kernel's phase on a CUDA
+tensor and its plain version on a CPU tensor; on the card a width the forms
+do not take raises (``check_film_layer_tp``).
 """
 
 from __future__ import annotations
@@ -25,10 +36,13 @@ from __future__ import annotations
 import torch
 
 from ..nn.norm import rms_norm
+from ..parallel.collectives import group_size, tp_all_reduce_
 from ._build import check_cuda, run
 from .swiglu import (
-    _BM_ROWS, bwd_plan, check_ffn_shapes, device_sms, ffn_fwd_inputs, fwd_kernel_fits,
-    gemm_splits, packed_ffn_weights, packed_out_bias, swiglu_plain,
+    _BM_ROWS, _cpu_only, bwd_plan, check_ffn_shapes, depthwise_conv, device_sms, ffn_fwd_inputs,
+    fwd_kernel_fits, gemm_splits, grads_of, packed_ffn_weights, packed_out_bias, split_partials,
+    swiglu_plain, tp_bwd_plan, tp_dy, tp_fwd_plan, tp_hidden_pads, tp_out_plain,
+    tp_partial_plain, tp_slice_grads, tp_workspace, tp_workspace_grads,
 )
 
 # the widths K3 takes: every width the JAX package fuses (C 128, 256, 384)
@@ -51,12 +65,20 @@ def film_layer_plain(
     dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
 ) -> torch.Tensor:
     """every op in x's dtype, in the JAX reference's order"""
+    h = swiglu_plain(film_in(x, scale, shift, g1), dw_kernel, dw_bias, vg_kernel, vg_bias,
+                     out_kernel, out_bias)
+    return film_out(x, h, gate, g2)
+
+
+def film_in(x, scale, shift, g1) -> torch.Tensor:
+    """the pre-norm and FiLM: rms(x) g1 (1 + scale) + shift"""
     dt = x.dtype
-    h = rms_norm(x, g1)
-    h = h * (1 + scale[:, None, :].to(dt)) + shift[:, None, :].to(dt)
-    h = swiglu_plain(h, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
-    h = rms_norm(h, g2)
-    return x + h * (1 + gate[:, None, :].to(dt))
+    return rms_norm(x, g1) * (1 + scale[:, None, :].to(dt)) + shift[:, None, :].to(dt)
+
+
+def film_out(x, h, gate, g2) -> torch.Tensor:
+    """the block norm and the gated residual: x + rms(h) g2 (1 + gate)"""
+    return x + rms_norm(h, g2) * (1 + gate[:, None, :].to(x.dtype))
 
 
 def _film_inputs(x, scale, shift, gate, g1, g2) -> list[torch.Tensor]:
@@ -151,12 +173,33 @@ def film_layer_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_ke
     )
     # per batch row: dgate, dg2, dbout (mid) and dshift, dscale, dg1, d dw_bias,
     # the taps (fin); the FiLM vectors' gradients stay per batch row
-    mid, fin, dbvg, dwvg, dwout = work[5].sum(1), work[10].sum(1), work[8].sum(0), work[13], work[14]
+    dgate, dg2, dbout = _mid_grads(work[5])
+    dscale, dshift, dg1, ddw, ddwb = _fin_grads(work[10])
+    return (dx, dscale, dshift, dgate, dg1, dg2, ddw, ddwb,
+            *_ffn_grads(work[8], work[13], work[14], H, Hp), dbout)
+
+
+def _mid_grads(mid) -> tuple[torch.Tensor, ...]:
+    """the row statistics' per-CTA partials (B, tiles, 3, C) -> (dgate per
+    batch row, dg2, d out_bias)"""
+    mid = mid.sum(1)
     dg2, dbout = mid[:, 1:].sum(0)
+    return mid[:, 0], dg2, dbout
+
+
+def _fin_grads(fin) -> tuple[torch.Tensor, ...]:
+    """the finish's per-CTA partials (B, tiles, 4 + K, C) -> (dscale and
+    dshift per batch row, dg1, d dw_kernel, d dw_bias)"""
+    fin = fin.sum(1)
     rest = fin[:, 2:].sum(0)
-    return (dx, fin[:, 1], fin[:, 0], mid[:, 0], rest[0], dg2, rest[2:], rest[1],
-            torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1),
-            torch.cat([dbvg[:H], dbvg[Hp : Hp + H]]), dwout[:H], dbout)
+    return fin[:, 1], fin[:, 0], rest[0], rest[2:], rest[1]
+
+
+def _ffn_grads(dbvg, dwvg, dwout, H: int, Hp: int) -> tuple[torch.Tensor, ...]:
+    """the padded layout -> (d vg_kernel, d vg_bias, d out_kernel) of H units"""
+    db = dbvg.sum(0)
+    return (torch.cat([dwvg[:, :H], dwvg[:, Hp : Hp + H]], 1), torch.cat([db[:H], db[Hp : Hp + H]]),
+            dwout[:H])
 
 
 class FilmLayerFunction(torch.autograd.Function):
@@ -195,3 +238,206 @@ def film_layer(
     if x.device.type != "cpu":
         raise ValueError(f"film_layer: no implementation for device {x.device}")
     return film_layer_plain(*args)
+
+
+# ------------------------------------------------------ tensor parallelism ----
+
+
+def check_film_layer_tp(C: int, K: int, H: int, tp: int) -> None:
+    """raise unless the K2 and K3 TP forms take width C, K taps and H hidden
+    units over tp ranks"""
+    hp_max = tp_hidden_pads(H, tp)[1]
+    if not fwd_kernel_fits(C, K, hp_max) or not bwd_kernel_fits(C, K):
+        raise ValueError(f"the K2/K3 TP forms do not take C {C}, {K} taps, {hp_max} hidden "
+                         f"units a rank (C one of {BWD_WIDTHS}, fwd_kernel_fits)")
+
+
+def film_tp_out_plain(buf, x, gate, g2, out_bias, H: int) -> torch.Tensor:
+    """the plain version of K2's TP finish on the summed workspace"""
+    return film_out(x, tp_out_plain(buf, x.shape, out_bias, H, x.dtype), gate, g2)
+
+
+def film_layer_tp_partial(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                          out_kernel, H: int, tp: int):
+    """the K2 TP form's first phase on this rank's slice -> (the flat f32
+    workspace to sum over the model group, the conv output y for the
+    backward: the kernel's, None in the plain version, which recomputes
+    it)"""
+    if x.is_cuda:
+        return film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
+                                          vg_kernel, vg_bias, out_kernel, H, tp)
+    _cpu_only("film_layer_tp", x)
+    return film_layer_tp_partial_plain(x, scale, shift, g1, dw_kernel, dw_bias, vg_kernel,
+                                       vg_bias, out_kernel), None
+
+
+def film_layer_tp_partial_plain(x, scale, shift, g1, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                                out_kernel) -> torch.Tensor:
+    """the plain version of the K2 TP form's first phase (one slice, S 1)"""
+    y = depthwise_conv(film_in(x, scale, shift, g1), dw_kernel, dw_bias)
+    return tp_partial_plain(y, vg_kernel, vg_bias, out_kernel)
+
+
+def film_layer_tp_finish(buf, x, gate, g2, out_bias, H: int) -> torch.Tensor:
+    """the K2 TP form's second phase, on the summed workspace -> (B, L, C)"""
+    if x.is_cuda:
+        return film_layer_tp_finish_cuda(buf, x, gate, g2, out_bias, H)
+    _cpu_only("film_layer_tp", x)
+    return film_tp_out_plain(buf, x, gate, g2, out_bias, H)
+
+
+def film_layer_tp_bwd(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                      out_kernel, out_bias, grad_out, buf, y, H: int, tp: int):
+    """the K3 TP form's first phase -> (this rank's dY partial (1, B L, C) f32
+    to sum over the model group, (d vg_kernel, d vg_bias, d out_kernel) of
+    the slice, (dgate, dg2, d out_bias), finish); ``finish()`` on the summed
+    dY -> (dx, dscale, dshift, dg1, d dw_kernel, d dw_bias)"""
+    if x.is_cuda:
+        return film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
+                                      vg_kernel, vg_bias, out_kernel, out_bias, grad_out, buf, y,
+                                      H, tp)
+    _cpu_only("film_layer_tp", x)
+    return film_layer_tp_bwd_plain(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
+                                   vg_bias, out_kernel, out_bias, grad_out, buf, H)
+
+
+def film_layer_tp_bwd_plain(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
+                            vg_bias, out_kernel, out_bias, grad_out, buf, H: int):
+    """the plain version of ``film_layer_tp_bwd``: autograd of the finish
+    and of the slice's products, then of the pre-norm, FiLM and conv"""
+    B, L, C = x.shape
+    dbuf, dgate, dg2, dbout = grads_of(
+        lambda b, gt, g, bo: film_tp_out_plain(b, x, gt, g, bo, H), (buf, gate, g2, out_bias),
+        grad_out)
+    y = depthwise_conv(film_in(x, scale, shift, g1), dw_kernel, dw_bias)
+    dy, *slice_grads = tp_slice_grads(y, vg_kernel, vg_bias, out_kernel,
+                                      *tp_workspace_grads(dbuf, B * L, C))
+    dy = dy.reshape(1, B * L, C)
+
+    def finish():
+        dx, dscale, dshift, dg1, ddw, ddwb = grads_of(
+            lambda *t: depthwise_conv(film_in(*t[:4]), *t[4:]),
+            (x, scale, shift, g1, dw_kernel, dw_bias), dy.sum(0).view(B, L, C).to(x.dtype))
+        return dx + grad_out, dscale, dshift, dg1, ddw, ddwb
+
+    return dy, tuple(slice_grads), (dgate, dg2, dbout), finish
+
+
+def film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
+                               vg_bias, out_kernel, H: int, tp: int):
+    """K2 TP phase 0, csrc/film_layer.cu ``odt_film_layer_fwd_tp``: the core in
+    the backward's first-pass mode over this rank's slice (y stored)"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                     out_kernel.new_empty(x.shape[-1]))
+    B, L, C = x.shape
+    K = dw_kernel.shape[0]
+    check_film_layer_tp(C, K, H, tp)
+    film = _film_inputs(x, scale, shift, gate, g1, g2)
+    pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
+    _, S = tp_fwd_plan(B * L, C, H, tp, device_sms(x.device), film=True)
+    buf, ws, ss, fold = tp_workspace(S, B * L, C, x.device)
+    y = torch.empty_like(x)
+    run("odt_film_layer_fwd_tp", "film_layer_tp", x.device,
+        x.data_ptr(), *(t.data_ptr() for t in film),
+        pack.dww.data_ptr(), pack.dwb.data_ptr(), pack.bvg.data_ptr(), None, pack.weight_maps(),
+        None, y.data_ptr(), ws.data_ptr(), ss.data_ptr(), fold,
+        B, L, C, pack.H, pack.Hp, H, K, S, 0)
+    return buf, y
+
+
+def film_layer_tp_finish_cuda(buf, x, gate, g2, out_bias, H: int) -> torch.Tensor:
+    """K2 TP phase 1: the reduction kernel with K2's epilogue over the summed
+    workspace"""
+    B, L, C = x.shape
+    ws, ss = split_partials(buf, B * L, C)
+    gate, g2 = (t.to(x.dtype).contiguous() for t in (gate, g2))
+    out, bout = torch.empty_like(x), out_bias.to(x.dtype).contiguous()
+    run("odt_film_layer_fwd_tp", "film_layer_tp", x.device,
+        x.data_ptr(), None, None, gate.data_ptr(), None, g2.data_ptr(), None, None, None,
+        bout.data_ptr(), None, out.data_ptr(), None, ws.data_ptr(), ss.data_ptr(), None,
+        B, L, C, 0, 0, H, 0, ws.shape[0], 1, count=False)
+    return out
+
+
+def film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
+                           vg_bias, out_kernel, out_bias, grad_out, buf, y, H: int, tp: int):
+    """K3 TP, csrc/film_layer_bwd.cu ``odt_film_layer_bwd_tp``: phase 0 (the
+    row statistics and the block norm's backward from the forward's summed
+    workspace, pass B on the slice, the slice's weight products); ``finish``
+    runs phase 1 on the summed dY"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
+    B, L, C = x.shape
+    K, BL, dev = dw_kernel.shape[0], B * L, x.device
+    check_film_layer_tp(C, K, H, tp)
+    check_cuda("y", y, torch.bfloat16, 3)
+    go = grad_out.to(torch.bfloat16).contiguous()
+    film = _film_inputs(x, scale, shift, gate, g1, g2)
+    pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
+    bout = packed_out_bias(out_bias, vg_kernel, x.dtype)
+    Hr, Hp = pack.H, pack.Hp
+    nwg, sb = tp_bwd_plan(BL, C, H, tp, device_sms(dev), film=True)
+    ws, ss = split_partials(buf, BL, C)
+    nT = -(-L // _BM_ROWS)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_vg, s_out = gemm_splits(BL, C, 2 * Hp), gemm_splits(BL, Hp, C)
+    dx = torch.empty_like(x)
+    work = [torch.empty(BL, C, **bf),                                  # do
+            torch.empty(BL, 2, **f32), torch.empty(B, nT, 3, C, **f32),  # (n, n^3 m), mid sums
+            torch.empty(BL, 2 * Hp, **bf), torch.empty(BL, Hp, **bf),  # dvg, hn
+            torch.empty(-(-BL // (64 * nwg)) * nwg, 2 * Hp, **f32),   # vg-bias partials
+            *tp_dy(sb, BL, C, dev), torch.empty(B, nT, 4 + K, C, **f32),  # dY, finish sums
+            torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32),
+            torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)]  # dW_vg, dW_out
+    args = [x.data_ptr(), go.data_ptr(), *(t.data_ptr() for t in film), pack.dww.data_ptr(),
+            pack.dwb.data_ptr(), pack.bvg.data_ptr(), bout.data_ptr(), pack.weight_maps(),
+            dx.data_ptr(), ws.data_ptr(), ss.data_ptr(), y.data_ptr(),
+            *(t.data_ptr() for t in work), B, L, C, Hr, Hp, H, K, nwg, ws.shape[0], sb, s_vg, s_out]
+    run("odt_film_layer_bwd_tp", "film_layer_bwd_tp", dev, *args, 0)
+    mid, dbvg, dy, fin, dwvg, dwout = work[2], work[5], work[7], work[8], work[11], work[12]
+
+    def finish(held=(x, go, film, pack, bout, buf, y, work)):
+        """phase 1 (``held``: the tensors behind ``args``, alive until it
+        has read them)"""
+        run("odt_film_layer_bwd_tp", "film_layer_bwd_tp", dev, *args, 1, count=False)
+        return (dx, *_fin_grads(fin))
+
+    return dy, _ffn_grads(dbvg, dwvg, dwout, Hr, Hp), _mid_grads(mid), finish
+
+
+class FilmLayerTPFunction(torch.autograd.Function):
+    """the K2 TP form forward and the K3 TP form backward of one rank's
+    slice, their partial sums all-reduced over the model group ``group``
+    between the phases; H the whole hidden width"""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                out_kernel, out_bias, H, group):
+        buf, y = film_layer_tp_partial(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
+                                       vg_kernel, vg_bias, out_kernel, H, group_size(group))
+        tp_all_reduce_(buf, group)
+        ctx.save_for_backward(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
+                              vg_bias, out_kernel, out_bias, buf, y)
+        ctx.H, ctx.group = H, group
+        return film_layer_tp_finish(buf, x, gate, g2, out_bias, H)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        *inputs, buf, y = ctx.saved_tensors
+        dy, (dvgk, dvgb, doutk), (dgate, dg2, dbout), finish = film_layer_tp_bwd(
+            *inputs, grad_out, buf, y, ctx.H, group_size(ctx.group))
+        tp_all_reduce_(dy, ctx.group)
+        dx, dscale, dshift, dg1, ddw, ddwb = finish()
+        grads = (dx, dscale, dshift, dgate, dg1, dg2, ddw, ddwb, dvgk, dvgb, doutk, dbout)
+        return (*(g.to(t.dtype) for g, t in zip(grads, inputs)), None, None)
+
+
+def film_layer_tp(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
+                  out_kernel, out_bias, H: int, group) -> torch.Tensor:
+    """the film layer on a tensor-parallel rank holding a slice of the FFN's
+    H hidden units: the TP forms on the card, their plain versions for CPU
+    tensors; the model group ``group`` sums the partials"""
+    return FilmLayerTPFunction.apply(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
+                                     vg_kernel, vg_bias, out_kernel, out_bias, H, group)

@@ -27,6 +27,18 @@ version (``packed_ffn_weights``): a cache keyed on the weight tensors and
 their in-place version counters, so an optimizer step (which updates the
 parameters in place) forces a repack. The forward and backward cores read
 the same pack, so a training step holds one pack a layer.
+
+Tensor parallelism (``swiglu_tp``, parallel/tp.py): a rank holds a slice of
+the hidden units. ``SwiGLUTPFunction`` runs the K4 TP form forward (the
+slice's f32 partial s W_out and row sums of s^2, ``swiglu_tp_partial``; their
+sum over the model group; ``swiglu_tp_finish``: 1 / rms over the whole
+hidden width, b_out once) and the K6 TP form backward (``swiglu_tp_bwd``: the
+forward's summed partials give n and m, the slice gives its dY partial and
+weight gradients; the dY sum over the model group; the finish: the
+transposed conv, dx and the conv and out-bias gradients, equal on every
+rank). Each piece is the kernel's phase on a CUDA tensor and its plain
+version on a CPU tensor. On the card a width the forms do not take raises
+(``check_swiglu_tp``), as does K5's range, whose TP form is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..nn.norm import rms_norm
+from ..parallel.collectives import group_size, tp_all_reduce_
 from ._build import check_cuda, library, run
 
 # the row chunks of csrc/gemm_tn.cuh's weight products: about one (128 x 128
@@ -208,6 +221,16 @@ def gemm_splits(rows: int, m: int, n: int) -> int:
     return max(1, min(-(-rows // 64), -(-_GEMM_ITEMS // tiles)))
 
 
+def depthwise_conv(x: torch.Tensor, dw_kernel: torch.Tensor, dw_bias: torch.Tensor
+                   ) -> torch.Tensor:
+    """the block's (2r+1)-tap depthwise conv, zero SAME padding, in x's dtype"""
+    dt = x.dtype
+    K, L = dw_kernel.shape[0], x.shape[1]
+    r = K // 2
+    xp = F.pad(x, (0, 0, r, r))
+    return sum(xp[:, k : k + L] * dw_kernel[k].to(dt) for k in range(K)) + dw_bias.to(dt)
+
+
 def swiglu_plain(
     x: torch.Tensor,            # (B, L, C)
     dw_kernel: torch.Tensor,    # (K, C)
@@ -219,10 +242,7 @@ def swiglu_plain(
 ) -> torch.Tensor:
     """every op in x's dtype, in the JAX reference's order"""
     dt = x.dtype
-    K, L = dw_kernel.shape[0], x.shape[1]
-    r = K // 2
-    xp = F.pad(x, (0, 0, r, r))
-    y = sum(xp[:, k : k + L] * dw_kernel[k].to(dt) for k in range(K)) + dw_bias.to(dt)
+    y = depthwise_conv(x, dw_kernel, dw_bias)
     vg = y @ vg_kernel.to(dt) + vg_bias.to(dt)
     v, g = vg.chunk(2, dim=-1)
     h = rms_norm(v * F.silu(g))
@@ -489,3 +509,310 @@ def swiglu(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias) -> t
     if x.device.type != "cpu":
         raise ValueError(f"swiglu: no implementation for device {x.device}")
     return swiglu_plain(*args)
+
+
+# ------------------------------------------------------ tensor parallelism ----
+
+_EPS = 1e-6  # nn/norm.py rms_norm's
+
+
+def _pad64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def tp_hidden_pads(H: int, tp: int) -> tuple[int, int]:
+    """(Hp of the smallest slice, Hp of the largest) of H hidden units split
+    evenly over tp ranks (parallel/tp.py ``even_split``)"""
+    return _pad64(H // tp), _pad64(-(-H // tp))
+
+
+def tp_fwd_plan(rows: int, C: int, H: int, tp: int, sms: int, film: bool = False
+                ) -> tuple[int, int]:
+    """(output columns a CTA, hidden slices) of a TP form's forward core, one
+    plan on every rank of the model group: the largest slice's, its slices
+    no more than the smallest slice has 64-unit chunks (the kernel folds
+    them into the one plane the group sums)"""
+    hp_min, hp_max = tp_hidden_pads(H, tp)
+    nc, slices = fwd_plan(rows, C, hp_max, sms, film)
+    return nc, min(slices, hp_min // 64)
+
+
+def tp_bwd_plan(rows: int, C: int, H: int, tp: int, sms: int, film: bool) -> tuple[int, int]:
+    """(row warpgroups a CTA, pass B's hidden slices) of a TP form's backward,
+    the same on every rank as ``tp_fwd_plan``"""
+    hp_min, hp_max = tp_hidden_pads(H, tp)
+    nwg, _, sb = bwd_plan(rows, C, hp_max, sms, film)
+    return nwg, min(sb, hp_min // 64)
+
+
+def check_swiglu_tp(C: int, K: int, H: int, tp: int) -> None:
+    """raise unless the K4 and K6 TP forms take width C, K taps and H hidden
+    units over tp ranks: the forward core at the largest slice, K6's core
+    (C % 32 == 0 up to 640). Where the one-rank backward is K5 (``bwd_route``
+    "full") the TP form is not ported"""
+    hp_max = tp_hidden_pads(H, tp)[1]
+    if not fwd_kernel_fits(C, K, hp_max):
+        raise ValueError(f"the K4 TP form does not take C {C}, {K} taps, {hp_max} hidden "
+                         "units a rank (fwd_kernel_fits)")
+    if C % 32 or C > 640 or K > 9:
+        raise ValueError(f"the K6 TP form takes C a multiple of 32 up to 640 and at most 9 "
+                         f"taps, not C {C}, {K} taps")
+    if bwd_route(C, H, K) == "full":
+        raise NotImplementedError(
+            f"C {C}, H {H}: the one-rank backward there is K5, whose TP form is not ported "
+            "(ROADMAP.md Queue 2)")
+
+
+def tp_workspace(S: int, rows: int, C: int, device):
+    """a TP form's forward workspace of S hidden slices -> (the one plane
+    the model group sums, flat f32; the kernel's ws and ss views; the
+    plane's pointer where the kernel folds S > 1 slices into it, else
+    None: the kernel writes the plane itself)"""
+    buf = torch.empty(rows * (C + 1), dtype=torch.float32, device=device)
+    if S == 1:
+        return (buf, *split_partials(buf, rows, C), None)
+    work = torch.empty(S * rows * (C + 1), dtype=torch.float32, device=device)
+    return (buf, *split_partials(work, rows, C), buf.data_ptr())
+
+
+def tp_dy(sb: int, rows: int, C: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """a TP form's backward dY of sb hidden slices -> (the kernel's (sb,
+    rows, C) partials, the one plane (1, rows, C) the model group sums: the
+    same tensor where sb is 1, else the kernel folds the slices into it)"""
+    dy = torch.empty(sb, rows, C, dtype=torch.float32, device=device)
+    return dy, dy if sb == 1 else torch.empty(1, rows, C, dtype=torch.float32, device=device)
+
+
+def split_partials(buf: torch.Tensor, rows: int, C: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """a TP form's flat f32 workspace -> its views (S, rows, C) of the
+    partial s W_out and (S, rows) of the sums of s^2"""
+    S = buf.numel() // (rows * (C + 1))
+    return buf[:S * rows * C].view(S, rows, C), buf[S * rows * C:].view(S, rows)
+
+
+def _slice_products(y, vg_kernel, vg_bias, out_kernel) -> tuple[torch.Tensor, torch.Tensor]:
+    """a slice's share of the block from the conv output: (s W_out, f32)
+    and (the row sums of s^2, f32), in y's dtype as ``swiglu_plain``"""
+    dt = y.dtype
+    vg = y @ vg_kernel.to(dt) + vg_bias.to(dt)
+    v, g = vg.chunk(2, dim=-1)
+    s = v * F.silu(g)
+    return (s @ out_kernel.to(dt)).float(), s.float().square().sum(-1)
+
+
+def tp_partial_plain(y, vg_kernel, vg_bias, out_kernel) -> torch.Tensor:
+    """the plain version of a TP form's core from the conv output y: the
+    flat workspace of one slice (S 1)"""
+    p, ss = _slice_products(y, vg_kernel, vg_bias, out_kernel)
+    return torch.cat([p.reshape(-1), ss.reshape(-1)])
+
+
+def tp_out_plain(buf: torch.Tensor, shape, out_bias, H: int, dtype) -> torch.Tensor:
+    """the summed workspace -> o = (s W_out) / rms(s) + b_out in ``dtype``,
+    (B, L, C): rms over the whole hidden width H"""
+    B, L, C = shape
+    ws, ss = split_partials(buf, B * L, C)
+    n = torch.rsqrt(ss.sum(0) / H + _EPS)
+    return (ws.sum(0) * n[:, None] + out_bias.float()).to(dtype).view(B, L, C)
+
+
+def grads_of(fn, inputs, grad_out) -> tuple[torch.Tensor, ...]:
+    """autograd of ``fn(*inputs)`` with respect to every input"""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, grad_out)
+
+
+def tp_workspace_grads(dbuf: torch.Tensor, rows: int, C: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """the gradient of a summed workspace -> (of the summed s W_out (rows,
+    C), of the summed s^2 (rows)): every slice of it carries the same"""
+    dws, dss = split_partials(dbuf, rows, C)
+    return dws[0], dss[0]
+
+
+def tp_slice_grads(y, vg_kernel, vg_bias, out_kernel, dP, dSS):
+    """the plain version of a TP form's pass B: autograd of the slice's
+    products from y -> (dY f32, d vg_kernel, d vg_bias, d out_kernel)"""
+    p_shape, ss_shape = y.shape, y.shape[:-1]
+    grads = grads_of(lambda *t: _slice_products(*t), (y, vg_kernel, vg_bias, out_kernel),
+                     [dP.reshape(p_shape), dSS.reshape(ss_shape)])
+    return (grads[0].float(), *grads[1:])
+
+
+def swiglu_tp_partial(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H: int, tp: int
+                      ) -> torch.Tensor:
+    """the K4 TP form's first phase on this rank's slice -> the flat f32
+    workspace (``split_partials``) to sum over the model group"""
+    if x.is_cuda:
+        return swiglu_tp_partial_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H, tp)
+    _cpu_only("swiglu_tp", x)
+    return swiglu_tp_partial_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel)
+
+
+def swiglu_tp_partial_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel) -> torch.Tensor:
+    """the plain version of the K4 TP form's first phase (one slice, S 1)"""
+    return tp_partial_plain(depthwise_conv(x, dw_kernel, dw_bias), vg_kernel, vg_bias, out_kernel)
+
+
+def swiglu_tp_finish(buf, x, out_bias, H: int) -> torch.Tensor:
+    """the K4 TP form's second phase, on the summed workspace -> (B, L, C)"""
+    if x.is_cuda:
+        return swiglu_tp_finish_cuda(buf, x, out_bias, H)
+    _cpu_only("swiglu_tp", x)
+    return tp_out_plain(buf, x.shape, out_bias, H, x.dtype)
+
+
+def swiglu_tp_bwd(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, buf, H: int,
+                  tp: int):
+    """the K6 TP form's first phase -> (this rank's dY partial (1, B L, C)
+    f32 to sum over the model group, (d vg_kernel, d vg_bias, d out_kernel)
+    of the slice, finish); ``finish()`` on the summed dY -> (dx, d dw_kernel,
+    d dw_bias, d out_bias)"""
+    if x.is_cuda:
+        return swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out,
+                                  buf, H, tp)
+    _cpu_only("swiglu_tp", x)
+    return swiglu_tp_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out,
+                               buf, H)
+
+
+def swiglu_tp_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, buf,
+                        H: int):
+    """the plain version of ``swiglu_tp_bwd``: autograd of the finish and
+    of the slice's products, then of the conv"""
+    B, L, C = x.shape
+    zero = out_kernel.new_zeros(C)
+    (dbuf,) = grads_of(lambda b: tp_out_plain(b, x.shape, zero, H, x.dtype), (buf,), grad_out)
+    dy, *slice_grads = tp_slice_grads(depthwise_conv(x, dw_kernel, dw_bias), vg_kernel, vg_bias,
+                                      out_kernel, *tp_workspace_grads(dbuf, B * L, C))
+    dy = dy.reshape(1, B * L, C)
+
+    def finish():
+        dx, ddw, ddwb = grads_of(depthwise_conv, (x, dw_kernel, dw_bias),
+                                 dy.sum(0).view(B, L, C).to(x.dtype))
+        return dx, ddw, ddwb, grad_out.float().sum((0, 1))
+
+    return dy, tuple(slice_grads), finish
+
+
+def _cpu_only(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cpu":
+        raise ValueError(f"{name}: no implementation for device {x.device}")
+
+
+def swiglu_tp_partial_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H: int,
+                           tp: int) -> torch.Tensor:
+    """K4 TP phase 0, csrc/swiglu.cu ``odt_swiglu_fwd_tp``: the core in its
+    partial mode over this rank's slice, its hidden slices summed into the
+    one plane returned"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                     out_kernel.new_empty(x.shape[-1]))
+    B, L, C = x.shape
+    K = dw_kernel.shape[0]
+    check_swiglu_tp(C, K, H, tp)
+    pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
+    nc, S = tp_fwd_plan(B * L, C, H, tp, device_sms(x.device))
+    buf, ws, ss, fold = tp_workspace(S, B * L, C, x.device)
+    run("odt_swiglu_fwd_tp", "swiglu_tp", x.device,
+        x.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(), pack.bvg.data_ptr(), None,
+        pack.weight_maps(), None, ws.data_ptr(), ss.data_ptr(), fold,
+        B, L, C, pack.H, pack.Hp, H, K, S, nc, 0)
+    return buf
+
+
+def swiglu_tp_finish_cuda(buf, x, out_bias, H: int) -> torch.Tensor:
+    """K4 TP phase 1: the reduction kernel over the summed workspace"""
+    B, L, C = x.shape
+    ws, ss = split_partials(buf, B * L, C)
+    out = torch.empty_like(x)
+    bout = out_bias.to(x.dtype).contiguous()
+    run("odt_swiglu_fwd_tp", "swiglu_tp", x.device,
+        x.data_ptr(), None, None, None, bout.data_ptr(), None, out.data_ptr(), ws.data_ptr(),
+        ss.data_ptr(), None, B, L, C, 0, 0, H, 0, ws.shape[0], 0, 1, count=False)
+    return out
+
+
+def swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, buf,
+                       H: int, tp: int):
+    """K6 TP, csrc/swiglu_bwd.cu ``odt_swiglu_bwd_tp``: phase 0 (the conv,
+    the row statistics from the forward's summed workspace, pass B on the
+    slice) and the slice's two weight products as torch matmuls, as K6;
+    ``finish`` runs phase 1 on the summed dY"""
+    check_cuda("x", x, torch.bfloat16, 3)
+    check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                     out_kernel.new_empty(x.shape[-1]))
+    B, L, C = x.shape
+    K, BL, dev = dw_kernel.shape[0], B * L, x.device
+    check_swiglu_tp(C, K, H, tp)
+    go = grad_out.to(torch.bfloat16).contiguous()
+    pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
+    Hr, Hp = pack.H, pack.Hp
+    nwg, sb = tp_bwd_plan(BL, C, H, tp, device_sms(dev), film=False)
+    ws, ss = split_partials(buf, BL, C)
+    frows = bwd_rows(C)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    y, rows = torch.empty(BL, C, **bf), torch.empty(BL, 2, **f32)
+    dvg, hn = torch.empty(BL, 2 * Hp, **bf), torch.empty(BL, Hp, **bf)
+    dbvg = torch.empty(-(-BL // (64 * nwg)) * nwg, 2 * Hp, **f32)
+    dy, dysum = tp_dy(sb, BL, C, dev)
+    fin = torch.empty(B, -(-L // frows), 2 + K, C, **f32)
+    args = [x.data_ptr(), go.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(),
+            pack.bvg.data_ptr(), pack.weight_maps(), dx.data_ptr(), ws.data_ptr(), ss.data_ptr(),
+            *(t.data_ptr() for t in (y, rows, dvg, hn, dbvg, dy, dysum, fin)),
+            B, L, C, Hr, Hp, H, K, nwg, ws.shape[0], sb, frows]
+    run("odt_swiglu_bwd_tp", "swiglu_bwd_tp", dev, *args, 0)
+    dwvg = torch.mm(y.t(), dvg, out_dtype=torch.float32)
+    dwout = torch.mm(hn.t(), go.reshape(BL, C), out_dtype=torch.float32)
+    db = dbvg.sum(0)
+    slice_grads = (torch.cat([dwvg[:, :Hr], dwvg[:, Hp : Hp + Hr]], 1),
+                   torch.cat([db[:Hr], db[Hp : Hp + Hr]]), dwout[:Hr])
+
+    def finish(held=(x, go, pack, buf, y, rows, dvg, hn, dbvg, dy, dysum)):
+        """phase 1 (``held``: the tensors behind ``args``, alive until it
+        has read them)"""
+        run("odt_swiglu_bwd_tp", "swiglu_bwd_tp", dev, *args, 1, count=False)
+        sums = fin.sum((0, 1))  # d dw_bias, d out_bias, the taps
+        return dx, sums[2:], sums[0], sums[1]
+
+    return dysum, slice_grads, finish
+
+
+class SwiGLUTPFunction(torch.autograd.Function):
+    """the K4 TP form forward and the K6 TP form backward of one rank's
+    slice, their partial sums all-reduced over the model group ``group``
+    between the phases; H the whole hidden width"""
+
+    @staticmethod
+    def forward(ctx, x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, H, group):
+        buf = swiglu_tp_partial(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H,
+                                group_size(group))
+        tp_all_reduce_(buf, group)
+        ctx.save_for_backward(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, buf)
+        ctx.H, ctx.group = H, group
+        return swiglu_tp_finish(buf, x, out_bias, H)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *weights, buf = ctx.saved_tensors
+        dy, (dvgk, dvgb, doutk), finish = swiglu_tp_bwd(
+            x, *weights, grad_out, buf, ctx.H, group_size(ctx.group))
+        tp_all_reduce_(dy, ctx.group)
+        dx, ddw, ddwb, dbout = finish()
+        dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel = weights
+        return (dx.to(x.dtype), ddw.to(dw_kernel.dtype), ddwb.to(dw_bias.dtype),
+                dvgk.to(vg_kernel.dtype), dvgb.to(vg_bias.dtype), doutk.to(out_kernel.dtype),
+                dbout.to(out_kernel.dtype), None, None)
+
+
+def swiglu_tp(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, H: int, group
+              ) -> torch.Tensor:
+    """SwiGLU on a tensor-parallel rank holding a slice of the H hidden units
+    (``vg_kernel`` (C, 2 H_r), ``out_kernel`` (H_r, C)): the TP forms on the
+    card, their plain versions for CPU tensors; the model group ``group``
+    sums the partials"""
+    return SwiGLUTPFunction.apply(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
+                                  H, group)

@@ -1,7 +1,5 @@
-"""Data and sequence parallelism for training (counterpart of
-osu_dreamer_tpu/parallel/): one rank a device over ``torch.distributed``.
-Tensor parallelism (the JAX ``tp.py``) is not ported: ``parallel.tp > 1``
-raises."""
+"""Data, sequence and tensor parallelism for training (counterpart of
+osu_dreamer_tpu/parallel/): one rank a device over ``torch.distributed``."""
 
 from .config import ParallelArgs, Parallelism, build_parallelism
 from .distributed import init_multihost, input_shard, launch

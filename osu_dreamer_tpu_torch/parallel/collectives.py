@@ -6,6 +6,13 @@ point-to-point sends only.
   a ``psum``/``pmean`` under ``shard_map``: each rank's gradient is the group
   size times its own share, which the gradient average over all ranks
   (``Parallelism.average_gradients``) turns into the true sum of the shares;
+- ``enter_model`` and ``leave_model`` are Megatron's two conjugate
+  operators of a tensor-parallel region: entering it is the identity
+  forward and an all-reduce of the gradient backward; leaving it an
+  all-reduce forward and the identity backward (every rank of the model
+  group holds the same loss, so the gradient reaching the sum is already
+  whole). ``tp_all_reduce_`` is the in-place sum the FFN kernels' TP forms
+  run between their phases;
 - ``exchange`` posts one batch of sends and receives between ranks. Gloo
   takes point-to-point buffers in host memory only (a CUDA tensor fails in
   its socket write), so on a gloo group a CUDA tensor is staged through
@@ -111,6 +118,49 @@ class _AllGatherRows(torch.autograd.Function):
         with comm_timer.span("all_reduce", grad.device):
             dist.all_reduce(out, group=ctx.group)
         return out[ctx.rows[0]:ctx.rows[1]], None
+
+
+def tp_all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the model group ``group``, in place (timed as
+    "tp"); ``group`` None: ``x`` as it is"""
+    if group is not None:
+        with comm_timer.span("tp", x.device):
+            dist.all_reduce(x, group=group)
+    return x
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return tp_all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+class _LeaveModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return tp_all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def enter_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a tensor-parallel region of ``group``: the identity,
+    whose backward sums the ranks' gradients; ``group`` None: ``x``"""
+    return x if group is None else _EnterModel.apply(x, group)
+
+
+def leave_model(x: torch.Tensor, group) -> torch.Tensor:
+    """the ranks' partial ``x`` summed over ``group`` on leaving a
+    tensor-parallel region, whose backward is the identity; ``group``
+    None: ``x``"""
+    return x if group is None else _LeaveModel.apply(x, group)
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:

@@ -6,7 +6,9 @@ meaning:
     parallel:
       dp: -1            # data-parallel devices: -1 = auto (all that divide
                         # the batch), 1 = single device, N = exactly N
-      tp: 1             # tensor parallelism: refused (not ported yet)
+      tp: 1             # tensor-parallel span: Megatron-style slices of the
+                        # attention heads and SwiGLU hidden units over a
+                        # (data, model) grid of ranks (parallel/tp.py)
       sp: 1             # sequence-parallel span (denoiser stage only)
       coordinator: null # multi-host: host:port every host meets at
       num_processes: null
@@ -15,12 +17,17 @@ meaning:
 Each fit calls ``build_parallelism`` first, with the devices it may use (by
 default every visible card). The port runs one rank per device: where the
 resolved world holds more than one rank, the fit ``launch``es its ranks and
-each runs the fit again, finding the process group joined. A rank holds the
-whole model; data ranks take their own rows of every global batch, and the
-ranks of a sequence-parallel group their own span of the window. Each rank
-computes the same global loss and the gradients are averaged over all ranks,
-so the replicas stay equal bit for bit. There is no GSPMD and no kernel gate:
-a rank runs whole tensors, so every op with a kernel takes it.
+each runs the fit again, finding the process group joined. Data ranks take
+their own rows of every global batch, and the ranks of a sequence-parallel
+group their own span of the window; each of them holds the whole model,
+computes the same global loss, and the gradients are averaged over all
+ranks, so the replicas stay equal bit for bit. Under tensor parallelism a
+model group of ``tp`` consecutive ranks takes the same rows and draws and
+each rank holds its slice of the attention heads and SwiGLU hidden units
+(parallel/tp.py); the gradients are averaged over the data group (the q/k
+norm gains summed over the model group first) and clipped by their global
+norm. There is no GSPMD and no kernel gate: a rank runs its own tensors, so
+every op with a kernel takes it, and the FFNs their kernels' TP forms.
 
 Multi-host: each host runs the fit with its ``process_id``; it streams its
 own input shard (``input_shard``), loads ``local_batch_size`` rows a step
@@ -42,12 +49,7 @@ import torch.distributed as dist
 from . import distributed
 from .collectives import comm_timer, optional_group
 from .mesh import auto_data_parallel, rank_grid
-
-TP_REFUSAL = (
-    "parallel.tp > 1 is not ported: tensor parallelism is the next slice, "
-    "ROADMAP.md Queue 1 item 8b (a cross-rank row sum of squares inside the SwiGLU "
-    "kernels, the packed [v|g] and [q|k|v] columns split by halves and by heads)"
-)
+from .tp import TPLayout, tp_grid
 
 
 @dataclass
@@ -78,28 +80,40 @@ class Parallelism:
     sp_axis: Optional[str] = None
     world_size: int = 1
     sp: int = 1
+    tp: int = 1
     # this host's rank devices, one a local rank
     devices: list[torch.device] = field(default_factory=lambda: [torch.device("cpu")])
     coordinator: Optional[str] = None
     timeout_s: float = distributed.COLLECTIVE_TIMEOUT_S
     rank: Optional[int] = None
     world_group: Any = None
-    data_group: Any = None   # the ranks holding the same span (None: one rank)
+    data_group: Any = None   # the ranks holding the same span or slice (None: one rank)
     sp_group: Any = None     # the ranks of this rank's window (None: sp 1)
+    model_group: Any = None  # the ranks of this rank's model (None: tp 1)
 
     # ---- layout ----
 
     @property
+    def inner(self) -> int:
+        """the ranks that take the same rows: a sequence-parallel or a
+        model group"""
+        return self.sp * self.tp
+
+    @property
     def n_data(self) -> int:
-        return self.world_size // self.sp
+        return self.world_size // self.inner
 
     @property
     def data_rank(self) -> int:
-        return (self.rank or 0) // self.sp
+        return (self.rank or 0) // self.inner
 
     @property
     def sp_rank(self) -> int:
         return (self.rank or 0) % self.sp
+
+    @property
+    def model_rank(self) -> int:
+        return (self.rank or 0) % self.tp
 
     @property
     def n_local(self) -> int:
@@ -114,6 +128,12 @@ class Parallelism:
     def is_writer(self) -> bool:
         """rank 0 (or the single process) writes logs and checkpoints"""
         return not self.rank
+
+    @property
+    def validates(self) -> bool:
+        """rank 0 validates, with the rest of its model group under tensor
+        parallelism (the forward is collective there)"""
+        return self.data_rank == 0 and (self.tp > 1 or not self.rank)
 
     @property
     def needs_launch(self) -> bool:
@@ -135,15 +155,18 @@ class Parallelism:
         self.rank = dist.get_rank()
         timeout = timedelta(seconds=self.timeout_s)
         self.world_group = dist.group.WORLD
-        data_groups, sp_groups = rank_grid(self.n_data, self.sp)
+        data_groups, inner_groups = rank_grid(self.n_data, self.inner)
         for ranks in data_groups:
             group = optional_group(ranks, timeout)
             if self.rank in ranks:
                 self.data_group = group
-        for ranks in sp_groups:
+        for ranks in inner_groups:
             group = optional_group(ranks, timeout)
             if self.rank in ranks:
-                self.sp_group = group
+                if self.sp > 1:
+                    self.sp_group = group
+                if self.tp > 1:
+                    self.model_group = group
         return self
 
     # ---- batches ----
@@ -155,7 +178,7 @@ class Parallelism:
         if self.rank is None:
             return batch
         rows = self.local_batch_size * self.process_count // self.n_data
-        lo = ((self.rank % self.n_local) // self.sp) * rows
+        lo = ((self.rank % self.n_local) // self.inner) * rows
         out = []
         for i, x in enumerate(batch):
             x = x[lo:lo + rows]
@@ -193,16 +216,53 @@ class Parallelism:
 
     # ---- collectives of the train step ----
 
-    def average_gradients(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    def average_gradients(self, grads: Sequence[torch.Tensor],
+                          layout: Optional[TPLayout] = None) -> list[torch.Tensor]:
         """the gradients averaged over every rank (one all-reduce of the flat
-        gradient): the same bits on every rank"""
+        gradient): the same bits on every rank. Under tensor parallelism
+        over the data group only (a model group's ranks hold the same
+        replicated gradients and their own slices' gradients), the partial
+        gradients of ``layout`` summed over the model group first"""
         if self.world_group is None:
             return list(grads)
+        grads = list(grads)
+        group, n = self.world_group, self.world_size
+        if self.tp > 1:
+            group, n = self.data_group, self.n_data
+            kinds = layout.kinds() if layout is not None else ["replicated"] * len(grads)
+            part = [i for i, k in enumerate(kinds) if k == "partial"]
+            if part and self.model_group is not None:
+                flat = torch.cat([grads[i].reshape(-1) for i in part])
+                with comm_timer.span("tp", flat.device):
+                    dist.all_reduce(flat, group=self.model_group)
+                for i, f in zip(part, flat.split([grads[i].numel() for i in part])):
+                    grads[i] = f.view_as(grads[i])
+            if group is None:
+                return grads
         flat = torch.cat([g.reshape(-1) for g in grads])
         with comm_timer.span("grad_all_reduce", flat.device):
-            dist.all_reduce(flat, group=self.world_group)
-        flat = flat / self.world_size
+            dist.all_reduce(flat, group=group)
+        flat = flat / n
         return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def grad_norm(self, grads: Sequence[torch.Tensor],
+                  layout: Optional[TPLayout]) -> Optional[torch.Tensor]:
+        """the global norm of the whole model's gradient under tensor
+        parallelism (the squares of the slices' gradients summed over the
+        model group, every other leaf's counted once: the replicated ones
+        and the partial ones, which ``average_gradients`` has already summed
+        over the group); None where a rank holds the whole gradient (the
+        optimizer's own norm)"""
+        if layout is None or self.model_group is None:
+            return None
+        kinds = layout.kinds()
+        sq = [torch.stack([g.float().square().sum() for g, k in zip(grads, kinds)
+                           if (k == "sharded") == sharded]
+                          or [grads[0].new_zeros((), dtype=torch.float32)]).sum()
+              for sharded in (True, False)]
+        with comm_timer.span("tp", sq[0].device):
+            dist.all_reduce(sq[0], group=self.model_group)
+        return torch.sqrt(sq[0] + sq[1])
 
     def mean_over_data(self, metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """per-rank batch means -> their mean over the data ranks (the JAX
@@ -225,19 +285,31 @@ class Parallelism:
         dist.broadcast_object_list(box, src=0, group=self.world_group)
         return box[0]
 
-    def check_replicas(self, tensors: Iterable[torch.Tensor]) -> str:
+    def check_replicas(self, tensors: Iterable[torch.Tensor],
+                       slices: Iterable[torch.Tensor] = ()) -> str:
         """the SHA-256 of ``tensors``' bytes, which must be the same on every
-        rank (raises otherwise) -> the digest"""
-        h = hashlib.sha256()
-        for t in tensors:
-            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
-        digest = h.hexdigest()
-        if self.world_group is not None:
-            digests = [None] * self.world_size
-            dist.all_gather_object(digests, digest, group=self.world_group)
+        rank, and of ``slices``' (a tensor-parallel rank's own), which must
+        be the same on every rank of its data group (raises otherwise) ->
+        the digest of ``tensors``"""
+        digest = _digest(tensors)
+        checks = [(digest, self.world_group, self.world_size, "replicas")]
+        if self.tp > 1:
+            checks.append((_digest(slices), self.data_group, self.n_data, "slices"))
+        for mine, group, n, what in checks:
+            if group is None:
+                continue
+            digests = [None] * n
+            dist.all_gather_object(digests, mine, group=group)
             if len(set(digests)) != 1:
-                raise RuntimeError(f"the ranks' replicas differ: {digests}")
+                raise RuntimeError(f"the ranks' {what} differ: {digests}")
         return digest
+
+
+def _digest(tensors: Iterable[torch.Tensor]) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def build_parallelism(args: ParallelArgs, batch_size: int,
@@ -249,8 +321,8 @@ def build_parallelism(args: ParallelArgs, batch_size: int,
     joined) it also takes the rank and makes the groups; a coordinator with
     one device a host joins this process to the group here.
 
-    The checks are the JAX package's, in its order and with its messages;
-    ``tp > 1`` alone is refused."""
+    The checks are the JAX package's, in its order and with its messages,
+    and one of the port's: a model group stays within one host."""
     if devices is None:
         devices = distributed.visible_devices(
             torch.device("cuda" if torch.cuda.is_available() else "cpu"))
@@ -302,7 +374,7 @@ def build_parallelism(args: ParallelArgs, batch_size: int,
             "the multi-host input path does not provide (yet)"
         )
 
-    sp, sp_axis = 1, None
+    sp, tp, sp_axis = 1, 1, None
     if args.sp > 1:
         if n_global % args.sp != 0:
             raise ValueError(
@@ -318,7 +390,21 @@ def build_parallelism(args: ParallelArgs, batch_size: int,
         say(f"[parallel] sequence-parallel: (data={n_data}, sp={args.sp}) mesh, "
             "window length sharded over sp")
     elif args.tp > 1:
-        raise NotImplementedError(TP_REFUSAL)
+        n_data = tp_grid(n_global, args.tp)
+        if batch_size % n_data != 0:
+            raise ValueError(
+                f"batch size {batch_size} not divisible by the {n_data}-way "
+                f"data axis of the (data={n_data}, model={args.tp}) mesh; "
+                "adjust data.batch_size or parallel.tp"
+            )
+        if len(devices) % args.tp != 0:
+            raise ValueError(
+                f"parallel.tp={args.tp} must divide each host's {len(devices)} devices: "
+                "a model group stays within one host"
+            )
+        world, tp = n_global, args.tp
+        say(f"[parallel] tensor-parallel: (data={n_data}, model={args.tp}) "
+            "mesh, Megatron-style param sharding")
     elif args.dp == 1:
         world = 1  # explicit single-device
     elif args.dp > 1:
@@ -349,6 +435,7 @@ def build_parallelism(args: ParallelArgs, batch_size: int,
         sp_axis=sp_axis,
         world_size=world,
         sp=sp,
+        tp=tp,
         devices=devices,
         coordinator=args.coordinator,
         timeout_s=timeout_s or distributed.COLLECTIVE_TIMEOUT_S,

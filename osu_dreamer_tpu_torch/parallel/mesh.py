@@ -7,7 +7,10 @@ device, so a layout here is a list of rank groups:
   global batch (``auto_data_parallel`` picks how many ranks, the JAX rule);
 - sequence parallelism: a ``(data, sp)`` grid, ``Mesh(devices.reshape(n_data,
   sp))`` in the JAX package, whose sp groups are runs of ``sp`` consecutive
-  ranks and whose data groups take one rank from each run.
+  ranks and whose data groups take one rank from each run;
+- tensor parallelism: a ``(data, model)`` grid, the JAX ``tp_mesh``, laid
+  out the same way: a model group is a run of ``tp`` consecutive ranks, so
+  it stays within one host (each host's ranks are consecutive).
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ def auto_data_parallel(batch_size: int, n_devices: int) -> int:
     return n
 
 
-def rank_grid(n_data: int, sp: int) -> tuple[list[list[int]], list[list[int]]]:
-    """the ranks of a ``(data, sp)`` grid -> (its data groups, its sp
-    groups): sp group d is ranks ``d * sp .. d * sp + sp - 1`` (a row of the
-    JAX mesh), data group s the ranks ``s, s + sp, ...`` (a column)"""
-    sp_groups = [[d * sp + s for s in range(sp)] for d in range(n_data)]
-    data_groups = [[d * sp + s for d in range(n_data)] for s in range(sp)]
-    return data_groups, sp_groups
+def rank_grid(n_data: int, inner: int) -> tuple[list[list[int]], list[list[int]]]:
+    """the ranks of a ``(data, sp)`` or ``(data, model)`` grid -> (its data
+    groups, its inner groups): inner group d is ranks ``d * inner .. d *
+    inner + inner - 1`` (a row of the JAX mesh), data group s the ranks
+    ``s, s + inner, ...`` (a column)"""
+    inner_groups = [[d * inner + s for s in range(inner)] for d in range(n_data)]
+    data_groups = [[d * inner + s for d in range(n_data)] for s in range(inner)]
+    return data_groups, inner_groups

@@ -27,12 +27,14 @@ _META_FILE = "meta.json"
 
 def save_train_checkpoint(
     path: str | Path,
-    state: TrainState,
+    state: TrainState | dict,
     hparams: dict[str, Any],
     metric: Optional[float] = None,
     progress: Optional[dict[str, int]] = None,
 ) -> None:
-    """write a full training checkpoint (replaces ``path``)"""
+    """write a full training checkpoint of ``state`` (a TrainState or its
+    ``state_dict()``; replaces ``path``)"""
+    state_dict = state if isinstance(state, dict) else state.state_dict()
     path = Path(path).absolute()
     tmp = path.with_name(path.name + ".tmp")
     old = path.with_name(path.name + ".old")
@@ -40,8 +42,8 @@ def save_train_checkpoint(
         if stale.exists():
             shutil.rmtree(stale)
     tmp.mkdir(parents=True)
-    torch.save(state.state_dict(), tmp / _STATE_FILE)
-    meta = {"hparams": hparams, "metric": metric, "step": state.step}
+    torch.save(state_dict, tmp / _STATE_FILE)
+    meta = {"hparams": hparams, "metric": metric, "step": state_dict["step"]}
     if progress is not None:
         # the epoch to restart in and how many of its batches were consumed
         # (streams are deterministic per epoch: seeded with seed + epoch)
@@ -107,8 +109,8 @@ class BestCheckpointKeeper:
     def last_path(self) -> Path:
         return self.run_dir / "last"
 
-    def update(self, state: TrainState, hparams: dict[str, Any], metrics: dict[str, float],
-               progress: Optional[dict[str, int]] = None) -> bool:
+    def update(self, state: TrainState | dict, hparams: dict[str, Any],
+               metrics: dict[str, float], progress: Optional[dict[str, int]] = None) -> bool:
         """save ``last`` (rate-limited); promote it to ``best`` when the
         monitored metric improves -> whether a new best was saved"""
         value = metrics.get(self.monitor)

@@ -7,12 +7,15 @@ resume from the stored stream position. ``max_steps`` stops a run after that
 many steps.
 
 In a run spread over ranks (``par``) every rank runs the loop in lockstep:
-rank 0 alone validates (its metrics are broadcast, so early stopping agrees)
-and writes the logs and checkpoints, the others waiting at a barrier after
-each write; every rank resumes from the same checkpoint; at the end the
-ranks' parameters must be equal bit for bit. A failing rank raises at once
-(its final save is left out, since the other ranks are not there to meet
-it).
+rank 0 alone validates (with the rest of its model group under tensor
+parallelism, whose forward is collective; rank 0's metrics are broadcast, so
+early stopping agrees) and writes the logs and checkpoints, the others
+waiting at a barrier after each write; under tensor parallelism every rank
+first gathers the whole state (train/state.py), which rank 0 writes in the
+one-process layout; every rank resumes from the same checkpoint; at the end
+the ranks' parameters must be equal bit for bit, a tensor-parallel rank's
+slices across its data group. A failing rank raises at once (its final save
+is left out, since the other ranks are not there to meet it).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..parallel.config import ParallelArgs, Parallelism, build_parallelism
 from ..parallel.distributed import visible_devices
+from ..parallel.tp import layout_of
 from ..utils.config import dataclass_from_dict
 from .checkpoint import BestCheckpointKeeper, read_progress, restore_train_state
 from .logging import MetricsLogger
@@ -89,7 +93,9 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None,
                                   args.save_last_every_s, write=writer)
 
     def save(metrics: dict[str, float]) -> bool:
-        improved = keeper.update(state, stage.hparams, metrics, progress)
+        # a tensor-parallel state gathers on every rank, whether rank 0 writes
+        whole = state.state_dict() if layout_of(state.model) is not None else state
+        improved = keeper.update(whole, stage.hparams, metrics, progress)
         if spread:
             par.barrier()
         return improved
@@ -161,7 +167,7 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None,
             run_val = (epoch + 1) % max(1, args.val_every) == 0 or is_final
             val_metrics: dict[str, float] = {}
             if run_val and stage.validate is not None:
-                val_metrics = stage.validate(state) if writer else {}
+                val_metrics = stage.validate(state) if par is None or par.validates else {}
                 if spread:
                     val_metrics = par.broadcast(val_metrics)
                 logger.scalars(val_metrics, state.step)
@@ -203,10 +209,12 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None,
             save({})
         logger.close()
     if spread:
-        tensors = list(state.model.parameters())
-        if state.ema_model is not None:
-            tensors += list(state.ema_model.parameters())
-        digest = par.check_replicas(tensors)
+        models = [state.model] + ([state.ema_model] if state.ema_model is not None else [])
+        layout = layout_of(state.model)
+        split = set(layout.splits) if layout is not None else set()
+        tensors = [p for m in models for n, p in m.named_parameters() if n not in split]
+        slices = [p for m in models for n, p in m.named_parameters() if n in split]
+        digest = par.check_replicas(tensors, slices)
         say(f"[{stage.name}] {par.world_size} ranks hold the same parameters "
             f"(sha256 {digest[:16]})")
     return state

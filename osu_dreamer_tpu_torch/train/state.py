@@ -12,6 +12,11 @@ adamw(schedule, weight_decay))``:
 - the learning rate read from the schedule at the count BEFORE the update.
 JAX's state is immutable; here the parameters, moments and EMA are updated
 in place (with ``torch._foreach_*`` ops, a few launches per update).
+
+A tensor-parallel model (parallel/tp.py) holds its rank's slices; its
+``state_dict`` gathers the whole tensors (a collective over the model group)
+and ``load_state_dict`` slices them, so checkpoints keep the one-process
+layout.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from ..nn.schedule import LRScheduleArgs, make_lr_schedule
+from ..parallel.tp import layout_of
 
 
 @dataclass
@@ -52,10 +58,13 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in params]
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor]) -> torch.Tensor:
-        """apply one update from ``grads`` (one per parameter, same order);
-        -> the global gradient norm before clipping (a device scalar)"""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    def step(self, grads: list[torch.Tensor], norm: torch.Tensor | None = None) -> torch.Tensor:
+        """apply one update from ``grads`` (one per parameter, same order),
+        clipped by ``norm`` (by default theirs: a tensor-parallel rank passes
+        the whole model's); -> the global gradient norm before clipping (a
+        device scalar)"""
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         clip = self.args.grad_clip
         # optax: g where norm < clip, else g / norm * clip
         scale = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
@@ -118,7 +127,9 @@ class TrainState:
     loss_ema_ready: torch.Tensor | None = None
 
     def state_dict(self) -> dict:
-        return {
+        """the state in the one-process layout (under tensor parallelism a
+        collective: every rank of the model group calls it)"""
+        state = {
             "step": self.step,
             "params": self.model.state_dict(),
             "opt": self.opt.state_dict(),
@@ -127,8 +138,13 @@ class TrainState:
             "loss_ema": self.loss_ema,
             "loss_ema_ready": self.loss_ema_ready,
         }
+        layout = layout_of(self.model)
+        return state if layout is None else layout.gather_state(state)
 
     def load_state_dict(self, state: dict) -> None:
+        layout = layout_of(self.model)
+        if layout is not None:
+            state = layout.scatter_state(state)
         self.step = int(state["step"])
         self.model.load_state_dict(state["params"])
         self.opt.load_state_dict(state["opt"])

@@ -14,7 +14,8 @@ reading YAML needs yaml), runs encode-latents on the latter's checkpoint,
 builds a dataset from a synthetic library (``generate_data``), trains a tiny
 style prior for two steps, takes one attention forward and backward
 through the fused prologue (ops/film_qkv.py, OSU_DREAMER_FUSED_PROLOGUE=1),
-resolves a data-parallel config (parallel/) and runs ring attention and the
+resolves a data-parallel and a tensor-parallel config (parallel/, with
+parallel/tp.py's slices of a tiny denoiser) and runs ring attention and the
 halo exchange (ops/ring_attention.py) on one rank.
 The ``.odt`` reader and writer need msgpack, which is blocked here; they are
 exercised by tests/test_torch_export.py and on the card by chip_smoke.py, and
@@ -159,13 +160,24 @@ SCRIPT = textwrap.dedent(
     assert "osu_dreamer_tpu_torch.ops.film_qkv" in names
     assert {{"osu_dreamer_tpu_torch.serve.service", "osu_dreamer_tpu_torch.serve.http"}} <= set(names)
     parallel = {{"osu_dreamer_tpu_torch.parallel." + m
-                for m in ("config", "distributed", "mesh", "collectives")}}
+                for m in ("config", "distributed", "mesh", "collectives", "tp")}}
     assert parallel | {{"osu_dreamer_tpu_torch.ops.ring_attention"}} <= set(names)
     from osu_dreamer_tpu_torch.ops.ring_attention import halo_exchange, ring_attention
     from osu_dreamer_tpu_torch.parallel import ParallelArgs, build_parallelism
 
     par = build_parallelism(ParallelArgs(dp=2), 8, ["cpu", "cpu"])
     assert par.world_size == 2 and par.needs_launch
+    par = build_parallelism(ParallelArgs(tp=2), 8, ["cpu", "cpu"])
+    assert (par.world_size, par.tp, par.n_data) == (2, 2, 1) and par.needs_launch
+    from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel, DiffusionModelArgs
+    from osu_dreamer_tpu_torch.parallel.tp import shard_model
+
+    net = DiffusionModel(dataclass_from_dict(DiffusionModelArgs, {{
+        "a_dim": 16, "style_dim": 8, "global_cond_dim": 16, "backbone_dim": 32,
+        "backbone": {{"depth": 1, "expand": 2, "n_heads": 2}}}}), torch.float32)
+    layout = shard_model(net, None, 1, 2)
+    assert net.net.layer0.attn.qkv.kernel.shape == (32, 3 * 64)
+    assert net.net.layer0.ffn.out_kernel.shape == (21, 32) and len(layout.splits) == 6
     qkv = [torch.randn(2, 6, 2, 8, generator=gen, requires_grad=True) for _ in range(3)]
     ring_attention(*qkv, None).square().sum().backward()
     assert halo_exchange(torch.ones(1, 4, 2), 2, None).shape == (1, 8, 2)

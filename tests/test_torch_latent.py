@@ -424,9 +424,9 @@ def test_fit_latent_and_encode_latents_cli(tmp_path, capsys):
             run(cfg, device="cuda")
         with pytest.raises(RuntimeError, match="CUDA"):
             encode_latents(tmp_path / "cli" / "best", data, device="cuda")
-    # the JAX refusal over one CPU device; tensor parallelism names its slice
+    # the JAX refusals over one CPU device
     bad = [({"dp": 2}, ValueError, r"parallel.dp=2 but only 1 devices"),
-           ({"tp": 2}, NotImplementedError, r"parallel.tp > 1 is not ported.*Queue 1 item 8")]
+           ({"tp": 2}, ValueError, r"1 devices not divisible by n_model=2")]
     for value, error, match in bad:
         with pytest.raises(error, match=match):
             run({**cfg, "parallel": value}, device="cpu")

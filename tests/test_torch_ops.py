@@ -116,7 +116,9 @@ def test_spec_for_model_batch_matches_jax():
 
 
 def _cuda_wrappers():
-    from osu_dreamer_tpu_torch.ops.film_layer import film_layer_bwd_cuda, film_layer_cuda
+    from osu_dreamer_tpu_torch.ops.film_layer import (
+        film_layer_bwd_cuda, film_layer_cuda, film_layer_tp_bwd_cuda, film_layer_tp_partial_cuda,
+    )
     from osu_dreamer_tpu_torch.ops.film_qkv import film_qkv_bwd_cuda, film_qkv_fwd_cuda
     from osu_dreamer_tpu_torch.ops.fused_attention import (
         fused_attention_bwd_cuda, fused_attention_fwd_cuda,
@@ -124,7 +126,8 @@ def _cuda_wrappers():
     from osu_dreamer_tpu_torch.ops.long_attention import attention_cuda
     from osu_dreamer_tpu_torch.ops.resonator import resonate_cuda
     from osu_dreamer_tpu_torch.ops.swiglu import (
-        swiglu_bwd_cuda, swiglu_bwd_full_cuda, swiglu_cuda,
+        swiglu_bwd_cuda, swiglu_bwd_full_cuda, swiglu_cuda, swiglu_tp_bwd_cuda,
+        swiglu_tp_partial_cuda,
     )
 
     w = [T(a) for a in ffn_weights(16, 20, 3, 0)]
@@ -148,13 +151,20 @@ def _cuda_wrappers():
         "swiglu_bwd_full": lambda: swiglu_bwd_full_cuda(x, *w[:5], x),
         "film_qkv_fwd": lambda: film_qkv_fwd_cuda(xq, zq, zq, xq, wq, bq),
         "film_qkv_bwd": lambda: film_qkv_bwd_cuda(xq, zq, zq, xq, wq, bq, qkv),
+        # the TP forms on a rank's slice of H 40 (2 ranks)
+        "swiglu_tp": lambda: swiglu_tp_partial_cuda(x, *w[:5], 40, 2),
+        "swiglu_bwd_tp": lambda: swiglu_tp_bwd_cuda(x, *w[:5], x, torch.zeros(8 * 17), 40, 2),
+        "film_layer_tp": lambda: film_layer_tp_partial_cuda(x, z, z, z, z[0], z[0], *w[:5], 40, 2),
+        "film_layer_bwd_tp": lambda: film_layer_tp_bwd_cuda(
+            x, z, z, z, z[0], z[0], *w, x, torch.zeros(8 * 17), x, 40, 2),
     }
 
 
 @pytest.mark.parametrize("kernel", ["swiglu", "film_layer", "flash_attention", "resonator",
                                     "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd",
                                     "film_layer_bwd", "swiglu_bwd_full", "film_qkv_fwd",
-                                    "film_qkv_bwd"])
+                                    "film_qkv_bwd", "swiglu_tp", "swiglu_bwd_tp", "film_layer_tp",
+                                    "film_layer_bwd_tp"])
 def test_cuda_wrapper_refuses_cpu_tensors(kernel):
     """a kernel wrapper never falls back: given a CPU tensor it raises
     before building or launching anything, and counts no launch"""
@@ -187,7 +197,8 @@ def _c_prototypes() -> dict[str, list[str]]:
 _ENTRY_POINTS = ["odt_resonate", "odt_film_layer_fwd", "odt_swiglu_fwd", "odt_flash_attention_fwd",
                  "odt_swiglu_bwd", "odt_fused_attention_fwd", "odt_fused_attention_bwd",
                  "odt_film_layer_bwd", "odt_swiglu_bwd_full", "odt_film_qkv_fwd",
-                 "odt_film_qkv_bwd", "odt_ffn_weight_maps"]
+                 "odt_film_qkv_bwd", "odt_ffn_weight_maps", "odt_swiglu_fwd_tp",
+                 "odt_film_layer_fwd_tp", "odt_swiglu_bwd_tp", "odt_film_layer_bwd_tp"]
 
 
 def test_c_entry_points_are_the_bound_ones():

@@ -1,8 +1,8 @@
 """The port's ``parallel/`` (osu_dreamer_tpu_torch/parallel/) against the JAX
 package's, without starting any rank: the copied ``ParallelArgs``, every
 check of ``build_parallelism`` with the JAX messages, the auto rule of
-``auto_data_parallel``, the ``(data, sp)`` rank layout, the rows and spans a
-rank takes, and ``rope``'s offset.
+``auto_data_parallel``, the ``(data, sp)`` and ``(data, model)`` rank
+layouts, the rows and spans a rank takes, and ``rope``'s offset.
 
 The module imports no jax at the top: tests/test_torch_parallel_dp.py and
 tests/test_torch_parallel_sp.py import its helpers, and their rank bodies
@@ -90,9 +90,12 @@ MH = dict(coordinator="127.0.0.1:1", num_processes=2, process_id=0)
     (dict(sp=2), 9, 4, ValueError, r"batch size 9 not divisible by the 2-way data axis"),
     (dict(dp=8), 8, 2, ValueError, r"parallel.dp=8 but only 2 devices"),
     (dict(dp=8), 30, 8, ValueError, r"batch size 30 not divisible by parallel.dp=8"),
-    # the one refusal left: tensor parallelism names its slice
-    (dict(tp=2), 8, 4, NotImplementedError, r"parallel.tp > 1 is not ported.*Queue 1 item 8"),
+    # tensor parallelism: the JAX tp_mesh and data-axis checks
+    (dict(tp=3), 8, 8, ValueError, r"8 devices not divisible by n_model=3"),
+    (dict(tp=2), 6, 8, ValueError, r"batch size 6 not divisible by the 4-way data axis"),
     (dict(coordinator="127.0.0.1:1"), 8, 1, ValueError, "needs parallel.num_processes"),
+    # the port's own: a model group stays within one host
+    (dict(tp=4, **MH), 8, 2, ValueError, r"parallel.tp=4 must divide each host's 2 devices"),
 ])
 def test_build_parallelism_refusals(args, batch, n_dev, error, match):
     with pytest.raises(error, match=match):
@@ -107,7 +110,8 @@ def test_build_parallelism_refusals_match_jax(monkeypatch):
     cases = [(dict(dp=1, **MH), 8, 2), (dict(dp=2, **MH), 8, 2), (dict(**MH), 6, 2),
              (dict(**MH), 7, 1), (dict(tp=2, sp=2), 8, 4), (dict(sp=3), 8, 4),
              (dict(sp=2), 9, 4), (dict(dp=8), 8, 2), (dict(dp=8), 30, 8),
-             (dict(sp=2, **MH), 8, 2)]
+             (dict(sp=2, **MH), 8, 2), (dict(tp=3), 8, 8), (dict(tp=2), 6, 8),
+             (dict(tp=2, **MH), 6, 4)]
     for args, batch, n_dev in cases:
         n_proc = args.get("num_processes", 1)
         monkeypatch.setattr(jcfg.jax, "process_count", lambda n=n_proc: n)
@@ -121,20 +125,22 @@ def test_build_parallelism_refusals_match_jax(monkeypatch):
         assert str(got.value) == str(want.value), args
 
 
-@pytest.mark.parametrize("args, batch, n_dev, world, sp", [
-    (dict(), 8, 1, 1, 1),           # auto on one device
-    (dict(), 8, 4, 4, 1),           # auto: every device
-    (dict(), 30, 8, 6, 1),          # auto trims to the largest divisor
-    (dict(), 13, 8, 1, 1),          # no divisor: one device
-    (dict(dp=1), 8, 4, 1, 1),       # explicit single device
-    (dict(dp=2), 8, 4, 2, 1),       # configured: the first two devices
-    (dict(sp=2), 8, 4, 4, 2),       # (data=2, sp=2)
-    (dict(sp=4), 8, 4, 4, 4),       # (data=1, sp=4)
-    (dict(num_processes=2), 8, 1, 1, 1),  # no coordinator: one process, as in JAX
+@pytest.mark.parametrize("args, batch, n_dev, world, sp, tp", [
+    (dict(), 8, 1, 1, 1, 1),           # auto on one device
+    (dict(), 8, 4, 4, 1, 1),           # auto: every device
+    (dict(), 30, 8, 6, 1, 1),          # auto trims to the largest divisor
+    (dict(), 13, 8, 1, 1, 1),          # no divisor: one device
+    (dict(dp=1), 8, 4, 1, 1, 1),       # explicit single device
+    (dict(dp=2), 8, 4, 2, 1, 1),       # configured: the first two devices
+    (dict(sp=2), 8, 4, 4, 2, 1),       # (data=2, sp=2)
+    (dict(sp=4), 8, 4, 4, 4, 1),       # (data=1, sp=4)
+    (dict(tp=2), 8, 4, 4, 1, 2),       # tensor parallelism: (data=2, model=2)
+    (dict(tp=2), 3, 2, 2, 1, 2),       # (data=1, model=2): any batch
+    (dict(num_processes=2), 8, 1, 1, 1, 1),  # no coordinator: one process, as in JAX
 ])
-def test_build_parallelism_resolves_the_world(args, batch, n_dev, world, sp):
+def test_build_parallelism_resolves_the_world(args, batch, n_dev, world, sp, tp):
     par = build_parallelism(ParallelArgs(**args), batch, [CPU] * n_dev)
-    assert (par.world_size, par.sp, par.n_data) == (world, sp, world // sp)
+    assert (par.world_size, par.sp, par.tp, par.n_data) == (world, sp, tp, world // (sp * tp))
     assert par.rank is None and par.needs_launch == (world > 1)
     assert par.sp_axis == ("sp" if sp > 1 else None)
     assert (par.process_count, par.input_shard, par.local_batch_size) == (1, None, batch)
@@ -168,11 +174,12 @@ def _rank(par: Parallelism, rank: int) -> Parallelism:
     return dataclasses.replace(par, rank=rank)
 
 
-@pytest.mark.parametrize("args, n_dev", [(dict(dp=4), 4), (dict(sp=2), 4), (dict(sp=4), 4)])
+@pytest.mark.parametrize("args, n_dev", [(dict(dp=4), 4), (dict(sp=2), 4), (dict(sp=4), 4),
+                                         (dict(tp=2), 4)])
 def test_shard_batch_rows_and_spans_tile_the_batch(args, n_dev):
     """the ranks' rows (and spans) tile the host's batch exactly once, in
     rank order within the (data, sp) grid; draws at the global shape slice
-    the same way"""
+    the same way; the ranks of a model group take the same rows"""
     B, L = 8, 12
     par = build_parallelism(ParallelArgs(**args), B, [CPU] * n_dev)
     x = torch.arange(B * L).reshape(B, L, 1)
@@ -187,7 +194,7 @@ def test_shard_batch_rows_and_spans_tile_the_batch(args, n_dev):
         assert torch.equal(ss, s[lo:lo + rows])
         assert torch.equal(pr.take_span(pr.take_rows(x, rows), span), xs)
         seen[lo:lo + rows, pr.sp_rank * span:(pr.sp_rank + 1) * span] += 1
-    assert torch.equal(seen, torch.ones_like(seen))
+    assert torch.equal(seen, torch.full_like(seen, par.tp))
 
 
 def test_multihost_rows_follow_the_host_shard():

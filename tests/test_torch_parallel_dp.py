@@ -252,6 +252,10 @@ def _host_main(pid: int, port: int, out: str, windows: int) -> None:
         {"rank": par.rank, "world": par.world_size, "local_batch": par.local_batch_size,
          "items": items, "grad": float(grad), "lockstep": lockstep, "steps": steps,
          "input_shard": list(input_shard())}))
+    # leave the group this process joined: a process group left open at
+    # interpreter exit can abort the process ("terminate called without an
+    # active exception")
+    torch.distributed.destroy_process_group()
 
 
 def _run_hosts(target, *args, hosts: int = 2) -> None:

@@ -109,11 +109,14 @@ def test_film_layer_route_pins_the_jax_dispatch(C):
 
 @pytest.mark.parametrize("C", WIDTHS)
 def test_prologue_route_pins_the_jax_gate(C, monkeypatch):
+    """the JAX ``_prologue_ok`` at every width, and off on a tensor-parallel
+    rank (``sharded``) as the JAX gate is under GSPMD"""
     monkeypatch.setenv("OSU_DREAMER_FUSED_PROLOGUE", "1")
     for F in range(384, 8065, 384):
         jax_ok = (C % 128 == 0 and F % 128 == 0 and jfq.feasible_fwd_tile(C, F) is not None
                   and jfq.feasible_bwd_tile(C, F) is not None)
         assert prologue_ok(C, F) == jax_ok, (C, F)
+        assert not prologue_ok(C, F, sharded=True)
         if jax_ok:  # K11 and K12 take the shape (csrc/film_qkv.cu)
             assert C % 64 == 0 and C <= fq.MAX_C and F % 128 == 0
     monkeypatch.setenv("OSU_DREAMER_FUSED_PROLOGUE", "0")

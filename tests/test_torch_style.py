@@ -318,9 +318,9 @@ def test_batched_pairs_drops_the_last_partial_batch():
 
 def test_fit_style_cli_and_refusals(tmp_path, capsys):
     """the CLI trains on the CPU when asked and writes both checkpoints with
-    val/energy_dist monitored; a CUDA run without a card, parallel blocks the
-    one CPU device cannot hold and tensor parallelism raise instead of running
-    something else"""
+    val/energy_dist monitored; a CUDA run without a card and parallel blocks
+    the one CPU device cannot hold (tensor parallelism among them) raise
+    instead of running something else"""
     from osu_dreamer_tpu_torch.cli import main
     from osu_dreamer_tpu_torch.models.style.fit import run
 
@@ -335,11 +335,11 @@ def test_fit_style_cli_and_refusals(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run(cfg)
-    # the JAX refusals over one CPU device; tensor parallelism names its slice;
+    # the JAX refusals over one CPU device;
     # num_processes without a coordinator is ignored, as jax.distributed
     # ignores it there: one process on one device
     bad = [({"dp": 2}, ValueError, r"parallel.dp=2 but only 1 devices"),
-           ({"tp": 2}, NotImplementedError, r"parallel.tp > 1 is not ported.*Queue 1 item 8"),
+           ({"tp": 2}, ValueError, r"1 devices not divisible by n_model=2"),
            ({"coordinator": "127.0.0.1:1", "num_processes": 2, "process_id": 0, "dp": 1},
             ValueError, "divergent")]
     for value, error, match in bad:

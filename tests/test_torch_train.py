@@ -316,9 +316,9 @@ def test_resume_is_exact(tmp_path):
 
 def test_fit_denoiser_cli_and_refusals(tmp_path, capsys):
     """the CLI trains on the CPU when asked and writes both checkpoints; a
-    CUDA run without a card, parallel blocks the one CPU device cannot hold,
-    tensor parallelism, dropout and windows beyond the fused-attention gate
-    raise instead of running something else"""
+    CUDA run without a card, parallel blocks the one CPU device cannot hold
+    (tensor parallelism among them), dropout and windows beyond the
+    fused-attention gate raise instead of running something else"""
     import json
 
     from osu_dreamer_tpu_torch.cli import main
@@ -336,9 +336,9 @@ def test_fit_denoiser_cli_and_refusals(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run(cfg, device="cuda")
-    # the JAX refusals over one CPU device; tensor parallelism names its slice
+    # the JAX refusals over one CPU device
     bad = [({"dp": 2}, ValueError, r"parallel.dp=2 but only 1 devices"),
-           ({"tp": 2}, NotImplementedError, r"parallel.tp > 1 is not ported.*Queue 1 item 8"),
+           ({"tp": 2}, ValueError, r"1 devices not divisible by n_model=2"),
            ({"sp": 2}, ValueError, r"1 devices not divisible by parallel.sp=2")]
     for value, error, match in bad:
         with pytest.raises(error, match=match):
