@@ -55,7 +55,13 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    one-rank kernel too; the backwards within GRAD_REL), the ranks'
    finishes and every rerun bit-identical,
    one rank's form (both phases on its own partials) timed by graph replay
-   beside its plain version and the bound of the slice's work.
+   beside its plain version and the bound of the slice's work. Then (1f)
+   the attention kernels at head dims 32 and 128 (32 x 32 and 8 x 128
+   heads, H D 1024 as shipped): K7/K8 at B4 L759, B4 L65 and B1 L2500, K9
+   and K10 at B128 L152 and B2 L 1, 63, 64, 65, 192, 193 and 256, by the
+   rules above (4 ulp, GRAD_REL, bit-identical reruns, the residual-free
+   forward), each timed by graph replay beside its plain version, the bound
+   and (K7/K8) SDPA.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -88,6 +94,20 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    run_predict fetched; a second run with the same seed must write the
    same texts; then one song with --snap-divisor 4 --serialize-workers 1.
    Prints the timing lines and the wall per map.
+3c. Shards songs over two replicas of phase 3's model, on the one card
+   (the replica list repeats it): ``predict --batch-songs 4`` on four 60 s
+   songs (written at the model's rate) must print the JAX rule's
+   ``[parallel]`` line and launch one resonator, 48 film layers and 264
+   SwiGLUs and K7s a shard; then, at the sampler, the sharded charts must
+   equal (within one quantization step) the one-device sampler's run on
+   each shard's songs with the same noise and step-size mean, and the
+   one-device sampler on the whole batch is logged beside both (its kernel
+   plans and library products change with the rows a launch holds). Then
+   ``serve`` over HTTP on one device and on the two replicas: /healthz
+   ``devices`` 1 and 2, a warm-up burst, a timed burst of four unseeded
+   two-row requests (launches one sampler run a shard, a dispatch split
+   over both replicas) and one seeded request, whose .osu texts must be the
+   same on both. Prints every wall beside the one-device wall.
 4. Trains the denoiser at full width (the port's models/diffusion/config.yml:
    depth 8, width 512, 16 x 64 heads, batch 128 x 152, bf16 compute, f32
    parameters) through ``fit.run`` on a seeded synthetic cached-latent
@@ -99,6 +119,15 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    matmuls apart), K9 and K10. Then one step's loss and gradients through the
    kernels (bf16) and through the plain versions (bf16) are each held to a
    plain f32 step on the same batch, t and x0 (random full-strength weights).
+4b. The same with ``backbone: {n_heads: 8, head_dim: 128}``: 2 warm-up and
+   4 timed steps through ``fit.run`` on phase 4's corpus, exactly 8 K4, K6,
+   K9 and K10 launches a step, no K7 and no plain attention on the card;
+   then the one-step check at 8 x 128 and at 32 x 32 heads (8 K9 and 8
+   K10 launches in the kernel step).
+4c. ``predict`` with the denoiser at 8 x 128 heads (the shipped widths
+   otherwise, init_random weights, the denoiser's randomized at full
+   strength) on one 120 s song (K7, 264 launches) and one 30 s song (K9,
+   264), no plain attention on the card.
 5. Trains the chart autoencoder at full width (the port's
    models/latent/config.yml: h_dim 128, 3 downs of stride 3, 8-layer stacks,
    16 x 64 style heads, batch 32 x 2052 split into 64 x 1026 halves, bf16
@@ -191,8 +220,10 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    one-process kernel step's error. Prints ms/step per rank (host clock
    after 2 warm-ups) and the TP all-reduces' ms a step (CUDA events).
 
-Prints the card's name and power limit, one JSON line of per-kernel results,
-and last ``{"ok": true, "device": {...}}``. Any failure raises.
+Prints the card's name and power limit, one JSON line of per-kernel results
+(the attention kernels' entries also by head dim: 64 from phase 1, 32 and
+128 from phase 1f with the launches of their main paths in 4b and 4c), and
+last ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
 from __future__ import annotations
@@ -567,14 +598,16 @@ def synth_wave(seed: int, seconds: float, sr: int) -> np.ndarray:
     return wave.astype(np.float32)
 
 
-def write_song(path: Path, seconds: float, seed: int) -> Path:
-    """``synth_wave`` as a 44.1 kHz stereo 16-bit WAV (stdlib ``wave``)"""
-    mono = synth_wave(seed, seconds, WAV_RATE).astype(np.float64)
+def write_song(path: Path, seconds: float, seed: int, rate: int = WAV_RATE) -> Path:
+    """``synth_wave`` as a stereo 16-bit WAV at ``rate`` (by default 44.1
+    kHz; at the model's rate ``load_wave`` does not resample) (stdlib
+    ``wave``)"""
+    mono = synth_wave(seed, seconds, rate).astype(np.float64)
     stereo = np.stack([mono, 0.9 * mono], axis=1) / max(1.0, float(np.abs(mono).max()))
     with wave.open(str(path), "wb") as w:
         w.setnchannels(2)
         w.setsampwidth(2)
-        w.setframerate(WAV_RATE)
+        w.setframerate(rate)
         w.writeframes(np.round(stereo * 32767).astype("<i2").tobytes())
     return path
 
@@ -785,15 +818,17 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
               kernels: tuple[str, ...], loss_keys: tuple[str, ...],
               shown: tuple[str, ...], timed: int = TRAIN_TIMED,
               absent: tuple[str, ...] = (),
-              families: dict[str, str] | None = None) -> tuple[dict[str, int], float, float]:
+              families: dict[str, str] | None = None,
+              per_step: dict[str, int] | None = None) -> tuple[dict[str, int], float, float]:
     """``run`` (a stage's ``fit.run``) on ``cfg`` for TRAIN_WARMUP +
     ``timed`` steps, checkpoints under ``workdir``; fails unless every step
     ran, each of ``kernels`` launched during the timed steps and none of
     ``absent`` in the whole run, every loss of ``loss_keys`` stayed finite and
     both checkpoints exist. Logs ms/step and peak memory over the timed steps
     and the ``shown`` losses per step; with ``families``, one more step runs
-    under torch.profiler and its device-busy and family ms are logged ->
-    (the kernel launches of the whole run, ms/step, peak GiB)"""
+    under torch.profiler and its device-busy and family ms are logged; with
+    ``per_step``, each named kernel must launch exactly that often a timed
+    step -> (the kernel launches of the whole run, ms/step, peak GiB)"""
     import torch
 
     from osu_dreamer_tpu_torch.ops import _build
@@ -833,6 +868,9 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
     missing = [k for k, n in in_timed.items() if n == 0]
     if missing:
         raise RuntimeError(f"{what} never launched: {missing}")
+    off = {k: lb[k] - la[k] for k, n in (per_step or {}).items() if lb[k] - la[k] != n * timed}
+    if off:
+        raise RuntimeError(f"{what}: {off} launches in {timed} steps, not {per_step} a step")
     stray = [k for k in absent if launches[k]]
     if stray:
         raise RuntimeError(f"{what} launched {stray}, which its path must not take")
@@ -2281,6 +2319,507 @@ def tp_phase(dev, smi: str) -> dict[str, int]:
     return launches
 
 
+@contextmanager
+def no_plain_attention():
+    """the plain attention versions raise on a CUDA tensor: a path run
+    inside takes the kernels or fails"""
+    from osu_dreamer_tpu_torch.ops import fused_attention, long_attention
+
+    saved = long_attention.attention_plain, fused_attention.rope_attention_plain
+
+    def guarded(plain):
+        def call(x, *rest):
+            if x.is_cuda:
+                raise RuntimeError(f"{plain.__name__} ran on the card")
+            return plain(x, *rest)
+        return call
+
+    long_attention.attention_plain = guarded(saved[0])
+    fused_attention.rope_attention_plain = guarded(saved[1])
+    try:
+        yield
+    finally:
+        long_attention.attention_plain, fused_attention.rope_attention_plain = saved
+
+
+def request_launches(model, out_frames: list[int], requests: list[int] | None = None) -> dict:
+    """the launches of one sampler run a batch (or ``requests[i]`` runs of
+    batch i: one a shard): one resonator, the latent U-Net's film layers,
+    and per backbone layer and denoiser pass one SwiGLU and the attention
+    kernel ``attention_route`` names for the batch's latent length"""
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.ops.fused_attention import attention_route
+
+    chunk = model.args.latent.chunk_size
+    backbone = model.args.diffusion.backbone
+    expected = dict.fromkeys(_build.KERNELS, 0)
+    for frames, n in zip(out_frames, requests or [1] * len(out_frames)):
+        route = attention_route(frames // chunk, backbone.n_heads, backbone.head_dim, "cuda")
+        expected["resonator"] += RESONATOR_PER_REQUEST * n
+        expected["film_layer"] += FILM_PER_REQUEST * n
+        expected["swiglu"] += SWIGLU_PER_REQUEST * n
+        expected["fused_attention_fwd" if route == "fused" else "flash_attention"] += \
+            FLASH_PER_REQUEST * n
+    return expected
+
+
+def out_frames_of(model, seconds: float) -> int:
+    """``prep_wave_for_model``'s padded length for a song of ``seconds``"""
+    from osu_dreamer_tpu_torch.audio.constants import SR
+    from osu_dreamer_tpu_torch.audio.spectrogram import prep_wave_for_model
+
+    return prep_wave_for_model(np.zeros(int(seconds * SR), np.float32),
+                               model.args.latent.chunk_size)[3]
+
+
+# phase 3c: predict --batch-songs SHARD_SONGS over two replicas of phase 3's
+# model on the one card (the replica list repeats it), songs written at the
+# model's rate; serve's burst (SHARD_SONGS unseeded two-row requests) and
+# one seeded request on a service over the same two replicas; each beside
+# the one-device run
+SHARD_SONGS = 4
+SHARD_SECONDS = 60.0
+SHARD_SEED = 4321
+
+
+def chart_gap(got, want) -> str:
+    """how far two quantized charts and their labels lie apart: the largest
+    step on each grid, the share of values off by more than one step, the
+    labels' largest gap beside one bf16 ulp of their largest magnitude"""
+    (gh, gx, gl), (wh, wx, wl) = got, want
+    dh = np.abs(gh.astype(np.int32) - wh.astype(np.int32))
+    dx = np.abs(gx.astype(np.int32) - wx.astype(np.int32))
+    dl, ulp = np.abs(gl - wl).max(), 2.0 ** (np.floor(np.log2(np.abs(wl).max())) - 7)
+    return (f"hit channels within {dh.max()} step(s) ({(dh > 1).mean():.2%} past one), cursor "
+            f"within {dx.max()} step(s) ({(dx > 1).mean():.2%} past one), labels within "
+            f"{dl:.4g} (one bf16 ulp {ulp:.4g})")
+
+
+def within_one_step(what: str, got, want) -> None:
+    """quantized charts within one step of the grid, labels within one bf16
+    ulp of their largest magnitude"""
+    (gh, gx, gl), (wh, wx, wl) = got, want
+    dh = np.abs(gh.astype(np.int32) - wh.astype(np.int32)).max()
+    dx = np.abs(gx.astype(np.int32) - wx.astype(np.int32)).max()
+    dl, tol = np.abs(gl - wl).max(), 2.0 ** (np.floor(np.log2(np.abs(wl).max())) - 7)
+    log(f"{what}: {chart_gap(got, want)}")
+    if dh > 1 or dx > 1 or dl > tol:
+        raise RuntimeError(f"{what}: the charts are more than one quantization step apart")
+
+
+def shard_reference(model, songs: list[Path], dev, replicas) -> None:
+    """the sharded sampler against the one-device sampler at the shard's
+    batch size: the same noise (drawn at the whole batch's shape in the
+    one-device order, s0 then x0) and the same step-size mean over the whole
+    batch, each half of the songs sampled on ``model`` itself (the default
+    stream, no copy) in its own thread, the means met at a barrier. The
+    two must agree within one quantization step; the one-device sampler on
+    the whole batch at once, same noise, is logged beside both: the card's
+    kernel plans and library products change with the rows a launch holds,
+    and bf16 sampling carries that through its steps"""
+    import threading
+
+    import torch
+
+    from osu_dreamer_tpu_torch.audio.decode import load_wave
+    from osu_dreamer_tpu_torch.audio.spectrogram import prep_wave_for_model
+    from osu_dreamer_tpu_torch.models.inference.sampler import (
+        build_batch_sampler, build_sharded_sampler, gather_shards,
+    )
+    from osu_dreamer_tpu_torch.parallel.replicas import replicate, song_shards
+
+    chunk = model.args.latent.chunk_size
+    preps = [prep_wave_for_model(load_wave(s), chunk) for s in songs]
+    waves = torch.from_numpy(np.stack([p[0] for p in preps]))
+    real = torch.tensor([p[1] for p in preps])
+    n_frames, out_frames = preps[0][2], preps[0][3]
+    labels = torch.tensor(PREDICT_DIFFS, dtype=torch.float32)
+    S, D = len(songs), len(PREDICT_DIFFS)
+    sharded = build_sharded_sampler(replicate(model, replicas))
+    try:
+        got = gather_shards(sharded(waves, real, labels, SHARD_SEED, n_frames, out_frames, STEPS,
+                                    1.0))
+    finally:
+        sharded.close()
+
+    gen = torch.Generator(dev).manual_seed(SHARD_SEED)
+    s0 = torch.randn(S * D, model.args.style.style_dim, generator=gen, device=dev)
+    x0 = torch.randn(S * D, out_frames // chunk, model.args.diffusion.emb_dim, generator=gen,
+                     device=dev)
+    sample = build_batch_sampler(model)
+    host = lambda out: (out[0].cpu().numpy(), out[1].cpu().numpy(),  # noqa: E731
+                        out[2].float().cpu().numpy())
+    whole = host(sample(waves.to(dev), real.to(dev), labels.to(dev), None, n_frames,
+                        out_frames, STEPS, 1.0, s0=s0, x0=x0))
+    parts = song_shards(S, len(replicas))
+    barrier, sums, halves = threading.Barrier(len(parts)), [None] * len(parts), [None] * len(parts)
+    errors: list[BaseException] = []
+
+    def run(k: int, songs_k: slice) -> None:
+        def mean(u):
+            sums[k] = (float(u.double().sum()), u.numel())
+            barrier.wait()
+            m = sum(a for a, _ in sums) / sum(n for _, n in sums)
+            barrier.wait()
+            return torch.tensor(m, dtype=u.dtype, device=u.device)
+
+        rows = slice(songs_k.start * D, songs_k.stop * D)
+        try:
+            with torch.cuda.device(dev):
+                halves[k] = host(sample(waves[songs_k].to(dev), real[songs_k].to(dev),
+                                        labels.to(dev), None, n_frames, out_frames, STEPS, 1.0,
+                                        s0=s0[rows], x0=x0[rows], batch_mean=mean))
+        except BaseException as e:  # noqa: BLE001 — raised below
+            barrier.abort()
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k, p)) for k, p in enumerate(parts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    halves = tuple(np.concatenate([h[i] for h in halves]) for i in range(3))
+    log(f"sampler, {S} songs x {D} rows, seed {SHARD_SEED}: one device on the whole batch vs "
+        f"on halves (same noise and mean) {chart_gap(whole, halves)}; sharded vs one device on "
+        f"the whole batch {chart_gap(got, whole)}")
+    within_one_step(f"sampler, {S} songs over {len(replicas)} replicas vs one device at the "
+                    "shard's batch size", got, halves)
+
+
+def sharding_phase(model, odt: Path, dev, smi: str) -> dict[str, int]:
+    """phase 3c: songs sharded over two replicas on one card -> the kernel
+    launches of the sharded predict, the sharded burst and its seeded
+    request"""
+    import contextlib
+    import os
+    import threading
+    import urllib.request
+    import zipfile
+
+    import torch
+
+    from osu_dreamer_tpu_torch.audio.constants import SR
+    from osu_dreamer_tpu_torch.cli import run_predict
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.serve import GeneratorService, MapServer
+
+    t_phase = time.perf_counter()
+    workdir = ROOT / "build" / "smoke_shard"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    songs = [write_song(workdir / f"shard{i}.wav", SHARD_SECONDS, SEED + 30 + i, rate=SR)
+             for i in range(SHARD_SONGS)]
+    replicas = [dev, dev]
+    frames = out_frames_of(model, SHARD_SECONDS)
+    launched: dict[str, int] = dict.fromkeys(_build.KERNELS, 0)
+
+    def predict(devices):
+        cwd, printed = os.getcwd(), io.StringIO()
+        os.chdir(workdir)
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                done = run_predict(model, songs, PREDICT_DIFFS, STEPS, seed=SEED,
+                                   serialize_workers=2, batch_songs=SHARD_SONGS, device=dev,
+                                   devices=devices)
+            return done, time.perf_counter() - t, dict(_build.launches), printed.getvalue()
+        finally:
+            os.chdir(cwd)
+
+    one, one_wall, _, _ = predict([dev])
+    sharded, wall, got, printed = predict(replicas)
+    lines = [ln for ln in printed.splitlines() if ln.startswith("[parallel]")]
+    want = request_launches(model, [frames], [2])
+    log(f"predict --batch-songs {SHARD_SONGS} over {len(replicas)} replicas on one card: "
+        f"{lines}; {SHARD_SONGS} songs x {SHARD_SECONDS:.0f} s x {len(PREDICT_DIFFS)} "
+        f"difficulties, {STEPS} steps: {wall:.2f} s wall sharded, {one_wall:.2f} s on one "
+        f"device [{smi}]; launches {got}")
+    if lines != [f"[parallel] sharding {SHARD_SONGS}-song batches over 2 of 2 devices"]:
+        raise RuntimeError(f"predict printed {lines}")
+    if got != want:
+        raise RuntimeError(f"the sharded predict launched {got}, not {want}")
+    for a, b in zip(sharded, one):
+        log(f"predict {a.audio_file.name}: sharded vs one device (4 songs a launch) "
+            + chart_gap((a.hit_u8, a.xy_i16, a.labels), (b.hit_u8, b.xy_i16, b.labels)))
+    for k, n in got.items():
+        launched[k] += n
+    shard_reference(model, songs, dev, replicas)
+
+    def serve(replica_devices):
+        service = GeneratorService(odt, device=dev, max_batch=SHARD_SONGS, batch_window_ms=400,
+                                   serialize_workers=2, replica_devices=replica_devices)
+        shard_runs: list[int] = []
+        if service._sharded is not None:
+            inner = service._sharded
+
+            def recorded(*args):
+                out = inner(*args)
+                shard_runs.append(len(out))
+                return out
+
+            recorded.devices, recorded.close = inner.devices, inner.close
+            service._sharded = recorded
+        server = MapServer(service, port=0)
+        server.start_background()
+        host, port = server.address
+        try:
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=60) as r:
+                health = json.load(r)
+
+            def post(song: Path, seed=None) -> tuple[bytes, float]:
+                query = "&".join([f"sample_steps={STEPS}", f"name={song.name}"]
+                                 + ["diff=" + ",".join(f"{v:g}" for v in row)
+                                    for row in PREDICT_DIFFS]
+                                 + ([f"seed={seed}"] if seed is not None else []))
+                t = time.perf_counter()
+                req = urllib.request.Request(f"http://{host}:{port}/generate?{query}",
+                                             data=song.read_bytes(), method="POST")
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    return r.read(), time.perf_counter() - t
+
+            walls = [0.0] * SHARD_SONGS
+
+            def burst() -> float:
+                start = threading.Barrier(SHARD_SONGS + 1)
+
+                def client(i):
+                    start.wait()
+                    walls[i] = post(songs[i])[1]
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(SHARD_SONGS)]
+                for t in threads:
+                    t.start()
+                start.wait()
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.join()
+                return time.perf_counter() - t0
+
+            burst()  # warm-up: every replica's first dispatch (weight packs, streams)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            shard_runs.clear()
+            burst = burst()
+            seeded, seeded_wall = post(songs[1], SHARD_SEED)
+            torch.cuda.synchronize()
+            stats = service.snapshot_stats()
+            return (health, burst, walls, seeded, seeded_wall, dict(_build.launches),
+                    list(shard_runs), stats)
+        finally:
+            server.close()
+
+    h1, burst1, walls1, seeded1, sw1, _, _, _ = serve(None)
+    h2, burst2, walls2, seeded2, sw2, got, runs, stats = serve(replicas)
+    log(f"serve /healthz: one device {h1}; two replicas {h2}")
+    if h1["devices"] != 1 or h2["devices"] != 2 or h2["max_batch"] != SHARD_SONGS:
+        raise RuntimeError(f"/healthz devices {h1['devices']} and {h2['devices']}, not 1 and 2")
+    maps = SHARD_SONGS * len(PREDICT_DIFFS)
+    log(f"serve burst of {SHARD_SONGS} unseeded {len(PREDICT_DIFFS)}-row requests on "
+        f"{SHARD_SECONDS:.0f} s songs, max_batch {SHARD_SONGS}, 400 ms window: two replicas "
+        f"{burst2:.2f} s ({maps / burst2 * 60:.1f} maps/min; request walls "
+        + ", ".join(f"{w:.2f}" for w in walls2) + f"; shard runs a dispatch {runs}), one "
+        f"device {burst1:.2f} s ({maps / burst1 * 60:.1f} maps/min; request walls "
+        + ", ".join(f"{w:.2f}" for w in walls1) + f"); the seeded request {sw2:.2f} s on the "
+        f"replicas, {sw1:.2f} s on one device [{smi}]; launches on the replicas {got}; "
+        f"stats {stats}")
+    # the burst's dispatches and the seeded solo one: one sampler run a shard
+    want = request_launches(model, [frames] * len(runs), runs)
+    if got != want or not any(n == 2 for n in runs) or runs[-1] != 1:
+        raise RuntimeError(f"the sharded service launched {got} over shard runs {runs}, not "
+                           f"{want}, or never split a dispatch")
+    entries = [{n: z.read(n) for n in z.namelist() if n.endswith(".osu")}
+               for z in (zipfile.ZipFile(io.BytesIO(b)) for b in (seeded1, seeded2))]
+    if entries[0] != entries[1] or len(entries[0]) != len(PREDICT_DIFFS):
+        raise RuntimeError("the seeded request on the replicas wrote other .osu texts than on "
+                           "one device")
+    log("serve seeded request: the same .osu texts on two replicas as on one device")
+    for k, n in got.items():
+        launched[k] += n
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 3c wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launched
+
+
+# phase 4c: predict with a denoiser of 8 x 128 heads at full width, one
+# 120 s song (latent L 759: K7) and one 30 s song (L <= 256: K9)
+HEADS_SONGS = (120.0, 30.0)
+HEADS_TIMED = 4
+
+
+def head_dim_predict(dev, smi: str) -> dict[str, int]:
+    """phase 4c: ``run_predict`` on an LDM whose denoiser has 8 x 128 heads
+    (the shipped widths otherwise; init_random weights, the denoiser's
+    randomized at full strength), no plain attention on the card -> its
+    kernel launches"""
+    import dataclasses
+    import os
+    import zipfile
+
+    import torch
+
+    from osu_dreamer_tpu_torch.audio.constants import SR
+    from osu_dreamer_tpu_torch.cli import run_predict
+    from osu_dreamer_tpu_torch.models.inference.artifact import init_random
+    from osu_dreamer_tpu_torch.models.inference.model import LDMArgs
+    from osu_dreamer_tpu_torch.ops import _build
+
+    args = LDMArgs()
+    args.diffusion = dataclasses.replace(args.diffusion, backbone=dataclasses.replace(
+        args.diffusion.backbone, n_heads=8, head_dim=128))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    model = init_random(args, gen, dev)
+    randomize_(model.diffusion, gen)
+    workdir = ROOT / "build" / "smoke_heads"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    songs = [write_song(workdir / f"heads{i}.wav", seconds, SEED + 40 + i, rate=SR)
+             for i, seconds in enumerate(HEADS_SONGS)]
+    want = request_launches(model, [out_frames_of(model, s) for s in HEADS_SONGS])
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        with no_plain_attention():
+            done = run_predict(model, songs, PREDICT_DIFFS, STEPS, seed=SEED,
+                               serialize_workers=2, batch_songs=1, device=dev)
+        wall = time.perf_counter() - t
+        got = dict(_build.launches)
+    finally:
+        os.chdir(cwd)
+    for d in done:
+        with zipfile.ZipFile(d.osz) as z:
+            osu = [n for n in z.namelist() if n.endswith(".osu")]
+        if len(osu) != len(PREDICT_DIFFS) or d.hit_u8.max() == d.hit_u8.min():
+            raise RuntimeError(f"{d.osz.name}: {osu}, hit channels constant")
+    log(f"predict at 8 x 128 heads: one {HEADS_SONGS[0]:.0f} s and one {HEADS_SONGS[1]:.0f} s "
+        f"song x {len(PREDICT_DIFFS)} difficulties, {STEPS} steps: {wall:.2f} s wall [{smi}]; "
+        f"launches {got}")
+    if got != want:
+        raise RuntimeError(f"predict at 8 x 128 heads launched {got}, not {want}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return got
+
+
+# phase 1f: the attention kernels at head dims 32 and 128 (H D = 1024, the
+# shipped width: 32 x 32 and 8 x 128 heads), at phase 1's and 1b's shapes,
+# by phase 1's rules (4 bf16 ulps, GRAD_REL, bit-identical reruns)
+WIDE_HEAD_DIMS = (32, 128)
+FLASH_SHAPES = ((4, 759), (4, 65), (1, 2500))
+FUSED_SHAPES = [("B128 L152", 128, 152)] + [(f"B2 L{n}", 2, n)
+                                            for n in (1, 63, 64, 65, 192, 193, 256)]
+
+
+def head_dim_kernels(gen, dev, smi: str) -> dict:
+    """phase 1f: K7/K8, K9 and K10 at each head dim of WIDE_HEAD_DIMS
+    against their plain versions, timed by graph replay beside the plain
+    version, the bound and (K7/K8) SDPA -> {name: {head dim: the first
+    shape's numbers}}"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import fused_attention as fa
+    from osu_dreamer_tpu_torch.ops import long_attention as la
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def ulps_tol(want):
+        return BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+    out: dict = {"flash_attention": {}, "fused_attention_fwd": {}, "fused_attention_bwd": {}}
+
+    def keep(name, D, i, ms, plain_ms, lib_ms, err, flops, nbytes, label):
+        b = bound(flops, nbytes)
+        log(f"{name} D{D} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + (f", torch scaled_dot_product_attention {lib_ms:.4f} ms" if lib_ms else "")
+            + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); kernel "
+            f"{flops / ms / 1e9:.1f} TFLOP/s of {BF16_PEAK / 1e12:.0f} (CUDA-graph replays) "
+            f"[{smi}]")
+        entry = out[name].setdefault(D, {"max_abs_err": 0.0})
+        if i == 0:
+            entry.update(shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    for D in WIDE_HEAD_DIMS:
+        H = 1024 // D
+        for i, (Bt, Lt) in enumerate(FLASH_SHAPES):
+            label = f"B{Bt} L{Lt} H{H}"
+            args = tuple(rnd(Bt, Lt, H, D) for _ in range(3))
+            got = la.attention_cuda(*args)
+            want = la.attention_plain(*args).float()
+            torch.cuda.synchronize()
+            err, tol = (got.float() - want).abs().max().item(), ulps_tol(want)
+            log(f"flash_attention D{D} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
+            if not (bool(torch.isfinite(got).all()) and err <= tol):
+                raise RuntimeError(f"flash_attention D{D} {label}: kernel disagrees with its "
+                                   "plain version")
+            if not torch.equal(la.attention_cuda(*args), got):
+                raise RuntimeError(f"flash_attention D{D} {label}: two launches differ")
+            keep("flash_attention", D, i, graph_ms(la.attention_cuda, args),
+                 graph_ms(la.attention_plain, args), graph_ms(sdpa, args), err,
+                 4 * Bt * H * Lt * Lt * D, moved_bytes(*args, got), label)
+            del args, got, want
+        for i, (label, Bt, Lt) in enumerate(FUSED_SHAPES):
+            label = f"{label} H{H}"
+            qkv = rnd(Bt, Lt, 3 * H * D, scale=0.7)
+            qg, kg = (1 + rnd(D, scale=0.1, dtype=torch.float32) for _ in range(2))
+            fwd_args = (qkv, qg, kg, H)
+            res = fa.fused_attention_fwd_cuda(*fwd_args)
+            want = fa.rope_attention_plain(*fwd_args).float()
+            torch.cuda.synchronize()
+            err, tol = (res[0].float() - want).abs().max().item(), ulps_tol(want)
+            log(f"fused_attention_fwd D{D} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
+            if not (bool(torch.isfinite(res[0]).all()) and err <= tol):
+                raise RuntimeError(f"fused_attention_fwd D{D} {label}: kernel disagrees with its "
+                                   "plain version")
+            again = fa.fused_attention_fwd_cuda(*fwd_args)
+            bare, no_lse = fa.fused_attention_fwd_cuda(*fwd_args, residuals=False)
+            if not (torch.equal(again[0], res[0]) and torch.equal(again[1], res[1])):
+                raise RuntimeError(f"fused_attention_fwd D{D} {label}: two launches differ")
+            if no_lse is not None or not torch.equal(bare, res[0]):
+                raise RuntimeError(f"fused_attention_fwd D{D} {label}: the residual-free "
+                                   "forward differs")
+            grad = rnd(Bt, Lt, H * D)
+            bwd_args = (qkv, grad, *res, qg, kg, H)
+            got = fa.fused_attention_bwd_cuda(*bwd_args)
+            ref = fa.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg, kg, H)
+            plain = fa.fused_attention_bwd_plain(*bwd_args)
+            worst = 0.0
+            for gname, g, r, pl in zip(("dqkv", "dq_gamma", "dk_gamma"), got, ref, plain):
+                g, r, pl = g.float(), r.float(), pl.float()
+                e, scale = (g - r).abs().max().item(), r.abs().max().item()
+                log(f"fused_attention_bwd D{D} {label} {gname}: max_abs_err {e:.4g} vs f32 "
+                    f"(plain bf16 {(pl - r).abs().max().item():.4g}; tolerance "
+                    f"{GRAD_REL * scale:.4g})")
+                if not (bool(torch.isfinite(g).all()) and e <= GRAD_REL * scale):
+                    raise RuntimeError(f"fused_attention_bwd D{D} {label} {gname}: kernel "
+                                       "gradient disagrees with the plain one")
+                worst = max(worst, e)
+            if not all(torch.equal(a, b) for a, b in zip(got, fa.fused_attention_bwd_cuda(*bwd_args))):
+                raise RuntimeError(f"fused_attention_bwd D{D} {label}: two launches differ")
+            flops = 4 * Bt * H * Lt * Lt * D
+            keep("fused_attention_fwd", D, i, graph_ms(fa.fused_attention_fwd_cuda, fwd_args),
+                 graph_ms(fa.rope_attention_plain, fwd_args), None, err, flops,
+                 moved_bytes(*fwd_args, *res), label)
+            keep("fused_attention_bwd", D, i, graph_ms(fa.fused_attention_bwd_cuda, bwd_args),
+                 graph_grad_ms(lambda a, b, c: fa.rope_attention_plain(a, b, c, H),
+                               (qkv, qg, kg), grad),
+                 None, worst, 2.5 * flops, moved_bytes(*bwd_args, *got), label)
+            del qkv, res, want, grad, got, ref, plain
+    log(f"phase 1f: K7/K8, K9 and K10 at head dims {WIDE_HEAD_DIMS} checked [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2653,6 +3192,9 @@ def main() -> int:
     # ---- 1e. the FFN kernels' TP forms on two slices of the hidden units ----
     tp_forms_phase(rnd, ffn, film_args, check_grads, record, results, smi)
 
+    # ---- 1f. the attention kernels at head dims 32 and 128 ----
+    head_dims = head_dim_kernels(gen, dev, smi)
+
     # ---- 2. small slice: through the kernels vs through the plain versions ----
     args = LDMArgs()
     model = init_random(args, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -2815,6 +3357,9 @@ def main() -> int:
     # ---- 3a. predict: WAV files -> .osz mapsets through run_predict ----
     launches_predict = predict_phase(model, dev, smi)
     serve_odt = write_serve_artifact(model)
+
+    # ---- 3c. predict and serve with songs sharded over two replicas ----
+    launches_sharded = sharding_phase(model, serve_odt, dev, smi)
     del model, reference, sample
     torch.cuda.empty_cache()
 
@@ -2922,6 +3467,38 @@ def main() -> int:
 
     denoiser_step("fit-denoiser", cfg)
 
+    # ---- 4b. the denoiser at 8 x 128 heads through fit.run, one step each
+    # at 8 x 128 and 32 x 32 against the f32 plain step ----
+    launches_heads = dict.fromkeys(_build.KERNELS, 0)
+    step_launches = {}
+    for heads, head_dim in ((8, 128), (32, 32)):
+        hcfg = denoiser_config(512)
+        hcfg["model"]["backbone"].update(n_heads=heads, head_dim=head_dim)
+        what = f"fit-denoiser, {heads} x {head_dim} heads"
+        if head_dim == 128:
+            shutil.rmtree(workdir / "runs", ignore_errors=True)
+            with no_plain_attention():
+                launched, ms_heads, _ = fit_timed(
+                    what, diffusion_fit.run, hcfg, dev, smi, workdir,
+                    f"depth 8, width 512, {heads} x {head_dim} heads, B128 x L152, bf16",
+                    TRAINING_KERNELS, denoiser_losses, denoiser_losses, timed=HEADS_TIMED,
+                    absent=PROLOGUE_KERNELS + ("swiglu_bwd_full", "flash_attention"),
+                    per_step=dict.fromkeys(TRAINING_KERNELS, 8))
+            for k, n in launched.items():
+                launches_heads[k] += n
+            log(f"denoiser train step (B128 x L152): 8 x 128 heads {ms_heads:.2f} ms/step, "
+                f"16 x 64 heads {ms_off:.2f} ms/step [{smi}]")
+        _build.reset_launches()
+        denoiser_step(what, hcfg)
+        step_launches[head_dim] = dict(_build.launches)
+        for k in ("fused_attention_fwd", "fused_attention_bwd"):
+            if step_launches[head_dim][k] != 8:
+                raise RuntimeError(f"{what}: {step_launches[head_dim][k]} {k} launches in the "
+                                   "kernel step, not 8")
+
+    # ---- 4c. predict at 8 x 128 heads: a 120 s song (K7) and a 30 s one (K9) ----
+    launches_heads_predict = head_dim_predict(dev, smi)
+
     # ---- 5. full-width latent training through fit.run, then encode-latents ----
     from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
 
@@ -2964,9 +3541,10 @@ def main() -> int:
     # ---- 10. tensor-parallel training: tp 2 at full width ----
     launches_tp = tp_phase(dev, smi)
 
-    paths = (launches_infer, launches_prologue, launches_predict, launches_train,
-             launches_latent, launches_prologue_train, launches_pipeline, launches_serve,
-             launches_parallel, launches_tp)
+    paths = (launches_infer, launches_prologue, launches_predict, launches_sharded,
+             launches_train, launches_heads, launches_heads_predict, launches_latent,
+             launches_prologue_train, launches_pipeline, launches_serve, launches_parallel,
+             launches_tp)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:
@@ -2976,6 +3554,19 @@ def main() -> int:
          "replaces": KERNEL_META[name][1], "launches": launches[name], **results[name]}
         for name in _build.KERNELS
     ]
+    # the attention kernels by head dim: 64 is the entry's own numbers (phase
+    # 1); 32 and 128 phase 1f's, with the launches of their main paths (8 x
+    # 128: phases 4b and 4c; 32 x 32: the one-step check of 4b)
+    wide_launches = {128: {k: launches_heads[k] + launches_heads_predict[k]
+                           for k in _build.KERNELS}, 32: step_launches[32]}
+    for entry in kernels:
+        if entry["name"] in head_dims:
+            entry["head_dims"] = {"64": {k: entry[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
+            for D, numbers in head_dims[entry["name"]].items():
+                entry["head_dims"][str(D)] = {"launches": wide_launches[D][entry["name"]],
+                                              **numbers}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -81,6 +81,7 @@ def run_predict(
     serialize_workers: int | None = None,
     batch_songs: int = 1,
     device="cuda",
+    devices=None,
 ) -> list[PredictedSong]:
     """generate osu!std beatmaps from audio with ``model`` (an ``LDM`` on
     ``device``) -> one .osz mapset per song, written to the working
@@ -94,7 +95,17 @@ def run_predict(
     on the host: each wave is uploaded from pinned memory as it is prepared,
     the quantized chart's copies to pinned host buffers start as soon as its
     batch is dispatched, and the host waits on that batch's CUDA event only
-    when it has dispatched the next. The .osu decoding (peak picking, the
+    when it has dispatched the next.
+
+    With more than one replica device and ``batch_songs`` > 1, each batch's
+    songs are sharded over model replicas by the JAX rule: ``n_dev =
+    min(devices, batch_songs)``, ``batch_songs`` rounded down to a multiple
+    of it, and a ``[parallel]`` line says so
+    (models/inference/sampler.py ``build_sharded_sampler``: a seeded shard
+    gives the one-device chart of its rows). ``devices`` lists the replicas' devices:
+    by default every visible card on the card and none besides ``device``
+    off it; a list may repeat a device, so that one card or the CPU runs
+    the sharded path. The .osu decoding (peak picking, the
     MAP slider fit, text) fans out over ``serialize_workers`` spawned
     processes (default up to 4; 1 decodes in this process). With
     ``OSU_DREAMER_TIMING`` set, prints the host-phase totals."""
@@ -108,7 +119,10 @@ def run_predict(
     from .audio.constants import HOP_LEN
     from .audio.decode import load_wave
     from .audio.spectrogram import prep_wave_for_model
-    from .models.inference.sampler import build_batch_sampler, dequantize_chart
+    from .models.inference.sampler import (
+        build_batch_sampler, build_sharded_sampler, dequantize_chart, gather_shards,
+    )
+    from .parallel.replicas import replica_devices, replicate
     from .signal.serialize import decode_osu_entry
     from .utils.device import resolve_device
     from .utils.procpool import spawn_serialize_pool
@@ -135,7 +149,17 @@ def run_predict(
     if n_osus > 1 and serialize_workers > 1:
         pool = spawn_serialize_pool(serialize_workers)
     batch_songs = min(batch_songs, len(audio_files))
-    sample = build_batch_sampler(model)
+    if devices is None:
+        devices = replica_devices(torch.cuda.device_count()) if cuda else [device]
+    sample, sharded = build_batch_sampler(model), None
+    if len(devices) > 1 and batch_songs > 1:
+        # the JAX rule: at most batch_songs devices, the batch rounded down
+        # to a multiple of the devices used
+        n_dev = min(len(devices), batch_songs)
+        batch_songs -= batch_songs % n_dev
+        sharded = build_sharded_sampler(replicate(model, devices[:n_dev]))
+        print(f"[parallel] sharding {batch_songs}-song batches over {n_dev} "
+              f"of {len(devices)} devices")
 
     timers: dict = defaultdict(float)
 
@@ -177,11 +201,15 @@ def run_predict(
     def dispatch(batch: list, batch_i: int):
         """batch: (audio_file, title, artist, frames, wave, real_frames,
         n_frames, out_frames) entries of one bucket, their wave and
-        real_frames already on the device -> the batch, the quantized chart
-        and labels (on the host once ``ready`` has happened), ``ready``"""
+        real_frames already on the device (on the host when sharded) -> the
+        batch, the quantized chart and labels (on the host once ``ready``
+        has happened), ``ready``; sharded: the batch, its shards, None"""
         n_frames, out_frames = batch[0][6], batch[0][7]
         waves = torch.stack([e[4] for e in batch])
         real = torch.cat([e[5] for e in batch])
+        if sharded is not None:
+            return batch, sharded(waves, real, labels.cpu(), base_seed + batch_i, n_frames,
+                                  out_frames, sample_steps, style_guidance), None
         generator = torch.Generator(device).manual_seed(base_seed + batch_i)
         out = sample(waves, real, labels, generator, n_frames, out_frames, sample_steps,
                      style_guidance)
@@ -195,9 +223,12 @@ def run_predict(
 
     def enqueue_batch(batch: list, out, ready) -> None:
         with phase("fetch"):
-            if ready is not None:
-                ready.synchronize()
-            hit_u8, xy_i16, pred = out[0].numpy(), out[1].numpy(), out[2].float().numpy()
+            if sharded is not None:
+                hit_u8, xy_i16, pred = gather_shards(out)
+            else:
+                if ready is not None:
+                    ready.synchronize()
+                hit_u8, xy_i16, pred = out[0].numpy(), out[1].numpy(), out[2].float().numpy()
             chart = dequantize_chart(hit_u8, xy_i16)
         for s, (audio_file, s_title, s_artist, frames, *_rest) in enumerate(batch):
             rows = slice(s * D, (s + 1) * D)
@@ -226,7 +257,7 @@ def run_predict(
             with phase("prep"):
                 buf, real_frames, n_frames, out_frames = prep_wave_for_model(wave, chunk)
                 wave_t, real_t = torch.from_numpy(buf), torch.tensor([real_frames])
-                if cuda:
+                if cuda and sharded is None:
                     # the transfers run while the host decodes the last batch
                     wave_t = wave_t.pin_memory().to(device, non_blocking=True)
                     real_t = real_t.pin_memory().to(device, non_blocking=True)
@@ -244,6 +275,8 @@ def run_predict(
         if pending is not None:
             enqueue_batch(*pending)
         flush(block=True)
+    if sharded is not None:
+        sharded.close()
     if os.environ.get("OSU_DREAMER_TIMING"):
         total = sum(timers.values())
         parts = " ".join(f"{k}={v * 1e3:.0f}ms" for k, v in sorted(timers.items()))
@@ -392,7 +425,8 @@ def main(argv: list[str] | None = None) -> None:
                          help="processes decoding .osu files (default: up to 4; "
                               "1 = in-process)")
     predict.add_argument("--batch-songs", type=_at_least(1), default=1,
-                         help="songs of one length class sampled together")
+                         help="songs of one length class sampled together; sharded over "
+                              "the visible cards, one model replica each")
     predict.add_argument("--device", default="cuda", help=device_help)
 
     serve = commands.add_parser(
@@ -411,8 +445,7 @@ def main(argv: list[str] | None = None) -> None:
                        help="snap hit times to 1/N of the inferred beat; implies "
                             "--infer-tempo. 0 = off")
     serve.add_argument("--devices", type=_at_least(1), default=None,
-                       help="cards to spread request batches over (default: one; more "
-                            "is not ported yet)")
+                       help="cards to spread request batches over (default: all)")
     serve.add_argument("--serialize-workers", type=_at_least(1), default=None,
                        help=".osu-decode worker processes (default: one per core, up to "
                             "4; 1 disables the pool)")

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives shared by the port's TMA + wgmma kernels, in
 // inline PTX: mbarriers, cluster ranks, barriers and shared-memory
-// exchange, TMA tensor loads and stores, 3-D tensor-map encoding and
+// exchange, TMA tensor loads and stores, 3-D and per-head tensor-map encoding and
 // cluster launches on the host, wgmma shared-memory descriptors, the
 // m64n32k16, m64n64k16, m64n128k16, m64n192k16 and m64n256k16 bf16 products
 // and their fence / commit / wait.
@@ -128,6 +128,27 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// box (c0, c1, c2, c3) of a 4-D tensor map, as tma_load_3d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// shared memory into box (c0, c1, c2, c3); elements out of bounds are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3, %4}],"
+      " [%5];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(src))
       : "memory");
 }
 
@@ -470,6 +491,61 @@ static inline cudaError_t tma_map_bf16_3d(CUtensorMap* map, const void* base, ui
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// tensor map of the heads of a row-major bf16 array (dim3, dim2, nheads,
+// head_dim), head_dim contiguous, read and written in boxes of one head's
+// box_rows rows x 64 columns with 128-byte swizzle, for head dims below 64:
+// the box's columns past head_dim lie outside the map, so a load zero-fills
+// them (a 64-column tile whose right part is zero) and a store leaves them
+// unwritten. Coordinates (0, head, row, dim3 index).
+static inline cudaError_t tma_map_bf16_heads(CUtensorMap* map, const void* base,
+                                             uint64_t head_dim, uint64_t nheads, uint64_t dim2,
+                                             uint64_t dim3, uint32_t box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {head_dim, nheads, dim2, dim3};
+  const cuuint64_t strides[3] = {head_dim * 2, nheads * head_dim * 2,
+                                 dim2 * nheads * head_dim * 2};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor map of heads of head_dim columns in a (dim3, dim2, nheads *
+// head_dim) bf16 array, in 64-column boxes of box_rows rows: 3-D (columns,
+// rows, dim3 index) at head dims 64 and 128 (a head is head_dim / 64 boxes
+// side by side), tma_map_bf16_heads below 64 (one zero-padded box)
+static inline cudaError_t tma_map_heads(CUtensorMap* map, const void* base, int head_dim,
+                                        uint64_t nheads, uint64_t dim2, uint64_t dim3,
+                                        uint32_t box_rows) {
+  if (head_dim < 64)
+    return tma_map_bf16_heads(map, base, head_dim, nheads, dim2, dim3, box_rows);
+  return tma_map_bf16_3d(map, base, nheads * head_dim, dim2, dim3, 64, box_rows);
+}
+
+// box c (64 columns) of head `head`, rows row.., of index i3 through a map
+// made by tma_map_heads for head dim D
+template <int D>
+__device__ __forceinline__ void tma_load_head(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int head, int c, int row, int i3) {
+  if constexpr (D < 64)
+    tma_load_4d(dst, map, bar, 0, head, row, i3);
+  else
+    tma_load_3d(dst, map, bar, head * D + 64 * c, row, i3);
+}
+
+template <int D>
+__device__ __forceinline__ void tma_store_head(const CUtensorMap* map, const void* src, int head,
+                                               int c, int row, int i3) {
+  if constexpr (D < 64)
+    tma_store_4d(map, src, 0, head, row, i3);
+  else
+    tma_store_3d(map, src, head * D + 64 * c, row, i3);
 }
 
 // a launch of `kernel` in clusters of `cluster` CTAs along x (gridDim.x a

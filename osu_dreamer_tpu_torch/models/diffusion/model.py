@@ -194,13 +194,16 @@ class DiffusionModel(nn.Module):
         x0: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         sp=None,
+        batch_mean=None,
     ) -> torch.Tensor:
         """sphere tracing from ``x0`` (drawn N(0, 1) from ``generator`` when
         not given). eta stays a device tensor and the loop is a fixed Python
         loop, so sampling never waits on the host; x stays f32. With ``sp``,
         ``audio`` is this rank's span and ``x0`` the GLOBAL noise (B, l x
         ranks, E), drawn or given, of which the rank takes its span: the
-        sharded sampler equals the unsharded one for the same noise."""
+        sharded sampler equals the unsharded one for the same noise.
+        ``batch_mean`` (default the tensor's mean) takes the step-size
+        calibration's mean over the rows, as in the style prior's sampler."""
         if audio.dim() != 3 or audio.shape[-1] != self.args.a_dim:
             raise ValueError(f"audio must be (#B, l, {self.args.a_dim}), got {tuple(audio.shape)}")
         if style.shape[-1] != self.args.style_dim:
@@ -213,7 +216,8 @@ class DiffusionModel(nn.Module):
             x0 = x0[:, group_rank(sp) * l:(group_rank(sp) + 1) * l]
         audio_c, cond_g = self.precompute_cond(audio, style)
         sqrt_c0 = sqrt(self.args.c0)
-        u0 = self.predict(audio_c, cond_g, x0, sp)[0].mean()
+        u = self.predict(audio_c, cond_g, x0, sp)[0]
+        u0 = u.mean() if batch_mean is None else batch_mean(u)
         eta = 1.0 - (sqrt_c0 / u0.clamp_min(sqrt_c0 + 1e-6)) ** (1.0 / num_steps)
         x = x0
         for _ in range(num_steps):

@@ -42,12 +42,15 @@ class LDM(nn.Module):
         s0: torch.Tensor | None = None,
         x0: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        batch_mean=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """-> ((S*D, Lpad, X_DIM) chart signal, (S*D, 5) predicted labels),
         rows song-major. S == 1 broadcasts the audio encoding over the D
         rows; S > 1 repeats it D times. ``s0`` (S*D, style_dim) and ``x0``
         (S*D, Lpad / chunk, emb_dim) inject the samplers' starting noise;
-        otherwise it is drawn from ``generator``."""
+        otherwise it is drawn from ``generator``. ``batch_mean`` replaces the
+        samplers' mean over the rows (a shard of a batch split over replicas
+        takes the whole batch's)."""
         S = spec.shape[0]
         skips, h = self.latent.encode_audio(spec)
         per_song = labels.dim() == 3
@@ -59,6 +62,8 @@ class LDM(nn.Module):
         if S > 1:
             h, *skips = (t[:, None].expand(S, D, *t.shape[1:]).reshape(S * D, *t.shape[1:])
                          for t in (h, *skips))
-        s = self.style.sample(labels, style_steps, style_guidance, s0=s0, generator=generator)
-        z = self.diffusion.sample(h, s, num_steps, x0=x0, generator=generator)
+        s = self.style.sample(labels, style_steps, style_guidance, s0=s0, generator=generator,
+                              batch_mean=batch_mean)
+        z = self.diffusion.sample(h, s, num_steps, x0=x0, generator=generator,
+                                  batch_mean=batch_mean)
         return self.latent.decode(z, s, skips=skips)

@@ -112,10 +112,14 @@ class StyleModel(nn.Module):
         guidance: float = 1.0,
         s0: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
+        batch_mean=None,
     ) -> torch.Tensor:
         """sphere tracing from ``s0`` (drawn N(0, 1) from ``generator`` when
         not given); step size calibrated on the device from the first
         conditional distance, so the loop never waits on the host.
+        ``batch_mean`` (default the tensor's mean) takes that calibration's
+        mean over the rows: a shard of a batch split over replicas passes
+        the whole batch's (parallel/replicas.py).
         ``guidance`` != 1 extrapolates the displacement away from the
         null-label prediction (batch [cond; null])."""
         B = labels.shape[0]
@@ -134,7 +138,8 @@ class StyleModel(nn.Module):
             return d_null + guidance * (d_cond - d_null)
 
         sqrt_c0 = sqrt(self.args.c0)
-        u0 = self(s0, labels)[0].mean()
+        u = self(s0, labels)[0]
+        u0 = u.mean() if batch_mean is None else batch_mean(u)
         eta = 1.0 - (sqrt_c0 / u0.clamp_min(sqrt_c0 + 1e-6)) ** (1.0 / num_steps)
         s = s0
         for _ in range(num_steps):

@@ -10,7 +10,9 @@ the sources, so an edited source is rebuilt and a stale library is never
 loaded.
 
 Each kernel wrapper adds one to its entry of ``launches`` when it launches its
-kernel, so a run can show that the main path went through the kernels.
+kernel, so a run can show that the main path went through the kernels. The
+replicas of a sharded batch launch from several host threads at once: the
+counts and the first build are taken under a lock.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from functools import cache
 from pathlib import Path
@@ -39,6 +42,7 @@ KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
            "film_qkv_fwd", "film_qkv_bwd", "swiglu_tp", "swiglu_bwd_tp", "film_layer_tp",
            "film_layer_bwd_tp")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
+_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,10 +51,10 @@ _SIGNATURES = {
     "odt_film_layer_fwd": [_P] * 14 + [_I] * 8 + [_P],
     "odt_swiglu_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "odt_ffn_weight_maps": [_P, _P, _I, _I, _P],
-    "odt_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _I, ctypes.c_float, _P],
     "odt_swiglu_bwd": [_P] * 15 + [_I] * 10 + [_P],
-    "odt_fused_attention_fwd": [_P] * 7 + [_I, _I, _I, ctypes.c_float, _P],
-    "odt_fused_attention_bwd": [_P] * 11 + [_I, _I, _I, ctypes.c_float, _P],
+    "odt_fused_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float, _P],
+    "odt_fused_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _P],
     "odt_film_layer_bwd": [_P] * 28 + [_I] * 11 + [_P],
     "odt_swiglu_bwd_full": [_P] * 19 + [_I] * 12 + [_P],
     "odt_film_qkv_fwd": [_P] * 8 + [_I] * 4 + [_P],
@@ -121,9 +125,14 @@ def build() -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
-@cache
 def library() -> ctypes.CDLL:
-    """the loaded kernel library (built on first use)"""
+    """the loaded kernel library (built on first use, by one thread)"""
+    with _LOCK:
+        return _load()
+
+
+@cache
+def _load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
@@ -158,4 +167,5 @@ def run(fn_name: str, kernel: str, device: torch.device, *args, count: bool = Tr
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
     if count:
-        launches[kernel] += 1
+        with _LOCK:
+            launches[kernel] += 1

@@ -12,8 +12,10 @@ softmax, the probability matmul in the input dtype.
 ``fused_norm_rope_attention`` dispatches by device: a CUDA tensor goes to the
 ``torch.autograd.Function`` whose forward is csrc/fused_attention.cu
 ``fused_attention_fwd_kernel`` (K9) and whose backward is
-``fused_attention_bwd_kernel`` (K10), bf16 and head dim 64 only (anything else
-raises); a CPU tensor to ``rope_attention_plain``, differentiated by autograd.
+``fused_attention_bwd_kernel`` (K10; at head dim 128 the two launches
+``fused_attention_bwd_kv_kernel`` and ``fused_attention_bwd_q_kernel``), bf16
+and head dims 32, 64 and 128 only (anything else raises); a CPU tensor to
+``rope_attention_plain``, differentiated by autograd.
 The forward's one residual is the f32 log-sum-exp of each query row, written
 only when a gradient will be taken; the backward normalises and rotates q
 and k again from the raw rows with the forward's own code.
@@ -27,7 +29,7 @@ import torch
 
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
-from .long_attention import HEAD_DIM, attention_plain
+from .long_attention import HEAD_DIMS, attention_plain
 from .swiglu import _cached
 
 # the JAX package's gate (its backward's VMEM budget), kept so both packages
@@ -51,15 +53,15 @@ def attention_route(L: int, n_heads: int, head_dim: int, device_type: str) -> st
     card) or "long" (norm and RoPE in torch, then the forward-only
     ``long_flash_attention``, K7 on the card). Off the card the JAX gate
     alone decides, as before. On the card the fused route also needs the
-    kernels to take the shape (head dim 64, L <= MAX_KERNEL_LEN); every
-    kernel takes head dim 64 only, so another head dim raises here, naming
-    it, before any kernel wrapper sees it"""
+    kernels to take the shape (L <= MAX_KERNEL_LEN); every attention kernel
+    is built for head dims 32, 64 and 128 (``HEAD_DIMS``), so another head
+    dim raises here, naming it, before any kernel wrapper sees it"""
     fits = fused_attention_fits(L, n_heads, head_dim)
     if device_type != "cuda":
         return "fused" if fits else "long"
-    if head_dim != HEAD_DIM:
+    if head_dim not in HEAD_DIMS:
         raise ValueError(
-            f"head dim {head_dim}: the attention kernels take head dim {HEAD_DIM} only (the "
+            f"head dim {head_dim}: the attention kernels take head dims {HEAD_DIMS} only (the "
             f"fused norm + RoPE attention K9/K10 at L <= {MAX_KERNEL_LEN}, the flash attention "
             "K7 at any L)")
     return "fused" if fits and L <= MAX_KERNEL_LEN else "long"
@@ -76,20 +78,22 @@ def rope_tables(L: int, D: int, device, dtype: torch.dtype,
 
 
 @functools.cache
-def kernel_tables(L: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``rope_tables(L, 64)`` in bf16 on ``device``, built once per (L,
+def kernel_tables(L: int, D: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rope_tables(L, D)`` in bf16 on ``device``, built once per (L, D,
     device): the first call, before any graph capture, makes them (at most
-    MAX_KERNEL_LEN lengths a device); the kernels only read them"""
-    return rope_tables(L, HEAD_DIM, device, torch.bfloat16)
+    MAX_KERNEL_LEN lengths a head dim and device); the kernels only read them"""
+    return rope_tables(L, D, device, torch.bfloat16)
 
 
 def kernel_gammas(q_gamma: torch.Tensor, k_gamma: torch.Tensor,
                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """the two (64,) gains in bf16 on ``device``, once per version of the
-    pair (the weight-pack cache of ops/swiglu.py, held by ``q_gamma``)"""
-    if q_gamma.shape != (HEAD_DIM,) or k_gamma.shape != (HEAD_DIM,):
-        raise ValueError(f"gammas must be ({HEAD_DIM},), got {tuple(q_gamma.shape)}, "
-                         f"{tuple(k_gamma.shape)}")
+    """the two (D,) gains (D in ``HEAD_DIMS``) in bf16 on ``device``, once
+    per version of the pair (the weight-pack cache of ops/swiglu.py, held by
+    ``q_gamma``, so each replica's gains are packed on its own device)"""
+    D = q_gamma.shape[0] if q_gamma.dim() == 1 else -1
+    if D not in HEAD_DIMS or k_gamma.shape != (D,):
+        raise ValueError(f"gammas must be (D,) with D in {HEAD_DIMS}, got "
+                         f"{tuple(q_gamma.shape)}, {tuple(k_gamma.shape)}")
     return _cached("att_gammas", (q_gamma, k_gamma), torch.bfloat16, lambda: tuple(
         g.to(device=device, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma)),
         owner=q_gamma)
@@ -147,12 +151,13 @@ def fused_attention_bwd_plain(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
 def _check_kernel_shapes(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int, int]:
     check_cuda("qkv", qkv, torch.bfloat16, 3)
     B, L, three_hd = qkv.shape
-    if three_hd % (3 * n_heads) or three_hd // (3 * n_heads) != HEAD_DIM:
-        raise ValueError(f"packed width {three_hd} is not 3 x {n_heads} heads x {HEAD_DIM}: "
-                         f"the kernels are built for head dim {HEAD_DIM}")
+    D = three_hd // (3 * n_heads)
+    if three_hd % (3 * n_heads) or D not in HEAD_DIMS:
+        raise ValueError(f"packed width {three_hd} is not 3 x {n_heads} heads x a head dim of "
+                         f"{HEAD_DIMS}: the kernels are built for those head dims")
     if not 0 < L <= MAX_KERNEL_LEN:
         raise ValueError(f"length {L} outside the kernels' range 1..{MAX_KERNEL_LEN}")
-    return B, L, n_heads, HEAD_DIM
+    return B, L, n_heads, D
 
 
 def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = True):
@@ -161,21 +166,24 @@ def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = T
     kernel writes out alone and lse is None (no gradient will be taken)"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
     dev = qkv.device
-    cos, sin = kernel_tables(L, dev)
+    cos, sin = kernel_tables(L, D, dev)
     gq, gk = kernel_gammas(q_gamma, k_gamma, dev)
+    if gq.shape != (D,):
+        raise ValueError(f"gammas {tuple(gq.shape)} do not match head dim {D}")
     out = torch.empty(B, L, H * D, dtype=torch.bfloat16, device=dev)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=dev) if residuals else None
     run(
         "odt_fused_attention_fwd", "fused_attention_fwd", dev,
         *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, out)),
-        None if lse is None else lse.data_ptr(), B, L, H, D**-0.5,
+        None if lse is None else lse.data_ptr(), B, L, H, D, D**-0.5,
     )
     return out, lse
 
 
 def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
     """K10, csrc/fused_attention.cu: -> (dqkv bf16, dq_gamma f32, dk_gamma
-    f32); the per-(batch, head) gamma partials are summed here"""
+    f32); the gamma partials, one per (batch, head) (and per 64-row tile at
+    head dim 128), are summed here"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
     dev = qkv.device
     grad = grad.to(torch.bfloat16).contiguous()
@@ -185,14 +193,18 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
         check_cuda(name, t, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    cos, sin = kernel_tables(L, dev)
+    cos, sin = kernel_tables(L, D, dev)
     gq, gk = kernel_gammas(q_gamma, k_gamma, dev)
+    if gq.shape != (D,):
+        raise ValueError(f"gammas {tuple(gq.shape)} do not match head dim {D}")
     dqkv = torch.empty_like(qkv)
-    dgq, dgk = (torch.empty(B * H, D, dtype=torch.float32, device=dev) for _ in range(2))
+    parts = -(-L // 64) if D == 128 else 1
+    dgq, dgk = (torch.empty(parts * B * H, D, dtype=torch.float32, device=dev)
+                for _ in range(2))
     run(
         "odt_fused_attention_bwd", "fused_attention_bwd", dev,
         *(t.data_ptr() for t in (qkv, grad, out, lse, gq, gk, cos, sin, dqkv, dgq, dgk)),
-        B, L, H, D**-0.5,
+        B, L, H, D, D**-0.5,
     )
     return dqkv, dgq.sum(0), dgk.sum(0)
 

@@ -7,8 +7,8 @@ Counterpart of osu_dreamer_tpu/ops/long_attention.py
 probability matmul in the input dtype.
 
 ``long_flash_attention`` dispatches by device: a CUDA tensor goes to the
-kernel in ``csrc/flash_attention.cu`` (bf16, head dim 64; anything else
-raises), a CPU tensor to ``attention_plain``.
+kernel in ``csrc/flash_attention.cu`` (bf16, head dims 32, 64 and 128;
+anything else raises), a CPU tensor to ``attention_plain``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from ._build import check_cuda, run
 
-HEAD_DIM = 64  # the kernel's compiled head width
+HEAD_DIMS = (32, 64, 128)  # the head dims the attention kernels are compiled for
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -36,12 +36,12 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
         raise ValueError(f"q/k/v differ: shapes {q.shape}, {k.shape}, {v.shape}, "
                          f"devices {q.device}, {k.device}, {v.device}")
     B, L, H, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"head dim {D} unsupported: the kernel is built for {HEAD_DIM}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} unsupported: the kernel is built for {HEAD_DIMS}")
     out = torch.empty(B, L, H * D, dtype=q.dtype, device=q.device)
     run(
         "odt_flash_attention_fwd", "flash_attention", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D**-0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D, D**-0.5,
     )
     return out
 

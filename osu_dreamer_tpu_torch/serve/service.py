@@ -1,11 +1,17 @@
 """Map-generation service: load-once artifact, cross-request batching.
 
-Counterpart of osu_dreamer_tpu/serve/service.py on one CUDA card. A resident
-process that owns the card and keeps it busy under concurrent load:
+Counterpart of osu_dreamer_tpu/serve/service.py on the CUDA cards. A resident
+process that owns the cards and keeps them busy under concurrent load:
 
 - loads the inference artifact once onto the card (``load_inference``) and
   builds the kernel library in the constructor, so a failing ``nvcc`` fails
   the start and the first request carries no build;
+- serves on every visible card by default, as the JAX service's data mesh
+  does: ``devices`` (default all) is clamped to ``max_batch``, ``max_batch``
+  is rounded up to a multiple of it, the model is replicated once a card
+  (parallel/replicas.py) and each dispatch's songs are split over the
+  replicas (``build_sharded_sampler``: one host thread, stream and event a
+  card);
 - runs ONE dispatcher thread that does all device work: the waves' upload
   from pinned memory, the launches and the result copies. Request threads
   touch only numpy, the pinned host buffers and a CUDA event;
@@ -24,8 +30,7 @@ process that owns the card and keeps it busy under concurrent load:
 Requests with an explicit seed are never co-batched: the sampler draws one
 noise tensor per batch from one ``torch.Generator``, so reproducibility
 requires a fixed batch composition. A seeded request runs solo; unseeded
-requests share seeds from the server's counter. One card: serving over
-several (the JAX service's data mesh) is not ported yet.
+requests share seeds from the server's counter.
 """
 
 from __future__ import annotations
@@ -64,6 +69,15 @@ def _safe_entry_name(name: str) -> str:
     if suffix not in _AUDIO_SUFFIXES:
         suffix = ".wav"
     return stem + suffix
+
+
+def clamp_devices(devices: Optional[int], visible: int, max_batch: int) -> tuple[int, int]:
+    """the JAX service's clamp -> (devices served on, max_batch): every
+    visible device unless ``devices`` says fewer, at most ``max_batch`` of
+    them, and ``max_batch`` rounded up to a multiple of the count"""
+    n_dev = visible if devices is None else max(1, min(devices, visible))
+    n_dev = min(n_dev, max_batch)
+    return n_dev, -(-max_batch // n_dev) * n_dev
 
 
 @dataclass
@@ -117,10 +131,17 @@ class GeneratorService:
         devices: Optional[int] = None,
         serialize_workers: Optional[int] = None,
         device: torch.device | str = "cuda",
+        replica_devices: Optional[Sequence[torch.device | str]] = None,
     ):
+        """``devices``: how many cards to serve on (default every visible
+        one), clamped as the JAX service clamps. ``replica_devices`` lists
+        the replicas' devices in place of the first visible cards; it may
+        repeat a device, so that one card or the CPU serves the sharded path
+        (tests and chip_smoke.py; not on the CLI)"""
         from .. import native
         from ..models.inference.artifact import load_inference
-        from ..models.inference.sampler import build_batch_sampler
+        from ..models.inference.sampler import build_batch_sampler, build_sharded_sampler
+        from ..parallel import replicas as rep
 
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -128,20 +149,23 @@ class GeneratorService:
         cuda = self.device.type == "cuda"
         if cuda and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        # the JAX service's clamp; past one card it would shard each
-        # dispatch over a data mesh, which the port does not have yet
-        self.devices_visible = torch.cuda.device_count() if cuda else 1
-        n_dev = 1 if devices is None else min(max(1, min(devices, self.devices_visible)),
-                                              max_batch)
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"serving over {devices} devices is not ported yet (ROADMAP.md Queue 1 "
-                "item 8, parallel/); leave devices unset to serve on one card")
-        self.n_devices = 1
+        # the JAX service's clamp: every visible device unless told, at most
+        # max_batch of them, and max_batch a multiple of the count; every
+        # dispatch's songs are split over one replica a device
+        if replica_devices is None:
+            self.devices_visible = torch.cuda.device_count() if cuda else 1
+        else:
+            replica_devices = [torch.device(d) for d in replica_devices]
+            self.devices_visible = len(replica_devices)
+        n_dev, self.max_batch = clamp_devices(devices, self.devices_visible, max_batch)
+        self.n_devices = n_dev
 
         self.model = load_inference(model_path, self.device)
         self.chunk = self.model.args.latent.chunk_size
-        self.max_batch = max_batch
+        self._sharded = None
+        if n_dev > 1:
+            listed = rep.replica_devices(n_dev) if replica_devices is None else replica_devices
+            self._sharded = build_sharded_sampler(rep.replicate(self.model, listed[:n_dev]))
         self.batch_window = batch_window_ms / 1000.0
         self.infer_tempo = infer_tempo
         self.snap_divisor = int(snap_divisor)
@@ -256,15 +280,30 @@ class GeneratorService:
         real = torch.tensor([r.real_frames for r in batch])
         # (S, D, 5): per-song conditioning
         labels = torch.from_numpy(np.stack([r.labels for r in batch]).astype(np.float32))
-        if cuda:
-            waves, real, labels = (t.pin_memory().to(self.device, non_blocking=True)
-                                   for t in (waves, real, labels))
         first = batch[0]
-        generator = torch.Generator(self.device).manual_seed(self._next_seed(first.seed))
+        seed = self._next_seed(first.seed)
 
         program = (len(batch),) + first.signature
         fresh = program not in self._seen_programs
         self._seen_programs.add(program)
+        D = len(first.labels)
+        if self._sharded is not None:
+            # each shard's waiters get its slices and its event
+            for shard in self._sharded(waves, real, labels, seed, first.n_frames,
+                                       first.out_frames, first.steps, first.guidance):
+                for i in range(shard.songs.stop - shard.songs.start):
+                    r = batch[shard.songs.start + i]
+                    rows = slice(i * D, (i + 1) * D)
+                    r.chart = (shard.hit_u8[rows], shard.xy_i16[rows])
+                    r.pred_labels = shard.labels[rows]
+                    r.ready = shard.ready
+                    r.done.set()
+            self._count(batch, fresh)
+            return
+        if cuda:
+            waves, real, labels = (t.pin_memory().to(self.device, non_blocking=True)
+                                   for t in (waves, real, labels))
+        generator = torch.Generator(self.device).manual_seed(seed)
 
         out = self._sample(
             waves, real, labels, generator,
@@ -281,13 +320,14 @@ class GeneratorService:
             ready = torch.cuda.Event()
             ready.record()
         hit_q, xy_q, pred_labels = out
-        D = len(first.labels)
         for i, r in enumerate(batch):
             r.chart = (hit_q[i * D : (i + 1) * D], xy_q[i * D : (i + 1) * D])
             r.pred_labels = pred_labels[i * D : (i + 1) * D]
             r.ready = ready
             r.done.set()
+        self._count(batch, fresh)
 
+    def _count(self, batch: list[_Pending], fresh: bool) -> None:
         with self.stats_lock:
             self.stats["batches"] += 1
             self.stats["batched_rows"] += len(batch)
@@ -459,6 +499,8 @@ class GeneratorService:
             r.error = RuntimeError("service closed")
             r.done.set()
         self._dispatcher.join(timeout=timeout)
+        if self._sharded is not None:
+            self._sharded.close()
         if self._pool is not None:
             self._pool.close()
             self._pool.join()

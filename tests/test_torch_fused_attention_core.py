@@ -64,21 +64,21 @@ def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(BF).float()
 
 
-def _inputs(B: int, L: int, H: int, seed: int = 0):
+def _inputs(B: int, L: int, H: int, seed: int = 0, d: int = D):
     """bf16 qkv and output gradient, gammas holding bf16 values (as the
-    kernels read them), from a numpy seed"""
+    kernels read them), from a numpy seed; head dim ``d``"""
     rng = np.random.default_rng(seed)
-    qkv = torch.from_numpy(0.7 * rng.standard_normal((B, L, 3 * H * D), dtype=np.float32)).to(BF)
-    qg, kg = (_bf(torch.from_numpy(1 + 0.2 * rng.standard_normal(D, dtype=np.float32)))
+    qkv = torch.from_numpy(0.7 * rng.standard_normal((B, L, 3 * H * d), dtype=np.float32)).to(BF)
+    qg, kg = (_bf(torch.from_numpy(1 + 0.2 * rng.standard_normal(d, dtype=np.float32)))
               for _ in range(2))
-    go = torch.from_numpy(rng.standard_normal((B, L, H * D), dtype=np.float32)).to(BF)
+    go = torch.from_numpy(rng.standard_normal((B, L, H * d), dtype=np.float32)).to(BF)
     return qkv, qg, kg, go
 
 
-def _heads(x: torch.Tensor, H: int, part: int) -> torch.Tensor:
-    """part (0 q, 1 k, 2 v) of packed (B, L, n H D) as (B, H, L, D) f32"""
+def _heads(x: torch.Tensor, H: int, part: int, d: int = D) -> torch.Tensor:
+    """part (0 q, 1 k, 2 v) of packed (B, L, n H d) as (B, H, L, d) f32"""
     B, L, _ = x.shape
-    return x[..., part * H * D:(part + 1) * H * D].reshape(B, L, H, D).permute(0, 2, 1, 3).float()
+    return x[..., part * H * d:(part + 1) * H * d].reshape(B, L, H, d).permute(0, 2, 1, 3).float()
 
 
 def _pad(x: torch.Tensor, rows: int, value: float = 0.0) -> torch.Tensor:
@@ -88,18 +88,18 @@ def _pad(x: torch.Tensor, rows: int, value: float = 0.0) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, rows - x.shape[-2]), value=value)
 
 
-def _tables(L: int) -> tuple[torch.Tensor, torch.Tensor]:
-    cos, sin = fa.rope_tables(L, D, "cpu", BF)
+def _tables(L: int, d: int = D) -> tuple[torch.Tensor, torch.Tensor]:
+    cos, sin = fa.rope_tables(L, d, "cpu", BF)
     return cos.float(), sin.float()
 
 
 def norm_rope_emulation(x: torch.Tensor, gamma: torch.Tensor):
     """``norm_rope_tiles``: raw rows (B, H, L, D) -> (rotated rows, 1/rms)"""
-    L = x.shape[-2]
+    L, D = x.shape[-2:]
     inv = 1.0 / torch.sqrt(x.square().sum(-1) / D + EPS)
     n = _bf(_bf(x * inv[..., None]) * gamma.float())
     n1, n2 = n[..., :D // 2], n[..., D // 2:]
-    c, s = _tables(L)
+    c, s = _tables(L, D)
     r = torch.cat([_bf(_bf(n1 * c) - _bf(n2 * s)), _bf(_bf(n1 * s) + _bf(n2 * c))], -1)
     return r, inv
 
@@ -107,11 +107,13 @@ def norm_rope_emulation(x: torch.Tensor, gamma: torch.Tensor):
 def fwd_emulation(qkv: torch.Tensor, qg, kg, H: int):
     """K9's order -> (out bf16 (B, L, H D), lse (B, H, L))"""
     B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    SCALE = D**-0.5
     nt = -(-L // TILE)
     Lp = nt * TILE
-    rq, _ = norm_rope_emulation(_heads(qkv, H, 0), qg)
-    rk, _ = norm_rope_emulation(_heads(qkv, H, 1), kg)
-    rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2), Lp)
+    rq, _ = norm_rope_emulation(_heads(qkv, H, 0, D), qg)
+    rk, _ = norm_rope_emulation(_heads(qkv, H, 1, D), kg)
+    rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2, D), Lp)
     c2 = SCALE * LOG2E
     keys = torch.arange(Lp)
     out, lse = torch.zeros(B, H, Lp, D), torch.zeros(B, H, Lp)
@@ -142,7 +144,8 @@ def norm_rope_bwd_emulation(d: torch.Tensor, x: torch.Tensor, inv: torch.Tensor,
     """``norm_rope_bwd_tile``: the f32 gradient of the rotated rows back
     through the inverse rotation and the gamma-scaled RMS norm ->
     (dx f32 (B, H, L, D), the gamma gradient (D,))"""
-    c, s = _tables(x.shape[-2])
+    D = x.shape[-1]
+    c, s = _tables(x.shape[-2], D)
     d1, d2 = d[..., :D // 2], d[..., D // 2:]
     gn = torch.cat([d1 * c + d2 * s, d2 * c - d1 * s], -1)
     iv = inv[..., None]
@@ -154,16 +157,23 @@ def norm_rope_bwd_emulation(d: torch.Tensor, x: torch.Tensor, inv: torch.Tensor,
 
 def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, qg,
                   kg, H: int):
-    """K10's order -> (dqkv bf16, dq_gamma, dk_gamma)"""
+    """K10's order -> (dqkv bf16, dq_gamma, dk_gamma); at head dim 128 the
+    two launches' order: dK and dV a key tile against every query tile, dQ
+    a query tile against every key tile from dS formed again (S and dP as
+    Q K^T and dO V^T), no dS tile stored"""
     B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    SCALE = D**-0.5
     nt = -(-L // TILE)
     nw = 2 if nt == 4 else nt  # consumer warpgroups: one key tile each, a pass
+    if D == 128:
+        nw = nt  # one CTA a key tile, one pass
     Lp = nt * TILE
-    q, k = _heads(qkv, H, 0), _heads(qkv, H, 1)
+    q, k = _heads(qkv, H, 0, D), _heads(qkv, H, 1, D)
     rq, iq = norm_rope_emulation(q, qg)  # recomputed: the forward's own rounding
     rk, ik = norm_rope_emulation(k, kg)
-    rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2), Lp)
-    do, o = _pad(_heads(go, H, 0), Lp), _pad(_heads(out, H, 0), Lp)
+    rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2, D), Lp)
+    do, o = _pad(_heads(go, H, 0, D), Lp), _pad(_heads(out, H, 0, D), Lp)
     delta = (do * o).sum(-1)
     lse2 = _pad(lse * LOG2E, Lp, float("inf"))
     c2 = SCALE * LOG2E
@@ -189,6 +199,15 @@ def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: t
                 stored[w, j] = dst
         for j in range(nt):  # phase B: dQ from the stored dS^T tiles
             for w in range(nw):
+                if D == 128:  # the dQ launch: dS_j,t formed again from Q_j K_t^T, dO_j V_t^T
+                    t = p * nw + w
+                    s = tile(rq, j) @ tile(rk, t).transpose(-1, -2)
+                    dp = tile(do, j) @ tile(v, t).transpose(-1, -2)
+                    key_ok = t * TILE + torch.arange(TILE) < L
+                    pr = torch.where(key_ok, torch.exp2(s * c2 - lse2[..., j * TILE:(j + 1) * TILE, None]), 0.0)
+                    ds = _bf(pr * (dp - delta[..., j * TILE:(j + 1) * TILE, None]) * ds_scale)
+                    dq[..., j * TILE:(j + 1) * TILE, :] += ds @ tile(rk, t)
+                    continue
                 dq[..., j * TILE:(j + 1) * TILE, :] += stored[w, j].transpose(-1, -2) @ tile(rk, p * nw + w)
     dxq, dgq = norm_rope_bwd_emulation(dq[..., :L, :], q, iq, qg)
     dxk, dgk = norm_rope_bwd_emulation(dk[..., :L, :], k, ik, kg)
@@ -250,62 +269,128 @@ def _cu() -> str:
     return (CSRC / "fused_attention.cu").read_text()
 
 
+def _split_ternary(expr: str):
+    """(cond, then, else) of the top-level ``a ? b : c`` of ``expr``, None
+    without one (parentheses and nested ternaries respected)"""
+    depth, q = 0, None
+    for i, ch in enumerate(expr):
+        depth += ch == "("
+        depth -= ch == ")"
+        if depth == 0 and ch == "?" and q is None:
+            q, pending = i, 0
+        elif depth == 0 and q is not None and ch == "?":
+            pending += 1
+        elif depth == 0 and q is not None and ch == ":":
+            if pending == 0:
+                return expr[:q], expr[q + 1:i], expr[i + 1:]
+            pending -= 1
+    return None
+
+
 def _c_to_py(expr: str) -> str:
     """a C++ integer expression of fused_attention.cu as Python: casts
-    dropped, sizeof(float) 4, right-nested ``a ? b : c`` chains"""
+    dropped, sizeof(float) 4, ``a ? b : c`` chains, parenthesised ones too"""
     expr = expr.replace("sizeof(float)", "4").replace("sizeof(bf16)", "2")
-    expr = re.sub(r"\((?:size_t|int|uint32_t)\)", "", expr).replace("/", "//")
+    expr = re.sub(r"(?<!/)/(?!/)", "//", re.sub(r"\((?:size_t|int|uint32_t)\)", "", expr))
     expr = " ".join(expr.split())
-    if "?" in expr:
-        cond, rest = expr.split("?", 1)
-        then, other = rest.split(":", 1)
+    while expr.startswith("(") and expr.endswith(")") and _balanced(expr[1:-1]):
+        expr = expr[1:-1].strip()
+    parts = _split_ternary(expr)
+    if parts:
+        cond, then, other = parts
         return f"({_c_to_py(then)} if {_c_to_py(cond)} else {_c_to_py(other)})"
     return f"({expr})"
 
 
-def _source_plan(nt: int) -> dict:
-    """the kernels' launch shape and shared memory at ``nt`` 64-row tiles,
-    evaluated from fused_attention.cu's own expressions"""
-    src = _cu()
-    env: dict = {}
-    for name in ("kAtD", "kAtRows", "kAtTile"):
-        env[name] = eval(_c_to_py(re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1]), env)
-    env["nt"] = env["NT"] = nt
-    nw_expr = re.search(r"constexpr int bwd_warpgroups\(int nt\) \{ return ([^;]+); \}", src)[1]
-    env["bwd_warpgroups"] = lambda n: eval(_c_to_py(nw_expr), {"nt": n})
-    fwd = eval(_c_to_py(re.search(r"constexpr size_t fwd_smem\(int nt\) \{\s*return ([^;]+);",
-                                  src)[1]), env)
-    body = re.search(r"constexpr AttnBwdSmem\(int nt\) \{(.*?)\n  \}", src, re.S)[1]
-    lay = dict(env, q=0)
+def _balanced(expr: str) -> bool:
+    depth = 0
+    for ch in expr:
+        depth += (ch == "(") - (ch == ")")
+        if depth < 0:
+            return False
+    return depth == 0
+
+
+def _function(src: str, name: str, args: str):
+    """a one-expression constexpr function of the source as a Python lambda"""
+    body = re.search(rf"constexpr \w+ {name}\({args}\) \{{\s*return ([^;]+);", src)[1]
+    params = [a.split()[-1] for a in args.split(", ")]
+    return lambda *vals: eval(_c_to_py(body), {**dict(zip(params, vals))})
+
+
+def _layout(src: str, struct: str, args: str, env: dict, **vals) -> int:
+    """the ``total`` of a layout struct's constexpr constructor"""
+    body = re.search(rf"constexpr {struct}\({args}\) \{{(.*?)\n  \}}", src, re.S)[1]
+    lay = dict(env, **vals)
+    lay.update({name: 0 for name in re.findall(r"size_t ((?:\w+ = 0, )*\w+ = 0)", src)})
     for name, expr in re.findall(r"(\w+) = ([^;]+);", body):
         lay[name] = eval(_c_to_py(expr), lay)
-    fwd_bounds = re.search(r"__launch_bounds__\(([^,]+), ([^)]+)\)\nfused_attention_fwd_kernel",
-                           src)
-    bwd_bounds = re.search(r"__launch_bounds__\(([^,]+), ([^)]+)\)\nfused_attention_bwd_kernel",
-                           src)
-    return {"fwd_threads": eval(_c_to_py(fwd_bounds[1]), env),
-            "fwd_blocks": eval(_c_to_py(fwd_bounds[2]), env), "fwd_smem": fwd,
-            "bwd_threads": eval(_c_to_py(bwd_bounds[1]), env),
-            "bwd_blocks": eval(_c_to_py(bwd_bounds[2]), env), "bwd_smem": lay["total"],
-            "nw": env["bwd_warpgroups"](nt)}
+    return lay["total"]
 
 
-def plan(L: int) -> dict:
+def _bounds(src: str, kernel: str, env: dict) -> tuple[int, int]:
+    m = re.search(rf"__launch_bounds__\((.+?), (.+)\)\n{kernel}\(", src)
+    return eval(_c_to_py(m[1]), env), eval(_c_to_py(m[2]), env)
+
+
+def _source_plan(nt: int, d: int = D) -> dict:
+    """the kernels' launch shape and shared memory at ``nt`` 64-row tiles
+    and head dim ``d``, evaluated from fused_attention.cu's own expressions"""
+    src = _cu()
+    env: dict = {}
+    for name in ("kAtRows", "kAtBox"):
+        env[name] = eval(_c_to_py(re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1]), env)
+    cg = eval(_c_to_py(re.search(r"static constexpr int kCG = ([^;]+);", src)[1]), {"D": d})
+    env.update(nt=nt, NT=nt, D=d, kW=128, kAtMaxTiles=4, kTile=cg * env["kAtBox"],
+               kWGroups=int(re.search(r"constexpr int kWGroups = (\d+);", src)[1]))
+    env["kWTile"] = 2 * env["kAtBox"]
+    env["bwd_warpgroups"] = _function(src, "bwd_warpgroups", "int nt")
+    env["fwd_min_blocks"] = _function(src, "fwd_min_blocks", "int nt, int d")
+    fwd = _function(src, "fwd_smem", "int nt, uint32_t tile")(nt, env["kTile"])
+    out = {"fwd_smem": fwd}
+    out["fwd_threads"], out["fwd_blocks"] = _bounds(src, "fused_attention_fwd_kernel", env)
+    if d == 128:
+        for part, rows in (("kv", nt * 64), ("q", env["kWGroups"] * 64)):
+            out[f"bwd_{part}_threads"], out[f"bwd_{part}_blocks"] = _bounds(
+                src, f"fused_attention_bwd_{part}_kernel", env)
+            out[f"bwd_{part}_smem"] = _layout(src, "WideBwdSmem", "int nt, int lse_rows", env,
+                                              nt=nt, lse_rows=rows, own=0)
+        return out
+    out["bwd_threads"], out["bwd_blocks"] = _bounds(src, "fused_attention_bwd_kernel", env)
+    out["bwd_smem"] = _layout(src, "AttnBwdSmem", "int nt, int d", env, nt=nt, d=d, q=0)
+    out["nw"] = env["bwd_warpgroups"](nt)
+    return out
+
+
+def plan(L: int, d: int = D) -> dict:
     """the Python mirror: one CTA per (head, batch row); the forward one
-    warpgroup per 64-row tile at two CTAs an SM up to three tiles; the
-    backward one warpgroup per key tile (two passes of two at four tiles),
-    one CTA an SM. Shared memory: the forward Q, K, V tiles; the backward
-    Q, K, V, dO tiles, one pass's dS^T tiles, four f32 rows (lse, delta,
-    1/rms of q and k), the per-warp gamma partials; both an mbarrier slot
-    and 1024 bytes to align the base"""
+    warpgroup per 64-row tile at two CTAs an SM up to three tiles (at head
+    dim 128 as many as shared memory holds); the backward one warpgroup per
+    key tile (two passes of two at four tiles), one CTA an SM. Shared
+    memory: the forward Q, K, V tiles; the backward Q, K, V, dO tiles, one
+    pass's dS^T tiles, four f32 rows (lse, delta, 1/rms of q and k), the
+    per-warp gamma partials; both an mbarrier slot and 1024 bytes to align
+    the base. A tile is one 64 x 64 box (padded at head dim 32), two at 128.
+    At head dim 128 the backward is two launches of two warpgroups a CTA,
+    each owning a tile: the dK/dV one holds their K and V tiles, every Q and
+    dO tile, lse and delta of every query row; the dQ one their Q and dO
+    tiles, every K and V tile, lse and delta of their rows; each 1/rms of
+    its 128 rows and eight warps' gamma partials"""
     nt = -(-L // TILE)
     nw = 2 if nt == 4 else nt
-    tile = TILE * D * 2
-    return {"fwd_threads": 128 * nt, "fwd_blocks": {1: 4, 2: 3, 3: 2, 4: 1}[nt],
-            "fwd_smem": 3 * nt * tile + 64 + 1024,
-            "bwd_threads": 128 * nw, "bwd_blocks": 1,
-            "bwd_smem": (4 + nw) * nt * tile + 4 * nt * TILE * 4 + 2 * nw * 4 * D * 4 + 64 + 1024,
-            "nw": nw}
+    box = TILE * 64 * 2
+    tile = box * (2 if d == 128 else 1)
+    out = {"fwd_threads": 128 * nt, "fwd_smem": 3 * nt * tile + 64 + 1024,
+           "fwd_blocks": ({1: 4, 2: 3, 3: 2, 4: 1} if d < 128 else {1: 4, 2: 2, 3: 1, 4: 1})[nt]}
+    if d == 128:
+        for part, rows in (("kv", nt * TILE), ("q", 2 * TILE)):
+            out[f"bwd_{part}_threads"], out[f"bwd_{part}_blocks"] = 256, 1
+            out[f"bwd_{part}_smem"] = ((4 + 2 * nt) * tile + 2 * rows * 4 + 2 * TILE * 4
+                                       + 8 * d * 4 + 64 + 1024)
+        return out
+    out.update(bwd_threads=128 * nw, bwd_blocks=1, nw=nw,
+               bwd_smem=(4 + nw) * nt * box + 4 * nt * TILE * 4 + 2 * nw * 4 * d * 4 + 64 + 1024)
+    return out
 
 
 def _reg_cap(threads: int, blocks: int) -> int:
@@ -331,14 +416,35 @@ def test_plan_mirrors_the_source(nt):
     assert mine["fwd_blocks"] * (mine["fwd_smem"] + 1024) <= SM_SMEM
 
 
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("nt", [1, 2, 3, 4])
+def test_plan_mirrors_the_source_at_head_dims(nt, d):
+    """the plan at head dims 32 (the D-64 layout, one zero-padded box a
+    tile) and 128 (two boxes a tile; the two-launch backward): the source's,
+    the forward's O (32 f32 a thread a box) beside its S half, P and 16
+    spare; at 128 the dK/dV launch's dK, dV, S^T and dP^T (192) and the dQ
+    launch's dQ, S and dP (128) with 16 spare under 255; resident forward
+    CTAs fit an SM"""
+    mine, src = plan(nt * TILE, d), _source_plan(nt, d)
+    assert mine == src
+    boxes = 2 if d == 128 else 1
+    assert _reg_cap(mine["fwd_threads"], mine["fwd_blocks"]) >= 32 * boxes + 16 + 8 + 16
+    assert mine["fwd_blocks"] * (mine["fwd_smem"] + 1024) <= SM_SMEM
+    if d == 128:
+        assert _reg_cap(mine["bwd_kv_threads"], mine["bwd_kv_blocks"]) >= 192 + 16
+        assert _reg_cap(mine["bwd_q_threads"], mine["bwd_q_blocks"]) >= 128 + 16
+
+
 def test_every_length_fits_shared_memory():
     """L 1..256 (``MAX_KERNEL_LEN``, the route's whole range) fits a block's
-    232,448 bytes in both kernels"""
+    232,448 bytes in both kernels, at every head dim"""
     assert fa.MAX_KERNEL_LEN == 4 * TILE
-    for L in range(1, fa.MAX_KERNEL_LEN + 1):
-        p = plan(L)
-        assert p["fwd_smem"] <= MAX_SMEM and p["bwd_smem"] <= MAX_SMEM, L
+    for d in (32, 64, 128):
+        for L in range(1, fa.MAX_KERNEL_LEN + 1):
+            p = plan(L, d)
+            assert all(v <= MAX_SMEM for k, v in p.items() if k.endswith("smem")), (L, d)
     assert plan(fa.MAX_KERNEL_LEN)["bwd_smem"] == _source_plan(4)["bwd_smem"]
+    assert plan(fa.MAX_KERNEL_LEN, 128) == _source_plan(4, 128)
 
 
 # ---- the residual rule and the JAX Pallas kernels themselves ----
@@ -376,3 +482,52 @@ def test_port_matches_the_pallas_kernels_in_interpret_mode():
     grads = fa.fused_attention_bwd_plain(T(qkv), T(go), out, lse, T(qg), T(kg), 2)
     for name, g, w in zip(("dqkv", "dq_gamma", "dk_gamma"), grads, vjp(go)):
         np.testing.assert_allclose(N(g), np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("d,H", [(128, 1), (32, 4)])
+def test_port_matches_the_pallas_kernels_in_interpret_mode_at_head_dims(d, H):
+    """as above at head dims 128 (one head) and 32 (four heads), L 77: the
+    plain versions K9 and K10 are held to at every head dim the card takes"""
+    from osu_dreamer_tpu.ops.fused_attention import fused_norm_rope_attention as jfused
+
+    rng = np.random.default_rng(d)
+    qkv = 0.7 * rng.standard_normal((1, 77, 3 * H * d), dtype=np.float32)
+    qg, kg = (1 + 0.2 * rng.standard_normal(d, dtype=np.float32) for _ in range(2))
+    go = rng.standard_normal((1, 77, H * d), dtype=np.float32)
+    want, vjp = jax.vjp(lambda a, b, c: jfused(a, b, c, H, True), qkv, qg, kg)
+    out, lse = fa.fused_attention_fwd_plain(T(qkv), T(qg), T(kg), H)
+    np.testing.assert_allclose(N(out), np.asarray(want), atol=1e-4)
+    grads = fa.fused_attention_bwd_plain(T(qkv), T(go), out, lse, T(qg), T(kg), H)
+    for name, g, w in zip(("dqkv", "dq_gamma", "dk_gamma"), grads, vjp(go)):
+        np.testing.assert_allclose(N(g), np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+# (B, L, H, D): the training length and the ragged edges of one and four
+# tiles at head dims 32 and 128
+HEAD_DIM_SHAPES = [(2, 152, 2, 32), (1, 65, 2, 32), (1, 1, 1, 32), (1, 256, 1, 32),
+                   (2, 152, 1, 128), (1, 65, 1, 128), (1, 1, 1, 128), (1, 193, 1, 128)]
+
+
+@pytest.mark.parametrize("B,L,H,d", HEAD_DIM_SHAPES)
+def test_forward_emulation_holds_the_plain_rule_at_head_dims(B, L, H, d):
+    """K9's order at head dims 32 and 128 under the D-64 rule"""
+    qkv, qg, kg, _ = _inputs(B, L, H, seed=L + d, d=d)
+    out, lse = fwd_emulation(qkv, qg, kg, H)
+    want, want_lse = fa.fused_attention_fwd_plain(qkv, qg, kg, H)
+    assert out.shape == want.shape == (B, L, H * d) and lse.shape == (B, H, L)
+    assert (out.float() - want.float()).abs().max().item() <= _ulp_tol(want.float())
+    torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("B,L,H,d", HEAD_DIM_SHAPES)
+def test_backward_emulation_holds_grad_rel_at_head_dims(B, L, H, d):
+    """K10's order at head dims 32 and 128 (there the two launches': dQ from
+    dS formed again) under GRAD_REL"""
+    qkv, qg, kg, go = _inputs(B, L, H, seed=2000 + L + d, d=d)
+    out, lse = fwd_emulation(qkv, qg, kg, H)
+    got = bwd_emulation(qkv, go, out, lse, qg, kg, H)
+    ref = fa.fused_attention_bwd_plain(qkv.float(), go.float(), out, lse, qg, kg, H)
+    for name, g, r in zip(("dqkv", "dq_gamma", "dk_gamma"), got, ref):
+        g, r = g.float(), r.float()
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        assert (g - r).abs().max().item() <= GRAD_REL * r.abs().max().item(), name

@@ -642,3 +642,50 @@ def test_film_qkv_bwd_persistent_clusters_on_gpu():
     grads = film_qkv.film_qkv_bwd_cuda(*args, go)
     _grads_close(grads, film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()))
     assert all(torch.equal(a, b) for a, b in zip(grads, film_qkv.film_qkv_bwd_cuda(*args, go)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("B,L", [(1, 1), (2, 63), (3, 65), (1, 193), (4, 759), (1, 2500)])
+def test_flash_attention_matches_plain_on_gpu_at_head_dims(B, L, D):
+    """K7/K8 at head dims 32 (one zero-padded box a head) and 128 (two):
+    4 ulp of the plain version, a second launch bit-identical"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(L + D)
+    H = 1024 // D
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got = long_attention.attention_cuda(q, k, v)
+    want = long_attention.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert got.shape == (B, L, H * D) and bool(torch.isfinite(got).all())
+    assert (got.float() - want).abs().max().item() <= _ulp_tol(want)
+    assert torch.equal(got, long_attention.attention_cuda(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H", [(32, 4), (128, 1), (128, 8)])
+@pytest.mark.parametrize("B,L", [(2, 77), (1, 1), (1, 64), (1, 65), (2, 152), (1, 193),
+                                 (1, 256)])
+def test_fused_attention_kernels_match_plain_on_gpu_at_head_dims(B, L, D, H):
+    """K9 (4 ulp) and K10 (GRAD_REL; at head dim 128 its two launches) at
+    head dims 32 and 128 over the tile edges; both rerun bit-identically"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(B * L + D)
+    qkv = (torch.randn(B, L, 3 * H * D, generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
+    qg, kg = (1 + 0.2 * torch.randn(D, generator=gen, device="cuda") for _ in range(2))
+    res = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, H)
+    want, want_lse = fused_attention.fused_attention_fwd_plain(qkv, qg, kg, H)
+    torch.cuda.synchronize()
+    want = want.float()
+    assert (res[0].float() - want).abs().max().item() <= _ulp_tol(want)
+    assert (res[1] - want_lse).abs().max().item() <= 2e-3
+    grad = torch.randn(B, L, H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    got = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
+    _grads_close(got, fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res,
+                                                                qg, kg, H))
+    again = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+

@@ -24,7 +24,7 @@ from osu_dreamer_tpu_torch.ops import film_layer as fl
 from osu_dreamer_tpu_torch.ops import film_qkv as fq
 from osu_dreamer_tpu_torch.ops import fused_attention as fa
 from osu_dreamer_tpu_torch.ops import swiglu as sw
-from osu_dreamer_tpu_torch.ops.long_attention import HEAD_DIM
+from osu_dreamer_tpu_torch.ops.long_attention import HEAD_DIMS
 
 WIDTHS = [64, 128, 256, 384, 512, 640, 768, 1024]
 K = 5
@@ -35,21 +35,24 @@ def _hidden(C: int) -> int:
 
 
 @pytest.mark.parametrize("L,H,D", [(256, 16, 64), (257, 16, 64), (300, 8, 64), (512, 8, 64),
-                                   (200, 8, 32), (200, 4, 128)])
+                                   (200, 8, 32), (200, 4, 128), (152, 32, 32), (152, 8, 128),
+                                   (759, 32, 32), (759, 8, 128), (256, 8, 128), (257, 8, 128),
+                                   (2500, 8, 128), (152, 4, 96), (759, 4, 96)])
 def test_attention_route_pins_the_jax_gate(L, H, D):
     jax_fused, jax_long = jfused_fits(L, H, D), jlong_fits(L, H, D)
     # off the card the JAX gate alone decides, as before
     assert fa.attention_route(L, H, D, "cpu") == ("fused" if jax_fused else "long")
-    if D != HEAD_DIM:
-        # every attention kernel takes head dim 64: the route names the dim
+    if D not in HEAD_DIMS:
+        # every attention kernel takes head dims 32, 64 and 128: the route
+        # names any other dim before a launch
         with pytest.raises(ValueError, match=f"head dim {D}"):
             fa.attention_route(L, H, D, "cuda")
         return
     route = fa.attention_route(L, H, D, "cuda")
     # K9/K10 only where the JAX gate holds AND their shared memory takes L
     assert (route == "fused") == (jax_fused and L <= fa.MAX_KERNEL_LEN)
-    # the long route is K7, which takes head dim 64 at any L: wherever the
-    # JAX package runs a Pallas attention, the port runs a kernel too
+    # the long route is K7, which takes these head dims at any L: wherever
+    # the JAX package runs a Pallas attention, the port runs a kernel too
     assert jax_fused or jax_long
     assert route in ("fused", "long")
 
@@ -62,8 +65,10 @@ def test_training_refuses_attention_beyond_the_kernels():
         check_attention_shape(300, 8, 64, "cuda")
     check_attention_shape(300, 8, 64, "cpu")
     check_attention_shape(152, 16, 64, "cuda")
-    with pytest.raises(ValueError, match="head dim 32"):
-        check_attention_shape(152, 8, 32, "cuda")
+    check_attention_shape(152, 8, 128, "cuda")
+    check_attention_shape(152, 32, 32, "cuda")
+    with pytest.raises(ValueError, match="head dim 96"):
+        check_attention_shape(152, 4, 96, "cuda")
 
 
 def _jax_swiglu_fwd_pallas(C: int, H: int) -> bool:

@@ -20,8 +20,13 @@ not quality:
   replaced by one returning the same quantized chart, the same request gives
   the same .osz filename, entry names and .osu texts from both (the numpy
   fitter and WAV parser on both sides);
-- the device rule: the default device raises without a card, more than one
-  card raises, and the CLI ``serve`` passes every option through.
+- the device rule: the default device raises without a card, and the CLI
+  ``serve`` passes every option through;
+- several cards: the JAX service's clamp (every visible card by default,
+  at most ``max_batch``, ``max_batch`` rounded up to a multiple), and the
+  service on two CPU replicas (one device listed twice): ``/healthz``
+  reports them, a dispatch's songs split over them, and a seeded request
+  gives the one-device service's .osu texts.
 """
 
 from __future__ import annotations
@@ -309,14 +314,111 @@ def test_devices_clamped_on_one_device(odt):
 
 
 def test_several_cards_refused(odt, monkeypatch):
-    """with two cards visible, devices=2 raises naming the roadmap item
-    instead of serving on one card"""
-    from osu_dreamer_tpu_torch.serve import GeneratorService
+    """several cards are no longer refused: with two cards visible
+    (monkeypatched ``device_count``), ``devices`` unset or 2 serves on both,
+    as the JAX service does, and nothing raises NotImplementedError"""
+    from osu_dreamer_tpu_torch.serve import service as svc_mod
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        GeneratorService(odt, devices=2, device="cuda:0")
+    visible = torch.cuda.device_count()
+    assert svc_mod.clamp_devices(None, visible, 4) == (2, 4)
+    assert svc_mod.clamp_devices(2, visible, 4) == (2, 4)
+    assert svc_mod.clamp_devices(2, visible, 3) == (2, 4)
+    assert "NotImplementedError" not in Path(svc_mod.__file__).read_text()
+
+
+@pytest.mark.parametrize("visible,devices,max_batch,want", [
+    (8, None, 8, (8, 8)),   # tests/test_serve.py:206: every device of eight
+    (8, None, 4, (4, 4)),   # clamped to max_batch
+    (8, 3, 4, (3, 6)),      # max_batch rounded up to a multiple of the count
+    (8, 3, 8, (3, 9)),
+    (2, 8, 4, (2, 4)),      # at most the visible devices
+    (2, None, 1, (1, 1)),   # max_batch 1: one device
+    (1, None, 4, (1, 4)),   # one device: nothing changes
+    (1, 4, 5, (1, 5)),
+])
+def test_devices_clamp_pins_the_jax_service(visible, devices, max_batch, want, monkeypatch):
+    """the JAX ``GeneratorService``'s device clamp, copied: with
+    ``device_count`` monkeypatched to ``visible`` cards"""
+    from osu_dreamer_tpu_torch.serve.service import clamp_devices
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    assert clamp_devices(devices, torch.cuda.device_count(), max_batch) == want
+
+
+@pytest.fixture(scope="module")
+def replica_service(odt):
+    """the service on two CPU replicas, max_batch 3 (rounded up to 4)"""
+    svc = _service(odt, max_batch=3, batch_window_ms=300.0, replica_devices=["cpu", "cpu"])
+    yield svc
+    svc.close()
+
+
+def test_replicas_health(replica_service):
+    h = replica_service.health()
+    assert h["devices"] == 2 and h["devices_visible"] == 2 and h["max_batch"] == 4
+    assert replica_service._sharded is not None and len(replica_service._sharded.devices) == 2
+
+
+def test_replicas_healthz_over_http(replica_service):
+    from osu_dreamer_tpu_torch.serve import MapServer
+
+    server = MapServer(replica_service, host="127.0.0.1", port=0)
+    server.start_background()
+    try:
+        host, port = server.address
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=10) as r:
+            h = json.load(r)
+        assert h["ok"] and h["devices"] == 2 and h["max_batch"] == 4
+    finally:  # the module's service stays open
+        server.httpd.shutdown()
+        server.httpd.server_close()
+
+
+def test_replicas_split_a_dispatch(replica_service, tmp_path):
+    """concurrent same-signature requests share a dispatch whose songs are
+    split over both replicas; each request gets its own rows back"""
+    audio = _wav_bytes(tmp_path, 2.0)
+    shards = []
+    sharded = replica_service._sharded
+
+    def recorded(*args):
+        out = sharded(*args)
+        shards.append([(s.songs.start, s.songs.stop) for s in out])
+        return out
+
+    recorded.devices, recorded.close = sharded.devices, sharded.close
+    start = threading.Barrier(3)
+
+    def go(i):
+        start.wait()
+        return replica_service.generate(audio, sample_steps=STEPS, title=f"t{i}")
+
+    replica_service._sharded = recorded
+    try:
+        with cf.ThreadPoolExecutor(3) as ex:
+            results = list(ex.map(go, range(3)))
+    finally:
+        replica_service._sharded = sharded
+    for name, osz in results:
+        _check_osz(name, osz, 1)
+    assert sum(b - a for split in shards for a, b in split) == 3
+    assert any(len(split) == 2 for split in shards), shards
+
+
+def test_replicas_seeded_request_equals_one_device(odt, replica_service, tmp_path):
+    """a seeded request (run solo) on the replicas gives the one-device
+    service's .osu texts"""
+    audio = _wav_bytes(tmp_path, 2.0, freq=330.0)
+    kw = dict(sample_steps=STEPS, title="T", artist="A", seed=11,
+              diffs=[(5.0, 9.0, 8.0, 4.0, 6.0), (3.0, 7.0, 6.0, 3.0, 5.0)])
+    one = _service(odt, max_batch=3)
+    try:
+        _, want = one.generate(audio, **kw)
+    finally:
+        one.close()
+    _, got = replica_service.generate(audio, **kw)
+    assert _entries(got) == _entries(want)
 
 
 # --------------------------------------------------------- pinned copies --
