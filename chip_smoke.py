@@ -58,10 +58,17 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    beside its plain version and the bound of the slice's work. Then (1f)
    the attention kernels at head dims 32 and 128 (32 x 32 and 8 x 128
    heads, H D 1024 as shipped): K7/K8 at B4 L759, B4 L65 and B1 L2500, K9
-   and K10 at B128 L152 and B2 L 1, 63, 64, 65, 192, 193 and 256, by the
-   rules above (4 ulp, GRAD_REL, bit-identical reruns, the residual-free
-   forward), each timed by graph replay beside its plain version, the bound
-   and (K7/K8) SDPA.
+   and K10 at B128 L152 and B2 L 1, 63, 64, 65, 192, 193 and 256; and the
+   streamed kernels (csrc/attention_stream.cu) at head dims 12, 16, 40, 48,
+   96, 192, 256 and 384: K7/K8 at eight heads of each at the same three
+   shapes, K9 and K10 at 32 x 12, 8 x 16, 16 x 40, 8 x 48, 8 x 96, 2 x 192,
+   2 x 256 and 2 x 384 heads at B2 L152, B2 L65 and B1 L1, at 8 x 64 heads
+   at B2 L 257, 320 and 512 and 2 x 64 at B1 L2048, and at the slice's
+   8 x 96 B64 L320 and 8 x 64 B64 L512; by the rules above (4 ulp,
+   GRAD_REL, bit-identical reruns, the residual-free forward), timed by
+   graph replay beside the plain version, the bound and (K7/K8) SDPA: every
+   shape at head dims 32 and 128, each streamed head dim's first shape (and
+   K8's B1 L2500) and each length.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -79,8 +86,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    Then requests with OSU_DREAMER_FUSED_PROLOGUE=1: K11 must launch 264
    times a request; one under torch.profiler gives its device busy and K11's
    ms. Then an 8 x 64-head
-   attention at L 300 (past K9/K10's range) answers through K7 within the
-   f32 rule, and fit-denoiser's check refuses that shape.
+   attention at L 300 (inside the JAX gate) answers through K9 and a 16 x
+   64-head one (past it) through K7, each within the f32 rule, and
+   fit-denoiser's check passes the first shape and refuses the second.
 3a. Runs ``predict`` (``cli.run_predict``) on phase 3's model from WAV files
    to .osz mapsets: two 120 s songs and one 30 s song written as 44.1 kHz
    stereo 16-bit WAV under build/smoke_predict/, rows 5 9 8 4 6 and
@@ -114,8 +122,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    corpus written under build/: 2 warm-up steps and 20 timed steps, then EMA
    validation and the best/last checkpoints. Every loss must be finite and
    every training kernel must launch during the timed steps (the prologue
-   kernels and K5 not); one more step runs under torch.profiler, which gives
-   the step's device-busy ms and the ms and launches of K6 (its two torch
+   kernels and K5 not); the last warm-up step runs under torch.profiler (it
+   must launch what a timed step does), which gives the step's device-busy
+   ms and the ms and launches of K6 (its two torch
    matmuls apart), K9 and K10. Then one step's loss and gradients through the
    kernels (bf16) and through the plain versions (bf16) are each held to a
    plain f32 step on the same batch, t and x0 (random full-strength weights).
@@ -128,6 +137,14 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    otherwise, init_random weights, the denoiser's randomized at full
    strength) on one 120 s song (K7, 264 launches) and one 30 s song (K9,
    264), no plain attention on the card.
+4d. The same as 4b with ``backbone: {n_heads: 8, head_dim: 96}``,
+   ``seq_len: 320`` and ``batch_size: 64`` (20,480 tokens a step): 2 warm-up
+   and 4 timed steps through ``fit.run``, exactly 8 K4, K6, K9 and K10 (the
+   streamed kernels) a step, no K7 and no plain attention on the card; then
+   the one-step check at 8 x 96 B64 L320, 8 x 64 B32 L512 and 32 x 12 B128
+   L152 (8 K9 and 8 K10 launches in each kernel step).
+4e. ``predict`` as 4c at 8 x 96 heads: the 120 s song through K7 (the
+   streamed kernel, 264 launches) and the 30 s one through K9 (264).
 5. Trains the chart autoencoder at full width (the port's
    models/latent/config.yml: h_dim 128, 3 downs of stride 3, 8-layer stacks,
    16 x 64 style heads, batch 32 x 2052 split into 64 x 1026 halves, bf16
@@ -135,9 +152,10 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    chart-signal corpus written under build/: 2 warm-up steps and 20 timed
    steps, validation on two held-out mapsets and both checkpoints. Every
    loss must be finite and the film layer's forward and backward kernels
-   must launch during the timed steps; one more step runs under
-   torch.profiler, which gives the step's device-busy ms and K3's row core
-   and weight-product ms and launches. Then one step's loss terms and
+   must launch during the timed steps; the last warm-up step runs under
+   torch.profiler (88 K2 and K3 launches, a timed step's: no validation
+   pass in its window), which gives the step's device-busy ms and K3's row
+   core and weight-product ms and launches. Then one step's loss terms and
    gradients through the kernels and through the plain versions (bf16) are
    each held to a plain f32 step on the same batch and draws, as in 4; and
    encode-latents runs on the card from the ``last`` checkpoint over the
@@ -145,8 +163,8 @@ nothing of JAX; without a card it exits nonzero and prints no result.
 6. Trains the denoiser as in 4 on phase 4's corpus with
    OSU_DREAMER_FUSED_PROLOGUE=1, 2 warm-up and 10 timed steps, at the shipped
    width 512 (K11, K12, K4, K6, K9 and K10 must launch, K5 not) and at width
-   384 (``backbone_dim: 384``; K5 instead of K6); at width 512 one more
-   step runs under torch.profiler (device-busy ms, K12's and K11's ms and
+   384 (``backbone_dim: 384``; K5 instead of K6); at width 512 the last
+   warm-up step runs under torch.profiler (device-busy ms, K12's and K11's ms and
    launches, as phase 4 gives K6's); each followed by the one-step check of
    4.
 7. Drives the training pipeline from audio through the functions the CLI
@@ -221,8 +239,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    after 2 warm-ups) and the TP all-reduces' ms a step (CUDA events).
 
 Prints the card's name and power limit, one JSON line of per-kernel results
-(the attention kernels' entries also by head dim: 64 from phase 1, 32 and
-128 from phase 1f with the launches of their main paths in 4b and 4c), and
+(the attention kernels' entries also by head dim and length: 64 from phase
+1, the others from phase 1f with the launches of their main paths in 4b to
+4e, the streamed kernels' entries naming their source), and
 last ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
@@ -652,7 +671,7 @@ def predict_phase(model, dev, smi: str) -> dict[str, int]:
                                                       // WAV_RATE), np.float32), chunk)[3]
                       for i in batch}
         (L,) = {f // chunk for f in out_frames}
-        route = attention_route(L, backbone.n_heads, backbone.head_dim, "cuda")
+        route = attention_route(L, backbone.n_heads, backbone.head_dim)
         routes.append((L, route))
         expected["resonator"] += RESONATOR_PER_REQUEST
         expected["film_layer"] += FILM_PER_REQUEST
@@ -825,16 +844,18 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
     ran, each of ``kernels`` launched during the timed steps and none of
     ``absent`` in the whole run, every loss of ``loss_keys`` stayed finite and
     both checkpoints exist. Logs ms/step and peak memory over the timed steps
-    and the ``shown`` losses per step; with ``families``, one more step runs
-    under torch.profiler and its device-busy and family ms are logged; with
-    ``per_step``, each named kernel must launch exactly that often a timed
-    step -> (the kernel launches of the whole run, ms/step, peak GiB)"""
+    and the ``shown`` losses per step; with ``families``, the last warm-up
+    step runs under torch.profiler (a step inside the first epoch, so no
+    validation pass falls in its window) and its device-busy and family ms
+    are logged; with ``per_step``, each named kernel must launch exactly
+    that often a timed step -> (the kernel launches of the whole run,
+    ms/step, peak GiB)"""
     import torch
 
     from osu_dreamer_tpu_torch.ops import _build
 
-    end = TRAIN_WARMUP + timed
-    steps = end + (1 if families else 0)
+    end = steps = TRAIN_WARMUP + timed
+    profiled = TRAIN_WARMUP - 1  # the profiler runs from this step's end to the next's
     cfg["fit"].update(run_dir=str(workdir / "runs"), max_steps=steps, log_every=5)
     marks: dict[int, tuple[float, dict]] = {}
     step_metrics: list[dict] = []
@@ -843,15 +864,15 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
 
     def on_step(step: int, metrics: dict) -> None:
         step_metrics.append(metrics)
-        if step in (TRAIN_WARMUP, end, steps):
+        if step in (profiled, TRAIN_WARMUP, end):
             torch.cuda.synchronize()
+            if families and step == TRAIN_WARMUP:
+                prof.stop()
             marks[step] = (time.perf_counter(), dict(_build.launches))
             if step == TRAIN_WARMUP:
                 torch.cuda.reset_peak_memory_stats()
-            if families and step == end:
+            if families and step == profiled:
                 prof.start()
-            elif families and step == steps:
-                prof.stop()
 
     _build.reset_launches()
     state = run(cfg, device=dev, on_step=on_step)
@@ -889,7 +910,10 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
             trace = Path(tmpdir) / "trace.json"
             prof.export_chrome_trace(str(trace))
             summary = step_kernels(trace, families)
-        one = {k: marks[steps][1][k] - marks[end][1][k] for k in _build.KERNELS}
+        one = {k: marks[TRAIN_WARMUP][1][k] - marks[profiled][1][k] for k in _build.KERNELS}
+        if any(one[k] * timed != in_timed[k] for k in kernels):
+            raise RuntimeError(f"{what}: the profiled step launched {one}, not what a timed "
+                               f"step does ({in_timed} in {timed})")
         log(f"{what}: one step under torch.profiler: {summary}; launches "
             f"{ {k: n for k, n in one.items() if n} } [{smi}]")
     log("losses per step: " + json.dumps({k: [round(x, 5) for x in losses[k]] for k in shown})
@@ -1148,7 +1172,7 @@ def pipeline_phase(dev, smi: str) -> dict[str, int]:
     chunk = model.args.latent.chunk_size
     L = prep_wave_for_model(wave, chunk)[3] // chunk
     backbone = model.args.diffusion.backbone
-    route = attention_route(L, backbone.n_heads, backbone.head_dim, "cuda")
+    route = attention_route(L, backbone.n_heads, backbone.head_dim)
     expected = dict.fromkeys(_build.KERNELS, 0)
     expected.update(resonator=RESONATOR_PER_REQUEST, film_layer=FILM_PER_REQUEST,
                     swiglu=SWIGLU_PER_REQUEST)
@@ -1386,8 +1410,7 @@ def serve_phase(odt: Path, dev, smi: str) -> dict[str, int]:
         expected = dict.fromkeys(_build.KERNELS, 0)
         routes = []
         for _, _, out_frames in burst_dispatches + [dispatches[-1]]:
-            route = attention_route(out_frames // chunk, backbone.n_heads, backbone.head_dim,
-                                    "cuda")
+            route = attention_route(out_frames // chunk, backbone.n_heads, backbone.head_dim)
             routes.append((out_frames // chunk, route))
             expected["resonator"] += RESONATOR_PER_REQUEST
             expected["film_layer"] += FILM_PER_REQUEST
@@ -2354,7 +2377,7 @@ def request_launches(model, out_frames: list[int], requests: list[int] | None = 
     backbone = model.args.diffusion.backbone
     expected = dict.fromkeys(_build.KERNELS, 0)
     for frames, n in zip(out_frames, requests or [1] * len(out_frames)):
-        route = attention_route(frames // chunk, backbone.n_heads, backbone.head_dim, "cuda")
+        route = attention_route(frames // chunk, backbone.n_heads, backbone.head_dim)
         expected["resonator"] += RESONATOR_PER_REQUEST * n
         expected["film_layer"] += FILM_PER_REQUEST * n
         expected["swiglu"] += SWIGLU_PER_REQUEST * n
@@ -2645,17 +2668,18 @@ def sharding_phase(model, odt: Path, dev, smi: str) -> dict[str, int]:
     return launched
 
 
-# phase 4c: predict with a denoiser of 8 x 128 heads at full width, one
-# 120 s song (latent L 759: K7) and one 30 s song (L <= 256: K9)
+# phases 4c and 4e: predict with a denoiser of 8 x 128 and of 8 x 96 heads
+# at full width, one 120 s song (latent L 759: K7) and one 30 s song (L ~
+# 190, inside the JAX gate: K9)
 HEADS_SONGS = (120.0, 30.0)
 HEADS_TIMED = 4
 
 
-def head_dim_predict(dev, smi: str) -> dict[str, int]:
-    """phase 4c: ``run_predict`` on an LDM whose denoiser has 8 x 128 heads
-    (the shipped widths otherwise; init_random weights, the denoiser's
-    randomized at full strength), no plain attention on the card -> its
-    kernel launches"""
+def head_dim_predict(dev, smi: str, n_heads: int, head_dim: int) -> dict[str, int]:
+    """phases 4c and 4e: ``run_predict`` on an LDM whose denoiser has
+    ``n_heads`` x ``head_dim`` heads (the shipped widths otherwise;
+    init_random weights, the denoiser's randomized at full strength), no
+    plain attention on the card -> its kernel launches"""
     import dataclasses
     import os
     import zipfile
@@ -2670,7 +2694,7 @@ def head_dim_predict(dev, smi: str) -> dict[str, int]:
 
     args = LDMArgs()
     args.diffusion = dataclasses.replace(args.diffusion, backbone=dataclasses.replace(
-        args.diffusion.backbone, n_heads=8, head_dim=128))
+        args.diffusion.backbone, n_heads=n_heads, head_dim=head_dim))
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     model = init_random(args, gen, dev)
     randomize_(model.diffusion, gen)
@@ -2698,29 +2722,43 @@ def head_dim_predict(dev, smi: str) -> dict[str, int]:
             osu = [n for n in z.namelist() if n.endswith(".osu")]
         if len(osu) != len(PREDICT_DIFFS) or d.hit_u8.max() == d.hit_u8.min():
             raise RuntimeError(f"{d.osz.name}: {osu}, hit channels constant")
-    log(f"predict at 8 x 128 heads: one {HEADS_SONGS[0]:.0f} s and one {HEADS_SONGS[1]:.0f} s "
+    heads = f"{n_heads} x {head_dim} heads"
+    log(f"predict at {heads}: one {HEADS_SONGS[0]:.0f} s and one {HEADS_SONGS[1]:.0f} s "
         f"song x {len(PREDICT_DIFFS)} difficulties, {STEPS} steps: {wall:.2f} s wall [{smi}]; "
         f"launches {got}")
     if got != want:
-        raise RuntimeError(f"predict at 8 x 128 heads launched {got}, not {want}")
+        raise RuntimeError(f"predict at {heads} launched {got}, not {want}")
     shutil.rmtree(workdir, ignore_errors=True)
     return got
 
 
-# phase 1f: the attention kernels at head dims 32 and 128 (H D = 1024, the
-# shipped width: 32 x 32 and 8 x 128 heads), at phase 1's and 1b's shapes,
-# by phase 1's rules (4 bf16 ulps, GRAD_REL, bit-identical reruns)
+# phase 1f: the attention kernels off the shipped 16 x 64 at L <= 256, by
+# phase 1's rules (4 bf16 ulps, GRAD_REL, bit-identical reruns): the
+# templated head dims 32 and 128 (H D = 1024: 32 x 32 and 8 x 128 heads) at
+# phase 1's and 1b's shapes; the streamed kernels (csrc/attention_stream.cu)
+# at the other head dims of the JAX gate's range (with H D a multiple of
+# 128), at 8 x 64 and 2 x 64 heads past L 256, and at the slice's own shapes
 WIDE_HEAD_DIMS = (32, 128)
 FLASH_SHAPES = ((4, 759), (4, 65), (1, 2500))
 FUSED_SHAPES = [("B128 L152", 128, 152)] + [(f"B2 L{n}", 2, n)
                                             for n in (1, 63, 64, 65, 192, 193, 256)]
+STREAM_HEAD_DIMS = ((12, 32), (16, 8), (40, 16), (48, 8), (96, 8), (192, 2), (256, 2), (384, 2))
+STREAM_FUSED_SHAPES = (("B2 L152", 2, 152), ("B2 L65", 2, 65), ("B1 L1", 1, 1))
+# (heads, head dim 64, label, B, L): past the resident kernels' L 256, up to
+# L H D = 262,144; then the slice's timed shapes (phase 4d's 8 x 96 B64 L320
+# and 8 x 64 at L 512)
+STREAM_LENGTHS = ((8, "B2 L257", 2, 257), (8, "B2 L320", 2, 320), (8, "B2 L512", 2, 512),
+                  (2, "B1 L2048", 1, 2048))
+STREAM_TIMED = ((8, 96, "B64 L320", 64, 320), (8, 64, "B64 L512", 64, 512))
+STREAM_SOURCE = "osu_dreamer_tpu_torch/csrc/attention_stream.cu"
 
 
 def head_dim_kernels(gen, dev, smi: str) -> dict:
-    """phase 1f: K7/K8, K9 and K10 at each head dim of WIDE_HEAD_DIMS
+    """phase 1f: K7/K8, K9 and K10 at the head dims and lengths above
     against their plain versions, timed by graph replay beside the plain
-    version, the bound and (K7/K8) SDPA -> {name: {head dim: the first
-    shape's numbers}}"""
+    version, the bound and (K7/K8) SDPA -> {name: {key: numbers}}, the key
+    a head dim (its first shape's numbers) or "D label" for K8, a length or
+    a timed shape"""
     import torch
 
     from osu_dreamer_tpu_torch.ops import fused_attention as fa
@@ -2738,85 +2776,117 @@ def head_dim_kernels(gen, dev, smi: str) -> dict:
 
     out: dict = {"flash_attention": {}, "fused_attention_fwd": {}, "fused_attention_bwd": {}}
 
-    def keep(name, D, i, ms, plain_ms, lib_ms, err, flops, nbytes, label):
+    def keep(name, key, D, timed, ms, plain_ms, lib_ms, err, flops, nbytes, label):
+        entry = out[name].setdefault(key, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if not timed:
+            return
         b = bound(flops, nbytes)
         log(f"{name} D{D} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             + (f", torch scaled_dot_product_attention {lib_ms:.4f} ms" if lib_ms else "")
             + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); kernel "
             f"{flops / ms / 1e9:.1f} TFLOP/s of {BF16_PEAK / 1e12:.0f} (CUDA-graph replays) "
             f"[{smi}]")
-        entry = out[name].setdefault(D, {"max_abs_err": 0.0})
-        if i == 0:
+        if "ms" not in entry:  # the key's first timed shape gives its numbers
             entry.update(shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if D not in WIDE_HEAD_DIMS:
+            entry["source"] = STREAM_SOURCE
 
+    def flash_case(D, H, Bt, Lt, key, timed):
+        label = f"B{Bt} L{Lt} H{H}"
+        args = tuple(rnd(Bt, Lt, H, D) for _ in range(3))
+        got = la.attention_cuda(*args)
+        want = la.attention_plain(*args).float()
+        torch.cuda.synchronize()
+        err, tol = (got.float() - want).abs().max().item(), ulps_tol(want)
+        log(f"flash_attention D{D} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+            raise RuntimeError(f"flash_attention D{D} {label}: kernel disagrees with its "
+                               "plain version")
+        if not torch.equal(la.attention_cuda(*args), got):
+            raise RuntimeError(f"flash_attention D{D} {label}: two launches differ")
+        times = ((graph_ms(la.attention_cuda, args), graph_ms(la.attention_plain, args),
+                  graph_ms(sdpa, args)) if timed else (None,) * 3)
+        keep("flash_attention", key, D, timed, *times, err, 4 * Bt * H * Lt * Lt * D,
+             moved_bytes(*args, got), label)
+
+    def fused_case(D, H, label, Bt, Lt, key, timed):
+        label = f"{label} H{H}"
+        qkv = rnd(Bt, Lt, 3 * H * D, scale=0.7)
+        qg, kg = (1 + rnd(D, scale=0.1, dtype=torch.float32) for _ in range(2))
+        fwd_args = (qkv, qg, kg, H)
+        res = fa.fused_attention_fwd_cuda(*fwd_args)
+        want = fa.rope_attention_plain(*fwd_args).float()
+        torch.cuda.synchronize()
+        err, tol = (res[0].float() - want).abs().max().item(), ulps_tol(want)
+        log(f"fused_attention_fwd D{D} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
+        if not (bool(torch.isfinite(res[0]).all()) and err <= tol):
+            raise RuntimeError(f"fused_attention_fwd D{D} {label}: kernel disagrees with its "
+                               "plain version")
+        again = fa.fused_attention_fwd_cuda(*fwd_args)
+        bare, no_lse = fa.fused_attention_fwd_cuda(*fwd_args, residuals=False)
+        if not (torch.equal(again[0], res[0]) and torch.equal(again[1], res[1])):
+            raise RuntimeError(f"fused_attention_fwd D{D} {label}: two launches differ")
+        if no_lse is not None or not torch.equal(bare, res[0]):
+            raise RuntimeError(f"fused_attention_fwd D{D} {label}: the residual-free "
+                               "forward differs")
+        grad = rnd(Bt, Lt, H * D)
+        bwd_args = (qkv, grad, *res, qg, kg, H)
+        got = fa.fused_attention_bwd_cuda(*bwd_args)
+        ref = fa.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg, kg, H)
+        plain = fa.fused_attention_bwd_plain(*bwd_args)
+        worst = 0.0
+        for gname, g, r, pl in zip(("dqkv", "dq_gamma", "dk_gamma"), got, ref, plain):
+            g, r, pl = g.float(), r.float(), pl.float()
+            e, scale = (g - r).abs().max().item(), r.abs().max().item()
+            log(f"fused_attention_bwd D{D} {label} {gname}: max_abs_err {e:.4g} vs f32 "
+                f"(plain bf16 {(pl - r).abs().max().item():.4g}; tolerance "
+                f"{GRAD_REL * scale:.4g})")
+            if not (bool(torch.isfinite(g).all()) and e <= GRAD_REL * scale):
+                raise RuntimeError(f"fused_attention_bwd D{D} {label} {gname}: kernel "
+                                   "gradient disagrees with the plain one")
+            worst = max(worst, e)
+        if not all(torch.equal(a, b) for a, b in zip(got, fa.fused_attention_bwd_cuda(*bwd_args))):
+            raise RuntimeError(f"fused_attention_bwd D{D} {label}: two launches differ")
+        del ref, plain, want
+        flops = 4 * Bt * H * Lt * Lt * D
+        fwd_times = ((graph_ms(fa.fused_attention_fwd_cuda, fwd_args),
+                      graph_ms(fa.rope_attention_plain, fwd_args), None) if timed else (None,) * 3)
+        keep("fused_attention_fwd", key, D, timed, *fwd_times, err, flops,
+             moved_bytes(*fwd_args, *res), label)
+        bwd_times = ((graph_ms(fa.fused_attention_bwd_cuda, bwd_args),
+                      graph_grad_ms(lambda a, b, c: fa.rope_attention_plain(a, b, c, H),
+                                    (qkv, qg, kg), grad), None) if timed else (None,) * 3)
+        keep("fused_attention_bwd", key, D, timed, *bwd_times, worst, 2.5 * flops,
+             moved_bytes(*bwd_args, *got), label)
+        del qkv, res, grad, got
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     for D in WIDE_HEAD_DIMS:
         H = 1024 // D
+        for Bt, Lt in FLASH_SHAPES:
+            flash_case(D, H, Bt, Lt, str(D), True)
+        for label, Bt, Lt in FUSED_SHAPES:
+            fused_case(D, H, label, Bt, Lt, str(D), True)
+    log(f"phase 1f: K7/K8, K9 and K10 at head dims {WIDE_HEAD_DIMS} checked in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    t0 = time.perf_counter()
+    for D, H in STREAM_HEAD_DIMS:
+        # K7 at eight heads of each (8 x 96 at B4 L759 is the sampler's),
+        # timed there and, as K8, at B1 L2500
         for i, (Bt, Lt) in enumerate(FLASH_SHAPES):
-            label = f"B{Bt} L{Lt} H{H}"
-            args = tuple(rnd(Bt, Lt, H, D) for _ in range(3))
-            got = la.attention_cuda(*args)
-            want = la.attention_plain(*args).float()
-            torch.cuda.synchronize()
-            err, tol = (got.float() - want).abs().max().item(), ulps_tol(want)
-            log(f"flash_attention D{D} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
-            if not (bool(torch.isfinite(got).all()) and err <= tol):
-                raise RuntimeError(f"flash_attention D{D} {label}: kernel disagrees with its "
-                                   "plain version")
-            if not torch.equal(la.attention_cuda(*args), got):
-                raise RuntimeError(f"flash_attention D{D} {label}: two launches differ")
-            keep("flash_attention", D, i, graph_ms(la.attention_cuda, args),
-                 graph_ms(la.attention_plain, args), graph_ms(sdpa, args), err,
-                 4 * Bt * H * Lt * Lt * D, moved_bytes(*args, got), label)
-            del args, got, want
-        for i, (label, Bt, Lt) in enumerate(FUSED_SHAPES):
-            label = f"{label} H{H}"
-            qkv = rnd(Bt, Lt, 3 * H * D, scale=0.7)
-            qg, kg = (1 + rnd(D, scale=0.1, dtype=torch.float32) for _ in range(2))
-            fwd_args = (qkv, qg, kg, H)
-            res = fa.fused_attention_fwd_cuda(*fwd_args)
-            want = fa.rope_attention_plain(*fwd_args).float()
-            torch.cuda.synchronize()
-            err, tol = (res[0].float() - want).abs().max().item(), ulps_tol(want)
-            log(f"fused_attention_fwd D{D} {label}: max_abs_err {err:.3g} (tolerance {tol:.3g})")
-            if not (bool(torch.isfinite(res[0]).all()) and err <= tol):
-                raise RuntimeError(f"fused_attention_fwd D{D} {label}: kernel disagrees with its "
-                                   "plain version")
-            again = fa.fused_attention_fwd_cuda(*fwd_args)
-            bare, no_lse = fa.fused_attention_fwd_cuda(*fwd_args, residuals=False)
-            if not (torch.equal(again[0], res[0]) and torch.equal(again[1], res[1])):
-                raise RuntimeError(f"fused_attention_fwd D{D} {label}: two launches differ")
-            if no_lse is not None or not torch.equal(bare, res[0]):
-                raise RuntimeError(f"fused_attention_fwd D{D} {label}: the residual-free "
-                                   "forward differs")
-            grad = rnd(Bt, Lt, H * D)
-            bwd_args = (qkv, grad, *res, qg, kg, H)
-            got = fa.fused_attention_bwd_cuda(*bwd_args)
-            ref = fa.fused_attention_bwd_plain(qkv.float(), grad.float(), *res, qg, kg, H)
-            plain = fa.fused_attention_bwd_plain(*bwd_args)
-            worst = 0.0
-            for gname, g, r, pl in zip(("dqkv", "dq_gamma", "dk_gamma"), got, ref, plain):
-                g, r, pl = g.float(), r.float(), pl.float()
-                e, scale = (g - r).abs().max().item(), r.abs().max().item()
-                log(f"fused_attention_bwd D{D} {label} {gname}: max_abs_err {e:.4g} vs f32 "
-                    f"(plain bf16 {(pl - r).abs().max().item():.4g}; tolerance "
-                    f"{GRAD_REL * scale:.4g})")
-                if not (bool(torch.isfinite(g).all()) and e <= GRAD_REL * scale):
-                    raise RuntimeError(f"fused_attention_bwd D{D} {label} {gname}: kernel "
-                                       "gradient disagrees with the plain one")
-                worst = max(worst, e)
-            if not all(torch.equal(a, b) for a, b in zip(got, fa.fused_attention_bwd_cuda(*bwd_args))):
-                raise RuntimeError(f"fused_attention_bwd D{D} {label}: two launches differ")
-            flops = 4 * Bt * H * Lt * Lt * D
-            keep("fused_attention_fwd", D, i, graph_ms(fa.fused_attention_fwd_cuda, fwd_args),
-                 graph_ms(fa.rope_attention_plain, fwd_args), None, err, flops,
-                 moved_bytes(*fwd_args, *res), label)
-            keep("fused_attention_bwd", D, i, graph_ms(fa.fused_attention_bwd_cuda, bwd_args),
-                 graph_grad_ms(lambda a, b, c: fa.rope_attention_plain(a, b, c, H),
-                               (qkv, qg, kg), grad),
-                 None, worst, 2.5 * flops, moved_bytes(*bwd_args, *got), label)
-            del qkv, res, want, grad, got, ref, plain
-    log(f"phase 1f: K7/K8, K9 and K10 at head dims {WIDE_HEAD_DIMS} checked [{smi}]")
+            key = f"{D} B{Bt} L{Lt} H8" if Lt > 2048 else str(D)
+            flash_case(D, 8, Bt, Lt, key, i != 1)
+        for i, (label, Bt, Lt) in enumerate(STREAM_FUSED_SHAPES):
+            fused_case(D, H, label, Bt, Lt, str(D), i == 0)
+    for H, label, Bt, Lt in STREAM_LENGTHS:
+        fused_case(64, H, label, Bt, Lt, f"64 {label} H{H}", True)
+    for H, D, label, Bt, Lt in STREAM_TIMED:
+        fused_case(D, H, label, Bt, Lt, f"{D} {label} H{H}", True)
+    log(f"phase 1f: the streamed K7/K8, K9 and K10 at head dims "
+        f"{[d for d, _ in STREAM_HEAD_DIMS]}, lengths {[c[1] for c in STREAM_LENGTHS]} and "
+        f"{[c[2] for c in STREAM_TIMED]} checked in {time.perf_counter() - t0:.1f} s [{smi}]")
     return out
 
 
@@ -3363,39 +3433,42 @@ def main() -> int:
     del model, reference, sample
     torch.cuda.empty_cache()
 
-    # ---- 3b. 8 x 64 heads at L 300: the JAX gate holds but K9/K10's shared
-    # memory takes L <= 256, so inference normalises and rotates in torch and
-    # takes the flash attention (K7); training refuses before step 1 ----
+    # ---- 3b. 8 x 64 heads at L 300: inside the JAX gate, so K9 (the
+    # streamed kernels past L 256) answers; 16 x 64 at L 300 is past it, so
+    # inference normalises and rotates in torch and takes the flash
+    # attention (K7), and training refuses before step 1 ----
     from osu_dreamer_tpu_torch.models.diffusion.fit import check_attention_shape
     from osu_dreamer_tpu_torch.nn.attention import RoPEAttention
 
-    attn = RoPEAttention(512, 8, 64, 512, torch.bfloat16).to(dev)
-    randomize_(attn, torch.Generator(device=dev).manual_seed(SEED + 5))
-    attn_f32 = RoPEAttention(512, 8, 64, 512, torch.float32).to(dev)
-    attn_f32.load_state_dict(attn.state_dict())
     xa = rnd(2, 300, 512)
-    _build.reset_launches()
-    with torch.inference_mode():
-        got = attn(xa).float()
-        launched = dict(_build.launches)
-        with plain_ops():
-            plain_out, ref = attn(xa).float(), attn_f32(xa.float()).float()
-    ek, ep = (got - ref).abs(), (plain_out - ref).abs()
-    log(f"8 x 64 heads at B2 L300: flash attention launches {launched['flash_attention']}, fused "
-        f"attention {launched['fused_attention_fwd']}; vs f32 kernel mean {ek.mean().item():.4g} "
-        f"max {ek.max().item():.4g}, plain bf16 mean {ep.mean().item():.4g} max "
-        f"{ep.max().item():.4g}")
-    if (launched["flash_attention"] != 1 or launched["fused_attention_fwd"]
-            or not bool(torch.isfinite(got).all()) or not ek.mean() <= SLICE_MEAN_RATIO * ep.mean()
-            or not ek.max() <= SLICE_MAX_RATIO * ep.max()):
-        raise RuntimeError("8 x 64 heads at L 300 did not answer through K7 within tolerance")
+    for heads, kernel in ((8, "fused_attention_fwd"), (16, "flash_attention")):
+        attn = RoPEAttention(512, heads, 64, 512, torch.bfloat16).to(dev)
+        randomize_(attn, torch.Generator(device=dev).manual_seed(SEED + 5))
+        attn_f32 = RoPEAttention(512, heads, 64, 512, torch.float32).to(dev)
+        attn_f32.load_state_dict(attn.state_dict())
+        _build.reset_launches()
+        with torch.inference_mode():
+            got = attn(xa).float()
+            launched = {k: n for k, n in _build.launches.items() if n}
+            with plain_ops():
+                plain_out, ref = attn(xa).float(), attn_f32(xa.float()).float()
+        ek, ep = (got - ref).abs(), (plain_out - ref).abs()
+        log(f"{heads} x 64 heads at B2 L300: launches {launched}; vs f32 kernel mean "
+            f"{ek.mean().item():.4g} max {ek.max().item():.4g}, plain bf16 mean "
+            f"{ep.mean().item():.4g} max {ep.max().item():.4g}")
+        if (launched != {kernel: 1} or not bool(torch.isfinite(got).all())
+                or not ek.mean() <= SLICE_MEAN_RATIO * ep.mean()
+                or not ek.max() <= SLICE_MAX_RATIO * ep.max()):
+            raise RuntimeError(f"{heads} x 64 heads at L 300 did not answer through {kernel} "
+                               "within tolerance")
+        del attn, attn_f32
+    check_attention_shape(300, 8, 64)
     try:
-        check_attention_shape(300, 8, 64, "cuda")
+        check_attention_shape(300, 16, 64)
     except NotImplementedError as e:
-        log(f"fit-denoiser at 8 x 64 heads, seq_len 300 refuses: {e}")
+        log(f"fit-denoiser at 16 x 64 heads, seq_len 300 refuses: {e}")
     else:
-        raise RuntimeError("training at 8 x 64 heads and seq_len 300 was not refused")
-    del attn, attn_f32
+        raise RuntimeError("training at 16 x 64 heads and seq_len 300 was not refused")
 
     # ---- 4. full-width denoiser training through fit.run ----
     from osu_dreamer_tpu_torch.data.synth import write_latent_corpus
@@ -3432,11 +3505,11 @@ def main() -> int:
         denoiser_losses, denoiser_losses, absent=PROLOGUE_KERNELS + ("swiglu_bwd_full",),
         families=DENOISER_FAMILIES)
 
-    def denoiser_step(what: str, cfg: dict) -> None:
-        """one step through the kernels and through the plain versions (bf16),
-        each against a plain f32 step on the same batch, t and x0; random
-        full-strength weights (flax's zero-initialised layers would leave most
-        gradients exactly zero)"""
+    def denoiser_step(what: str, cfg: dict, Bt: int = 128, Lt: int = 152) -> None:
+        """one step (batch Bt x Lt) through the kernels and through the plain
+        versions (bf16), each against a plain f32 step on the same batch, t
+        and x0; random full-strength weights (flax's zero-initialised layers
+        would leave most gradients exactly zero)"""
         model_args = dataclass_from_dict(DiffusionModelArgs, cfg["model"])
         train_args = dataclass_from_dict(DiffusionTrainArgs, cfg["train"])
         bf16_model = DiffusionModel(model_args, torch.bfloat16).to(dev)
@@ -3444,7 +3517,6 @@ def main() -> int:
         randomize_(bf16_model, gen)
         f32_model = DiffusionModel(model_args, torch.float32).to(dev)
         f32_model.load_state_dict(bf16_model.state_dict())
-        Bt, Lt = 128, 152
         z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
         batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
                             z=z / z.square().mean(-1, keepdim=True).sqrt(),
@@ -3497,7 +3569,40 @@ def main() -> int:
                                    "kernel step, not 8")
 
     # ---- 4c. predict at 8 x 128 heads: a 120 s song (K7) and a 30 s one (K9) ----
-    launches_heads_predict = head_dim_predict(dev, smi)
+    launches_heads_predict = head_dim_predict(dev, smi, 8, 128)
+
+    # ---- 4d. the denoiser at 8 x 96 heads, seq_len 320, batch 64 through
+    # fit.run (the streamed K9/K10), then the one-step checks at 8 x 96 L320,
+    # 8 x 64 L512 and 32 x 12 L152 ----
+    t_phase = time.perf_counter()
+    hcfg = denoiser_config(512)
+    hcfg["model"]["backbone"].update(n_heads=8, head_dim=96)
+    hcfg["data"].update(seq_len=320, batch_size=64)
+    shutil.rmtree(workdir / "runs", ignore_errors=True)
+    with no_plain_attention():
+        launches_96, ms_96, _ = fit_timed(
+            "fit-denoiser, 8 x 96 heads, seq_len 320", diffusion_fit.run, hcfg, dev, smi,
+            workdir, "depth 8, width 512, 8 x 96 heads, B64 x L320, bf16", TRAINING_KERNELS,
+            denoiser_losses, denoiser_losses, timed=HEADS_TIMED,
+            absent=PROLOGUE_KERNELS + ("swiglu_bwd_full", "flash_attention"),
+            per_step=dict.fromkeys(TRAINING_KERNELS, 8))
+    log(f"denoiser train step: 8 x 96 heads B64 x L320 {ms_96:.2f} ms/step (20,480 tokens), "
+        f"16 x 64 heads B128 x L152 {ms_off:.2f} ms/step (19,456 tokens) [{smi}]")
+    for heads, head_dim, Bt, Lt in ((8, 96, 64, 320), (8, 64, 32, 512), (32, 12, 128, 152)):
+        scfg = denoiser_config(512)
+        scfg["model"]["backbone"].update(n_heads=heads, head_dim=head_dim)
+        what = f"fit-denoiser, {heads} x {head_dim} heads, B{Bt} x L{Lt}"
+        _build.reset_launches()
+        denoiser_step(what, scfg, Bt, Lt)
+        step_launches[head_dim] = dict(_build.launches)
+        for k in ("fused_attention_fwd", "fused_attention_bwd"):
+            if step_launches[head_dim][k] != 8:
+                raise RuntimeError(f"{what}: {step_launches[head_dim][k]} {k} launches in the "
+                                   "kernel step, not 8")
+    log(f"phase 4d wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+    # ---- 4e. predict at 8 x 96 heads: a 120 s song (K7) and a 30 s one (K9) ----
+    launches_96_predict = head_dim_predict(dev, smi, 8, 96)
 
     # ---- 5. full-width latent training through fit.run, then encode-latents ----
     from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
@@ -3542,9 +3647,9 @@ def main() -> int:
     launches_tp = tp_phase(dev, smi)
 
     paths = (launches_infer, launches_prologue, launches_predict, launches_sharded,
-             launches_train, launches_heads, launches_heads_predict, launches_latent,
-             launches_prologue_train, launches_pipeline, launches_serve, launches_parallel,
-             launches_tp)
+             launches_train, launches_heads, launches_heads_predict, launches_96,
+             launches_96_predict, launches_latent, launches_prologue_train, launches_pipeline,
+             launches_serve, launches_parallel, launches_tp)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:
@@ -3555,18 +3660,24 @@ def main() -> int:
         for name in _build.KERNELS
     ]
     # the attention kernels by head dim: 64 is the entry's own numbers (phase
-    # 1); 32 and 128 phase 1f's, with the launches of their main paths (8 x
-    # 128: phases 4b and 4c; 32 x 32: the one-step check of 4b)
-    wide_launches = {128: {k: launches_heads[k] + launches_heads_predict[k]
-                           for k in _build.KERNELS}, 32: step_launches[32]}
+    # 1); the others phase 1f's, with the launches of their main paths (8 x
+    # 128: phases 4b and 4c; 32 x 32: the one-step check of 4b; 8 x 96:
+    # phases 4d and 4e; 32 x 12: the one-step check of 4d; 8 x 64 at L 512:
+    # the one-step check of 4d); a head dim or length no path runs shows 0
+    path_launches = {
+        "128": {k: launches_heads[k] + launches_heads_predict[k] for k in _build.KERNELS},
+        "32": step_launches[32],
+        "96": {k: launches_96[k] + launches_96_predict[k] for k in _build.KERNELS},
+        "96 B64 L320 H8": launches_96, "12": step_launches[12],
+        "64 B64 L512 H8": step_launches[64]}
     for entry in kernels:
         if entry["name"] in head_dims:
             entry["head_dims"] = {"64": {k: entry[k] for k in (
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}}
-            for D, numbers in head_dims[entry["name"]].items():
-                entry["head_dims"][str(D)] = {"launches": wide_launches[D][entry["name"]],
-                                              **numbers}
+            for key, numbers in head_dims[entry["name"]].items():
+                entry["head_dims"][key] = {
+                    "launches": path_launches.get(key, {}).get(entry["name"], 0), **numbers}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

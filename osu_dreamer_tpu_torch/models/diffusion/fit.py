@@ -30,7 +30,7 @@ from ...data.pipeline import (
     batched, count_latent_windows, hold_out_mapsets, latent_windows, prefetch,
 )
 from ...nn.schedule import lr_at
-from ...ops.fused_attention import MAX_KERNEL_LEN, attention_route
+from ...ops.fused_attention import attention_route
 from ...train.checkpoint import restore_train_state
 from ...train.loop import FitArgs, Stage, fit, parallel_context
 from ...train.state import TrainState
@@ -53,16 +53,16 @@ class DiffusionDataArgs:
     shuffle_buffer: int = 512
 
 
-def check_attention_shape(seq_len: int, n_heads: int, head_dim: int, device_type: str) -> None:
+def check_attention_shape(seq_len: int, n_heads: int, head_dim: int) -> None:
     """refuse a training window that ``attention_route`` sends off the fused
-    attention: there is no attention backward at that shape (beyond the JAX
-    ``fused_attention_fits``, and on the card beyond the kernels' head dim 64
-    and L <= MAX_KERNEL_LEN, where the route itself raises for the head dim)"""
-    if attention_route(seq_len, n_heads, head_dim, device_type) != "fused":
+    attention, which is beyond the JAX ``fused_attention_fits``: there is no
+    attention backward at that shape (on the card K9/K10 take every shape
+    inside the gate)"""
+    if attention_route(seq_len, n_heads, head_dim) != "fused":
         raise NotImplementedError(
             f"seq_len {seq_len} with {n_heads} x {head_dim} heads is beyond "
-            "fused_attention_fits or, on the card, the fused attention kernels' range (head dim "
-            f"64, L <= {MAX_KERNEL_LEN}): there is no attention backward at that shape"
+            "fused_attention_fits (L x H x D <= 262,144, an even head dim, H x D a multiple of "
+            "128): there is no attention backward at that shape"
         )
 
 
@@ -114,7 +114,7 @@ def run(
     if bb.dropout > 0:
         raise NotImplementedError("backbone.dropout > 0 is not ported")
     if par.sp_axis is None:  # sequence parallelism takes ring attention at any length
-        check_attention_shape(data_args.seq_len, bb.n_heads, bb.head_dim, device.type)
+        check_attention_shape(data_args.seq_len, bb.n_heads, bb.head_dim)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     if par.needs_launch:
         par.launch(run, cfg, resume_from, device, on_step, devices)

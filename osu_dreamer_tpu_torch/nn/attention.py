@@ -4,11 +4,12 @@ Counterpart of osu_dreamer_tpu/nn/attention.py (``rope``, ``RoPEAttention``):
 packed qkv projection (optionally after a pre-norm FiLM and an added
 stream), per-head RMS norm of q and k with learned gains, rotary position
 embedding, softmax attention, output projection. ``attention_route``
-(ops/fused_attention.py) decides: where the JAX ``fused_attention_fits``
-holds (and, on the card, the kernels take the shape) the attention goes
-straight off the packed projection through ``fused_norm_rope_attention``
-(forward and backward kernels); elsewhere it normalises and rotates here and
-takes the forward-only ``long_flash_attention`` (ops/long_attention.py).
+(ops/fused_attention.py) decides, the same on every device: where the JAX
+``fused_attention_fits`` holds the attention goes straight off the packed
+projection through ``fused_norm_rope_attention`` (forward and backward
+kernels on the card, at every head dim and length the gate admits);
+elsewhere it normalises and rotates here and takes the forward-only
+``long_flash_attention`` (ops/long_attention.py, a kernel at any shape).
 With a sequence-parallel group (``sp``) the route is not asked: q and k are
 normalised and rotated here at the shard's global offset and go through
 ``ring_attention`` (ops/ring_attention.py), as in the JAX package. On
@@ -145,7 +146,7 @@ class RoPEAttention(nn.Module):
             q = rope(rms_norm(q, self.q_gamma), offset)
             k = rope(rms_norm(k, self.k_gamma), offset)
             return self.out(ring_attention(q, k, v, sp).reshape(B, L, H * D))
-        if attention_route(L, H, D, x.device.type) == "fused":
+        if attention_route(L, H, D) == "fused":
             return self._project_out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
         q, k, v = qkv.split(H * D, dim=-1)
         q = rope(rms_norm(q.reshape(B, L, H, D), self.q_gamma))

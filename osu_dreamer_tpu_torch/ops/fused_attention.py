@@ -10,12 +10,15 @@ normalised values times bf16 gamma, bf16 rotary multiplies, f32 logits and
 softmax, the probability matmul in the input dtype.
 
 ``fused_norm_rope_attention`` dispatches by device: a CUDA tensor goes to the
-``torch.autograd.Function`` whose forward is csrc/fused_attention.cu
-``fused_attention_fwd_kernel`` (K9) and whose backward is
-``fused_attention_bwd_kernel`` (K10; at head dim 128 the two launches
-``fused_attention_bwd_kv_kernel`` and ``fused_attention_bwd_q_kernel``), bf16
-and head dims 32, 64 and 128 only (anything else raises); a CPU tensor to
-``rope_attention_plain``, differentiated by autograd.
+``torch.autograd.Function`` whose forward is K9 and whose backward is K10,
+bf16, at every shape the JAX gate admits: at head dims 32, 64 and 128 and
+L <= 256 (``resident``) csrc/fused_attention.cu ``fused_attention_fwd_kernel``
+and ``fused_attention_bwd_kernel`` (at head dim 128 the two launches
+``fused_attention_bwd_kv_kernel`` and ``fused_attention_bwd_q_kernel``),
+which hold a head's rows in shared memory; elsewhere the streamed kernels of
+csrc/attention_stream.cu (a prep pass, the forward; the prep pass, the dK/dV
+and dQ launches and a post pass); a CPU tensor to ``rope_attention_plain``,
+differentiated by autograd.
 The forward's one residual is the f32 log-sum-exp of each query row, written
 only when a gradient will be taken; the backward normalises and rotates q
 and k again from the raw rows with the forward's own code.
@@ -29,15 +32,18 @@ import torch
 
 from ..nn.norm import rms_norm
 from ._build import check_cuda, run
-from .long_attention import HEAD_DIMS, attention_plain
+from .long_attention import TEMPLATED_HEAD_DIMS, attention_plain, stream_dim
 from .swiglu import _cached
 
 # the JAX package's gate (its backward's VMEM budget), kept so both packages
 # take the fused path at the same shapes
 MAX_FUSED_LEN = 256
-# what the CUDA kernels' shared memory holds: a head's L rows of q, k, v and
-# dO, up to four 64-row tiles each (csrc/fused_attention.cu)
-MAX_KERNEL_LEN = 256
+# the lengths csrc/fused_attention.cu's kernels hold in shared memory: a
+# head's rows of q, k, v and dO, up to four 64-row tiles each
+RESIDENT_LEN = 256
+# rows a warp of the streamed backward's post pass (csrc/attention_stream.cu
+# kStChunk): one gamma partial per chunk and head
+POST_CHUNK = 32
 
 
 def fused_attention_fits(L: int, n_heads: int, head_dim: int) -> bool:
@@ -47,24 +53,21 @@ def fused_attention_fits(L: int, n_heads: int, head_dim: int) -> bool:
     return HD > 0 and L * HD <= MAX_FUSED_LEN * 1024 and head_dim % 2 == 0 and HD % 128 == 0
 
 
-def attention_route(L: int, n_heads: int, head_dim: int, device_type: str) -> str:
-    """where RoPE attention over L positions runs, decided before any launch:
-    "fused" (``fused_norm_rope_attention``: K9 forward, K10 backward on the
-    card) or "long" (norm and RoPE in torch, then the forward-only
-    ``long_flash_attention``, K7 on the card). Off the card the JAX gate
-    alone decides, as before. On the card the fused route also needs the
-    kernels to take the shape (L <= MAX_KERNEL_LEN); every attention kernel
-    is built for head dims 32, 64 and 128 (``HEAD_DIMS``), so another head
-    dim raises here, naming it, before any kernel wrapper sees it"""
-    fits = fused_attention_fits(L, n_heads, head_dim)
-    if device_type != "cuda":
-        return "fused" if fits else "long"
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(
-            f"head dim {head_dim}: the attention kernels take head dims {HEAD_DIMS} only (the "
-            f"fused norm + RoPE attention K9/K10 at L <= {MAX_KERNEL_LEN}, the flash attention "
-            "K7 at any L)")
-    return "fused" if fits and L <= MAX_KERNEL_LEN else "long"
+def attention_route(L: int, n_heads: int, head_dim: int) -> str:
+    """where RoPE attention over L positions runs, decided before any launch
+    and the same on every device type: "fused" (``fused_norm_rope_attention``:
+    K9 forward, K10 backward on the card) exactly where the JAX gate
+    ``fused_attention_fits`` holds, else "long" (norm and RoPE in torch,
+    then the forward-only ``long_flash_attention``, K7 on the card). The
+    kernels take every head dim and length, so no shape raises here"""
+    return "fused" if fused_attention_fits(L, n_heads, head_dim) else "long"
+
+
+def resident(L: int, head_dim: int) -> bool:
+    """whether K9/K10 run on csrc/fused_attention.cu's kernels, which hold a
+    head's rows in shared memory (head dims 32, 64, 128 and L <= 256), or on
+    the streamed ones of csrc/attention_stream.cu"""
+    return head_dim in TEMPLATED_HEAD_DIMS and L <= RESIDENT_LEN
 
 
 def rope_tables(L: int, D: int, device, dtype: torch.dtype,
@@ -80,20 +83,20 @@ def rope_tables(L: int, D: int, device, dtype: torch.dtype,
 @functools.cache
 def kernel_tables(L: int, D: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """``rope_tables(L, D)`` in bf16 on ``device``, built once per (L, D,
-    device): the first call, before any graph capture, makes them (at most
-    MAX_KERNEL_LEN lengths a head dim and device); the kernels only read them"""
+    device): the first call, before any graph capture, makes them (one pair
+    per length and head dim a run trains or samples at); the kernels only
+    read them"""
     return rope_tables(L, D, device, torch.bfloat16)
 
 
 def kernel_gammas(q_gamma: torch.Tensor, k_gamma: torch.Tensor,
                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """the two (D,) gains (D in ``HEAD_DIMS``) in bf16 on ``device``, once
-    per version of the pair (the weight-pack cache of ops/swiglu.py, held by
-    ``q_gamma``, so each replica's gains are packed on its own device)"""
-    D = q_gamma.shape[0] if q_gamma.dim() == 1 else -1
-    if D not in HEAD_DIMS or k_gamma.shape != (D,):
-        raise ValueError(f"gammas must be (D,) with D in {HEAD_DIMS}, got "
-                         f"{tuple(q_gamma.shape)}, {tuple(k_gamma.shape)}")
+    """the two (D,) gains in bf16 on ``device``, once per version of the
+    pair (the weight-pack cache of ops/swiglu.py, held by ``q_gamma``, so
+    each replica's gains are packed on its own device)"""
+    if q_gamma.dim() != 1 or k_gamma.shape != q_gamma.shape:
+        raise ValueError(f"gammas must be two (D,) vectors, got {tuple(q_gamma.shape)}, "
+                         f"{tuple(k_gamma.shape)}")
     return _cached("att_gammas", (q_gamma, k_gamma), torch.bfloat16, lambda: tuple(
         g.to(device=device, dtype=torch.bfloat16).contiguous() for g in (q_gamma, k_gamma)),
         owner=q_gamma)
@@ -152,38 +155,55 @@ def _check_kernel_shapes(qkv: torch.Tensor, n_heads: int) -> tuple[int, int, int
     check_cuda("qkv", qkv, torch.bfloat16, 3)
     B, L, three_hd = qkv.shape
     D = three_hd // (3 * n_heads)
-    if three_hd % (3 * n_heads) or D not in HEAD_DIMS:
-        raise ValueError(f"packed width {three_hd} is not 3 x {n_heads} heads x a head dim of "
-                         f"{HEAD_DIMS}: the kernels are built for those head dims")
-    if not 0 < L <= MAX_KERNEL_LEN:
-        raise ValueError(f"length {L} outside the kernels' range 1..{MAX_KERNEL_LEN}")
+    if three_hd % (3 * n_heads) or D % 2 or D == 0 or L == 0:
+        raise ValueError(f"packed width {three_hd} at length {L} is not 3 x {n_heads} heads of "
+                         "an even head dim")
     return B, L, n_heads, D
 
 
-def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = True):
-    """K9, csrc/fused_attention.cu: bf16 packed qkv -> (out, lse) as
-    ``fused_attention_fwd_plain`` returns them; with ``residuals`` False the
-    kernel writes out alone and lse is None (no gradient will be taken)"""
-    B, L, H, D = _check_kernel_shapes(qkv, n_heads)
+def _kernel_inputs(qkv, q_gamma, k_gamma, L: int, D: int):
+    """the rotary tables and the bf16 gains on qkv's device"""
     dev = qkv.device
     cos, sin = kernel_tables(L, D, dev)
     gq, gk = kernel_gammas(q_gamma, k_gamma, dev)
     if gq.shape != (D,):
         raise ValueError(f"gammas {tuple(gq.shape)} do not match head dim {D}")
+    return cos, sin, gq, gk
+
+
+def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = True):
+    """K9 (csrc/fused_attention.cu where ``resident``, else
+    csrc/attention_stream.cu): bf16 packed qkv -> (out, lse) as
+    ``fused_attention_fwd_plain`` returns them; with ``residuals`` False the
+    kernel writes out alone and lse is None (no gradient will be taken)"""
+    B, L, H, D = _check_kernel_shapes(qkv, n_heads)
+    dev = qkv.device
+    cos, sin, gq, gk = _kernel_inputs(qkv, q_gamma, k_gamma, L, D)
     out = torch.empty(B, L, H * D, dtype=torch.bfloat16, device=dev)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=dev) if residuals else None
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if resident(L, D):
+        run(
+            "odt_fused_attention_fwd", "fused_attention_fwd", dev,
+            *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, out)), lse_ptr, B, L, H, D, D**-0.5,
+        )
+        return out, lse
+    Dp = stream_dim(D)
+    rows = [torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev) for _ in range(3)]
     run(
-        "odt_fused_attention_fwd", "fused_attention_fwd", dev,
-        *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, out)),
-        None if lse is None else lse.data_ptr(), B, L, H, D, D**-0.5,
+        "odt_fused_attention_stream_fwd", "fused_attention_fwd", dev,
+        *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, *rows, out)), lse_ptr,
+        B, L, H, D, Dp, D**-0.5,
     )
     return out, lse
 
 
 def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
-    """K10, csrc/fused_attention.cu: -> (dqkv bf16, dq_gamma f32, dk_gamma
-    f32); the gamma partials, one per (batch, head) (and per 64-row tile at
-    head dim 128), are summed here"""
+    """K10 (csrc/fused_attention.cu where ``resident``, else
+    csrc/attention_stream.cu): -> (dqkv bf16, dq_gamma f32, dk_gamma f32);
+    the gamma partials (one per (batch, head) at D 32 and 64, per 64-row
+    tile too at 128, per 32-row chunk and head when streamed) are summed
+    here"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
     dev = qkv.device
     grad = grad.to(torch.bfloat16).contiguous()
@@ -193,18 +213,30 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
         check_cuda(name, t, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    cos, sin = kernel_tables(L, D, dev)
-    gq, gk = kernel_gammas(q_gamma, k_gamma, dev)
-    if gq.shape != (D,):
-        raise ValueError(f"gammas {tuple(gq.shape)} do not match head dim {D}")
+    cos, sin, gq, gk = _kernel_inputs(qkv, q_gamma, k_gamma, L, D)
     dqkv = torch.empty_like(qkv)
-    parts = -(-L // 64) if D == 128 else 1
-    dgq, dgk = (torch.empty(parts * B * H, D, dtype=torch.float32, device=dev)
-                for _ in range(2))
+    if resident(L, D):
+        parts = -(-L // 64) if D == 128 else 1
+        dgq, dgk = (torch.empty(parts * B * H, D, dtype=torch.float32, device=dev)
+                    for _ in range(2))
+        run(
+            "odt_fused_attention_bwd", "fused_attention_bwd", dev,
+            *(t.data_ptr() for t in (qkv, grad, out, lse, gq, gk, cos, sin, dqkv, dgq, dgk)),
+            B, L, H, D, D**-0.5,
+        )
+        return dqkv, dgq.sum(0), dgk.sum(0)
+    Dp = stream_dim(D)
+    rows = [torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev) for _ in range(3)]
+    rdo = None if Dp == D else torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev)
+    delta = torch.empty(B, H, L, dtype=torch.float32, device=dev)
+    grads = [torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(3)]
+    chunks = -(-B * L // POST_CHUNK)
+    dgq, dgk = (torch.empty(chunks * H, D, dtype=torch.float32, device=dev) for _ in range(2))
     run(
-        "odt_fused_attention_bwd", "fused_attention_bwd", dev,
-        *(t.data_ptr() for t in (qkv, grad, out, lse, gq, gk, cos, sin, dqkv, dgq, dgk)),
-        B, L, H, D, D**-0.5,
+        "odt_fused_attention_stream_bwd", "fused_attention_bwd", dev,
+        *(t.data_ptr() for t in (qkv, grad, out, lse, gq, gk, cos, sin, *rows)),
+        None if rdo is None else rdo.data_ptr(),
+        *(t.data_ptr() for t in (delta, *grads, dqkv, dgq, dgk)), B, L, H, D, Dp, D**-0.5,
     )
     return dqkv, dgq.sum(0), dgk.sum(0)
 

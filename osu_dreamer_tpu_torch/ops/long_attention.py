@@ -6,18 +6,30 @@ Counterpart of osu_dreamer_tpu/ops/long_attention.py
 (B, L, H, D), output packed (B, L, H*D); logits and softmax in f32, the
 probability matmul in the input dtype.
 
-``long_flash_attention`` dispatches by device: a CUDA tensor goes to the
-kernel in ``csrc/flash_attention.cu`` (bf16, head dims 32, 64 and 128;
-anything else raises), a CPU tensor to ``attention_plain``.
+``long_flash_attention`` dispatches by device: a CUDA tensor goes to a
+kernel (bf16, any head dim and length): ``csrc/flash_attention.cu`` at head
+dims 32, 64 and 128 (``TEMPLATED_HEAD_DIMS``, one instantiation each), the
+streamed ``csrc/attention_stream.cu`` at every other (q, k and v padded to a
+multiple of 8 columns where TMA cannot map the head stride); a CPU tensor
+goes to ``attention_plain``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ._build import check_cuda, run
 
-HEAD_DIMS = (32, 64, 128)  # the head dims the attention kernels are compiled for
+# the head dims csrc/flash_attention.cu (and fused_attention.cu's resident
+# kernels) are instantiated for; every other runs on csrc/attention_stream.cu
+TEMPLATED_HEAD_DIMS = (32, 64, 128)
+
+
+def stream_dim(D: int) -> int:
+    """the padded head dim of the streamed kernels' (B, L, H, Dp) operands:
+    D rounded up to 8 (a TMA row stride is a multiple of 16 bytes)"""
+    return -(-D // 8) * 8
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -29,19 +41,27 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """the csrc/flash_attention.cu kernel"""
+    """the csrc/flash_attention.cu kernel, or csrc/attention_stream.cu's at
+    other head dims"""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda(name, t, torch.bfloat16, 4)
     if not q.shape == k.shape == v.shape or not q.device == k.device == v.device:
         raise ValueError(f"q/k/v differ: shapes {q.shape}, {k.shape}, {v.shape}, "
                          f"devices {q.device}, {k.device}, {v.device}")
     B, L, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} unsupported: the kernel is built for {HEAD_DIMS}")
     out = torch.empty(B, L, H * D, dtype=q.dtype, device=q.device)
+    if D in TEMPLATED_HEAD_DIMS:
+        run(
+            "odt_flash_attention_fwd", "flash_attention", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D, D**-0.5,
+        )
+        return out
+    Dp = stream_dim(D)
+    if Dp != D:
+        q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
     run(
-        "odt_flash_attention_fwd", "flash_attention", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D, D**-0.5,
+        "odt_attention_stream_fwd", "flash_attention", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, L, H, D, Dp, D**-0.5,
     )
     return out
 

@@ -156,17 +156,21 @@ def norm_rope_bwd_emulation(d: torch.Tensor, x: torch.Tensor, inv: torch.Tensor,
 
 
 def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, qg,
-                  kg, H: int):
+                  kg, H: int, streamed: bool = False):
     """K10's order -> (dqkv bf16, dq_gamma, dk_gamma); at head dim 128 the
     two launches' order: dK and dV a key tile against every query tile, dQ
     a query tile against every key tile from dS formed again (S and dP as
-    Q K^T and dO V^T), no dS tile stored"""
+    Q K^T and dO V^T), no dS tile stored. ``streamed``: the same two
+    launches' order on csrc/attention_stream.cu, the rotated rows and dO
+    zero-padded to whole 64-column boxes (the prep pass's padding and the
+    tensor map's fill), the gradients cut back to D for the post pass"""
     B, L, _ = qkv.shape
     D = qkv.shape[-1] // (3 * H)
     SCALE = D**-0.5
     nt = -(-L // TILE)
     nw = 2 if nt == 4 else nt  # consumer warpgroups: one key tile each, a pass
-    if D == 128:
+    two_launch = D == 128 or streamed
+    if two_launch:
         nw = nt  # one CTA a key tile, one pass
     Lp = nt * TILE
     q, k = _heads(qkv, H, 0, D), _heads(qkv, H, 1, D)
@@ -174,6 +178,9 @@ def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: t
     rk, ik = norm_rope_emulation(k, kg)
     rq, rk, v = _pad(rq, Lp), _pad(rk, Lp), _pad(_heads(qkv, H, 2, D), Lp)
     do, o = _pad(_heads(go, H, 0, D), Lp), _pad(_heads(out, H, 0, D), Lp)
+    if streamed:
+        boxes = -(-D // 64) * 64
+        rq, rk, v, do, o = (F.pad(t, (0, boxes - D)) for t in (rq, rk, v, do, o))
     delta = (do * o).sum(-1)
     lse2 = _pad(lse * LOG2E, Lp, float("inf"))
     c2 = SCALE * LOG2E
@@ -182,7 +189,7 @@ def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: t
     def tile(x: torch.Tensor, i: int) -> torch.Tensor:
         return x[..., i * TILE:(i + 1) * TILE, :]
 
-    dq, dk, dv = (torch.zeros(B, H, Lp, D) for _ in range(3))
+    dq, dk, dv = (torch.zeros(B, H, Lp, rq.shape[-1]) for _ in range(3))
     for p in range(nt // nw):
         stored = {}
         for w in range(nw):  # phase A: key tile kt against every query tile
@@ -199,7 +206,7 @@ def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: t
                 stored[w, j] = dst
         for j in range(nt):  # phase B: dQ from the stored dS^T tiles
             for w in range(nw):
-                if D == 128:  # the dQ launch: dS_j,t formed again from Q_j K_t^T, dO_j V_t^T
+                if two_launch:  # the dQ launch: dS_j,t formed again from Q_j K_t^T, dO_j V_t^T
                     t = p * nw + w
                     s = tile(rq, j) @ tile(rk, t).transpose(-1, -2)
                     dp = tile(do, j) @ tile(v, t).transpose(-1, -2)
@@ -209,10 +216,10 @@ def bwd_emulation(qkv: torch.Tensor, go: torch.Tensor, out: torch.Tensor, lse: t
                     dq[..., j * TILE:(j + 1) * TILE, :] += ds @ tile(rk, t)
                     continue
                 dq[..., j * TILE:(j + 1) * TILE, :] += stored[w, j].transpose(-1, -2) @ tile(rk, p * nw + w)
-    dxq, dgq = norm_rope_bwd_emulation(dq[..., :L, :], q, iq, qg)
-    dxk, dgk = norm_rope_bwd_emulation(dk[..., :L, :], k, ik, kg)
-    dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(B, L, H * D) for t in (dxq, dxk, dv[..., :L, :])],
-                     -1)
+    dxq, dgq = norm_rope_bwd_emulation(dq[..., :L, :D], q, iq, qg)
+    dxk, dgk = norm_rope_bwd_emulation(dk[..., :L, :D], k, ik, kg)
+    dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(B, L, H * D)
+                      for t in (dxq, dxk, dv[..., :L, :D])], -1)
     return dqkv.to(BF), dgq, dgk
 
 
@@ -436,15 +443,16 @@ def test_plan_mirrors_the_source_at_head_dims(nt, d):
 
 
 def test_every_length_fits_shared_memory():
-    """L 1..256 (``MAX_KERNEL_LEN``, the route's whole range) fits a block's
-    232,448 bytes in both kernels, at every head dim"""
-    assert fa.MAX_KERNEL_LEN == 4 * TILE
+    """L 1..256 (``RESIDENT_LEN``, the resident kernels' whole range; longer
+    windows take the streamed ones) fits a block's 232,448 bytes in both
+    kernels, at every head dim"""
+    assert fa.RESIDENT_LEN == 4 * TILE
     for d in (32, 64, 128):
-        for L in range(1, fa.MAX_KERNEL_LEN + 1):
+        for L in range(1, fa.RESIDENT_LEN + 1):
             p = plan(L, d)
             assert all(v <= MAX_SMEM for k, v in p.items() if k.endswith("smem")), (L, d)
-    assert plan(fa.MAX_KERNEL_LEN)["bwd_smem"] == _source_plan(4)["bwd_smem"]
-    assert plan(fa.MAX_KERNEL_LEN, 128) == _source_plan(4, 128)
+    assert plan(fa.RESIDENT_LEN)["bwd_smem"] == _source_plan(4)["bwd_smem"]
+    assert plan(fa.RESIDENT_LEN, 128) == _source_plan(4, 128)
 
 
 # ---- the residual rule and the JAX Pallas kernels themselves ----
@@ -531,3 +539,89 @@ def test_backward_emulation_holds_grad_rel_at_head_dims(B, L, H, d):
         g, r = g.float(), r.float()
         assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
         assert (g - r).abs().max().item() <= GRAD_REL * r.abs().max().item(), name
+
+
+
+# ---- the streamed kernels (csrc/attention_stream.cu) ----
+
+def stream_fwd_emulation(qkv: torch.Tensor, qg, kg, H: int):
+    """K9 streamed: the prep pass's rotated rows (``norm_rope_emulation``,
+    the resident kernels' rounding order), then the online-softmax forward
+    of tests/test_torch_flash.py over zero-padded boxes -> (out, lse)"""
+    from test_torch_flash import stream_flash_emulation
+
+    B, L, _ = qkv.shape
+    D = qkv.shape[-1] // (3 * H)
+    rq, _ = norm_rope_emulation(_heads(qkv, H, 0, D), qg)
+    rk, _ = norm_rope_emulation(_heads(qkv, H, 1, D), kg)
+    q, k, v = (t.permute(0, 2, 1, 3).to(BF) for t in (rq, rk, _heads(qkv, H, 2, D)))
+    return stream_flash_emulation(q, k, v, with_lse=True)
+
+
+# (B, L, H, D): the head dims off the templated ones (12 padded to 16, 48
+# and 96 in one and two boxes, 256 in four), the denoiser's 8 x 96 length
+# L 320, and head dim 64 past the resident kernels' L 256
+STREAM_SHAPES = [(2, 77, 2, 12), (1, 1, 2, 12), (1, 130, 2, 48), (1, 320, 2, 96),
+                 (2, 65, 1, 96), (1, 193, 1, 256), (1, 257, 2, 64), (1, 512, 1, 64)]
+
+
+def _jax_reference(qkv, qg, kg, go, H):
+    """``rope_attention_reference`` and its ``jax.vjp`` in f32 on the same
+    (bf16-valued) inputs -> (out, (dqkv, dq_gamma, dk_gamma))"""
+    from osu_dreamer_tpu.ops.fused_attention import rope_attention_reference
+
+    out, vjp = jax.vjp(lambda a, b, c: rope_attention_reference(a, b, c, H),
+                       *(N(t.float()) for t in (qkv, qg, kg)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(N(go.float()))]
+
+
+@pytest.mark.parametrize("B,L,H,d", STREAM_SHAPES)
+def test_stream_forward_emulation_holds_the_jax_reference(B, L, H, d):
+    """K9's streamed order: 4 ulp of ``rope_attention_plain`` (bf16), within
+    GRAD_REL of the JAX ``rope_attention_reference`` in f32, and lse
+    against the plain forward's"""
+    qkv, qg, kg, go = _inputs(B, L, H, seed=3000 + L + d, d=d)
+    out, lse = stream_fwd_emulation(qkv, qg, kg, H)
+    want, want_lse = fa.fused_attention_fwd_plain(qkv, qg, kg, H)
+    assert out.shape == want.shape == (B, L, H * d) and lse.shape == (B, H, L)
+    assert (out.float() - want.float()).abs().max().item() <= _ulp_tol(want.float())
+    torch.testing.assert_close(lse, want_lse, atol=2e-3, rtol=0)
+    ref, _ = _jax_reference(qkv, qg, kg, go, H)
+    assert np.abs(N(out.float()) - ref).max() <= GRAD_REL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("B,L,H,d", STREAM_SHAPES)
+def test_stream_backward_emulation_holds_the_jax_vjp(B, L, H, d):
+    """K10's streamed order (the dK/dV and dQ launches over padded boxes,
+    then the post pass) against ``jax.vjp`` of ``rope_attention_reference``
+    in f32: every gradient within GRAD_REL of its largest magnitude"""
+    qkv, qg, kg, go = _inputs(B, L, H, seed=4000 + L + d, d=d)
+    out, lse = stream_fwd_emulation(qkv, qg, kg, H)
+    got = bwd_emulation(qkv, go, out, lse, qg, kg, H, streamed=True)
+    _, ref = _jax_reference(qkv, qg, kg, go, H)
+    for name, g, r in zip(("dqkv", "dq_gamma", "dk_gamma"), got, ref):
+        g = N(g.float())
+        assert g.shape == r.shape and np.isfinite(g).all(), name
+        assert np.abs(g - r).max() <= GRAD_REL * np.abs(r).max(), name
+
+
+def _stream_source() -> str:
+    return (CSRC / "attention_stream.cu").read_text()
+
+
+def test_stream_plan_fits_two_ctas_an_sm():
+    """the streamed kernels' one plan at every shape: a ring of four stages
+    of two 8 KB boxes (+ barriers, + 1024 to align), two CTAs of one
+    consumer warpgroup and a producer warp an SM, by shared memory and by
+    the launch bounds' register share"""
+    src = _stream_source()
+    consts = {}
+    for name in ("kStRows", "kStStages", "kStThreads", "kStChunk"):
+        consts[name] = eval(re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1].split("//")[0])
+    assert consts == {"kStRows": 64, "kStStages": 4, "kStThreads": 160, "kStChunk": fa.POST_CHUNK}
+    smem = consts["kStStages"] * 2 * 64 * 64 * 2 + 2 * consts["kStStages"] * 8 + 1024
+    assert 2 * (smem + 1024) <= SM_SMEM
+    bounds = re.findall(r"__launch_bounds__\(kStThreads, (\d)\)", src)
+    assert bounds == ["2", "2", "2"]
+    # the backward's dK/dV accumulators, S^T, dP^T and the packed P^T, dS^T
+    assert _reg_cap(consts["kStThreads"], 2) >= 4 * 32 + 2 * 16 + 16

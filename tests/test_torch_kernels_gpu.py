@@ -132,21 +132,21 @@ def test_ffn_core_keeps_batch_rows_apart_on_gpu(film):
 
 @pytest.mark.gpu
 def test_wide_attention_inference_takes_the_flash_kernel_on_gpu(monkeypatch):
-    """8 x 64 heads at L 300: the JAX gate holds but K9/K10 take L <= 256,
-    so inference runs norm and RoPE in torch and K7, within the f32 rule of
+    """16 x 64 heads at L 300: past the JAX gate (L H D > 262,144), so
+    inference runs norm and RoPE in torch and K7, within the f32 rule of
     the plain path"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     from osu_dreamer_tpu_torch.nn import attention as attn_mod
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    attn = attn_mod.RoPEAttention(512, 8, 64, 512, torch.bfloat16).cuda()
+    attn = attn_mod.RoPEAttention(512, 16, 64, 512, torch.bfloat16).cuda()
     with torch.no_grad():
         for prm in attn.parameters():
             prm.copy_(torch.randn(prm.shape, generator=gen, device="cuda") * prm.shape[0] ** -0.5
                       if prm.dim() == 2 else 1 + 0.1 * torch.randn(prm.shape, generator=gen,
                                                                    device="cuda"))
-    ref_attn = attn_mod.RoPEAttention(512, 8, 64, 512, torch.float32).cuda()
+    ref_attn = attn_mod.RoPEAttention(512, 16, 64, 512, torch.float32).cuda()
     ref_attn.load_state_dict(attn.state_dict())
     x = torch.randn(2, 300, 512, generator=gen, device="cuda").to(torch.bfloat16)
     before = dict(_build.launches)
@@ -158,11 +158,11 @@ def test_wide_attention_inference_takes_the_flash_kernel_on_gpu(monkeypatch):
     assert _build.launches["flash_attention"] == before["flash_attention"] + 1
     assert _build.launches["fused_attention_fwd"] == before["fused_attention_fwd"]
     with torch.inference_mode():  # the plain path of the same layer, bf16
-        q, k, v = attn.qkv(x).split(512, dim=-1)
+        q, k, v = attn.qkv(x).split(1024, dim=-1)
         B, L = x.shape[:2]
-        qr = fused_attention.rope(rms_norm(q.reshape(B, L, 8, 64), attn.q_gamma))
-        kr = fused_attention.rope(rms_norm(k.reshape(B, L, 8, 64), attn.k_gamma))
-        want = attn.out(long_attention.attention_plain(qr, kr, v.reshape(B, L, 8, 64))).float()
+        qr = fused_attention.rope(rms_norm(q.reshape(B, L, 16, 64), attn.q_gamma))
+        kr = fused_attention.rope(rms_norm(k.reshape(B, L, 16, 64), attn.k_gamma))
+        want = attn.out(long_attention.attention_plain(qr, kr, v.reshape(B, L, 16, 64))).float()
     _f32_rule(got, want, ref)
 
 
@@ -689,3 +689,68 @@ def test_fused_attention_kernels_match_plain_on_gpu_at_head_dims(B, L, D, H):
     again = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
+
+
+# the streamed kernels (csrc/attention_stream.cu): head dims off the
+# templated ones, padded to a multiple of 8 (5, odd, and 12) or read as they
+# are, one box a head (5..48), two (96, 128 past L 256) and split over CTAs
+# (192, 256, 384)
+STREAM_HEAD_DIMS = (5, 12, 16, 40, 48, 96, 192, 256, 384)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", STREAM_HEAD_DIMS)
+@pytest.mark.parametrize("B,L", [(1, 1), (2, 65), (4, 759), (1, 2500)])
+def test_flash_attention_matches_plain_on_gpu_at_streamed_head_dims(B, L, D):
+    """K7/K8 on the streamed kernel: 4 ulp of the plain version, columns past
+    D never written, a second launch bit-identical"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(L + D)
+    H = 2
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got = long_attention.attention_cuda(q, k, v)
+    want = long_attention.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert got.shape == (B, L, H * D) and bool(torch.isfinite(got).all())
+    assert (got.float() - want).abs().max().item() <= _ulp_tol(want)
+    assert torch.equal(got, long_attention.attention_cuda(q, k, v))
+
+
+# (B, L, H, D) inside the JAX gate that the resident kernels do not hold:
+# the denoiser's 8 x 96 at L 320, 8 x 64 past L 256, 2 x 64 at L 2048 (L H D
+# = 262,144), 32 x 12 (padded to 16), 64 x 2 (the smallest, padded to 8),
+# and the other head dims at their edges
+STREAM_FUSED = [(2, 320, 8, 96), (2, 257, 8, 64), (1, 512, 8, 64), (1, 2048, 2, 64),
+                (2, 152, 32, 12), (1, 1, 32, 12), (2, 77, 64, 2), (2, 77, 8, 16), (1, 65, 16, 40),
+                (2, 130, 8, 48), (1, 64, 4, 96), (1, 256, 2, 192), (1, 193, 1, 256),
+                (1, 300, 2, 384), (1, 257, 2, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,D", STREAM_FUSED)
+def test_fused_attention_streamed_kernels_match_plain_on_gpu(B, L, H, D):
+    """K9 (4 ulp, lse within 2e-3) and K10 (GRAD_REL) on the streamed
+    kernels, the residual-free forward equal to the training one; both
+    rerun bit-identically"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    assert not fused_attention.resident(L, D)
+    gen = torch.Generator(device="cuda").manual_seed(B * L + D)
+    qkv = (torch.randn(B, L, 3 * H * D, generator=gen, device="cuda") * 0.7).to(torch.bfloat16)
+    qg, kg = (1 + 0.2 * torch.randn(D, generator=gen, device="cuda") for _ in range(2))
+    res = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, H)
+    want, want_lse = fused_attention.fused_attention_fwd_plain(qkv, qg, kg, H)
+    torch.cuda.synchronize()
+    want = want.float()
+    assert (res[0].float() - want).abs().max().item() <= _ulp_tol(want)
+    assert (res[1] - want_lse).abs().max().item() <= 2e-3
+    bare, no_lse = fused_attention.fused_attention_fwd_cuda(qkv, qg, kg, H, residuals=False)
+    assert no_lse is None and torch.equal(bare, res[0])
+    grad = torch.randn(B, L, H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    got = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
+    _grads_close(got, fused_attention.fused_attention_bwd_plain(qkv.float(), grad.float(), *res,
+                                                                qg, kg, H))
+    again = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

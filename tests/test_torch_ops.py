@@ -198,7 +198,9 @@ _ENTRY_POINTS = ["odt_resonate", "odt_film_layer_fwd", "odt_swiglu_fwd", "odt_fl
                  "odt_swiglu_bwd", "odt_fused_attention_fwd", "odt_fused_attention_bwd",
                  "odt_film_layer_bwd", "odt_swiglu_bwd_full", "odt_film_qkv_fwd",
                  "odt_film_qkv_bwd", "odt_ffn_weight_maps", "odt_swiglu_fwd_tp",
-                 "odt_film_layer_fwd_tp", "odt_swiglu_bwd_tp", "odt_film_layer_bwd_tp"]
+                 "odt_film_layer_fwd_tp", "odt_swiglu_bwd_tp", "odt_film_layer_bwd_tp",
+                 "odt_attention_stream_fwd", "odt_fused_attention_stream_fwd",
+                 "odt_fused_attention_stream_bwd"]
 
 
 def test_c_entry_points_are_the_bound_ones():

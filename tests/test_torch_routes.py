@@ -24,7 +24,6 @@ from osu_dreamer_tpu_torch.ops import film_layer as fl
 from osu_dreamer_tpu_torch.ops import film_qkv as fq
 from osu_dreamer_tpu_torch.ops import fused_attention as fa
 from osu_dreamer_tpu_torch.ops import swiglu as sw
-from osu_dreamer_tpu_torch.ops.long_attention import HEAD_DIMS
 
 WIDTHS = [64, 128, 256, 384, 512, 640, 768, 1024]
 K = 5
@@ -34,41 +33,53 @@ def _hidden(C: int) -> int:
     return int(C * 4 * 2 / 3)
 
 
-@pytest.mark.parametrize("L,H,D", [(256, 16, 64), (257, 16, 64), (300, 8, 64), (512, 8, 64),
-                                   (200, 8, 32), (200, 4, 128), (152, 32, 32), (152, 8, 128),
-                                   (759, 32, 32), (759, 8, 128), (256, 8, 128), (257, 8, 128),
-                                   (2500, 8, 128), (152, 4, 96), (759, 4, 96)])
+# the JAX gate's range: the templated head dims (32, 64, 128), the head dims
+# off them (12 padded to a multiple of 8; 192, 256 and 384 split over CTAs),
+# and lengths past 256 at narrow H D up to L H D = 262,144 (2 x 64 at
+# L 2048) and past it
+ROUTE_SHAPES = ([(256, 16, 64), (257, 16, 64), (300, 8, 64), (512, 8, 64), (513, 8, 64),
+                 (200, 8, 32), (200, 4, 128), (152, 32, 32), (152, 8, 128), (759, 32, 32),
+                 (759, 8, 128), (256, 8, 128), (257, 8, 128), (2500, 8, 128), (152, 4, 96),
+                 (759, 4, 96), (320, 8, 96), (759, 8, 96), (152, 32, 12), (759, 32, 12)]
+                + [(L, H, D) for D, H in ((12, 32), (16, 8), (40, 16), (48, 8), (96, 4),
+                                          (192, 2), (256, 1), (384, 1))
+                   for L in (1, 65, 152, 256, 257, 682, 683)]
+                + [(L, 2, 64) for L in (257, 320, 512, 1024, 2047, 2048, 2049)]
+                + [(L, 1, 128) for L in (1025, 2048, 2049)])
+
+
+@pytest.mark.parametrize("L,H,D", ROUTE_SHAPES)
 def test_attention_route_pins_the_jax_gate(L, H, D):
     jax_fused, jax_long = jfused_fits(L, H, D), jlong_fits(L, H, D)
-    # off the card the JAX gate alone decides, as before
-    assert fa.attention_route(L, H, D, "cpu") == ("fused" if jax_fused else "long")
-    if D not in HEAD_DIMS:
-        # every attention kernel takes head dims 32, 64 and 128: the route
-        # names any other dim before a launch
-        with pytest.raises(ValueError, match=f"head dim {D}"):
-            fa.attention_route(L, H, D, "cuda")
-        return
-    route = fa.attention_route(L, H, D, "cuda")
-    # K9/K10 only where the JAX gate holds AND their shared memory takes L
-    assert (route == "fused") == (jax_fused and L <= fa.MAX_KERNEL_LEN)
-    # the long route is K7, which takes these head dims at any L: wherever
-    # the JAX package runs a Pallas attention, the port runs a kernel too
-    assert jax_fused or jax_long
-    assert route in ("fused", "long")
+    # the route is the JAX gate's, the same on every device, and never
+    # raises: K9/K10 wherever fused_attention_fits holds, K7 elsewhere (K7
+    # also where the JAX package itself leaves both gates for XLA)
+    assert fa.attention_route(L, H, D) == ("fused" if jax_fused else "long")
+    # wherever the JAX package runs a Pallas attention, the port runs a
+    # kernel: the fused kernels take every shape of its gate (the resident
+    # ones where they hold a head, the streamed ones elsewhere), K7 any
+    if jax_fused:
+        assert fa.resident(L, D) == (D in (32, 64, 128) and L <= 256)
+    assert jax_fused or jax_long or (H * D) % 128
 
 
 def test_training_refuses_attention_beyond_the_kernels():
-    """fit.run's check, through the same route: 8 x 64 heads at L 300 pass
-    the JAX gate but not K9/K10's range, so training on the card refuses
-    before step 1 with the shape named; on the CPU the plain backward serves"""
-    with pytest.raises(NotImplementedError, match="seq_len 300 with 8 x 64 heads"):
-        check_attention_shape(300, 8, 64, "cuda")
-    check_attention_shape(300, 8, 64, "cpu")
-    check_attention_shape(152, 16, 64, "cuda")
-    check_attention_shape(152, 8, 128, "cuda")
-    check_attention_shape(152, 32, 32, "cuda")
-    with pytest.raises(ValueError, match="head dim 96"):
-        check_attention_shape(152, 4, 96, "cuda")
+    """fit.run's check, through the same route: training refuses before step
+    1, with the shape named, only beyond the JAX gate (16 x 64 heads at L
+    300: L H D 307,200), the same on every device; 8 x 64 at L 300 and
+    4 x 96 at L 152 pass"""
+    with pytest.raises(NotImplementedError, match="seq_len 300 with 16 x 64 heads"):
+        check_attention_shape(300, 16, 64)
+    check_attention_shape(300, 8, 64)
+    check_attention_shape(152, 16, 64)
+    check_attention_shape(152, 8, 128)
+    check_attention_shape(152, 32, 32)
+    check_attention_shape(152, 4, 96)
+    check_attention_shape(320, 8, 96)
+    check_attention_shape(512, 8, 64)
+    check_attention_shape(152, 32, 12)
+    with pytest.raises(NotImplementedError, match="seq_len 513 with 8 x 64 heads"):
+        check_attention_shape(513, 8, 64)
 
 
 def _jax_swiglu_fwd_pallas(C: int, H: int) -> bool:
