@@ -68,7 +68,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    GRAD_REL, bit-identical reruns, the residual-free forward), timed by
    graph replay beside the plain version, the bound and (K7/K8) SDPA: every
    shape at head dims 32 and 128, each streamed head dim's first shape (and
-   K8's B1 L2500) and each length.
+   K8's B1 L2500) and each length. Then the streamed kernels' device ms by
+   launch (prep, forward, dK/dV, dQ, post) under torch.profiler: K9 and K10
+   at 8 x 96 B64 L320 and 8 x 64 B64 L512, K7 at 8 x 96 B4 L759.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -2751,6 +2753,73 @@ STREAM_LENGTHS = ((8, "B2 L257", 2, 257), (8, "B2 L320", 2, 320), (8, "B2 L512",
                   (2, "B1 L2048", 1, 2048))
 STREAM_TIMED = ((8, 96, "B64 L320", 64, 320), (8, 64, "B64 L512", 64, 512))
 STREAM_SOURCE = "osu_dreamer_tpu_torch/csrc/attention_stream.cu"
+# the launches of the streamed kernels by their names (this tree's and the
+# parent's); "other" is every other kernel of the call (the wrapper's pads
+# and its sum of the gamma partials)
+STREAM_LAUNCHES = {"prep": r"attention_prep_kernel",
+                   "forward": r"attention_stream\w*_fwd_kernel",
+                   "dK/dV": r"attention_stream\w*_bwd_kv_kernel",
+                   "dQ": r"attention_stream\w*_bwd_q_kernel",
+                   "post": r"attention_post_kernel"}
+SPLIT_REPS = 10
+
+
+def launch_split(fn, args) -> dict:
+    """device ms a call of ``fn(*args)`` by the streamed kernels' launches
+    (STREAM_LAUNCHES) under torch.profiler, over SPLIT_REPS calls after a warm
+    one"""
+    import re
+
+    import torch
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        trace = Path(tmpdir) / "trace.json"
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPLIT_REPS):
+                fn(*args)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    split = dict.fromkeys([*STREAM_LAUNCHES, "other"], 0.0)
+    for e in events:
+        name = next((k for k, pat in STREAM_LAUNCHES.items() if re.search(pat, e["name"])),
+                    "other")
+        split[name] += float(e["dur"]) / 1e3 / SPLIT_REPS
+    return {k: v for k, v in split.items() if v > 0}
+
+
+def stream_split(gen, dev, smi: str) -> dict:
+    """the streamed kernels' device ms by launch under torch.profiler: K9
+    and K10 at each STREAM_TIMED shape (prep, forward; prep, dK/dV, dQ,
+    post) and K7 at 8 x 96 B4 L759 (forward) -> {shape: {launch: ms a
+    call}}"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import fused_attention as fa
+    from osu_dreamer_tpu_torch.ops import long_attention as la
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    out = {}
+    cases = [("K7 8 x 96 B4 L759", la.attention_cuda, tuple(rnd(4, 759, 8, 96) for _ in range(3)))]
+    for H, D, label, Bt, Lt in STREAM_TIMED:
+        qkv = rnd(Bt, Lt, 3 * H * D, scale=0.7)
+        qg, kg = (1 + rnd(D, scale=0.1, dtype=torch.float32) for _ in range(2))
+        res = fa.fused_attention_fwd_cuda(qkv, qg, kg, H)
+        cases += [(f"K9 {H} x {D} {label}", fa.fused_attention_fwd_cuda, (qkv, qg, kg, H)),
+                  (f"K10 {H} x {D} {label}", fa.fused_attention_bwd_cuda,
+                   (qkv, rnd(Bt, Lt, H * D), *res, qg, kg, H))]
+    for what, fn, args in cases:
+        out[what] = split = launch_split(fn, args)
+        log(f"stream split {what}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+            + f" (device ms a call by launch, torch.profiler over {SPLIT_REPS} calls) [{smi}]")
+    del cases
+    torch.cuda.empty_cache()
+    return out
 
 
 def head_dim_kernels(gen, dev, smi: str) -> dict:
@@ -2887,6 +2956,7 @@ def head_dim_kernels(gen, dev, smi: str) -> dict:
     log(f"phase 1f: the streamed K7/K8, K9 and K10 at head dims "
         f"{[d for d, _ in STREAM_HEAD_DIMS]}, lengths {[c[1] for c in STREAM_LENGTHS]} and "
         f"{[c[2] for c in STREAM_TIMED]} checked in {time.perf_counter() - t0:.1f} s [{smi}]")
+    stream_split(gen, dev, smi)
     return out
 
 

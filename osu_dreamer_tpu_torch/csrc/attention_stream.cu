@@ -13,55 +13,94 @@
 // sampler at L 759 (K7); and 8 x 64 heads trained at L 257..512.
 //
 // What bounds them on the H100: 4 L^2 D operations per (batch row, head)
-// in the forward, 10 L^2 D in the backward, on the tensor cores, against
-// a few L D rows of bf16: at L 320 and D 96 about 100 operations a byte,
-// below the card's ~295, so bound by bytes at the training lengths and by
-// operations past L ~ 1000. The JAX gate admits every head dim with L H D
-// <= 262,144 (fused) and H D up to ~5,600 (long), so neither a head's rows
-// nor its head dim may be held whole in shared memory: the design streams
-// everything, and is simple before it is fast.
+// in the forward, 10 L^2 D in the backward, on the tensor cores, against a
+// few L D rows of bf16 (the backward also writes and reads f32 gradients
+// of the rotated q and k): at L 320 and D 96 about 100 operations a byte,
+// below the card's ~295, so bound by bytes at the training lengths; K7 at
+// L 759 and K8 at L 2500 (about 380 and 1,250 a byte) by operations, as
+// everything is past L ~ 1000. What kept them from either bound was how
+// often the products ran (S re-formed for every output box), how long the
+// tensor cores waited (each box's product waited on before the next was
+// issued), zero columns in the products, and the prep and post passes
+// (55 % of K10 at 8 x 96 L320 before this design); the design below
+// removes the first three at D <= 256 and cuts the passes' waits.
 //
 // The layout: every operand of the products is a (B, L, heads, Dp) bf16
 // array with Dp = D rounded up to 8 (TMA's 16-byte stride rule), read in
 // 64 x 64 boxes through a 4-D tensor map (Dp, heads, L, B) with 128-byte
 // swizzle: columns past Dp and rows past L are zero-filled on the load, so
-// a box never reads the next head or batch row and zero columns add
-// nothing to Q K^T. K7 reads q, k and v as they are where D % 8 == 0 (the
-// wrapper pads them otherwise). For K9/K10 a prep pass (one warp a row and
-// head) normalises and rotates q and k in the plain version's rounding
-// order and copies v into padded arrays, so the rotary pair (j, j + D/2)
+// a box never reads the next head or batch row. K7 reads q, k and v as they
+// are where D % 8 == 0 (the wrapper pads them otherwise). For K9/K10 a prep
+// pass normalises and rotates q and k in the plain version's rounding order
+// into padded arrays (v and dO are read in place from qkv and the gradient
+// where Dp == D, copied padded otherwise), so the rotary pair (j, j + D/2)
 // never has to meet inside a box at any D; the backward runs the same pass
 // again, so its rq/rk are the forward's bit for bit, and the forward saves
 // only lse.
 //
-// Common to the products: one CTA = one consumer warpgroup (64 query or key
-// rows) and one producer warp whose one thread keeps a ring of kStStages
-// stages of two boxes in flight by TMA (full / empty mbarriers, one
-// arrival a consumer warp); every product is one m64n64 wgmma chain per
-// stage, A and B K-major (Q K^T over the D boxes of a pair of tiles) or A
-// from registers and B MN-major (P V, P^T dO, dS^T Q, dS K). A CTA owns
-// NB output boxes (64 columns) of its rows and sweeps the other side's
-// tiles: S over all ceil(Dp / 64) boxes, so at head dims past 64 NB one
-// CTA forms S for its own output columns (the split over CTAs re-forms S).
-// - forward (K7, K9's core): per key tile, the stages (Q box c, K box c)
-//   for S, the online softmax in registers (f32 logits, running maxima,
-//   probabilities ex2((s - m) scale log2 e) rounded to bf16 unnormalised),
-//   then one stage of the CTA's V boxes for O += P V; one division by the
-//   row sum at the end; lse = m scale + ln l for the backward; O stored
-//   from registers, columns past D and rows past L skipped;
-// - backward dK/dV (`attention_stream_bwd_kv_kernel`), one CTA per (key
-//   tile, output box): per query tile the stages (K c, Q_j c) for S^T and
-//   (V c, dO_j c) for dP^T, P^T = exp(S^T scale - lse_j), dS^T = P^T
-//   (dP^T - delta_j) scale, each rounded to bf16 once, then one stage
-//   (dO_j, Q_j) of the output box for dV += P^T dO_j and dK += dS^T Q_j;
-// - backward dQ (`attention_stream_bwd_q_kernel`), one CTA per (query
-//   tile, output box): per key tile S and dP again, dS, then dQ += dS K_t;
-// - dQ, dK and dV leave as f32 (B, L, H, Dp) arrays; a post pass (one warp
-//   a 32-row chunk and head) takes dQ and dK back through the inverse
-//   rotation and the gamma-scaled RMS norm in f32 (1/rms recomputed by the
-//   prep pass's code), rounds dV, writes dqkv, and one f32 gamma partial per
-//   (chunk, head, column) that the wrapper sums in a fixed order: no float
-//   atomics, a rerun is bit-identical. At L = 1 dS is exactly 0.
+// A head has nbox = ceil(Dp / 64) boxes. At nbox <= 4 (D <= 256) a CTA
+// holds a whole head's width of its own rows in shared memory and all of
+// its output columns in registers, so S (and dP) is formed once per tile
+// pair in each launch; the products of the last box contract over
+// ceil(w / 16) k-steps (w = Dp - 64 (nbox - 1) its columns), and a product
+// whose output is the last box runs at n 32 where w <= 32 (D 96: S on 6
+// k-steps, not 8; P V at n 96, not 128). Every CTA is a producer warpgroup
+// (one thread issues the TMA loads; setmaxnreg lowers its registers and
+// raises the consumers') and consumer warpgroups of 64 rows each, and is
+// persistent: one CTA an SM takes work items blockIdx.x, + gridDim.x, ...;
+// the ring of stages runs on across items, and the held tiles (Q; K and V;
+// Q and dO) have two copies wherever two stages still fit beside them, so
+// the next item's load lands while this item's last products and its
+// epilogue run.
+// - forward `attention_stream_fwd_kernel<NB, NC>` (K7/K8, K9's core): an
+//   item is 64 NC query rows of a head (NC = 3 at NB <= 3, P V's A operand
+//   from a shared tile at NB 3 for the registers; 2 at NB 4). Each stage is
+//   a key tile's K and V boxes on their own full / empty barriers. Each
+//   warpgroup issues tile t's S chain (all boxes, one commit) together with
+//   tile t-1's P V, waits for S alone (`wgmma_wait<1>`), runs the online
+//   softmax (f32 logits, running maxima, probabilities ex2((s - m) scale
+//   log2 e) rounded to bf16 unnormalised) while P V runs, frees K(t) once
+//   S(t) is done and V(t-1) once P V(t-1) is; one division by the row sum
+//   at the end; lse = m scale + ln l for the backward; O stored from
+//   registers, columns past D and rows past L skipped. S is formed once per
+//   (query tile, key tile). At B4 L759 8 x 96 the items are 4 x 32 = 128
+//   CTAs on 132 SMs (one wave; 128-row items would make 192, 1.45 waves);
+//   at D 256 (two warpgroups, for the registers of O) 192 items, 1.45
+//   waves. Where 64-row CTAs fill at most one wave the grid is set by one
+//   CTA's time: NC = 1 and S, softmax and P V in turn (measured faster than
+//   the overlap, which needs another warpgroup to fill the softmax's gaps),
+//   and at NB 4 the wide kernel's CTAs of two output boxes;
+// - backward dK/dV `attention_stream_bwd_kv_kernel<NB>`: an item is a key
+//   tile, its whole dK and dV; K and V held, the ring carries each query
+//   tile's Q and dO. Two consumer warpgroups share the tile: the first forms
+//   S^T = K Q_j^T, P^T = exp(S^T scale - lse_j) and dV += P^T dO_j; the
+//   second dP^T = V dO_j^T, dS^T = P^T (dP^T - delta_j) scale (P^T handed
+//   over in f32 through a double-buffered shared tile, so dS^T rounds as
+//   before) and dK += dS^T Q_j. Each issues tile j's S^T (dP^T) with tile
+//   j-1's output product; lse and delta of tile j are loaded before its
+//   products are issued. dV leaves in bf16 straight into dqkv;
+// - backward dQ `attention_stream_bwd_q_kernel<NB>`: an item is 2 x 64
+//   query rows (64 at NB 4, for the registers), Q and dO held, a ring of
+//   (K_t, V_t) stages; per key tile S and dP as one group issued with
+//   dS(t-1) K_{t-1}, then dS = P (dP - delta) scale.
+//   S and dP are formed twice per (query tile, key tile) in all, once in
+//   each launch: at D 96 1,344 L^2 units of products per (row, head) in
+//   the backward (2 x 2 x 192 for S and dP, 3 x 192 for dV, dK, dQ),
+//   against 2,816 when each 64-column output box formed them.
+// At nbox > 4 (D > 256) neither a head's width of rows nor its outputs fit
+// one CTA: the `_wide_` kernels stream both sides box by box through a ring
+// of stages (every box's product issued behind the last, `wgmma_wait<1>`
+// freeing the stage before; P V at n 64): the forward splits its output
+// boxes over ceil(nbox / 3) CTAs a query tile (S formed that many times:
+// twice at D 384; two consumer warpgroups sharing each K box; one query
+// tile and two boxes a CTA where those fill at most a wave), the backward
+// launches one CTA per (tile, output box) (S and dP formed nbox times in
+// each launch).
+// dQ and dK leave as f32 (B, L, H, Dp) arrays; a post pass takes them back
+// through the inverse rotation and the gamma-scaled RMS norm in f32 (1/rms
+// recomputed) into dqkv, and one f32 gamma partial per (64-row chunk, head,
+// column) that the wrapper sums in a fixed order: no float atomics, a rerun
+// is bit-identical. At L = 1 dS is exactly 0.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -73,76 +112,44 @@ namespace {
 
 constexpr int kStRows = 64;                               // rows of a box
 constexpr uint32_t kStBox = kStRows * 64 * sizeof(bf16);  // 8 KB, one swizzled 64 x 64 box
-constexpr int kStStages = 4;                              // ring stages
-constexpr uint32_t kStStage = 2 * kStBox;                 // two boxes a stage
-constexpr int kStThreads = 128 + 32;                      // consumer warpgroup + producer warp
-// + 1024 so the base can be rounded up to the swizzle atom
-constexpr size_t kStSmem =
-    kStStages * (size_t)kStStage + 2 * kStStages * sizeof(uint64_t) + 1024;
-constexpr int kStPrepWarps = 4;                           // warps a block of prep and post
-constexpr int kStChunk = 32;                              // rows a warp of the post pass
+constexpr int kStMaxStages = 4;
+// shared memory for tiles and ring: a block's, less the base's alignment
+// and room for the barriers
+constexpr uint32_t kStTileCap = (uint32_t)kMaxSmem - 1024 - 256;
+constexpr int kStPrepWarps = 4;                           // warps a block of the prep pass
+constexpr int kStChunk = 64;                              // rows a block of the post pass
 constexpr float kStNeg = -1e30f;
 constexpr float kStLog2e = 1.4426950408889634f;
+// the wide kernels (nbox > 4): consumer warpgroups and a producer warp (or
+// warpgroup), a ring of kStWideStages stages of kStWideNB boxes, at most
+// kStWideNB output boxes a forward CTA
+constexpr int kStWideNB = 3;
+constexpr int kStWideStages = 4;
+constexpr int kStThreads = 128 + 32;
+constexpr uint32_t kStWideStage = kStWideNB * kStBox;
+constexpr size_t kStWideSmem = kStWideStages * (size_t)kStWideStage +
+                               2 * kStWideStages * sizeof(uint64_t) + 1024;
 
-// the ring of two-box stages and where its producer and consumers are
-struct Ring {
-  unsigned char* base;
-  uint64_t* full;
-  uint64_t* empty;
-  int it;  // stages produced (producer) or consumed (consumers) so far
-  __device__ __forceinline__ unsigned char* slot(int s, int i) const {
-    return base + s * kStStage + i * kStBox;
-  }
-};
+constexpr int st_min(int a, int b) { return a < b ? a : b; }
 
-// the ring at the 1024-byte aligned base of the dynamic shared memory, its
-// barriers initialised (every thread of the CTA calls this)
-__device__ __forceinline__ Ring ring_init(unsigned char* raw) {
-  Ring r;
-  r.base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                            ~uintptr_t(1023));
-  r.full = reinterpret_cast<uint64_t*>(r.base + kStStages * kStStage);
-  r.empty = r.full + kStStages;
-  r.it = 0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStStages; ++s) {
-      mbar_init(&r.full[s], 1);
-      mbar_init(&r.empty[s], 4);  // one arrival per consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  return r;
+// the copies of a persistent CTA's held tiles (`held` bytes each) beside a
+// ring of stages of `stage` bytes and `fixed` other bytes: two (the next
+// work item's load lands while this one runs) where at least two stages
+// still fit, else one
+constexpr int held_copies(uint32_t held, uint32_t stage, uint32_t fixed) {
+  return kStTileCap >= 2 * held + fixed + 2 * stage ? 2 : 1;
+}
+// the ring's stages beside them, at most kStMaxStages
+constexpr int ring_stages(uint32_t held, uint32_t stage, uint32_t fixed) {
+  return st_min(kStMaxStages,
+                (int)((kStTileCap - held_copies(held, stage, fixed) * held - fixed) / stage));
 }
 
-// producer: the next stage once its consumers released it, armed for
-// `boxes` boxes (a zero-filled box counts its full bytes); -> its index
-__device__ __forceinline__ int ring_produce(Ring& r, int boxes) {
-  const int s = r.it % kStStages;
-  if (r.it >= kStStages) mbar_wait(&r.empty[s], (r.it / kStStages - 1) & 1);
-  mbar_arrive_expect_tx(&r.full[s], boxes * kStBox);
-  ++r.it;
-  return s;
-}
-
-// consumer: wait for the next stage -> its index
-__device__ __forceinline__ int ring_wait(Ring& r) {
-  const int s = r.it % kStStages;
-  mbar_wait(&r.full[s], (r.it / kStStages) & 1);
-  return s;
-}
-
-// consumer: release the stage ring_wait returned, its products complete
-__device__ __forceinline__ void ring_release(Ring& r, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(&r.empty[r.it % kStStages]);
-  ++r.it;
-}
-
-// box c (columns 64 c ..) of head h, rows row.., batch row b
-__device__ __forceinline__ void load_box(Ring& r, int s, int i, const CUtensorMap* map, int c,
-                                         int h, int row, int b) {
-  tma_load_4d(r.slot(s, i), map, &r.full[s], 64 * c, h, row, b);
+// the dynamic shared memory base rounded up to the 1024-byte swizzle atom
+// by an offset, not through an integer, so that every pointer derived from
+// it stays in the shared space (ld.shared / st.shared)
+__device__ __forceinline__ unsigned char* st_smem(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
 }
 
 __device__ __forceinline__ uint32_t st_pack(float lo, float hi) {
@@ -167,37 +174,226 @@ __device__ __forceinline__ float st_quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// acc (+)= A B^T over one box each (64 rows x 64 columns, both K-major);
-// `first` starts the sum
-__device__ __forceinline__ void product_ss(float (&acc)[32], const void* a, const void* b,
-                                           bool first) {
-  const uint64_t ad = wgmma_desc(a, 16, 1024), bd = wgmma_desc(b, 16, 1024);
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n64k16_ss(acc, ad + 2 * kk, bd + 2 * kk, (first && kk == 0) ? 0 : 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
+// one warp's arrival on a barrier once all its lanes are done
+__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
-// acc += A B: A (64 x 64, bf16 pairs in the accumulator's layout) from
-// registers, B one box read MN-major (its 64 rows are the reduced dimension)
-__device__ __forceinline__ void product_rs(float (&acc)[32], uint32_t (&a)[16], const void* b) {
-  const uint64_t bd = wgmma_desc(b, 1024, 1024);
-  fence_regs(acc);
-  fence_regs(a);
-  wgmma_fence();
+template <int NB>
+__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
-    wgmma_m64n64k16_rs_bt(acc, ak, bd + 128 * kk, 1);
+  for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+}
+
+// d[0..15] (the 64 x 32 accumulator, the first 32 columns of a 64-column
+// one: the same register layout) += A B, A from registers (as
+// wgmma_m64n64k16_rs_bt), B 16 rows of 32 columns of a box read MN-major
+__device__ __forceinline__ void wgmma_m64n32k16_rs_bt(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0..15] += A B, A (64 x 16) K-major and B (16 rows of 32 columns of a
+// box, MN-major) from shared memory
+__device__ __forceinline__ void wgmma_m64n32k16_ss_bt(float (&d)[32], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// acc (+)= A B^T over the NB boxes of two 64-row tiles (box c at + c kStBox,
+// both K-major), the last box on `klast` k16 steps (its columns past Dp
+// are zero); issued, not committed
+template <int NB>
+__device__ __forceinline__ void issue_s(float (&acc)[32], const unsigned char* a,
+                                        const unsigned char* b, int klast) {
+  const uint64_t ad = wgmma_desc(a, 16, 1024), bd = wgmma_desc(b, 16, 1024);
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t at = c * (kStBox >> 4) + 2 * kk;
+      if (c < NB - 1 || kk == 0 || kk < klast)  // klast >= 1: the first step always runs
+        wgmma_m64n64k16_ss(acc, ad + at, bd + at, (c | kk) ? 1 : 0);
+    }
+}
+
+// acc[c] += A B_c for the NB boxes of a 64-row tile (A 64 x 64 bf16 pairs in
+// the accumulator's layout, from registers; B_c box c read MN-major, its
+// rows the reduced dimension); the last box at n 32 when `narrow`; issued
+// and committed
+template <int NB>
+__device__ __forceinline__ void issue_pv(float (&acc)[NB][32], const uint32_t (&a)[16],
+                                         const unsigned char* b, bool narrow) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    const uint64_t bd = wgmma_desc(b + c * kStBox, 1024, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+      if (c == NB - 1 && narrow)
+        wgmma_m64n32k16_rs_bt(acc[c], ak, bd + 128 * kk, 1);
+      else
+        wgmma_m64n64k16_rs_bt(acc[c], ak, bd + 128 * kk, 1);
+    }
   }
   wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-  fence_regs(a);
+}
+
+// acc[c] += A B_c as issue_pv, A (64 x 64 bf16) from a swizzled shared
+// tile (K-major) instead of registers; issued and committed
+template <int NB>
+__device__ __forceinline__ void issue_pv_smem(float (&acc)[NB][32], const unsigned char* a,
+                                              const unsigned char* b, bool narrow) {
+  const uint64_t ad = wgmma_desc(a, 16, 1024);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    const uint64_t bd = wgmma_desc(b + c * kStBox, 1024, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (c == NB - 1 && narrow)
+        wgmma_m64n32k16_ss_bt(acc[c], ad + 2 * kk, bd + 128 * kk, 1);
+      else
+        wgmma_m64n64k16_ss_bt(acc[c], ad + 2 * kk, bd + 128 * kk, 1);
+    }
+  }
+  wgmma_commit();
+}
+
+// an accumulator's values in bf16 into this warpgroup's swizzled 64 x 64
+// tile (the A operand of issue_pv_smem), visible to the next wgmma once
+// every thread of the warpgroup is past it (one barrier a warpgroup)
+__device__ __forceinline__ void store_a(unsigned char* tile, const float (&x)[32], int r0,
+                                        int lane, int wg) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    *reinterpret_cast<uint32_t*>(tile + swizzle128(r0, col)) = st_pack(x[4 * j], x[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + swizzle128(r0 + 8, col)) =
+        st_pack(x[4 * j + 2], x[4 * j + 3]);
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// the bf16 pairs of the A operand from an accumulator's f32 values
+__device__ __forceinline__ void pack_a(uint32_t (&a)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) a[j] = st_pack(x[2 * j], x[2 * j + 1]);
+}
+
+// the online softmax of one key tile over this thread's rows r0 (even pairs
+// of sc) and r0 + 8 (odd pairs), in place: keys at or past `lim` (the
+// tile's valid keys) masked to -1e30, the running maxima m0 / m1 of the raw
+// logits updated, sc becomes the unnormalised probabilities
+// ex2((s - m) scale log2 e); -> the earlier tiles' rescale factors and this
+// thread's share of the tile's row sums
+struct StRow {
+  float a0, a1, s0, s1;
+};
+
+__device__ __forceinline__ StRow st_softmax(float (&sc)[32], float& m0, float& m1, int lim,
+                                            int lane, float c2) {
+  if (lim < kStRows) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if ((i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= lim) sc[i] = kStNeg;
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = st_quad_max(mx0);
+  mx1 = st_quad_max(mx1);
+  StRow r{st_ex2((m0 - mx0) * c2), st_ex2((m1 - mx1) * c2), 0.f, 0.f};
+  m0 = mx0;
+  m1 = mx1;
+  const float b0 = -m0 * c2, b1 = -m1 * c2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sc[4 * j] = st_ex2(fmaf(sc[4 * j], c2, b0));
+    sc[4 * j + 1] = st_ex2(fmaf(sc[4 * j + 1], c2, b0));
+    sc[4 * j + 2] = st_ex2(fmaf(sc[4 * j + 2], c2, b1));
+    sc[4 * j + 3] = st_ex2(fmaf(sc[4 * j + 3], c2, b1));
+    r.s0 += sc[4 * j] + sc[4 * j + 1];
+    r.s1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  return r;
+}
+
+// the running sums and O rescaled by a tile's factors
+template <int NB>
+__device__ __forceinline__ void st_rescale(float (&o)[NB][32], float& l0, float& l1,
+                                           const StRow& r) {
+  l0 = l0 * r.a0 + r.s0;
+  l1 = l1 * r.a1 + r.s1;
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[c][4 * j] *= r.a0;
+      o[c][4 * j + 1] *= r.a0;
+      o[c][4 * j + 2] *= r.a1;
+      o[c][4 * j + 3] *= r.a1;
+    }
+}
+
+// O / l in bf16 straight to the (B, L, H D) output (columns c0 * 64.. of
+// head h, rows past L and columns past D skipped), and lse (may be null)
+template <int NB>
+__device__ __forceinline__ void st_store_out(const float (&o)[NB][32], float l0, float l1,
+                                             float m0, float m1, bf16* __restrict__ out,
+                                             float* __restrict__ lse, int q0, int L, int H,
+                                             int h, int b, int D, int c0, int nb, float scale,
+                                             int lane) {
+  l0 = st_quad_sum(l0);
+  l1 = st_quad_sum(l1);
+  const float inv[2] = {1.f / l0, 1.f / l1};
+  const bool pairs = D % 2 == 0;  // an even head dim: each pair 4-byte aligned
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int q = q0 + 8 * hr;
+    if (q >= L) continue;
+    bf16* row = out + ((size_t)((size_t)b * L + q) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      if (c >= nb) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (c0 + c) * 64 + j * 8 + (lane % 4) * 2;
+        const float x = o[c][4 * j + 2 * hr] * inv[hr], y = o[c][4 * j + 2 * hr + 1] * inv[hr];
+        if (pairs && col + 1 < D) {
+          *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+        } else {
+          if (col < D) row[col] = __float2bfloat16(x);
+          if (col + 1 < D) row[col + 1] = __float2bfloat16(y);
+        }
+      }
+    }
+  }
+  if (lse != nullptr && c0 == 0 && lane % 4 == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * L;
+    if (q0 < L) lrow[q0] = m0 * scale + logf(l0);
+    if (q0 + 8 < L) lrow[q0 + 8] = m1 * scale + logf(l1);
+  }
 }
 
 // an accumulator's two rows (r, r + 8 of the box) into a (rows, H, width)
@@ -219,186 +415,878 @@ __device__ __forceinline__ void store_f32(const float (&acc)[32], float* __restr
   }
 }
 
-// 1/rms of one raw row of D bf16 values, read by a warp (lanes stride the
-// columns, the same order in every pass that calls it)
-__device__ __forceinline__ float row_inv(const bf16* __restrict__ x, int D, int lane) {
-  float ss = 0.f;
-  for (int j = lane; j < D; j += 32) {
-    const float v = ldf(x + j);
-    ss += v * v;
+// an accumulator's two rows (r, r + 8 of the box) into rows of a bf16
+// array `ld` elements apart at columns col0.. (an even count `width` of
+// them, each pair 4-byte aligned), skipping rows past `rows`
+__device__ __forceinline__ void store_bf16(const float (&acc)[32], bf16* __restrict__ dst,
+                                           int row, int rows, size_t ld, int width, int col0,
+                                           int lane) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (row + 8 * hr >= rows) continue;
+    bf16* p = dst + (size_t)(row + 8 * hr) * ld;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + j * 8 + (lane % 4) * 2;
+      if (col < width)
+        *reinterpret_cast<__nv_bfloat162*>(p + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+    }
   }
-  ss = warp_sum(ss);
-  return 1.f / sqrtf(ss / D + 1e-6f);
 }
 
-// raw row x -> its normalised and rotated row y (Dp columns, zero past D)
-// in the plain version's rounding order: bf16(x / rms), bf16(* gamma), then
-// bf16 rotary products and their bf16 sums; lane-strided over the pairs
-// (j, j + D/2)
-__device__ __forceinline__ void norm_rope_row(const bf16* __restrict__ x, float inv,
-                                              const bf16* __restrict__ gamma,
-                                              const bf16* __restrict__ cos_r,
-                                              const bf16* __restrict__ sin_r, bf16* __restrict__ y,
-                                              int D, int Dp, int lane) {
-  const int half = D / 2;
-  for (int j = lane; j < half; j += 32) {
-    const float n1 = bfr(bfr(ldf(x + j) * inv) * ldf(gamma + j));
-    const float n2 = bfr(bfr(ldf(x + j + half) * inv) * ldf(gamma + j + half));
-    const float c = ldf(cos_r + j), s = ldf(sin_r + j);
-    y[j] = __float2bfloat16(bfr(n1 * c) - bfr(n2 * s));
-    y[j + half] = __float2bfloat16(bfr(n1 * s) + bfr(n2 * c));
-  }
-  for (int j = D + lane; j < Dp; j += 32) y[j] = __float2bfloat16(0.f);
+// box c (columns 64 c ..) of head h, rows row.., batch row b
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                         int h, int row, int b) {
+  tma_load_4d(dst, map, bar, 64 * c, h, row, b);
 }
 
-// a row of D values into Dp columns, zero past D
-__device__ __forceinline__ void copy_row(const bf16* __restrict__ x, bf16* __restrict__ y, int D,
-                                         int Dp, int lane) {
-  for (int j = lane; j < Dp; j += 32) y[j] = __float2bfloat16(j < D ? ldf(x + j) : 0.f);
+// a 64-row tile of NB boxes
+template <int NB>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int h, int row, int b) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) load_box(dst + c * kStBox, map, bar, c, h, row, b);
+}
+
+// the last box's k16 steps and whether a product into it runs at n 32
+__device__ __forceinline__ int last_ksteps(int Dp, int nbox) {
+  return (Dp - 64 * (nbox - 1) + 15) / 16;
+}
+__device__ __forceinline__ bool last_narrow(int Dp, int nbox) {
+  return Dp - 64 * (nbox - 1) <= 32;
 }
 
 }  // namespace
 
 // ------------------------------------------------------------------ forward --
 
-// O (and lse) of query tile blockIdx.x / ncs, output boxes NB (blockIdx.x %
-// ncs) .. of it; lse (may be null) written by the first box's CTA
-template <int NB>
-__global__ void __launch_bounds__(kStThreads, 2)
+// the most consumer warpgroups a forward CTA at NB boxes a head: three
+// while the registers of O and S (and at NB 1-2 P; at NB 3 P goes through
+// shared memory) fit the 160 a thread three get, else two
+constexpr int fwd_consumers(int nb) { return nb <= 3 ? 3 : 2; }
+
+// the forward's plan at NB boxes a head and NC consumer warpgroups of 64
+// query rows (NC 1 where 64-row CTAs fill at most one wave): their Q
+// tiles, then a ring of kStages stages of a key tile's K and V; with more
+// than one consumer the producer warpgroup hands its registers over
+template <int NB, int NC>
+struct StFwd {
+  static constexpr int kNC = NC;
+  static constexpr int kThreads = (kNC + 1) * 128;
+  static constexpr int kProducerRegs = kNC == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kNC == 3 ? 160 : kNC == 2 ? 232 : 0;
+  // P V's A operand from shared memory (a 64 x 64 tile a warpgroup) where
+  // O, S and P would pass the registers
+  static constexpr bool kPSmem = NB == 3 && kNC == 3;
+  static constexpr uint32_t kTile = NB * kStBox;
+  static constexpr uint32_t kHeld = kNC * kTile;  // the warpgroups' Q tiles
+  static constexpr uint32_t kPBytes = kPSmem ? kNC * kStBox : 0;
+  static constexpr int kHold = held_copies(kHeld, 2 * kTile, kPBytes);
+  static constexpr uint32_t kPOff = kHold * kHeld;
+  static constexpr uint32_t kRingOff = kPOff + kPBytes;
+  static constexpr int kStages = ring_stages(kHeld, 2 * kTile, kPBytes);
+  static constexpr uint32_t kBarOff = kRingOff + kStages * 2 * kTile;
+  static constexpr size_t kSmem = kBarOff + (4 * kStages + 4) * sizeof(uint64_t) + 1024;
+  static_assert(kStages >= 2 && kSmem <= kMaxSmem, "Q tiles and two stages fit");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * kNC * 128 <= 65536, "registers");
+};
+
+// O (and lse, may be null) of work items of 64 NC query rows (group qg of
+// head h, batch row b; qg fastest), the head's nbox = NB boxes. A CTA an
+// SM takes items blockIdx.x, + gridDim.x, ...: the K/V ring runs on across
+// items and the next item's Q loads once this item's last S is done, so an
+// item's last products and its epilogue overlap the next one's loads.
+template <int NB, int NC>
+__global__ void __launch_bounds__(StFwd<NB, NC>::kThreads, 1)
 attention_stream_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
-                            float* __restrict__ lse, int L, int H, int D, int nbox, int ncs,
+                            float* __restrict__ lse, int B, int L, int H, int D, int Dp,
                             float scale) {
+  using P = StFwd<NB, NC>;
+  constexpr int S = P::kStages;
   extern __shared__ unsigned char smem_raw[];
-  Ring ring = ring_init(smem_raw);
-  const int qt = blockIdx.x / ncs, cs = blockIdx.x % ncs, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = cs * NB, nb = min(NB, nbox - c0);
+  unsigned char* smem = st_smem(smem_raw);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + P::kBarOff);
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
+  uint64_t* qfull = empty_v + S;  // kHold each: the copies of the Q tiles
+  uint64_t* qempty = qfull + 2;
+  auto ktile = [&](int s) { return smem + P::kRingOff + s * 2 * P::kTile; };
+  auto vtile = [&](int s) { return smem + P::kRingOff + s * 2 * P::kTile + P::kTile; };
   const int ntiles = (L + kStRows - 1) / kStRows;
+  const int nq = (L + NC * kStRows - 1) / (NC * kStRows), items = nq * H * B;
+  const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x >= 128) {
-    if (threadIdx.x == 128) {
-      for (int t = 0; t < ntiles; ++t) {
-        for (int c = 0; c < nbox; ++c) {
-          const int s = ring_produce(ring, 2);
-          load_box(ring, s, 0, &tm_q, c, h, qt * kStRows, b);
-          load_box(ring, s, 1, &tm_k, c, h, t * kStRows, b);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], NC * 4);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], NC * 4);
+    }
+    for (int i = 0; i < P::kHold; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], NC * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // producer: one thread issues every load (a zero-filled box counts its
+    // full bytes); g counts the key tiles of every item so far
+    if constexpr (NC > 1) setmaxnreg_dec<P::kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      int g = 0, n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = item % nq * NC * kStRows, h = item / nq % H, b = item / (nq * H);
+        const int hc = n % P::kHold;  // the copy of the Q tiles
+        if (n >= P::kHold) mbar_wait(&qempty[hc], (n / P::kHold - 1) & 1);
+        mbar_arrive_expect_tx(&qfull[hc], NC * P::kTile);
+        for (int w = 0; w < NC; ++w)
+          load_tile<NB>(smem + hc * P::kHeld + w * P::kTile, &tm_q, &qfull[hc], h,
+                        q0 + w * kStRows, b);
+        for (int t = 0; t < ntiles; ++t, ++g) {
+          const int s = g % S;
+          if (g >= S) mbar_wait(&empty_k[s], (g / S - 1) & 1);
+          mbar_arrive_expect_tx(&full_k[s], P::kTile);
+          load_tile<NB>(ktile(s), &tm_k, &full_k[s], h, t * kStRows, b);
+          if (g >= S) mbar_wait(&empty_v[s], (g / S - 1) & 1);
+          mbar_arrive_expect_tx(&full_v[s], P::kTile);
+          load_tile<NB>(vtile(s), &tm_v, &full_v[s], h, t * kStRows, b);
         }
-        const int s = ring_produce(ring, nb);
-        for (int c = 0; c < nb; ++c) load_box(ring, s, c, &tm_v, c0 + c, h, t * kStRows, b);
       }
     }
     return;
   }
+  if constexpr (NC > 1) setmaxnreg_inc<P::kConsumerRegs>();
+
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows r0, r0 + 8 of the warpgroup's
+  const float c2 = scale * kStLog2e;  // logits to log2 units
+  const int klast = last_ksteps(Dp, NB);
+  const bool narrow = last_narrow(Dp, NB);
+  unsigned char* ptile = smem + P::kPOff + wg * kStBox;  // P of this warpgroup (kPSmem)
+  float o[NB][32], sc[32];
+  uint32_t p[P::kPSmem ? 1 : 16];
+  // P in bf16 for P V: in registers, or in this warpgroup's shared tile
+  auto put_p = [&]() {
+    if constexpr (P::kPSmem)
+      store_a(ptile, sc, r0, lane, wg);
+    else
+      pack_a(p, sc);
+  };
+  auto pv = [&](const unsigned char* v) {
+    if constexpr (P::kPSmem)
+      issue_pv_smem<NB>(o, ptile, v, narrow);
+    else
+      issue_pv<NB>(o, p, v, narrow);
+  };
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  int g = 0, n = 0;  // key tiles consumed (all items), items done
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = item % nq * NC * kStRows, h = item / nq % H, b = item / (nq * H);
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    float m0 = kStNeg, m1 = kStNeg, l0 = 0.f, l1 = 0.f;  // running maxima, this thread's sums
+    const int hc = n % P::kHold;
+    const unsigned char* qtile = smem + hc * P::kHeld + wg * P::kTile;
+    mbar_wait(&qfull[hc], (n / P::kHold) & 1);
+    mbar_wait(&full_k[g % S], (g / S) & 1);
+    fence_regs(sc);
+    fence_acc<NB>(o);
+    wgmma_fence();
+    issue_s<NB>(sc, qtile, ktile(g % S), klast);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    warp_arrive(&empty_k[g % S], lane);
+    if (ntiles == 1) warp_arrive(&qempty[hc], lane);
+    StRow rs = st_softmax(sc, m0, m1, L, lane, c2);
+    st_rescale<NB>(o, l0, l1, rs);
+    put_p();
+
+    // one warpgroup alone (a one-wave grid): S, softmax and P V in turn,
+    // each chain waited on once (measured faster than the overlap, which
+    // needs another warpgroup's products to fill the softmax's gaps)
+    for (int t = 1; NC == 1 && t <= ntiles; ++t) {
+      const int gp = g + t - 1, sp = gp % S;
+      mbar_wait(&full_v[sp], (gp / S) & 1);
+      fence_acc<NB>(o);
+      fence_regs(p);
+      wgmma_fence();
+      pv(vtile(sp));
+      wgmma_wait<0>();
+      fence_acc<NB>(o);
+      fence_regs(p);
+      warp_arrive(&empty_v[sp], lane);
+      if (t == ntiles) break;  // the last P V (measured faster here than after the loop)
+      const int gt = g + t, s = gt % S;
+      mbar_wait(&full_k[s], (gt / S) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_s<NB>(sc, qtile, ktile(s), klast);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      warp_arrive(&empty_k[s], lane);
+      if (t == ntiles - 1) warp_arrive(&qempty[hc], lane);
+      rs = st_softmax(sc, m0, m1, L - t * kStRows, lane, c2);
+      st_rescale<NB>(o, l0, l1, rs);
+      put_p();
+    }
+    // more warpgroups: tile t's S issued with tile t-1's P V
+    for (int t = 1; NC > 1 && t < ntiles; ++t) {
+      const int gt = g + t, s = gt % S, sp = (gt - 1) % S;
+      mbar_wait(&full_k[s], (gt / S) & 1);
+      mbar_wait(&full_v[sp], ((gt - 1) / S) & 1);
+      fence_regs(sc);
+      fence_acc<NB>(o);
+      fence_regs(p);
+      wgmma_fence();
+      issue_s<NB>(sc, qtile, ktile(s), klast);
+      wgmma_commit();
+      pv(vtile(sp));
+      wgmma_wait<1>();  // S of tile t is done, P V of tile t-1 may still run
+      fence_regs(sc);
+      warp_arrive(&empty_k[s], lane);
+      if (t == ntiles - 1) warp_arrive(&qempty[hc], lane);  // Q's last product is done
+      rs = st_softmax(sc, m0, m1, L - t * kStRows, lane, c2);
+      wgmma_wait<0>();
+      fence_acc<NB>(o);
+      fence_regs(p);
+      warp_arrive(&empty_v[sp], lane);
+      st_rescale<NB>(o, l0, l1, rs);
+      put_p();
+    }
+    if constexpr (NC > 1) {
+      const int gl = g + ntiles - 1, sl = gl % S;
+      mbar_wait(&full_v[sl], (gl / S) & 1);
+      fence_acc<NB>(o);
+      fence_regs(p);
+      wgmma_fence();
+      pv(vtile(sl));
+      wgmma_wait<0>();
+      fence_acc<NB>(o);
+      fence_regs(p);
+      warp_arrive(&empty_v[sl], lane);
+    }
+    g += ntiles;
+
+    st_store_out<NB>(o, l0, l1, m0, m1, out, lse, q0 + wg * kStRows + r0, L, H, h, b, D, 0, NB,
+                     scale, lane);
+  }
+}
+
+// ------------------------------------------------------------- backward --
+
+// the dK/dV launch's plan at NB boxes a head: a P^T warpgroup and a dS^T
+// warpgroup over one key tile (its K and V held), two f32 exchange tiles,
+// then a ring of kStages stages of a query tile's Q and dO
+template <int NB>
+struct StKv {
+  static constexpr int kThreads = 3 * 128;
+  static constexpr uint32_t kTile = NB * kStBox;
+  static constexpr uint32_t kXch = 32 * 128 * sizeof(float);  // one f32 P^T tile, thread-major
+  static constexpr uint32_t kHeld = 2 * kTile;                 // K and V
+  static constexpr int kHold = held_copies(kHeld, 2 * kTile, 2 * kXch);
+  static constexpr uint32_t kXOff = kHold * kHeld;
+  static constexpr uint32_t kRingOff = kXOff + 2 * kXch;
+  static constexpr int kStages = ring_stages(kHeld, 2 * kTile, 2 * kXch);
+  static constexpr uint32_t kBarOff = kRingOff + kStages * 2 * kTile;
+  static constexpr size_t kSmem = kBarOff + (2 * kStages + 8) * sizeof(uint64_t) + 1024;
+  static_assert(kStages >= 2 && kSmem <= kMaxSmem, "K, V, the exchange and two stages fit");
+};
+
+// dK (f32, the gradient of the rotated k) and dV (bf16, into its columns
+// of dqkv) of work items of one key tile (tile kt of head h, batch row b;
+// kt fastest), all NB boxes. A CTA an SM takes items blockIdx.x, +
+// gridDim.x, ...: the Q/dO ring runs on across items and the next item's K
+// and V load once this item's last S^T and dP^T are done, so an item's last
+// products and its epilogue overlap the next one's loads.
+template <int NB>
+__global__ void __launch_bounds__(StKv<NB>::kThreads, 1)
+attention_stream_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dk, bf16* __restrict__ dqkv, int B, int L,
+                               int H, int D, int Dp, float scale) {
+  using P = StKv<NB>;
+  constexpr int S = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = st_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBarOff);
+  uint64_t* empty = full + S;
+  uint64_t* kvfull = empty + S;  // kHold each: the copies of K and V
+  uint64_t* kvempty = kvfull + 2;
+  uint64_t* xfull = kvempty + 2;  // two: the exchange tiles
+  uint64_t* xfree = xfull + 2;
+  float* xch = reinterpret_cast<float*>(smem + P::kXOff);
+  auto qtile = [&](int s) { return smem + P::kRingOff + s * 2 * P::kTile; };
+  auto dotile = [&](int s) { return smem + P::kRingOff + s * 2 * P::kTile + P::kTile; };
+  const int ntiles = (L + kStRows - 1) / kStRows, items = ntiles * H * B;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < P::kHold; ++i) {
+      mbar_init(&kvfull[i], 1);
+      mbar_init(&kvempty[i], 8);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&xfull[i], 4);  // one arrival per warp of the handing or the taking warpgroup
+      mbar_init(&xfree[i], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x % 128 == 0) {
+      int g = 0, n = 0;  // query tiles loaded (all items), items
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int kt = item % ntiles, h = item / ntiles % H, b = item / (ntiles * H);
+        const int hc = n % P::kHold;  // the copy of K and V
+        if (n >= P::kHold) mbar_wait(&kvempty[hc], (n / P::kHold - 1) & 1);
+        mbar_arrive_expect_tx(&kvfull[hc], 2 * P::kTile);
+        load_tile<NB>(smem + hc * P::kHeld, &tm_k, &kvfull[hc], h, kt * kStRows, b);
+        load_tile<NB>(smem + hc * P::kHeld + P::kTile, &tm_v, &kvfull[hc], h, kt * kStRows, b);
+        for (int j = 0; j < ntiles; ++j, ++g) {
+          const int s = g % S;
+          if (g >= S) mbar_wait(&empty[s], (g / S - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], 2 * P::kTile);
+          load_tile<NB>(qtile(s), &tm_q, &full[s], h, j * kStRows, b);
+          load_tile<NB>(dotile(s), &tm_do, &full[s], h, j * kStRows, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's keys r0, r0 + 8 of the tile
+  const int klast = last_ksteps(Dp, NB);
+  const bool narrow = last_narrow(Dp, NB);
+  const float c2 = scale * kStLog2e;
+  // a softmax over one key is constant: its logits' gradient is exactly 0
+  const float ds_scale = L > 1 ? scale : 0.f;
+  const float pad = wg == 0 ? INFINITY : 0.f, mul = wg == 0 ? kStLog2e : 1.f;
+  const size_t HD = (size_t)H * D;
+  float acc[NB][32], x[32];  // dV or dK; S^T then P^T, or dP^T then dS^T
+  uint32_t a[16] = {};       // P^T or dS^T in bf16
+  // the swept tile's lse (x log2 e, +inf past L) or delta (0 past L) at
+  // this thread's 16 queries, loaded before the tile's products are issued
+  float pre[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = 0.f;
+  int g = 0, n = 0;  // query tiles consumed (all items), items
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int kt = item % ntiles, h = item / ntiles % H, b = item / (ntiles * H);
+    const float* rowv = (wg == 0 ? lse : delta) + ((size_t)b * H + h) * L;
+    const bool key0 = kt * kStRows + r0 < L, key1 = kt * kStRows + r0 + 8 < L;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    const int hc = n % P::kHold;
+    const unsigned char* ktile = smem + hc * P::kHeld;
+    const unsigned char* vtile = ktile + P::kTile;
+    mbar_wait(&kvfull[hc], (n / P::kHold) & 1);
+
+    // query tile j's lse (x log2 e, +inf past L) or delta (0 past L) at this
+    // thread's 16 queries, loaded before the tile's products are issued
+    auto prefetch = [&](int j) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int q = j * kStRows + (i / 2) * 8 + (lane % 4) * 2 + i % 2;
+        pre[i] = q < L ? rowv[q] * mul : pad;
+      }
+    };
+    // warpgroup 0: S^T = K Q_j^T; warpgroup 1: dP^T = V dO_j^T
+    auto issue_sj = [&](int s) {
+      fence_regs(x);
+      fence_acc<NB>(acc);
+      fence_regs(a);
+      wgmma_fence();
+      issue_s<NB>(x, wg == 0 ? ktile : vtile, wg == 0 ? qtile(s) : dotile(s), klast);
+      wgmma_commit();
+    };
+    // P^T = exp(S^T scale - lse) (0 for keys past L; queries past L have
+    // lse = +inf), handed over in f32; dS^T = P^T (dP^T - delta) scale.
+    // (A branch-free form, both warpgroups writing and one named barrier a
+    // tile, keeps ptxas from serialising around these branches (C7514) but
+    // measured 17 % slower at 8 x 96 L320.)
+    auto elementwise = [&](int j, int gj) {
+      fence_regs(x);
+      if (j == ntiles - 1) warp_arrive(&kvempty[hc], lane);  // K and V read for the last time
+      float* xt = xch + (gj & 1) * 32 * 128;
+      if (wg == 0) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool key = e < 2 ? key0 : key1;
+            x[4 * jj + e] = key ? st_ex2(fmaf(x[4 * jj + e], c2, -pre[2 * jj + e % 2])) : 0.f;
+          }
+        if (gj >= 2) mbar_wait(&xfree[gj & 1], ((gj >> 1) - 1) & 1);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xt[i * 128 + tid] = x[i];
+        warp_arrive(&xfull[gj & 1], lane);
+      } else {
+        mbar_wait(&xfull[gj & 1], (gj >> 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[4 * jj + e] =
+                xt[(4 * jj + e) * 128 + tid] * (x[4 * jj + e] - pre[2 * jj + e % 2]) * ds_scale;
+        warp_arrive(&xfree[gj & 1], lane);
+      }
+    };
+
+    prefetch(0);
+    mbar_wait(&full[g % S], (g / S) & 1);
+    issue_sj(g % S);
+    wgmma_wait<0>();
+    elementwise(0, g);
+    pack_a(a, x);
+    for (int j = 1; j < ntiles; ++j) {
+      // tile j's S^T (dP^T) behind tile j-1's dV += P^T dO_{j-1} (dK +=
+      // dS^T Q_{j-1})
+      const int gj = g + j, s = gj % S, sp = (gj - 1) % S;
+      prefetch(j);
+      mbar_wait(&full[s], (gj / S) & 1);
+      issue_sj(s);
+      issue_pv<NB>(acc, a, wg == 0 ? dotile(sp) : qtile(sp), narrow);
+      wgmma_wait<1>();
+      elementwise(j, gj);
+      wgmma_wait<0>();
+      fence_acc<NB>(acc);
+      fence_regs(a);
+      warp_arrive(&empty[sp], lane);
+      pack_a(a, x);
+    }
+    const int gl = g + ntiles - 1, sl = gl % S;
+    fence_acc<NB>(acc);
+    fence_regs(a);
+    wgmma_fence();
+    issue_pv<NB>(acc, a, wg == 0 ? dotile(sl) : qtile(sl), narrow);
+    wgmma_wait<0>();
+    fence_acc<NB>(acc);
+    fence_regs(a);
+    warp_arrive(&empty[sl], lane);
+    g += ntiles;
+
+    const int row = b * L + kt * kStRows + r0;
+    const int rows = b * L + L;  // this batch row's end in the flattened rows
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      if (wg == 0)
+        store_bf16(acc[c], dqkv + 2 * HD + (size_t)h * D, row, rows, 3 * HD, D, 64 * c, lane);
+      else
+        store_f32(acc[c], dk, row, rows, H, h, Dp, 64 * c, lane);
+    }
+  }
+}
+
+// the dQ launch's plan at NB boxes a head: kNC warpgroups of 64 query rows
+// (two while the registers of dQ, S and dP allow), their Q and dO tiles,
+// then a ring of kStages stages of a key tile's K and V
+template <int NB>
+struct StQ {
+  static constexpr int kNC = NB <= 3 ? 2 : 1;
+  static constexpr int kThreads = (kNC + 1) * 128;
+  // registers handed from the producer to two consumer warpgroups; one
+  // consumer keeps the launch's 255
+  static constexpr uint32_t kTile = NB * kStBox;
+  static constexpr uint32_t kDoOff = kNC * kTile;      // in a copy: Q tiles, then dO tiles
+  static constexpr uint32_t kHeld = 2 * kNC * kTile;
+  static constexpr int kHold = held_copies(kHeld, 2 * kTile, 0);
+  static constexpr uint32_t kRingOff = kHold * kHeld;
+  static constexpr int kStages = ring_stages(kHeld, 2 * kTile, 0);
+  static constexpr uint32_t kBarOff = kRingOff + kStages * 2 * kTile;
+  static constexpr size_t kSmem = kBarOff + (2 * kStages + 4) * sizeof(uint64_t) + 1024;
+  static_assert(kStages >= 2 && kSmem <= kMaxSmem, "Q, dO and two stages fit");
+};
+
+// dQ (f32, the gradient of the rotated q) of work items of 64 kNC query
+// rows (group qg of head h, batch row b; qg fastest); persistent as the
+// dK/dV launch: the K/V ring runs on across items and the next item's Q and
+// dO load once this item's last S and dP are done
+template <int NB>
+__global__ void __launch_bounds__(StQ<NB>::kThreads, 1)
+attention_stream_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dq, int B, int L, int H, int Dp, float scale) {
+  using P = StQ<NB>;
+  constexpr int S = P::kStages, NC = P::kNC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = st_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBarOff);
+  uint64_t* empty = full + S;
+  uint64_t* qfull = empty + S;  // kHold each: the copies of Q and dO
+  uint64_t* qempty = qfull + 2;
+  auto ktile = [&](int s) { return smem + P::kRingOff + s * 2 * P::kTile; };
+  auto vtile = [&](int s) { return smem + P::kRingOff + s * 2 * P::kTile + P::kTile; };
+  const int ntiles = (L + kStRows - 1) / kStRows, nq = (ntiles + NC - 1) / NC;
+  const int items = nq * H * B;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < P::kHold; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], NC * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    if (threadIdx.x % 128 == 0) {
+      int g = 0, n = 0;  // key tiles loaded (all items), items
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = item % nq * NC * kStRows, h = item / nq % H, b = item / (nq * H);
+        const int hc = n % P::kHold;  // the copy of Q and dO
+        if (n >= P::kHold) mbar_wait(&qempty[hc], (n / P::kHold - 1) & 1);
+        mbar_arrive_expect_tx(&qfull[hc], 2 * NC * P::kTile);
+        unsigned char* held = smem + hc * P::kHeld;
+        for (int w = 0; w < NC; ++w) {
+          load_tile<NB>(held + w * P::kTile, &tm_q, &qfull[hc], h, q0 + w * kStRows, b);
+          load_tile<NB>(held + P::kDoOff + w * P::kTile, &tm_do, &qfull[hc], h, q0 + w * kStRows,
+                        b);
+        }
+        for (int t = 0; t < ntiles; ++t, ++g) {
+          const int s = g % S;
+          if (g >= S) mbar_wait(&empty[s], (g / S - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], 2 * P::kTile);
+          load_tile<NB>(ktile(s), &tm_k, &full[s], h, t * kStRows, b);
+          load_tile<NB>(vtile(s), &tm_v, &full[s], h, t * kStRows, b);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (NC == 2) setmaxnreg_inc<232>();
+
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's queries r0, r0 + 8 of the warpgroup's
+  const int klast = last_ksteps(Dp, NB);
+  const bool narrow = last_narrow(Dp, NB);
+  const float c2 = scale * kStLog2e;
+  const float ds_scale = L > 1 ? scale : 0.f;
+  float sa[32], dpa[32], dqa[NB][32];
+  uint32_t dsa[16] = {};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sa[i] = dpa[i] = 0.f;
+  int g = 0, n = 0;  // key tiles consumed (all items), items
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = item % nq * NC * kStRows, h = item / nq % H, b = item / (nq * H);
+    const int qa = q0 + wg * kStRows + r0, qb = qa + 8;
+    const float* lse_r = lse + ((size_t)b * H + h) * L;
+    const float* delta_r = delta + ((size_t)b * H + h) * L;
+    const float la = qa < L ? lse_r[qa] * kStLog2e : INFINITY;
+    const float lb = qb < L ? lse_r[qb] * kStLog2e : INFINITY;
+    const float d0 = qa < L ? delta_r[qa] : 0.f, d1 = qb < L ? delta_r[qb] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[c][i] = 0.f;
+    const int hc = n % P::kHold;
+    const unsigned char* qtile = smem + hc * P::kHeld + wg * P::kTile;
+    const unsigned char* dotile = smem + hc * P::kHeld + P::kDoOff + wg * P::kTile;
+    mbar_wait(&qfull[hc], (n / P::kHold) & 1);
+
+    // S = Q K_t^T and dP = dO V_t^T, one group
+    auto issue_sdp = [&](int s) {
+      fence_regs(sa);
+      fence_regs(dpa);
+      fence_acc<NB>(dqa);
+      fence_regs(dsa);
+      wgmma_fence();
+      issue_s<NB>(sa, qtile, ktile(s), klast);
+      issue_s<NB>(dpa, dotile, vtile(s), klast);
+      wgmma_commit();
+    };
+    // P = exp(S scale - lse) (0 for keys past L), dS = P (dP - delta) scale
+    auto elementwise = [&](int t) {
+      fence_regs(sa);
+      fence_regs(dpa);
+      if (t == ntiles - 1) warp_arrive(&qempty[hc], lane);  // Q and dO read for the last time
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int key = t * kStRows + jj * 8 + (lane % 4) * 2;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = key + (e % 2) < L;
+          const float p = ok ? st_ex2(fmaf(sa[4 * jj + e], c2, -(e < 2 ? la : lb))) : 0.f;
+          sa[4 * jj + e] = p * (dpa[4 * jj + e] - (e < 2 ? d0 : d1)) * ds_scale;
+        }
+      }
+    };
+
+    mbar_wait(&full[g % S], (g / S) & 1);
+    issue_sdp(g % S);
+    wgmma_wait<0>();
+    elementwise(0);
+    pack_a(dsa, sa);
+    for (int t = 1; t < ntiles; ++t) {
+      // tile t's S and dP behind dQ += dS_{t-1} K_{t-1}
+      const int gt = g + t, s = gt % S, sp = (gt - 1) % S;
+      mbar_wait(&full[s], (gt / S) & 1);
+      issue_sdp(s);
+      issue_pv<NB>(dqa, dsa, ktile(sp), narrow);
+      wgmma_wait<1>();
+      elementwise(t);
+      wgmma_wait<0>();
+      fence_acc<NB>(dqa);
+      fence_regs(dsa);
+      warp_arrive(&empty[sp], lane);
+      pack_a(dsa, sa);
+    }
+    const int gl = g + ntiles - 1, sl = gl % S;
+    fence_acc<NB>(dqa);
+    fence_regs(dsa);
+    wgmma_fence();
+    issue_pv<NB>(dqa, dsa, ktile(sl), narrow);
+    wgmma_wait<0>();
+    fence_acc<NB>(dqa);
+    fence_regs(dsa);
+    warp_arrive(&empty[sl], lane);
+    g += ntiles;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      store_f32(dqa[c], dq, b * L + qa, b * L + L, H, h, Dp, 64 * c, lane);
+  }
+}
+
+// ------------------------------------------------ the wide kernels (nbox > 4) --
+
+namespace {
+
+// the wide kernels' ring of kStWideStages stages of kStWideNB boxes: the
+// producer's count of stages armed (`head`), the consumers' of stages
+// waited for (`head`) and freed (`tail`)
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int head, tail;
+  __device__ __forceinline__ unsigned char* slot(int s, int i) const {
+    return base + s * kStWideStage + i * kStBox;
+  }
+};
+
+// the ring at the aligned base of the dynamic shared memory, its barriers
+// initialised for `warps` consumer warps (every thread of the CTA calls
+// this)
+__device__ __forceinline__ Ring ring_init(unsigned char* raw, int warps) {
+  Ring r;
+  r.base = st_smem(raw);
+  r.full = reinterpret_cast<uint64_t*>(r.base + kStWideStages * kStWideStage);
+  r.empty = r.full + kStWideStages;
+  r.head = r.tail = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStWideStages; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], warps);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// producer: the next stage once its consumers freed it, armed for `boxes`
+// boxes (a zero-filled box counts its full bytes); -> its index
+__device__ __forceinline__ int ring_produce(Ring& r, int boxes) {
+  const int s = r.head % kStWideStages;
+  if (r.head >= kStWideStages) mbar_wait(&r.empty[s], (r.head / kStWideStages - 1) & 1);
+  mbar_arrive_expect_tx(&r.full[s], boxes * kStBox);
+  ++r.head;
+  return s;
+}
+
+__device__ __forceinline__ void wide_load(Ring& r, int s, int i, const CUtensorMap* map, int c,
+                                          int h, int row, int b) {
+  load_box(r.slot(s, i), map, &r.full[s], c, h, row, b);
+}
+
+// consumer: wait for the next stage -> its index
+__device__ __forceinline__ int ring_wait(Ring& r) {
+  const int s = r.head % kStWideStages;
+  mbar_wait(&r.full[s], (r.head / kStWideStages) & 1);
+  ++r.head;
+  return s;
+}
+
+// consumer: free the stages waited for, all but the `keep` newest (each
+// committed product group reads one stage, so after wgmma_wait<keep> only
+// the newest `keep` may still be read)
+__device__ __forceinline__ void ring_free(Ring& r, int lane, int keep) {
+  while (r.tail < r.head - keep) {
+    warp_arrive(&r.empty[r.tail % kStWideStages], lane);
+    ++r.tail;
+  }
+}
+
+// acc = sum over the head's nbox boxes of A_c B_c^T, one stage (A box c in
+// slot `a`, B box c in slot `b`) each, every box's product committed behind
+// the last without waiting for it; the group before each is awaited
+// (wgmma_wait<1>) and its stage freed. The caller waits for the last group.
+__device__ __forceinline__ void wide_chain(Ring& r, float (&acc)[32], int nbox, int klast,
+                                           int lane, int a = 0, int b = 1) {
+  auto box = [&](int c, int ks) {
+    const int s = ring_wait(r);
+    fence_regs(acc);
+    const uint64_t ad = wgmma_desc(r.slot(s, a), 16, 1024), bd = wgmma_desc(r.slot(s, b), 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk == 0 || kk < ks) wgmma_m64n64k16_ss(acc, ad + 2 * kk, bd + 2 * kk, (c | kk) ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    ring_free(r, lane, 1);
+  };
+  for (int c = 0; c < nbox - 1; ++c) box(c, 4);
+  box(nbox - 1, klast);
+}
+
+// acc += A B with B one box of a stage read MN-major (n 64 always: a
+// choice of n at run time is a branch around the wgmma, which serialises
+// them); issued, not committed
+__device__ __forceinline__ void wide_pv(float (&acc)[32], const uint32_t (&a)[16], const void* b) {
+  const uint64_t bd = wgmma_desc(b, 1024, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    wgmma_m64n64k16_rs_bt(acc, ak, bd + 128 * kk, 1);
+  }
+}
+
+}  // namespace
+
+// O (and lse) of NC query tiles NC (blockIdx.x / ncs).., output boxes NB
+// (blockIdx.x % ncs) .. of them; lse (may be null) written by the first
+// box's CTA. NC consumer warpgroups (64 query rows each) share each stage
+// of (their Q boxes, a K box) and of V boxes; the loads come from a
+// producer warp, or at NC 2 a producer warpgroup that hands its registers
+// over (ptxas shares the registers out by whole warpgroups)
+template <int NC, int NB>
+__global__ void __launch_bounds__(NC == 1 ? kStThreads : (NC + 1) * 128, 1)
+attention_stream_wide_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 bf16* __restrict__ out, float* __restrict__ lse, int L, int H,
+                                 int D, int Dp, int ncs, float scale) {
+  static_assert(NC + 1 <= kStWideNB && NB <= kStWideNB, "a stage holds NC Q boxes and a K box");
+  extern __shared__ unsigned char smem_raw[];
+  Ring ring = ring_init(smem_raw, NC * 4);
+  const int qt = blockIdx.x / ncs * NC, cs = blockIdx.x % ncs, h = blockIdx.y, b = blockIdx.z;
+  const int nbox = (Dp + 63) / 64, c0 = cs * NB, nb = min(NB, nbox - c0);
+  const int ntiles = (L + kStRows - 1) / kStRows;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == NC) {
+    if constexpr (NC > 1) setmaxnreg_dec<40>();
+    if (threadIdx.x == NC * 128) {
+      for (int t = 0; t < ntiles; ++t) {
+        for (int c = 0; c < nbox; ++c) {
+          const int s = ring_produce(ring, NC + 1);
+          for (int w = 0; w < NC; ++w) wide_load(ring, s, w, &tm_q, c, h, (qt + w) * kStRows, b);
+          wide_load(ring, s, NC, &tm_k, c, h, t * kStRows, b);
+        }
+        const int s = ring_produce(ring, nb);
+        for (int c = 0; c < nb; ++c) wide_load(ring, s, c, &tm_v, c0 + c, h, t * kStRows, b);
+      }
+    }
+    return;
+  }
+  if constexpr (NC > 1) setmaxnreg_inc<232>();
 
   const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * 16 + lane / 4;  // this thread's rows r0, r0 + 8
-  const float c2 = scale * kStLog2e;                   // logits to log2 units
+  const int r0 = (threadIdx.x % 128 / 32) * 16 + lane / 4;  // this thread's rows r0, r0 + 8
+  const float c2 = scale * kStLog2e;
+  const int klast = last_ksteps(Dp, nbox);
   float o[NB][32], sc[32];
+  uint32_t p[16];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = 0.f;
 #pragma unroll
   for (int c = 0; c < NB; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
-  float m0 = kStNeg, m1 = kStNeg, l0 = 0.f, l1 = 0.f;  // running maxima, this thread's sums
+  float m0 = kStNeg, m1 = kStNeg, l0 = 0.f, l1 = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    for (int c = 0; c < nbox; ++c) {
-      const int s = ring_wait(ring);
-      product_ss(sc, ring.slot(s, 0), ring.slot(s, 1), c == 0);
-      ring_release(ring, lane);
-    }
-    if (t == ntiles - 1 && L % kStRows) {
-      const int lim = L - t * kStRows;
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if ((i / 4) * 8 + (lane % 4) * 2 + (i % 2) >= lim) sc[i] = kStNeg;
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-    mx0 = st_quad_max(mx0);
-    mx1 = st_quad_max(mx1);
-    const float a0 = st_ex2((m0 - mx0) * c2), a1 = st_ex2((m1 - mx1) * c2);
-    m0 = mx0;
-    m1 = mx1;
-    const float b0 = -m0 * c2, b1 = -m1 * c2;
-    float s0 = 0.f, s1 = 0.f;
-    uint32_t p[16];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = st_ex2(fmaf(sc[4 * j], c2, b0)), p1 = st_ex2(fmaf(sc[4 * j + 1], c2, b0));
-      const float p2 = st_ex2(fmaf(sc[4 * j + 2], c2, b1));
-      const float p3 = st_ex2(fmaf(sc[4 * j + 3], c2, b1));
-      s0 += p0 + p1;
-      s1 += p2 + p3;
-      p[2 * j] = st_pack(p0, p1);
-      p[2 * j + 1] = st_pack(p2, p3);
-    }
-    l0 = l0 * a0 + s0;
-    l1 = l1 * a1 + s1;
-#pragma unroll
-    for (int c = 0; c < NB; ++c)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[c][4 * j] *= a0;
-        o[c][4 * j + 1] *= a0;
-        o[c][4 * j + 2] *= a1;
-        o[c][4 * j + 3] *= a1;
-      }
+    // S behind tile t-1's P V (its stage freed by the chain's first wait)
+    wide_chain(ring, sc, nbox, klast, lane, wg, NC);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_acc<NB>(o);
+    fence_regs(p);
+    ring_free(ring, lane, 0);
+    const StRow rs = st_softmax(sc, m0, m1, L - t * kStRows, lane, c2);
+    st_rescale<NB>(o, l0, l1, rs);
+    pack_a(p, sc);
     const int s = ring_wait(ring);
+    fence_acc<NB>(o);
+    fence_regs(p);
+    wgmma_fence();
+    // every box's product, also past the head's last box (nb < NB: stale
+    // slots, products never stored), so that no wgmma waits on a branch
 #pragma unroll
-    for (int c = 0; c < NB; ++c)
-      if (c < nb) product_rs(o[c], p, ring.slot(s, c));
-    ring_release(ring, lane);
-  }
-
-  // epilogue: O / l in bf16 straight to global memory
-  l0 = st_quad_sum(l0);
-  l1 = st_quad_sum(l1);
-  const float inv[2] = {1.f / l0, 1.f / l1};
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int q = qt * kStRows + r0 + 8 * hr;
-    if (q >= L) continue;
-    bf16* row = out + ((size_t)((size_t)b * L + q) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < NB; ++c) {
-      if (c >= nb) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = (c0 + c) * 64 + j * 8 + (lane % 4) * 2;
-        if (col < D) row[col] = __float2bfloat16(o[c][4 * j + 2 * hr] * inv[hr]);
-        if (col + 1 < D) row[col + 1] = __float2bfloat16(o[c][4 * j + 2 * hr + 1] * inv[hr]);
-      }
+    for (int c = 0; c < NB; ++c) wide_pv(o[c], p, ring.slot(s, c));
+    wgmma_commit();
+    if constexpr (NC == 1) {  // one warpgroup: P V waited on, not run behind the next S
+      wgmma_wait<0>();
+      fence_acc<NB>(o);
+      fence_regs(p);
+      ring_free(ring, lane, 0);
     }
   }
-  if (lse != nullptr && cs == 0 && lane % 4 == 0) {
-    float* lrow = lse + ((size_t)b * H + h) * L;
-    const int q = qt * kStRows + r0;
-    if (q < L) lrow[q] = m0 * scale + logf(l0);
-    if (q + 8 < L) lrow[q + 8] = m1 * scale + logf(l1);
-  }
+  wgmma_wait<0>();
+  fence_acc<NB>(o);
+  fence_regs(p);
+  ring_free(ring, lane, 0);
+  st_store_out<NB>(o, l0, l1, m0, m1, out, lse, (qt + wg) * kStRows + r0, L, H, h, b, D, c0, nb,
+                   scale, lane);
 }
 
-// ----------------------------------------------------------------- backward --
-
-// dK and dV (f32, the gradients of the rotated k and of v) of key tile
-// blockIdx.x / nbox, output box blockIdx.x % nbox
-__global__ void __launch_bounds__(kStThreads, 2)
-attention_stream_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
-                               const __grid_constant__ CUtensorMap tm_k,
-                               const __grid_constant__ CUtensorMap tm_v,
-                               const __grid_constant__ CUtensorMap tm_do,
-                               const float* __restrict__ lse, const float* __restrict__ delta,
-                               float* __restrict__ dk, float* __restrict__ dv, int L, int H,
-                               int Dp, int nbox, float scale) {
+// dK (f32) and dV (bf16, into dqkv) of key tile blockIdx.x / nbox, output
+// box blockIdx.x % nbox
+__global__ void __launch_bounds__(kStThreads, 1)
+attention_stream_wide_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                    const __grid_constant__ CUtensorMap tm_k,
+                                    const __grid_constant__ CUtensorMap tm_v,
+                                    const __grid_constant__ CUtensorMap tm_do,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta, float* __restrict__ dk,
+                                    bf16* __restrict__ dqkv, int L, int H, int D, int Dp,
+                                    float scale) {
   extern __shared__ unsigned char smem_raw[];
-  Ring ring = ring_init(smem_raw);
+  Ring ring = ring_init(smem_raw, 4);
+  const int nbox = (Dp + 63) / 64;
   const int kt = blockIdx.x / nbox, c0 = blockIdx.x % nbox, h = blockIdx.y, b = blockIdx.z;
   const int ntiles = (L + kStRows - 1) / kStRows;
 
@@ -407,17 +1295,17 @@ attention_stream_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < ntiles; ++j) {
         for (int c = 0; c < nbox; ++c) {
           const int s = ring_produce(ring, 2);
-          load_box(ring, s, 0, &tm_k, c, h, kt * kStRows, b);
-          load_box(ring, s, 1, &tm_q, c, h, j * kStRows, b);
+          wide_load(ring, s, 0, &tm_k, c, h, kt * kStRows, b);
+          wide_load(ring, s, 1, &tm_q, c, h, j * kStRows, b);
         }
         for (int c = 0; c < nbox; ++c) {
           const int s = ring_produce(ring, 2);
-          load_box(ring, s, 0, &tm_v, c, h, kt * kStRows, b);
-          load_box(ring, s, 1, &tm_do, c, h, j * kStRows, b);
+          wide_load(ring, s, 0, &tm_v, c, h, kt * kStRows, b);
+          wide_load(ring, s, 1, &tm_do, c, h, j * kStRows, b);
         }
         const int s = ring_produce(ring, 2);
-        load_box(ring, s, 0, &tm_do, c0, h, j * kStRows, b);
-        load_box(ring, s, 1, &tm_q, c0, h, j * kStRows, b);
+        wide_load(ring, s, 0, &tm_do, c0, h, j * kStRows, b);
+        wide_load(ring, s, 1, &tm_q, c0, h, j * kStRows, b);
       }
     }
     return;
@@ -426,70 +1314,73 @@ attention_stream_bwd_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * 16 + lane / 4;  // this thread's keys r0, r0 + 8 of the tile
   const float c2 = scale * kStLog2e;
-  // a softmax over one key is constant: its logits' gradient is exactly 0
   const float ds_scale = L > 1 ? scale : 0.f;
+  const int klast = last_ksteps(Dp, nbox);
   const bool key0 = kt * kStRows + r0 < L, key1 = kt * kStRows + r0 + 8 < L;
   const float* lse_r = lse + ((size_t)b * H + h) * L;
   const float* delta_r = delta + ((size_t)b * H + h) * L;
   float st[32], dpt[32], dka[32], dva[32];
+  uint32_t pa[16], da[16];
 #pragma unroll
   for (int i = 0; i < 32; ++i) st[i] = dpt[i] = dka[i] = dva[i] = 0.f;
 
   for (int j = 0; j < ntiles; ++j) {
-    for (int c = 0; c < nbox; ++c) {
-      const int s = ring_wait(ring);
-      product_ss(st, ring.slot(s, 0), ring.slot(s, 1), c == 0);  // S^T = K Q_j^T
-      ring_release(ring, lane);
-    }
-    for (int c = 0; c < nbox; ++c) {
-      const int s = ring_wait(ring);
-      product_ss(dpt, ring.slot(s, 0), ring.slot(s, 1), c == 0);  // dP^T = V dO_j^T
-      ring_release(ring, lane);
-    }
-    // P^T = exp(S^T scale - lse) (0 for keys past L; queries past L have
-    // lse = +inf), dS^T = P^T (dP^T - delta) scale
-    uint32_t pa[16], da[16];
+    wide_chain(ring, st, nbox, klast, lane);   // S^T = K Q_j^T, behind the last outputs
+    wide_chain(ring, dpt, nbox, klast, lane);  // dP^T = V dO_j^T
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    fence_regs(dka);
+    fence_regs(dva);
+    ring_free(ring, lane, 0);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int q = j * kStRows + jj * 8 + (lane % 4) * 2;
       const float la = q < L ? lse_r[q] * kStLog2e : INFINITY;
       const float lb = q + 1 < L ? lse_r[q + 1] * kStLog2e : INFINITY;
       const float d0 = q < L ? delta_r[q] : 0.f, d1 = q + 1 < L ? delta_r[q + 1] : 0.f;
-      float p[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool key = e < 2 ? key0 : key1;
-        p[e] = key ? st_ex2(fmaf(st[4 * jj + e], c2, -(e % 2 ? lb : la))) : 0.f;
-        ds[e] = p[e] * (dpt[4 * jj + e] - (e % 2 ? d1 : d0)) * ds_scale;
+        st[4 * jj + e] = key ? st_ex2(fmaf(st[4 * jj + e], c2, -(e % 2 ? lb : la))) : 0.f;
+        dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - (e % 2 ? d1 : d0)) * ds_scale;
       }
-      pa[2 * jj] = st_pack(p[0], p[1]);
-      pa[2 * jj + 1] = st_pack(p[2], p[3]);
-      da[2 * jj] = st_pack(ds[0], ds[1]);
-      da[2 * jj + 1] = st_pack(ds[2], ds[3]);
     }
+    pack_a(pa, st);
+    pack_a(da, dpt);
     const int s = ring_wait(ring);
-    product_rs(dva, pa, ring.slot(s, 0));  // dV += P^T dO_j
-    product_rs(dka, da, ring.slot(s, 1));  // dK += dS^T Q_j
-    ring_release(ring, lane);
+    fence_regs(dka);
+    fence_regs(dva);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+    wide_pv(dva, pa, ring.slot(s, 0));  // dV += P^T dO_j
+    wide_pv(dka, da, ring.slot(s, 1));  // dK += dS^T Q_j
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_regs(dka);
+  fence_regs(dva);
+  ring_free(ring, lane, 0);
   const int row = b * L + kt * kStRows + r0;
   const int rows = b * L + L;  // this batch row's end in the flattened rows
-  store_f32(dva, dv, row, rows, H, h, Dp, c0 * 64, lane);
+  const size_t HD = (size_t)H * D;
+  store_bf16(dva, dqkv + 2 * HD + (size_t)h * D, row, rows, 3 * HD, D, c0 * 64, lane);
   store_f32(dka, dk, row, rows, H, h, Dp, c0 * 64, lane);
 }
 
-// dQ (f32, the gradient of the rotated q) of query tile blockIdx.x / nbox,
-// output box blockIdx.x % nbox
+// dQ of query tile blockIdx.x / nbox, output box blockIdx.x % nbox
 __global__ void __launch_bounds__(kStThreads, 2)
-attention_stream_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
-                              const __grid_constant__ CUtensorMap tm_k,
-                              const __grid_constant__ CUtensorMap tm_v,
-                              const __grid_constant__ CUtensorMap tm_do,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dq, int L, int H, int Dp, int nbox,
-                              float scale) {
+attention_stream_wide_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ CUtensorMap tm_do,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta, float* __restrict__ dq,
+                                   int L, int H, int Dp, float scale) {
   extern __shared__ unsigned char smem_raw[];
-  Ring ring = ring_init(smem_raw);
+  Ring ring = ring_init(smem_raw, 4);
+  const int nbox = (Dp + 63) / 64;
   const int qt = blockIdx.x / nbox, c0 = blockIdx.x % nbox, h = blockIdx.y, b = blockIdx.z;
   const int ntiles = (L + kStRows - 1) / kStRows;
 
@@ -498,16 +1389,16 @@ attention_stream_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = 0; t < ntiles; ++t) {
         for (int c = 0; c < nbox; ++c) {
           const int s = ring_produce(ring, 2);
-          load_box(ring, s, 0, &tm_q, c, h, qt * kStRows, b);
-          load_box(ring, s, 1, &tm_k, c, h, t * kStRows, b);
+          wide_load(ring, s, 0, &tm_q, c, h, qt * kStRows, b);
+          wide_load(ring, s, 1, &tm_k, c, h, t * kStRows, b);
         }
         for (int c = 0; c < nbox; ++c) {
           const int s = ring_produce(ring, 2);
-          load_box(ring, s, 0, &tm_do, c, h, qt * kStRows, b);
-          load_box(ring, s, 1, &tm_v, c, h, t * kStRows, b);
+          wide_load(ring, s, 0, &tm_do, c, h, qt * kStRows, b);
+          wide_load(ring, s, 1, &tm_v, c, h, t * kStRows, b);
         }
         const int s = ring_produce(ring, 1);
-        load_box(ring, s, 0, &tm_k, c0, h, t * kStRows, b);
+        wide_load(ring, s, 0, &tm_k, c0, h, t * kStRows, b);
       }
     }
     return;
@@ -517,6 +1408,7 @@ attention_stream_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = (threadIdx.x / 32) * 16 + lane / 4;  // this thread's queries r0, r0 + 8
   const float c2 = scale * kStLog2e;
   const float ds_scale = L > 1 ? scale : 0.f;
+  const int klast = last_ksteps(Dp, nbox);
   const int qa = qt * kStRows + r0, qb = qa + 8;
   const float* lse_r = lse + ((size_t)b * H + h) * L;
   const float* delta_r = delta + ((size_t)b * H + h) * L;
@@ -524,48 +1416,107 @@ attention_stream_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float lb = qb < L ? lse_r[qb] * kStLog2e : INFINITY;
   const float d0 = qa < L ? delta_r[qa] : 0.f, d1 = qb < L ? delta_r[qb] : 0.f;
   float sa[32], dpa[32], dqa[32];
+  uint32_t dsa[16];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sa[i] = dpa[i] = dqa[i] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    for (int c = 0; c < nbox; ++c) {
-      const int s = ring_wait(ring);
-      product_ss(sa, ring.slot(s, 0), ring.slot(s, 1), c == 0);  // S = Q K_t^T
-      ring_release(ring, lane);
-    }
-    for (int c = 0; c < nbox; ++c) {
-      const int s = ring_wait(ring);
-      product_ss(dpa, ring.slot(s, 0), ring.slot(s, 1), c == 0);  // dP = dO V_t^T
-      ring_release(ring, lane);
-    }
-    // P = exp(S scale - lse) (0 for keys past L), dS = P (dP - delta) scale
-    uint32_t dsa[16];
+    wide_chain(ring, sa, nbox, klast, lane);   // S = Q K_t^T, behind the last dQ product
+    wide_chain(ring, dpa, nbox, klast, lane);  // dP = dO V_t^T
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(dpa);
+    fence_regs(dqa);
+    ring_free(ring, lane, 0);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int key = t * kStRows + jj * 8 + (lane % 4) * 2;
-      float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = key + (e % 2) < L;
         const float p = ok ? st_ex2(fmaf(sa[4 * jj + e], c2, -(e < 2 ? la : lb))) : 0.f;
-        ds[e] = p * (dpa[4 * jj + e] - (e < 2 ? d0 : d1)) * ds_scale;
+        sa[4 * jj + e] = p * (dpa[4 * jj + e] - (e < 2 ? d0 : d1)) * ds_scale;
       }
-      dsa[2 * jj] = st_pack(ds[0], ds[1]);
-      dsa[2 * jj + 1] = st_pack(ds[2], ds[3]);
     }
+    pack_a(dsa, sa);
     const int s = ring_wait(ring);
-    product_rs(dqa, dsa, ring.slot(s, 0));  // dQ += dS K_t
-    ring_release(ring, lane);
+    fence_regs(dqa);
+    fence_regs(dsa);
+    wgmma_fence();
+    wide_pv(dqa, dsa, ring.slot(s, 0));  // dQ += dS K_t
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_regs(dqa);
+  ring_free(ring, lane, 0);
   store_f32(dqa, dq, b * L + qa, b * L + L, H, h, Dp, c0 * 64, lane);
 }
 
 // -------------------------------------------------------- prep and post --
+//
+// Both are bound by the loads in flight, not by their bytes: each step of
+// a lane waits on the last. So a (row, head) takes a group of only as many
+// lanes (`pair_lanes`) as give each a few rotary pairs, and a warp holds 32
+// / that many rows' loads in flight at once (a whole warp a row where a
+// launch is one wave at most); the prep pass sums the squares of q and k
+// and the dO O products in one sweep over the pairs, the post pass sweeps
+// each row once from memory (the second sweep hits L1). The rounding is the
+// plain version's; a row's squares are summed in one order for a shape
+// (the group's lanes strided over the pairs, then the group's tree), and
+// the forward and the backward run the same prep pass at the same shape,
+// so the backward's rq/rk are the forward's bit for bit.
 
-// One warp a (row, head) of the (B L) rows: q and k normalised and rotated,
-// v copied, into the padded (B L, H, Dp) arrays rq, rk, rv; with dout (the
-// backward): delta = rowsum(dO O) into (B, H, L) and, where rdo is given,
-// dO copied padded
+namespace {
+
+constexpr int kStPostWarps = 4;                       // warps a block of the post pass
+constexpr int kStPostRows = kStChunk / kStPostWarps;  // rows a warp of the post pass
+// lanes a (row, head) takes: a power of two from `least` to 32 giving each
+// lane about `pairs` of the D/2 rotary pairs (measured at 8 x 64 and 8 x
+// 96 heads: more lanes leave a warp too few rows in flight, fewer lanes too
+// many steps a row)
+constexpr int kStPrepPairs = 8, kStPrepLanes = 8;  // the prep pass
+constexpr int kStPostPairs = 4, kStPostLanes = 4;  // the post pass, also a column block's pairs a lane
+static_assert(kStChunk % kStPostWarps == 0, "whole rows a warp");
+
+__host__ __device__ constexpr int pair_lanes(int half, int pairs, int least) {
+  int g = least;
+  while (g < 32 && g * pairs < half) g *= 2;
+  return g;
+}
+
+// the sum over an aligned group of g lanes (a power of two)
+__device__ __forceinline__ float group_sum(float v, int g) {
+  for (int o = g >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// a lane's term of a row's squares at the rotary pair (j, j + half)
+__device__ __forceinline__ float pair_squares(float a, float b) { return a * a + b * b; }
+
+__device__ __forceinline__ float inv_rms(float ss, int D) { return 1.f / sqrtf(ss / D + 1e-6f); }
+
+// the normalised and rotated pair (j, j + D/2) of a raw row in the plain
+// version's rounding order: bf16(x / rms), bf16(* gamma), then bf16 rotary
+// products and their bf16 sums
+__device__ __forceinline__ __nv_bfloat162 norm_rope_pair(float x1, float x2, float inv, float g1,
+                                                         float g2, float c, float s) {
+  const float n1 = bfr(bfr(x1 * inv) * g1), n2 = bfr(bfr(x2 * inv) * g2);
+  return __floats2bfloat162_rn(bfr(n1 * c) - bfr(n2 * s), bfr(n1 * s) + bfr(n2 * c));
+}
+
+// a row of D values into Dp columns, zero past D, by the g lanes of a group
+__device__ __forceinline__ void copy_row(const bf16* __restrict__ x, bf16* __restrict__ y, int D,
+                                         int Dp, int li, int g) {
+  for (int j = li; j < Dp; j += g) y[j] = __float2bfloat16(j < D ? ldf(x + j) : 0.f);
+}
+
+}  // namespace
+
+// A group of G lanes (`prep_lanes`) a (row, head) of the (B L) rows: q
+// and k normalised and rotated into the padded (B L, H, Dp) arrays rq, rk,
+// v copied into rv where given (the kernels read v from qkv where Dp == D);
+// with dout (the backward): delta = rowsum(dO O) into (B, H, L) and, where
+// rdo is given, dO copied padded
 __global__ void __launch_bounds__(kStPrepWarps * 32)
 attention_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
                       const bf16* __restrict__ gk, const bf16* __restrict__ cos_t,
@@ -573,115 +1524,158 @@ attention_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
                       bf16* __restrict__ rk, bf16* __restrict__ rv,
                       const bf16* __restrict__ dout, const bf16* __restrict__ o,
                       bf16* __restrict__ rdo, float* __restrict__ delta, int BL, int L, int H,
-                      int D, int Dp) {
-  const int lane = threadIdx.x % 32;
-  const size_t w = (size_t)blockIdx.x * kStPrepWarps + threadIdx.x / 32;
-  if (w >= (size_t)BL * H) return;
-  const int row = (int)(w / H), h = (int)(w % H), pos = row % L, half = D / 2;
+                      int D, int Dp, int G) {
+  const int lane = threadIdx.x % 32, half = D / 2, li = lane % G;
+  const size_t units = (size_t)BL * H;
+  const size_t first = ((size_t)blockIdx.x * kStPrepWarps + threadIdx.x / 32) * (32 / G);
+  if (first >= units) return;
+  const size_t unit = first + lane / G;
+  const bool live = unit < units;  // a tail group computes the last unit again and stores nothing
+  const int row = (int)(min(unit, units - 1) / H), h = (int)(min(unit, units - 1) % H);
+  const int pos = row % L;
   const size_t HD = (size_t)H * D, dst = ((size_t)row * H + h) * Dp;
-  const bf16* x = qkv + (size_t)row * 3 * HD + (size_t)h * D;
+  const bf16* xq = qkv + (size_t)row * 3 * HD + (size_t)h * D;
+  const bf16* xk = xq + HD;
+  const bf16* g = dout == nullptr ? nullptr : dout + (size_t)row * HD + (size_t)h * D;
+  const bf16* oo = dout == nullptr ? nullptr : o + (size_t)row * HD + (size_t)h * D;
+  float sq = 0.f, sk = 0.f, d = 0.f;
+#pragma unroll 4
+  for (int j = li; j < half; j += G) {
+    sq += pair_squares(ldf(xq + j), ldf(xq + j + half));
+    sk += pair_squares(ldf(xk + j), ldf(xk + j + half));
+    if (g != nullptr) d += ldf(g + j) * ldf(oo + j) + ldf(g + j + half) * ldf(oo + j + half);
+  }
+  const float iq = inv_rms(group_sum(sq, G), D), ik = inv_rms(group_sum(sk, G), D);
+  if (g != nullptr) d = group_sum(d, G);
+  if (!live) return;
   const bf16* cr = cos_t + (size_t)pos * half;
   const bf16* sr = sin_t + (size_t)pos * half;
-  norm_rope_row(x, row_inv(x, D, lane), gq, cr, sr, rq + dst, D, Dp, lane);
-  norm_rope_row(x + HD, row_inv(x + HD, D, lane), gk, cr, sr, rk + dst, D, Dp, lane);
-  copy_row(x + 2 * HD, rv + dst, D, Dp, lane);
-  if (dout != nullptr) {
-    const bf16* g = dout + (size_t)row * HD + (size_t)h * D;
-    const bf16* oo = o + (size_t)row * HD + (size_t)h * D;
-    float d = 0.f;
-    for (int j = lane; j < D; j += 32) d += ldf(g + j) * ldf(oo + j);
-    d = warp_sum(d);
-    if (lane == 0) delta[((size_t)(row / L) * H + h) * L + pos] = d;
-    if (rdo != nullptr) copy_row(g, rdo + dst, D, Dp, lane);
+#pragma unroll 4
+  for (int j = li; j < half; j += G) {
+    const float c = ldf(cr + j), sn = ldf(sr + j);
+    const __nv_bfloat162 yq =
+        norm_rope_pair(ldf(xq + j), ldf(xq + j + half), iq, ldf(gq + j), ldf(gq + j + half), c, sn);
+    const __nv_bfloat162 yk =
+        norm_rope_pair(ldf(xk + j), ldf(xk + j + half), ik, ldf(gk + j), ldf(gk + j + half), c, sn);
+    rq[dst + j] = yq.x;
+    rq[dst + j + half] = yq.y;
+    rk[dst + j] = yk.x;
+    rk[dst + j + half] = yk.y;
+  }
+  for (int j = D + li; j < Dp; j += G) rq[dst + j] = rk[dst + j] = __float2bfloat16(0.f);
+  if (rv != nullptr) copy_row(xq + 2 * HD, rv + dst, D, Dp, li, G);
+  if (g != nullptr) {
+    if (li == 0) delta[((size_t)(row / L) * H + h) * L + pos] = d;
+    if (rdo != nullptr) copy_row(g, rdo + dst, D, Dp, li, G);
   }
 }
 
-// One warp a (chunk of kStChunk rows, head): the f32 gradients dq and dk of
-// the rotated rows back through the inverse rotation and the gamma-scaled
-// RMS norm into dqkv (bf16), dv rounded into it; the gamma gradients of the
-// chunk's rows as one f32 partial a column at (chunk, h) of dgq and dgk
-__global__ void __launch_bounds__(kStPrepWarps * 32)
+// One block of kStPostWarps warps a (chunk of kStChunk rows, head, block
+// of kStPostPairs G rotary pairs, G = pair_lanes(D / 2, ...)), each warp
+// kStPostRows of the rows, 32 / G at a time (a group of G lanes a row): a
+// row's squares and sum of gh x (gh the gradient of the gamma-scaled
+// normalised row) over the whole row in one sweep, then its f32 gradients
+// dq and dk of the rotated rows back through the inverse rotation and the
+// gamma-scaled RMS norm into dqkv's q and k columns (bf16) at the block's
+// pairs, read again from L1; the gamma gradients of the chunk's rows at the
+// block's pairs as one f32 partial a column in row (chunk, h) of dg, q's D
+// columns then k's (each group's rows in order, then the groups, then the
+// warps in order).
+// Past D 256 each column block sweeps the whole rows again for their sums.
+__global__ void __launch_bounds__(kStPostWarps * 32)
 attention_post_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
                       const bf16* __restrict__ gk, const bf16* __restrict__ cos_t,
                       const bf16* __restrict__ sin_t, const float* __restrict__ dq,
-                      const float* __restrict__ dk, const float* __restrict__ dv,
-                      bf16* __restrict__ dqkv, float* __restrict__ dgq, float* __restrict__ dgk,
-                      int BL, int L, int H, int D, int Dp) {
-  const int lane = threadIdx.x % 32;
-  const int nchunks = (BL + kStChunk - 1) / kStChunk;
-  const size_t w = (size_t)blockIdx.x * kStPrepWarps + threadIdx.x / 32;
-  if (w >= (size_t)nchunks * H) return;
-  const int chunk = (int)(w / H), h = (int)(w % H), half = D / 2;
-  const int row0 = chunk * kStChunk, nr = min(kStChunk, BL - row0);
+                      const float* __restrict__ dk, bf16* __restrict__ dqkv,
+                      float* __restrict__ dg_part, int BL, int L, int H, int D, int Dp) {
+  constexpr int K = kStPostPairs;
+  __shared__ float red[kStPostWarps][32][2][K][2];  // (warp, lane, q or k, pair, pair half)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int half = D / 2, G = pair_lanes(half, K, kStPostLanes), li = lane % G, per = 32 / G;
+  const int nblk = (half + K * G - 1) / (K * G);
+  const int chunk = blockIdx.x / (H * nblk), h = blockIdx.x / nblk % H;
+  const int j0 = blockIdx.x % nblk * K * G;
   const size_t HD = (size_t)H * D;
-
-  // pass 1: each row's 1/rms and sum over the row of gh x (gh the gradient
-  // of the gamma-scaled normalised row), for q (t 0) and k (t 1); lane r
-  // keeps row r's
-  float inv[2] = {0.f, 0.f}, msum[2] = {0.f, 0.f};
-  for (int r = 0; r < nr; ++r) {
-    const int row = row0 + r, pos = row % L;
-    const bf16* cr = cos_t + (size_t)pos * half;
-    const bf16* sr = sin_t + (size_t)pos * half;
+  float gam[2][K][2];  // the lane's gammas at its pairs of the block
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + k * G + li;
+      const bf16* g = t ? gk : gq;
+      gam[t][k][0] = j < half ? ldf(g + j) : 0.f;
+      gam[t][k][1] = j < half ? ldf(g + j + half) : 0.f;
+    }
+  float dg[2][K][2] = {};  // this lane's gamma partials, as gam
+  for (int r0 = 0; r0 < kStPostRows; r0 += per) {
+    const int row = chunk * kStChunk + warp * kStPostRows + r0 + lane / G;
+    const bool live = row < BL && r0 + lane / G < kStPostRows;
+    const int rr = min(row, BL - 1);
+    const bf16* cr = cos_t + (size_t)(rr % L) * half;
+    const bf16* sr = sin_t + (size_t)(rr % L) * half;
+    const bf16* x[2];
+    const float* d[2];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      const bf16* x = qkv + (size_t)row * 3 * HD + t * HD + (size_t)h * D;
-      const float* d = (t ? dk : dq) + ((size_t)row * H + h) * Dp;
-      const bf16* g = t ? gk : gq;
-      const float iv = row_inv(x, D, lane);
-      float m = 0.f;
-      for (int j = lane; j < half; j += 32) {
-        const float c = ldf(cr + j), s = ldf(sr + j), d1 = d[j], d2 = d[j + half];
-        m += (d1 * c + d2 * s) * ldf(g + j) * ldf(x + j) +
-             (d2 * c - d1 * s) * ldf(g + j + half) * ldf(x + j + half);
-      }
-      m = warp_sum(m);
-      if (lane == r) {
-        inv[t] = iv;
-        msum[t] = m;
+      x[t] = qkv + (size_t)rr * 3 * HD + t * HD + (size_t)h * D;
+      d[t] = (t ? dk : dq) + ((size_t)rr * H + h) * Dp;
+    }
+    float ss[2] = {0.f, 0.f}, m[2] = {0.f, 0.f};
+#pragma unroll 4
+    for (int j = li; j < half; j += G) {
+      const float c = ldf(cr + j), s = ldf(sr + j);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const bf16* g = t ? gk : gq;
+        const float x1 = ldf(x[t] + j), x2 = ldf(x[t] + j + half);
+        const float d1 = d[t][j], d2 = d[t][j + half];
+        ss[t] += pair_squares(x1, x2);
+        m[t] += (d1 * c + d2 * s) * ldf(g + j) * x1 + (d2 * c - d1 * s) * ldf(g + j + half) * x2;
       }
     }
-  }
-
-  // pass 2: lane-strided over the rotary pairs, the chunk's rows in order
-  for (int j0 = 0; j0 < half; j0 += 32) {
-    const int j = j0 + lane;
-    const bool on = j < half;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      const bf16* g = t ? gk : gq;
-      const float g1 = on ? ldf(g + j) : 0.f, g2 = on ? ldf(g + j + half) : 0.f;
-      float dg1 = 0.f, dg2 = 0.f;
-      for (int r = 0; r < nr; ++r) {
-        const float iv = __shfl_sync(0xffffffffu, inv[t], r);
-        const float m = __shfl_sync(0xffffffffu, msum[t], r);
-        if (!on) continue;
-        const int row = row0 + r, pos = row % L;
-        const bf16* x = qkv + (size_t)row * 3 * HD + t * HD + (size_t)h * D;
-        const float* d = (t ? dk : dq) + ((size_t)row * H + h) * Dp;
-        const float c = ldf(cos_t + (size_t)pos * half + j);
-        const float s = ldf(sin_t + (size_t)pos * half + j);
-        const float d1 = d[j], d2 = d[j + half], x1 = ldf(x + j), x2 = ldf(x + j + half);
+      const float iv = inv_rms(group_sum(ss[t], G), D);
+      const float i3m = iv * iv * iv * (group_sum(m[t], G) / D);
+      if (!live) continue;
+      bf16* y = dqkv + (size_t)rr * 3 * HD + t * HD + (size_t)h * D;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k * G + li;
+        if (j >= half) continue;
+        const float c = ldf(cr + j), s = ldf(sr + j);
+        const float d1 = d[t][j], d2 = d[t][j + half];
+        const float x1 = ldf(x[t] + j), x2 = ldf(x[t] + j + half);
         const float gn1 = d1 * c + d2 * s, gn2 = d2 * c - d1 * s;
-        dg1 += gn1 * x1 * iv;
-        dg2 += gn2 * x2 * iv;
-        const float i3m = iv * iv * iv * (m / D);
-        bf16* y = dqkv + (size_t)row * 3 * HD + t * HD + (size_t)h * D;
-        y[j] = __float2bfloat16(gn1 * g1 * iv - x1 * i3m);
-        y[j + half] = __float2bfloat16(gn2 * g2 * iv - x2 * i3m);
-      }
-      if (on) {
-        float* part = (t ? dgk : dgq) + ((size_t)chunk * H + h) * D;
-        part[j] = dg1;
-        part[j + half] = dg2;
+        dg[t][k][0] += gn1 * x1 * iv;
+        dg[t][k][1] += gn2 * x2 * iv;
+        y[j] = __float2bfloat16(gn1 * gam[t][k][0] * iv - x1 * i3m);
+        y[j + half] = __float2bfloat16(gn2 * gam[t][k][1] * iv - x2 * i3m);
       }
     }
   }
-  for (int r = 0; r < nr; ++r) {
-    const int row = row0 + r;
-    const float* d = dv + ((size_t)row * H + h) * Dp;
-    bf16* y = dqkv + (size_t)row * 3 * HD + 2 * HD + (size_t)h * D;
-    for (int j = lane; j < D; j += 32) y[j] = __float2bfloat16(d[j]);
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[warp][lane][t][k][e] = dg[t][k][e];
+  __syncthreads();
+  if (warp < 2 && lane < G) {  // warp t sums the block's partials of q (0) or k (1)
+    float* part = dg_part + ((size_t)chunk * H + h) * 2 * D + warp * D;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + k * G + lane;
+      if (j >= half) continue;
+      float s1 = 0.f, s2 = 0.f;
+      for (int w = 0; w < kStPostWarps; ++w)
+        for (int p = 0; p < per; ++p) {
+          s1 += red[w][p * G + lane][warp][k][0];
+          s2 += red[w][p * G + lane][warp][k][1];
+        }
+      part[j] = s1;
+      part[j + half] = s2;
+    }
   }
 }
 
@@ -689,47 +1683,161 @@ attention_post_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
 
 namespace {
 
-// the 4-D tensor map of a (B, L, H, Dp) bf16 array in 64 x 64 boxes
+// the 4-D tensor map (D, H, L, B) of the heads at `base` whose rows lie
+// `row` elements apart, in 64 x 64 boxes with 128-byte swizzle: a (B, L,
+// H, D) array (row H D), or v inside the packed qkv rows (row 3 H D)
+cudaError_t stream_map_rows(CUtensorMap* map, const void* base, int D, int H, int L, int B,
+                            size_t row) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, row * 2, (cuuint64_t)L * row * 2};
+  const cuuint32_t box[4] = {64, 1, kStRows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor map of a (B, L, H, Dp) bf16 array
 cudaError_t stream_map(CUtensorMap* map, const void* base, int Dp, int H, int L, int B) {
-  return tma_map_bf16_heads(map, base, Dp, H, L, B, kStRows);
+  return stream_map_rows(map, base, Dp, H, L, B, (size_t)H * Dp);
+}
+
+// v's map: rv, or the v columns of qkv where rv is null (Dp == D)
+cudaError_t v_map(CUtensorMap* map, const void* qkv, const void* rv, int D, int Dp, int H, int L,
+                  int B) {
+  if (rv != nullptr) return stream_map(map, rv, Dp, H, L, B);
+  return stream_map_rows(map, static_cast<const bf16*>(qkv) + 2 * (size_t)H * D, D, H, L, B,
+                         3 * (size_t)H * D);
+}
+
+// whether CTAs of one 64-row warpgroup each fill at most one wave of the
+// card: then a CTA a tile (more SMs at work), else the most warpgroups a
+// CTA (K and V shared by more rows, fewer waves)
+bool one_wave(int ctas) { return ctas <= device_sms(); }
+
+// persistent CTAs, one an SM: as many as the items, at most the SMs
+int persistent_ctas(int items) {
+  const int sms = device_sms();
+  return sms > 0 && items > sms ? sms : items;
+}
+
+template <int NB, int NC>
+int fwd_launch_nc(const CUtensorMap* maps, void* out, void* lse, int B, int L, int H, int D,
+                  int Dp, float scale, cudaStream_t stream) {
+  using P = StFwd<NB, NC>;
+  const int rows = NC * kStRows, items = (L + rows - 1) / rows * H * B;
+  return (int)launch(attention_stream_fwd_kernel<NB, NC>, dim3(persistent_ctas(items)),
+                     dim3(P::kThreads), P::kSmem, stream, maps[0], maps[1], maps[2], (bf16*)out,
+                     (float*)lse, B, L, H, D, Dp, scale);
+}
+
+// the wide forward: CTAs of kStWideNB output boxes and two query tiles;
+// where CTAs of one query tile and two boxes (the more CTAs) fill at most a
+// wave, those
+int wide_fwd_launch(const CUtensorMap* maps, void* out, void* lse, int B, int L, int H, int D,
+                    int Dp, float scale, cudaStream_t stream) {
+  const int nbox = (Dp + 63) / 64, ntiles = (L + kStRows - 1) / kStRows;
+  const int ncs2 = (nbox + 1) / 2, ncs = (nbox + kStWideNB - 1) / kStWideNB;
+  if (one_wave(ntiles * ncs2 * H * B))
+    return (int)launch(attention_stream_wide_fwd_kernel<1, 2>, dim3(ntiles * ncs2, H, B),
+                       dim3(kStThreads), kStWideSmem, stream, maps[0], maps[1], maps[2],
+                       (bf16*)out, (float*)lse, L, H, D, Dp, ncs2, scale);
+  return (int)launch(attention_stream_wide_fwd_kernel<2, kStWideNB>,
+                     dim3((ntiles + 1) / 2 * ncs, H, B), dim3(3 * 128), kStWideSmem, stream,
+                     maps[0], maps[1], maps[2], (bf16*)out, (float*)lse, L, H, D, Dp, ncs,
+                     scale);
 }
 
 template <int NB>
-int stream_fwd_launch(const CUtensorMap* maps, void* out, void* lse, int B, int L, int H, int D,
-                      int nbox, float scale, cudaStream_t stream) {
-  const int ncs = (nbox + NB - 1) / NB, ntiles = (L + kStRows - 1) / kStRows;
-  return (int)launch(attention_stream_fwd_kernel<NB>, dim3(ntiles * ncs, H, B),
-                     dim3(kStThreads), kStSmem, stream, maps[0], maps[1], maps[2], (bf16*)out,
-                     (float*)lse, L, H, D, nbox, ncs, scale);
+int fwd_launch(const CUtensorMap* maps, void* out, void* lse, int B, int L, int H, int D, int Dp,
+               float scale, cudaStream_t stream) {
+  const int tiles = (L + kStRows - 1) / kStRows * H * B;
+  // at four boxes a grid this small is set by one CTA's time: two CTAs of
+  // two output boxes each (S formed twice) finish sooner
+  if (NB == 4 && one_wave(2 * tiles))
+    return wide_fwd_launch(maps, out, lse, B, L, H, D, Dp, scale, stream);
+  if (one_wave(tiles)) return fwd_launch_nc<NB, 1>(maps, out, lse, B, L, H, D, Dp, scale, stream);
+  return fwd_launch_nc<NB, fwd_consumers(NB)>(maps, out, lse, B, L, H, D, Dp, scale, stream);
 }
 
-// the forward over padded (B, L, H, Dp) q, k, v: one output box a CTA at
-// one box a head, else two
-int stream_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L,
-               int H, int D, int Dp, float scale, cudaStream_t stream) {
-  if (B < 1 || L < 1 || H < 1 || D < 1 || Dp < D || Dp % 8) return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[3];
-  const void* bases[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = stream_map(&maps[i], bases[i], Dp, H, L, B);
-    if (err != cudaSuccess) return (int)err;
+// the forward over the maps of q, k, v (padded to Dp columns): a head's
+// boxes in one CTA to D 256, else split over CTAs of kStWideNB output boxes
+int stream_fwd(const CUtensorMap* maps, void* out, void* lse, int B, int L, int H, int D, int Dp,
+               float scale, cudaStream_t stream) {
+  switch ((Dp + 63) / 64) {
+    case 1: return fwd_launch<1>(maps, out, lse, B, L, H, D, Dp, scale, stream);
+    case 2: return fwd_launch<2>(maps, out, lse, B, L, H, D, Dp, scale, stream);
+    case 3: return fwd_launch<3>(maps, out, lse, B, L, H, D, Dp, scale, stream);
+    case 4: return fwd_launch<4>(maps, out, lse, B, L, H, D, Dp, scale, stream);
+    default: return wide_fwd_launch(maps, out, lse, B, L, H, D, Dp, scale, stream);
   }
-  const int nbox = (Dp + 63) / 64;
-  if (nbox == 1) return stream_fwd_launch<1>(maps, out, lse, B, L, H, D, nbox, scale, stream);
-  return stream_fwd_launch<2>(maps, out, lse, B, L, H, D, nbox, scale, stream);
+}
+
+template <int NB>
+int bwd_launch(const CUtensorMap* maps, const void* lse, const void* delta, void* dq, void* dk,
+               void* dqkv, int B, int L, int H, int D, int Dp, float scale, cudaStream_t stream) {
+  const int ntiles = (L + kStRows - 1) / kStRows;
+  int err = (int)launch(attention_stream_bwd_kv_kernel<NB>, dim3(persistent_ctas(ntiles * H * B)),
+                        dim3(StKv<NB>::kThreads), StKv<NB>::kSmem, stream, maps[0], maps[1],
+                        maps[2], maps[3], (const float*)lse, (const float*)delta, (float*)dk,
+                        (bf16*)dqkv, B, L, H, D, Dp, scale);
+  if (err != 0) return err;
+  constexpr int nc = StQ<NB>::kNC;
+  return (int)launch(attention_stream_bwd_q_kernel<NB>,
+                     dim3(persistent_ctas((ntiles + nc - 1) / nc * H * B)),
+                     dim3(StQ<NB>::kThreads), StQ<NB>::kSmem, stream, maps[0], maps[1], maps[2],
+                     maps[3], (const float*)lse, (const float*)delta, (float*)dq, B, L, H, Dp,
+                     scale);
+}
+
+// the dK/dV and dQ launches over padded (B, L, H, Dp) rows
+int stream_bwd(const CUtensorMap* maps, const void* lse, const void* delta, void* dq, void* dk,
+               void* dqkv, int B, int L, int H, int D, int Dp, float scale,
+               cudaStream_t stream) {
+  switch ((Dp + 63) / 64) {
+    case 1: return bwd_launch<1>(maps, lse, delta, dq, dk, dqkv, B, L, H, D, Dp, scale, stream);
+    case 2: return bwd_launch<2>(maps, lse, delta, dq, dk, dqkv, B, L, H, D, Dp, scale, stream);
+    case 3: return bwd_launch<3>(maps, lse, delta, dq, dk, dqkv, B, L, H, D, Dp, scale, stream);
+    case 4: return bwd_launch<4>(maps, lse, delta, dq, dk, dqkv, B, L, H, D, Dp, scale, stream);
+    default: break;
+  }
+  const int nbox = (Dp + 63) / 64, ntiles = (L + kStRows - 1) / kStRows;
+  const dim3 grid(ntiles * nbox, H, B);
+  int err = (int)launch(attention_stream_wide_bwd_kv_kernel, grid, dim3(kStThreads),
+                        kStWideSmem, stream, maps[0], maps[1], maps[2], maps[3],
+                        (const float*)lse, (const float*)delta, (float*)dk, (bf16*)dqkv, L, H, D,
+                        Dp, scale);
+  if (err != 0) return err;
+  return (int)launch(attention_stream_wide_bwd_q_kernel, grid, dim3(kStThreads), kStWideSmem,
+                     stream, maps[0], maps[1], maps[2], maps[3], (const float*)lse,
+                     (const float*)delta, (float*)dq, L, H, Dp, scale);
+}
+
+// the prep pass's lanes a (row, head): a whole warp where the launch then
+// still fits one wave (a tiny grid is set by one warp's time), else
+// pair_lanes; a function of the shape alone, so the forward's and the
+// backward's passes sum each row's squares alike
+int prep_lanes(int B, int L, int H, int D) {
+  if ((size_t)B * L * H * 32 <= (size_t)device_sms() * 2048) return 32;
+  return pair_lanes(D / 2, kStPrepPairs, kStPrepLanes);
 }
 
 int prep_launch(const void* qkv, const void* gq, const void* gk, const void* cos_t,
                 const void* sin_t, void* rq, void* rk, void* rv, const void* dout,
                 const void* o, void* rdo, void* delta, int B, int L, int H, int D, int Dp,
                 cudaStream_t stream) {
-  const size_t warps = (size_t)B * L * H;
+  const int lanes = prep_lanes(B, L, H, D);
+  const size_t warps = ((size_t)B * L * H * lanes + 31) / 32;
   return (int)launch(attention_prep_kernel,
                      dim3((unsigned)((warps + kStPrepWarps - 1) / kStPrepWarps)),
                      dim3(kStPrepWarps * 32), 0, stream, (const bf16*)qkv, (const bf16*)gq,
                      (const bf16*)gk, (const bf16*)cos_t, (const bf16*)sin_t, (bf16*)rq,
                      (bf16*)rk, (bf16*)rv, (const bf16*)dout, (const bf16*)o, (bf16*)rdo,
-                     (float*)delta, B * L, L, H, D, Dp);
+                     (float*)delta, B * L, L, H, D, Dp, lanes);
 }
 
 }  // namespace
@@ -741,10 +1849,19 @@ int prep_launch(const void* qkv, const void* gq, const void* gk, const void* cos
 extern "C" int odt_attention_stream_fwd(const void* q, const void* k, const void* v, void* out,
                                         void* lse, int B, int L, int H, int D, int Dp,
                                         float scale, void* stream) {
-  return odt::stream_fwd(q, k, v, out, lse, B, L, H, D, Dp, scale, (cudaStream_t)stream);
+  using namespace odt;
+  if (B < 1 || L < 1 || H < 1 || D < 1 || Dp < D || Dp % 8) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = stream_map(&maps[i], bases[i], Dp, H, L, B);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return stream_fwd(maps, out, lse, B, L, H, D, Dp, scale, (cudaStream_t)stream);
 }
 
-// K9 streamed: the prep pass into rq, rk, rv (B, L, H, Dp) bf16 scratch,
+// K9 streamed: the prep pass into rq, rk and (unless rv is null, which
+// needs Dp == D: v is then read from qkv) rv (B, L, H, Dp) bf16 scratch,
 // then the forward; lse may be null (no gradient will be taken)
 extern "C" int odt_fused_attention_stream_fwd(const void* qkv, const void* gq, const void* gk,
                                               const void* cos_t, const void* sin_t, void* rq,
@@ -752,51 +1869,52 @@ extern "C" int odt_fused_attention_stream_fwd(const void* qkv, const void* gq, c
                                               int L, int H, int D, int Dp, float scale,
                                               void* stream) {
   using namespace odt;
-  if (D % 2 || Dp < D || Dp % 8) return (int)cudaErrorInvalidValue;
+  if (B < 1 || L < 1 || H < 1 || D < 2 || D % 2 || Dp < D || Dp % 8 ||
+      (rv == nullptr && Dp != D))
+    return (int)cudaErrorInvalidValue;
   const int err = prep_launch(qkv, gq, gk, cos_t, sin_t, rq, rk, rv, nullptr, nullptr, nullptr,
                               nullptr, B, L, H, D, Dp, (cudaStream_t)stream);
   if (err != 0) return err;
-  return stream_fwd(rq, rk, rv, out, lse, B, L, H, D, Dp, scale, (cudaStream_t)stream);
+  CUtensorMap maps[3];
+  cudaError_t e = stream_map(&maps[0], rq, Dp, H, L, B);
+  if (e == cudaSuccess) e = stream_map(&maps[1], rk, Dp, H, L, B);
+  if (e == cudaSuccess) e = v_map(&maps[2], qkv, rv, D, Dp, H, L, B);
+  if (e != cudaSuccess) return (int)e;
+  return stream_fwd(maps, out, lse, B, L, H, D, Dp, scale, (cudaStream_t)stream);
 }
 
-// K10 streamed: the prep pass (rq, rk, rv, delta (B, H, L) f32, and dO
-// padded into rdo unless rdo is null, which needs Dp == D), the dK/dV and
-// dQ launches into dq, dk, dv (B, L, H, Dp) f32 scratch, and the post pass
-// into dqkv and the gamma partials dgq, dgk (ceil(B L / 32) H, D) f32
+// K10 streamed: the prep pass (rq, rk, rv as K9's, delta (B, H, L) f32,
+// and dO padded into rdo unless rdo is null, which needs Dp == D), the dK/dV
+// launch into dk (B, L, H, Dp) f32 scratch and dV's columns of dqkv, the dQ
+// launch into dq (the same as dk), and the post pass into dqkv's q and k
+// columns and the gamma partials dg (ceil(B L / 64) H, 2 D) f32: q's D
+// columns, then k's
 extern "C" int odt_fused_attention_stream_bwd(
     const void* qkv, const void* dout, const void* out, const void* lse, const void* gq,
     const void* gk, const void* cos_t, const void* sin_t, void* rq, void* rk, void* rv, void* rdo,
-    void* delta, void* dq, void* dk, void* dv, void* dqkv, void* dgq, void* dgk, int B, int L,
-    int H, int D, int Dp, float scale, void* stream) {
+    void* delta, void* dq, void* dk, void* dqkv, void* dg, int B, int L, int H, int D, int Dp,
+    float scale, void* stream) {
   using namespace odt;
   const cudaStream_t st = (cudaStream_t)stream;
   if (B < 1 || L < 1 || H < 1 || D < 2 || D % 2 || Dp < D || Dp % 8 ||
-      (rdo == nullptr && Dp != D))
+      ((rdo == nullptr || rv == nullptr) && Dp != D))
     return (int)cudaErrorInvalidValue;
   int err = prep_launch(qkv, gq, gk, cos_t, sin_t, rq, rk, rv, dout, out, rdo, delta, B, L, H, D,
                         Dp, st);
   if (err != 0) return err;
   CUtensorMap maps[4];
-  const void* bases[4] = {rq, rk, rv, rdo != nullptr ? rdo : dout};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t e = stream_map(&maps[i], bases[i], Dp, H, L, B);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int nbox = (Dp + 63) / 64, ntiles = (L + kStRows - 1) / kStRows;
-  const dim3 grid(ntiles * nbox, H, B);
-  err = (int)launch(attention_stream_bwd_kv_kernel, grid, dim3(kStThreads), kStSmem, st, maps[0],
-                    maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (float*)dk,
-                    (float*)dv, L, H, Dp, nbox, scale);
+  cudaError_t e = stream_map(&maps[0], rq, Dp, H, L, B);
+  if (e == cudaSuccess) e = stream_map(&maps[1], rk, Dp, H, L, B);
+  if (e == cudaSuccess) e = v_map(&maps[2], qkv, rv, D, Dp, H, L, B);
+  if (e == cudaSuccess) e = stream_map(&maps[3], rdo != nullptr ? rdo : dout, Dp, H, L, B);
+  if (e != cudaSuccess) return (int)e;
+  err = stream_bwd(maps, lse, delta, dq, dk, dqkv, B, L, H, D, Dp, scale, st);
   if (err != 0) return err;
-  err = (int)launch(attention_stream_bwd_q_kernel, grid, dim3(kStThreads), kStSmem, st, maps[0],
-                    maps[1], maps[2], maps[3], (const float*)lse, (const float*)delta, (float*)dq,
-                    L, H, Dp, nbox, scale);
-  if (err != 0) return err;
-  const size_t warps = (size_t)((B * L + kStChunk - 1) / kStChunk) * H;
-  return (int)launch(attention_post_kernel,
-                     dim3((unsigned)((warps + kStPrepWarps - 1) / kStPrepWarps)),
-                     dim3(kStPrepWarps * 32), 0, st, (const bf16*)qkv, (const bf16*)gq,
-                     (const bf16*)gk, (const bf16*)cos_t, (const bf16*)sin_t, (const float*)dq,
-                     (const float*)dk, (const float*)dv, (bf16*)dqkv, (float*)dgq, (float*)dgk,
-                     B * L, L, H, D, Dp);
+  // a post block's rotary pairs
+  const int pairs = kStPostPairs * pair_lanes(D / 2, kStPostPairs, kStPostLanes);
+  const size_t blocks = (size_t)((B * L + kStChunk - 1) / kStChunk) * H * ((D / 2 + pairs - 1) / pairs);
+  return (int)launch(attention_post_kernel, dim3((unsigned)blocks), dim3(kStPostWarps * 32), 0,
+                     st, (const bf16*)qkv, (const bf16*)gq, (const bf16*)gk, (const bf16*)cos_t,
+                     (const bf16*)sin_t, (const float*)dq, (const float*)dk, (bf16*)dqkv,
+                     (float*)dg, B * L, L, H, D, Dp);
 }

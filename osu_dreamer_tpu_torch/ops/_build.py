@@ -65,7 +65,7 @@ _SIGNATURES = {
     "odt_film_layer_bwd_tp": [_P] * 29 + [_I] * 13 + [_P],
     "odt_attention_stream_fwd": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_fused_attention_stream_fwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
-    "odt_fused_attention_stream_bwd": [_P] * 19 + [_I] * 5 + [ctypes.c_float, _P],
+    "odt_fused_attention_stream_bwd": [_P] * 17 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 

@@ -43,7 +43,7 @@ MAX_FUSED_LEN = 256
 RESIDENT_LEN = 256
 # rows a warp of the streamed backward's post pass (csrc/attention_stream.cu
 # kStChunk): one gamma partial per chunk and head
-POST_CHUNK = 32
+POST_CHUNK = 64
 
 
 def fused_attention_fits(L: int, n_heads: int, head_dim: int) -> bool:
@@ -171,6 +171,20 @@ def _kernel_inputs(qkv, q_gamma, k_gamma, L: int, D: int):
     return cos, sin, gq, gk
 
 
+def _stream_rows(B: int, L: int, H: int, D: int, Dp: int, device, with_do: bool = False):
+    """the streamed kernels' (B, L, H, Dp) bf16 scratch: the normalised and
+    rotated q and k; v, and with ``with_do`` dO, padded copies only where Dp
+    != D (else None: the kernels read them where they lie)"""
+    def rows():
+        return torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=device)
+
+    return [rows(), rows(), *(rows() if Dp != D else None for _ in range(2 if with_do else 1))]
+
+
+def _ptrs(tensors) -> list:
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
 def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = True):
     """K9 (csrc/fused_attention.cu where ``resident``, else
     csrc/attention_stream.cu): bf16 packed qkv -> (out, lse) as
@@ -189,11 +203,10 @@ def fused_attention_fwd_cuda(qkv, q_gamma, k_gamma, n_heads, residuals: bool = T
         )
         return out, lse
     Dp = stream_dim(D)
-    rows = [torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev) for _ in range(3)]
+    rows = _stream_rows(B, L, H, D, Dp, dev)
     run(
         "odt_fused_attention_stream_fwd", "fused_attention_fwd", dev,
-        *(t.data_ptr() for t in (qkv, gq, gk, cos, sin, *rows, out)), lse_ptr,
-        B, L, H, D, Dp, D**-0.5,
+        *_ptrs((qkv, gq, gk, cos, sin, *rows, out)), lse_ptr, B, L, H, D, Dp, D**-0.5,
     )
     return out, lse
 
@@ -202,8 +215,8 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
     """K10 (csrc/fused_attention.cu where ``resident``, else
     csrc/attention_stream.cu): -> (dqkv bf16, dq_gamma f32, dk_gamma f32);
     the gamma partials (one per (batch, head) at D 32 and 64, per 64-row
-    tile too at 128, per 32-row chunk and head when streamed) are summed
-    here"""
+    tile too at 128, per 64-row chunk and head when streamed, q's and k's
+    in one array) are summed here"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
     dev = qkv.device
     grad = grad.to(torch.bfloat16).contiguous()
@@ -226,19 +239,17 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
         )
         return dqkv, dgq.sum(0), dgk.sum(0)
     Dp = stream_dim(D)
-    rows = [torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev) for _ in range(3)]
-    rdo = None if Dp == D else torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev)
+    rows = _stream_rows(B, L, H, D, Dp, dev, with_do=True)
     delta = torch.empty(B, H, L, dtype=torch.float32, device=dev)
-    grads = [torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(3)]
-    chunks = -(-B * L // POST_CHUNK)
-    dgq, dgk = (torch.empty(chunks * H, D, dtype=torch.float32, device=dev) for _ in range(2))
+    grads = [torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(2)]
+    dg = torch.empty(-(-B * L // POST_CHUNK) * H, 2, D, dtype=torch.float32, device=dev)
     run(
         "odt_fused_attention_stream_bwd", "fused_attention_bwd", dev,
-        *(t.data_ptr() for t in (qkv, grad, out, lse, gq, gk, cos, sin, *rows)),
-        None if rdo is None else rdo.data_ptr(),
-        *(t.data_ptr() for t in (delta, *grads, dqkv, dgq, dgk)), B, L, H, D, Dp, D**-0.5,
+        *_ptrs((qkv, grad, out, lse, gq, gk, cos, sin, *rows, delta, *grads, dqkv, dg)),
+        B, L, H, D, Dp, D**-0.5,
     )
-    return dqkv, dgq.sum(0), dgk.sum(0)
+    dq_gamma, dk_gamma = dg.sum(0)
+    return dqkv, dq_gamma, dk_gamma
 
 
 def needs_grad(*tensors: torch.Tensor) -> bool:

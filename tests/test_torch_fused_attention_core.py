@@ -610,18 +610,113 @@ def _stream_source() -> str:
 
 
 def test_stream_plan_fits_two_ctas_an_sm():
-    """the streamed kernels' one plan at every shape: a ring of four stages
-    of two 8 KB boxes (+ barriers, + 1024 to align), two CTAs of one
-    consumer warpgroup and a producer warp an SM, by shared memory and by
-    the launch bounds' register share"""
+    """the wide streamed kernels' plan (head dims past 256) at every shape:
+    a ring of four stages of three 8 KB boxes (+ barriers, + 1024 to
+    align); two dQ CTAs of one consumer warpgroup and a producer warp an
+    SM, by shared memory and by the launch bounds' register share; the
+    dK/dV launch and the forward (one or two consumer warpgroups) one CTA an
+    SM, for their registers"""
     src = _stream_source()
     consts = {}
-    for name in ("kStRows", "kStStages", "kStThreads", "kStChunk"):
+    for name in ("kStRows", "kStMaxStages", "kStThreads", "kStChunk", "kStWideNB",
+                 "kStWideStages"):
         consts[name] = eval(re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1].split("//")[0])
-    assert consts == {"kStRows": 64, "kStStages": 4, "kStThreads": 160, "kStChunk": fa.POST_CHUNK}
-    smem = consts["kStStages"] * 2 * 64 * 64 * 2 + 2 * consts["kStStages"] * 8 + 1024
+    assert consts == {"kStRows": 64, "kStMaxStages": 4, "kStThreads": 160,
+                      "kStChunk": fa.POST_CHUNK, "kStWideNB": 3, "kStWideStages": 4}
+    smem = consts["kStWideStages"] * 3 * 64 * 64 * 2 + 2 * consts["kStWideStages"] * 8 + 1024
     assert 2 * (smem + 1024) <= SM_SMEM
     bounds = re.findall(r"__launch_bounds__\(kStThreads, (\d)\)", src)
-    assert bounds == ["2", "2", "2"]
-    # the backward's dK/dV accumulators, S^T, dP^T and the packed P^T, dS^T
-    assert _reg_cap(consts["kStThreads"], 2) >= 4 * 32 + 2 * 16 + 16
+    assert bounds == ["1", "2"]
+    assert "__launch_bounds__(NC == 1 ? kStThreads : (NC + 1) * 128, 1)" in src
+    # the forward's three O boxes, S and P (at two consumer warpgroups the
+    # 232 registers a consumer the producer warpgroup hands over); the
+    # dK/dV launch's dK, dV, S^T, dP^T and the packed P^T, dS^T; the dQ
+    # launch's dQ, S, dP and dS
+    assert _reg_cap(consts["kStThreads"], 1) >= 3 * 32 + 32 + 16 + 16
+    assert 40 * 128 + 232 * 256 <= _reg_cap(3 * 128, 1) * 3 * 128
+    assert _reg_cap(consts["kStThreads"], 1) >= 4 * 32 + 2 * 16 + 16
+    assert _reg_cap(consts["kStThreads"], 2) >= 3 * 32 + 16 + 16
+
+
+def _stream_struct(src: str, name: str, nb: int, nc: int = 0) -> dict:
+    """a plan struct of attention_stream.cu (``StFwd``, ``StKv``, ``StQ``)
+    evaluated at NB = ``nb`` (and the forward's NC = ``nc``) from the
+    source's own expressions"""
+    env = {"NB": nb, "NC": nc, "st_min": min, "kMaxSmem": MAX_SMEM}
+    for const in ("kStRows", "kStBox", "kStMaxStages", "kStTileCap"):
+        expr = re.search(rf"constexpr \w+ {const} = ([^;]+);", src)[1]
+        env[const] = eval(_c_to_py(expr.replace("sizeof(uint64_t)", "8")), env)
+    for fn in ("held_copies", "ring_stages"):  # (held, stage, fixed) -> int
+        expr = _c_to_py(re.search(rf"constexpr int {fn}\([^)]*\) {{\s*return ([^;]+);", src)[1])
+        env[fn] = (lambda e: lambda held, stage, fixed: eval(
+            e, {**env, "held": held, "stage": stage, "fixed": fixed}))(expr)
+    body = re.search(rf"struct {name} {{(.*?)\n}};", src, re.S)[1]
+    out = {}
+    for key, expr in re.findall(r"static constexpr \w+ (\w+) = ([^;]+);", body):
+        expr = expr.replace("sizeof(uint64_t)", "8").replace("&&", " and ")
+        env[key] = out[key] = eval(_c_to_py(expr), env)
+    return out
+
+
+def stream_plan(kernel: str, nb: int, fwd_nc: int = 0) -> dict:
+    """the Python mirror of the resident-width streamed kernels' plans at nb
+    boxes a head (D <= 256): consumer warpgroups of 64 rows (the forward
+    ``fwd_nc``: one, or three while O's registers allow (P through shared
+    memory at three boxes), else two; the
+    dK/dV launch two sharing a key tile; the dQ launch two to three boxes,
+    else one) and a producer warpgroup; the held tiles (the forward's Q, the
+    dK/dV launch's K and V, the dQ launch's Q and dO) in two copies where
+    two ring stages still fit beside them (a persistent CTA loads the next
+    work item's while this one runs), else one; the dK/dV launch's two f32
+    exchange tiles; then as many stages (at most four) of two tiles as a
+    block's shared memory holds, the barriers (each ring stage's full and
+    empty ones, two of each for the held copies, and the exchange's) and
+    1024 bytes to align the base"""
+    box, cap = 64 * 64 * 2, MAX_SMEM - 1024 - 256
+    tile = nb * box
+    nc = {"fwd": fwd_nc, "kv": 2, "q": 2 if nb <= 3 else 1}[kernel]
+    held = {"fwd": nc * tile, "kv": 2 * tile, "q": 2 * nc * tile}[kernel]
+    # the dK/dV launch's two f32 exchange tiles; the forward's P tiles where
+    # three warpgroups hold three boxes of O (P V's A operand from shared
+    # memory, for the registers)
+    fixed = {"kv": 2 * 32 * 128 * 4, "q": 0, "fwd": nc * box if nb == 3 and nc == 3 else 0}[kernel]
+    hold = 2 if 2 * held + fixed + 2 * 2 * tile <= cap else 1
+    stages = min(4, (cap - hold * held - fixed) // (2 * tile))
+    bars = {"fwd": 4 * stages + 4, "kv": 2 * stages + 8, "q": 2 * stages + 4}[kernel]
+    return {"nc": nc, "threads": (nc + 1) * 128, "stages": stages, "hold": hold,
+            "smem": hold * held + fixed + stages * 2 * tile + 8 * bars + 1024}
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "kv", "q"])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_stream_resident_width_plan_mirrors_the_source(kernel, nb):
+    """``stream_plan`` against the source's plan structs at each box count:
+    one CTA an SM within a block's shared memory and at least two stages;
+    the registers the producer warpgroup hands over (setmaxnreg) fill the
+    launch's share exactly and cover each consumer's accumulators (the
+    forward's O, S and P; the dK/dV launch's dK or dV, S^T or dP^T and its
+    bf16 copy; the dQ launch's dQ, S, dP and dS) with 16 to spare"""
+    src = _stream_source()
+    name = {"fwd": "StFwd", "kv": "StKv", "q": "StQ"}[kernel]
+    most = _function(src, "fwd_consumers", "int nb")(nb)
+    assert most == (3 if nb <= 3 else 2)
+    for fwd_nc in ((1, most) if kernel == "fwd" else (0,)):
+        got = _stream_struct(src, name, nb, fwd_nc)
+        want = stream_plan(kernel, nb, fwd_nc)
+        assert got["kThreads"] == want["threads"] and got["kStages"] == want["stages"]
+        assert got["kHold"] == want["hold"]
+        assert got["kSmem"] == want["smem"] <= MAX_SMEM and want["stages"] >= 2
+        nc = want["nc"]
+        launch_regs = _reg_cap(want["threads"], 1)
+        need = {"fwd": nb * 32 + 32 + 16, "kv": nb * 32 + 32 + 16,
+                "q": nb * 32 + 64 + 16}[kernel]
+        if nc == 1:  # no handover: every warpgroup keeps the launch's share
+            producer = consumer = launch_regs
+        elif kernel == "fwd":
+            producer, consumer = got["kProducerRegs"], got["kConsumerRegs"]
+        else:  # the backward's handover: 40 for the producer, 232 a consumer
+            body = src[src.index(f"attention_stream_bwd_{kernel}_kernel("):]
+            producer = int(re.search(r"setmaxnreg_dec<(\d+)>", body)[1])
+            consumer = int(re.search(r"setmaxnreg_inc<(\d+)>", body)[1])
+        assert producer * 128 + consumer * nc * 128 <= launch_regs * want["threads"]
+        assert consumer >= launch_regs and consumer >= need + 16

@@ -693,14 +693,16 @@ def test_fused_attention_kernels_match_plain_on_gpu_at_head_dims(B, L, D, H):
 
 # the streamed kernels (csrc/attention_stream.cu): head dims off the
 # templated ones, padded to a multiple of 8 (5, odd, and 12) or read as they
-# are, one box a head (5..48), two (96, 128 past L 256) and split over CTAs
-# (192, 256, 384)
-STREAM_HEAD_DIMS = (5, 12, 16, 40, 48, 96, 192, 256, 384)
+# are, one box a head (5..48), two (72, 96, 128 past L 256), three (136,
+# 192), four (200, 256; the last box of 72, 136 and 200 eight columns wide)
+# and past four, split over CTAs (264, 384)
+STREAM_HEAD_DIMS = (5, 12, 16, 40, 48, 72, 96, 136, 192, 200, 256, 264, 384)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", STREAM_HEAD_DIMS)
-@pytest.mark.parametrize("B,L", [(1, 1), (2, 65), (4, 759), (1, 2500)])
+@pytest.mark.parametrize("B,L", [(1, 1), (2, 65), (1, 127), (2, 128), (1, 129), (1, 191),
+                                 (4, 759), (1, 2500)])
 def test_flash_attention_matches_plain_on_gpu_at_streamed_head_dims(B, L, D):
     """K7/K8 on the streamed kernel: 4 ulp of the plain version, columns past
     D never written, a second launch bit-identical"""
@@ -721,11 +723,17 @@ def test_flash_attention_matches_plain_on_gpu_at_streamed_head_dims(B, L, D):
 # (B, L, H, D) inside the JAX gate that the resident kernels do not hold:
 # the denoiser's 8 x 96 at L 320, 8 x 64 past L 256, 2 x 64 at L 2048 (L H D
 # = 262,144), 32 x 12 (padded to 16), 64 x 2 (the smallest, padded to 8),
-# and the other head dims at their edges
+# and the other head dims at their edges; then lengths at the edges of the
+# forward's 192-row and 128-row CTAs and the dQ launch's 128-row ones (L
+# 127, 128, 129, 191), and head dims whose last box is partial or whose box
+# count changes (72, 136, 200; 264 past four boxes)
 STREAM_FUSED = [(2, 320, 8, 96), (2, 257, 8, 64), (1, 512, 8, 64), (1, 2048, 2, 64),
                 (2, 152, 32, 12), (1, 1, 32, 12), (2, 77, 64, 2), (2, 77, 8, 16), (1, 65, 16, 40),
                 (2, 130, 8, 48), (1, 64, 4, 96), (1, 256, 2, 192), (1, 193, 1, 256),
-                (1, 300, 2, 384), (1, 257, 2, 128)]
+                (1, 300, 2, 384), (1, 257, 2, 128),
+                (1, 127, 8, 96), (2, 128, 4, 96), (1, 129, 8, 96), (1, 191, 4, 96),
+                (2, 127, 2, 256), (1, 129, 2, 192), (1, 191, 8, 48),
+                (1, 320, 4, 72), (2, 200, 2, 136), (1, 150, 2, 200), (1, 130, 2, 264)]
 
 
 @pytest.mark.gpu
