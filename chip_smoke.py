@@ -8,7 +8,8 @@ nothing of JAX; without a card it exits nonzero and prints no result.
 
 1. Builds the CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
    per source, in parallel; printing the build seconds: the twelve ported
-   TPU kernels in eleven entries, and the TP forms of K4, K6, K2 and K3)
+   TPU kernels in eleven entries, the TP forms of K4, K6, K5, K2 and K3,
+   and the long attention backward)
    and holds each against its plain PyTorch version on the card (bf16; f32 for the
    resonator; TF32 off; the SwiGLU and film-layer forward kernels against
    the plain version in f32, within 1.1x mean / 1.5x max of the plain bf16
@@ -45,8 +46,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
    reduction of the split plans timed apart by torch.profiler. Then (1e)
-   the four TP forms (parallel/tp.py) on two slices of the hidden units:
-   K4's and K6's at B128 L152 C512 (H 683 and 682), K2's and K3's at the
+   the five TP forms (parallel/tp.py) on two slices of the hidden units:
+   K4's and K6's at B128 L152 C512 (H 683 and 682), K5's at the width-384
+   denoiser's B128 L152 C384 (H 512 and 512), K2's and K3's at the
    latent stage's four levels B64 L1026, L342, L114, L38 C128 (H 171 and
    170): each slice's first phase against its plain version in f32 (its
    f32 workspace, or dY partial and weight gradients, within GRAD_REL),
@@ -70,7 +72,15 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    shape at head dims 32 and 128, each streamed head dim's first shape (and
    K8's B1 L2500) and each length. Then the streamed kernels' device ms by
    launch (prep, forward, dK/dV, dQ, post) under torch.profiler: K9 and K10
-   at 8 x 96 B64 L320 and 8 x 64 B64 L512, K7 at 8 x 96 B4 L759.
+   at 8 x 96 B64 L320 and 8 x 64 B64 L512, K7 at 8 x 96 B4 L759. Then (1g)
+   the long attention backward (the training counterpart of K7/K8 past the
+   JAX gate) on the streamed forward's rows and lse: the shipped 16 x 64
+   heads at B64 L320 (phase 4f's step), then head dims 8, 12, 64, 96, 128,
+   256 and 384 at L 65, 320, 759 and 2500, each within GRAD_REL of the f32
+   autograd of the plain version and bit-identical on rerun; timed at L 320
+   (and D 64 at L 2500) by graph replay beside the plain version's autograd
+   backward, the bound and torch's scaled_dot_product_attention backward,
+   with both forward + backward sums logged.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -89,8 +99,9 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    times a request; one under torch.profiler gives its device busy and K11's
    ms. Then an 8 x 64-head
    attention at L 300 (inside the JAX gate) answers through K9 and a 16 x
-   64-head one (past it) through K7, each within the f32 rule, and
-   fit-denoiser's check passes the first shape and refuses the second.
+   64-head one (past it) through K7, each within the f32 rule; under
+   autograd the second launches the streamed K7 with lse and the long
+   attention backward once each.
 3a. Runs ``predict`` (``cli.run_predict``) on phase 3's model from WAV files
    to .osz mapsets: two 120 s songs and one 30 s song written as 44.1 kHz
    stereo 16-bit WAV under build/smoke_predict/, rows 5 9 8 4 6 and
@@ -147,6 +158,12 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    L152 (8 K9 and 8 K10 launches in each kernel step).
 4e. ``predict`` as 4c at 8 x 96 heads: the 120 s song through K7 (the
    streamed kernel, 264 launches) and the 30 s one through K9 (264).
+4f. The shipped denoiser (16 x 64 heads) at ``seq_len: 320`` and
+   ``batch_size: 64`` (L H D 327,680, past the JAX gate): 2 warm-up and 4
+   timed steps through ``fit.run``, exactly 8 K4, K6, K7 (the streamed
+   forward with lse) and long attention backward launches a step, no K9,
+   K10 or plain attention on the card, its ms/step logged beside 4d's;
+   then the one-step check there (8 K7 and 8 long backward launches).
 5. Trains the chart autoencoder at full width (the port's
    models/latent/config.yml: h_dim 128, 3 downs of stride 3, 8-layer stacks,
    16 x 64 style heads, batch 32 x 2052 split into 64 x 1026 halves, bf16
@@ -162,6 +179,10 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    each held to a plain f32 step on the same batch and draws, as in 4; and
    encode-latents runs on the card from the ``last`` checkpoint over the
    corpus, its h, z and s checked and read back by the latent pipeline.
+   The stage's reconstruction figure (after validation, encoded and
+   decoded on the card) must be logged once at the last step where
+   matplotlib imports; the phase says which case it met and whether
+   tensorboardX wrote it.
 6. Trains the denoiser as in 4 on phase 4's corpus with
    OSU_DREAMER_FUSED_PROLOGUE=1, 2 warm-up and 10 timed steps, at the shipped
    width 512 (K11, K12, K4, K6, K9 and K10 must launch, K5 not) and at width
@@ -230,10 +251,14 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    units a rank), 6 steps, rank 0's gathered checkpoint read back into a
    one-process state; (b) ``fit-latent`` at its shipped config with
    ``tp: 2`` (171/170 of 341), 4 steps, in one spawn of the script's own
-   ranks with the one-step checks. Every step of every rank must launch
-   exactly the K4 and K6 TP forms and K9/K10 8 times each (no one-rank
+   ranks with the one-step checks; (c) ``fit-denoiser`` at width 384 with
+   ``tp: 2`` through ``fit.run`` (512 of 1024 hidden units a rank), 6
+   steps. Every step of every rank must launch exactly the K4 and K6 TP
+   forms (at width 384 K4's and K5's) and K9/K10 8 times each (no one-rank
    K4/K6), the K2 and K3 TP forms 88 times in the latent step, and
-   nothing else; the ranks' losses must be equal, each fit checks its
+   nothing else; the denoiser's one-step checks run at widths 512, 384
+   and 144 (the plain TP backward on the card, the one-rank route there),
+   each launching the SwiGLU TP forms its route names; the ranks' losses must be equal, each fit checks its
    replicas (the whole-model leaves on every rank, the slices across the
    data group), and one step of each on random full-strength weights is
    held to the f32 plain one-process step within PARALLEL_RATIO of the
@@ -327,6 +352,12 @@ KERNEL_META = {
                       "osu_dreamer_tpu/ops/film_layer.py:401"),
     "film_layer_bwd_tp": ("osu_dreamer_tpu_torch/csrc/film_layer_bwd.cu",
                           "osu_dreamer_tpu/ops/film_layer.py:443"),
+    # the backward of the JAX long attention's custom_vjp (its XLA vjp of
+    # _xla_reference; its forward is the Pallas kernel K7/K8 replaced)
+    "long_attention_bwd": ("osu_dreamer_tpu_torch/csrc/attention_stream.cu",
+                           "osu_dreamer_tpu/ops/long_attention.py:316"),
+    "swiglu_bwd_full_tp": ("osu_dreamer_tpu_torch/csrc/swiglu_bwd.cu",
+                           "osu_dreamer_tpu/ops/swiglu.py:313"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
@@ -356,6 +387,9 @@ FLASH_PER_REQUEST = 8 * (STEPS + 1)
 PROLOGUE_PER_REQUEST = 8 * (STEPS + 1)
 RESONATOR_PER_REQUEST = 1
 TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd")
+# phase 4f: the shipped denoiser past the JAX gate (L 320): the streamed
+# forward with lse (counted as K7) and the long attention backward
+LONG_TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "flash_attention", "long_attention_bwd")
 LATENT_KERNELS = ("film_layer", "film_layer_bwd")
 PROLOGUE_KERNELS = ("film_qkv_fwd", "film_qkv_bwd")
 # phase 6: the kernels that must launch and those that must not, per width
@@ -941,6 +975,7 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
         LOSS_COMPONENTS, LOSS_WEIGHTS, Batch, LatentTrainArgs, draw_latent, latent_loss,
     )
     from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.train.logging import MetricsLogger
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -951,12 +986,40 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
     log(f"synthetic chart-signal corpus ({n_sets} mapsets x {maps_per_set} maps x {length} "
         f"frames) written in {time.perf_counter() - t0:.1f} s")
     data, model = cfg["data"], cfg["model"]
-    launches_train, _, _ = fit_timed(
-        "fit-latent", latent_fit.run, cfg, dev, smi, workdir,
-        f"h_dim {model['h_dim']}, {model['n_downs']} downs, {model['stack']['n_layers']}-layer "
-        f"stacks, B{data['batch_size']} x L{data['seq_len']}, bf16",
-        LATENT_KERNELS, ("loss", *LOSS_COMPONENTS, "s_reg"),
-        ("loss", "hit/onset", "cursor/pos", "label", "s_reg"), families=LATENT_FAMILIES)
+    # the reconstruction figure the stage logs after validation: drawn where
+    # matplotlib imports, written where tensorboardX does too
+    figures = []
+    draw = MetricsLogger.figure
+
+    def record_figure(self, tag, fig, step):
+        figures.append((tag, step, self._writer is not None))
+        draw(self, tag, fig, step)
+
+    MetricsLogger.figure = record_figure
+    try:
+        launches_train, _, _ = fit_timed(
+            "fit-latent", latent_fit.run, cfg, dev, smi, workdir,
+            f"h_dim {model['h_dim']}, {model['n_downs']} downs, {model['stack']['n_layers']}-layer "
+            f"stacks, B{data['batch_size']} x L{data['seq_len']}, bf16",
+            LATENT_KERNELS, ("loss", *LOSS_COMPONENTS, "s_reg"),
+            ("loss", "hit/onset", "cursor/pos", "label", "s_reg"), families=LATENT_FAMILIES)
+    finally:
+        MetricsLogger.figure = draw
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        if figures:
+            raise RuntimeError(f"fit-latent logged {figures} without matplotlib")
+        log("phase 5: matplotlib cannot be imported on this machine, so fit-latent drew no "
+            "reconstruction figure (its log says so after validation)")
+    else:
+        if [f[:2] for f in figures] != [("samples", TRAIN_WARMUP + TRAIN_TIMED)]:
+            raise RuntimeError(f"fit-latent logged the figures {figures}, not one at its "
+                               "last step")
+        log(f"phase 5: fit-latent drew its reconstruction figure (the first val map's chart, "
+            f"reconstruction, their difference and z, encoded and decoded on the card) at "
+            f"step {figures[0][1]}; " + ("written to TensorBoard" if figures[0][2] else
+                                         "not written: tensorboardX cannot be imported"))
 
     # one step through the kernels and through the plain versions (bf16),
     # each against a plain f32 step on the same batch and draws, the
@@ -1761,16 +1824,21 @@ def parallel_phase(dev, smi: str) -> dict[str, int]:
 
 # phase 1e: the FFN kernels' TP forms (parallel/tp.py) on two slices of the
 # hidden units, at the shapes of phase 10's main path: K4 and K6 at the
-# denoiser's B128 L152 C512 (H 1365: 683 and 682 a rank), K2 and K3 at the
-# latent stage's four levels B64 L1026 / L342 / L114 / L38 C128 (H 341:
-# 171 and 170). In one process: each slice's first phase against its plain
+# denoiser's B128 L152 C512 (H 1365: 683 and 682 a rank), K5 at the
+# width-384 denoiser's B128 L152 C384 (H 1024), K2 and K3 at the latent
+# stage's four levels B64 L1026 / L342 / L114 / L38 C128 (H 341: 171 and
+# 170). In one process: each slice's first phase against its plain
 # version, the slices' sums through the second phase against the f32 plain
 # one-rank function (and beside the one-rank kernel), reruns bit-identical,
 # and one rank's form (both phases, its own partials unsummed) timed by
 # graph replay
-TP_FORMS = ("swiglu_tp", "swiglu_bwd_tp", "film_layer_tp", "film_layer_bwd_tp")
+TP_FORMS = ("swiglu_tp", "swiglu_bwd_tp", "film_layer_tp", "film_layer_bwd_tp",
+            "swiglu_bwd_full_tp")
 TP_RANKS = 2
 TP_DENOISER = (128, 152, 512, 1365)  # B, L, C, H
+# the width-384 denoiser's, where the one-rank SwiGLU backward is K5 and so
+# a slice's is K5's TP form (512 of the 1024 hidden units a rank)
+TP_DENOISER_384 = (128, 152, 384, 1024)
 # a forward's first phase leaves its workspace, one f32 plane (the kernel
 # folds its hidden slices into it), held part by part to the forward cores'
 # f32 rule: K4's from x; K2's from the y it stores, and that y from x. (From
@@ -1819,7 +1887,7 @@ def workspace_rule(what: str, rows: int, C: int, got, plain, ref) -> None:
 
 
 def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi: str) -> None:
-    """phase 1e: the four TP forms (see TP_FORMS above); fills ``results``
+    """phase 1e: the five TP forms (see TP_FORMS above); fills ``results``
     with each form's first shape"""
     import torch
 
@@ -1846,6 +1914,65 @@ def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi:
         for t in parts:
             t.copy_(total)
 
+    def cut(weights, sp):
+        return (*weights[:2], *(s.take(t) for s, t in zip(sp, weights[2:5])), weights[5])
+
+    def swiglu_bwd_tp_case(name, full, x, go, w32, splits, total, total32, H, label) -> None:
+        """the K6 (``full`` False) or K5 TP form on each slice against its
+        plain version, the sums through the finish against the f32
+        one-rank backward (and beside the one-rank kernel), reruns
+        bit-identical, one rank's form timed"""
+        Bt, Lt, C = x.shape
+        rows = Bt * Lt
+        dys, grads, finishes = [], [], []
+        for r, sp in enumerate(splits):
+            ws32 = cut(w32, sp)
+            dy, sg, fin = sw.swiglu_tp_bwd_cuda(x, *ws32[:5], go, total, H, TP_RANKS, full=full)
+            dy32, sg32 = sw.swiglu_tp_bwd_plain(x.float(), *ws32[:5], go.float(), total32, H)[:2]
+            dyp, sgp = sw.swiglu_tp_bwd_plain(x, *ws32[:5], go, total, H)[:2]
+            check_grads(f"{name} {label} slice {r} first phase",
+                        ("dY partial", "d_vg_kernel", "d_vg_bias", "d_out_kernel"),
+                        (dy.sum(0), *sg), (dy32.sum(0), *sg32), (dyp.sum(0), *sgp))
+            again = sw.swiglu_tp_bwd_cuda(x, *ws32[:5], go, total, H, TP_RANKS, full=full)
+            if not (torch.equal(again[0], dy) and equal_all(again[1], sg)):
+                raise RuntimeError(f"{name} slice {r}: two launches differ")
+            dys.append(dy)
+            grads.append(sg)
+            finishes.append(fin)
+        summed(dys)
+        done = [tuple(t.clone() for t in fin()) for fin in finishes]
+        same_finish(name, done, finishes[0]())
+        full_grads = [torch.zeros_like(t) for t in w32[2:5]]
+        for sp, sg in zip(splits, grads):
+            for s, g, f in zip(sp, sg, full_grads):
+                s.put(f, g)
+        dx, ddw, ddwb, dbout = done[0]
+        got = (dx, ddw, ddwb, *full_grads, dbout)
+        names = ("dx", "d_dw_kernel", "d_dw_bias", "d_vg_kernel", "d_vg_bias", "d_out_kernel",
+                 "d_out_bias")
+        worst = check_grads(f"{name} {label}, summed and finished", names, got,
+                            sw.swiglu_bwd_plain(x.float(), *w32[:5], go.float()),
+                            sw.swiglu_bwd_plain(x, *w32[:5], go))
+        one = (sw.swiglu_bwd_full_cuda if full else sw.swiglu_bwd_cuda)(x, *w32[:5], go)
+        log(f"{name} {label}: max |diff| to the one-rank {'K5' if full else 'K6'} " + ", ".join(
+            f"{n} {(a.float() - b.float()).abs().max().item():.4g}"
+            for n, a, b in zip(names, got, one)))
+        ws0 = cut(w32, splits[0])
+        Hr = ws0[4].shape[0]
+
+        def form(x, *ws):
+            dy, sg, fin = sw.swiglu_tp_bwd_cuda(x, *ws[:5], ws[6], ws[7], H, TP_RANKS, full=full)
+            return (*sg, *fin())
+
+        def form_plain(x, *ws):
+            dy, sg, fin = sw.swiglu_tp_bwd_plain(x, *ws[:5], ws[6], ws[7], H)
+            return (*sg, *fin())
+
+        record(name, f"{label} (one rank's form: slice H{Hr}, its own dY)", 0,
+               graph_ms(form, (x, *ws0, go, total)), graph_ms(form_plain, (x, *ws0, go, total)),
+               worst, ffn_flops(rows, C, Hr, 5, 8, 3),
+               moved_bytes(x, *ws0, go, total, *got) + 2 * moved_bytes(dys[0]))
+
     # ---- K4 and K6 at the denoiser's training shape ----
     Bt, Lt, C, H = TP_DENOISER
     K = 5
@@ -1854,10 +1981,6 @@ def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi:
     w = ffn(C, H)
     w32 = [t.float() for t in w]  # the f32 parameters of training
     splits = tp_slices(H)
-
-    def cut(weights, sp):
-        return (*weights[:2], *(s.take(t) for s, t in zip(sp, weights[2:5])), weights[5])
-
     bufs, bufs32 = [], []
     for r, sp in enumerate(splits):
         ws, ws32 = cut(w, sp), cut(w32, sp)
@@ -1892,53 +2015,21 @@ def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi:
            graph_ms(k4_tp, (x, *ws0)), graph_ms(k4_tp_plain, (x, *ws0)), err,
            ffn_flops(rows, C, Hr, K, 3, 1), moved_bytes(x, *ws0, out) + 2 * moved_bytes(bufs[0]))
 
-    dys, grads, finishes = [], [], []
-    for r, sp in enumerate(splits):
-        ws32 = cut(w32, sp)
-        dy, sg, fin = sw.swiglu_tp_bwd_cuda(x, *ws32[:5], go, total, H, TP_RANKS)
-        dy32, sg32 = sw.swiglu_tp_bwd_plain(x.float(), *ws32[:5], go.float(), total32, H)[:2]
-        dyp, sgp = sw.swiglu_tp_bwd_plain(x, *ws32[:5], go, total, H)[:2]
-        check_grads(f"swiglu_bwd_tp {label} slice {r} first phase",
-                    ("dY partial", "d_vg_kernel", "d_vg_bias", "d_out_kernel"),
-                    (dy.sum(0), *sg), (dy32.sum(0), *sg32), (dyp.sum(0), *sgp))
-        again = sw.swiglu_tp_bwd_cuda(x, *ws32[:5], go, total, H, TP_RANKS)
-        if not (torch.equal(again[0], dy) and equal_all(again[1], sg)):
-            raise RuntimeError(f"swiglu_bwd_tp slice {r}: two launches differ")
-        dys.append(dy)
-        grads.append(sg)
-        finishes.append(fin)
-    summed(dys)
-    done = [tuple(t.clone() for t in fin()) for fin in finishes]
-    same_finish("swiglu_bwd_tp", done, finishes[0]())
-    full = [torch.zeros_like(t) for t in w32[2:5]]
-    for sp, sg in zip(splits, grads):
-        for s, g, f in zip(sp, sg, full):
-            s.put(f, g)
-    dx, ddw, ddwb, dbout = done[0]
-    got = (dx, ddw, ddwb, *full, dbout)
-    names = ("dx", "d_dw_kernel", "d_dw_bias", "d_vg_kernel", "d_vg_bias", "d_out_kernel",
-             "d_out_bias")
-    worst = check_grads(f"swiglu_bwd_tp {label}, summed and finished", names, got,
-                        sw.swiglu_bwd_plain(x.float(), *w32[:5], go.float()),
-                        sw.swiglu_bwd_plain(x, *w32[:5], go))
-    k6 = sw.swiglu_bwd_cuda(x, *w32[:5], go)
-    log(f"swiglu_bwd_tp {label}: max |diff| to the one-rank K6 " + ", ".join(
-        f"{n} {(a.float() - b.float()).abs().max().item():.4g}" for n, a, b in zip(names, got, k6)))
-    ws0 = cut(w32, splits[0])
+    swiglu_bwd_tp_case("swiglu_bwd_tp", False, x, go, w32, splits, total, total32, H, label)
+    del x, go, w, w32, bufs, bufs32, total, total32, out, ref, one
+    torch.cuda.empty_cache()
 
-    def k6_tp(x, *ws):
-        dy, sg, fin = sw.swiglu_tp_bwd_cuda(x, *ws[:5], ws[6], ws[7], H, TP_RANKS)
-        return (*sg, *fin())
-
-    def k6_tp_plain(x, *ws):
-        dy, sg, fin = sw.swiglu_tp_bwd_plain(x, *ws[:5], ws[6], ws[7], H)
-        return (*sg, *fin())
-
-    record("swiglu_bwd_tp", f"{label} (one rank's form: slice H{Hr}, its own dY)", 0,
-           graph_ms(k6_tp, (x, *ws0, go, total)), graph_ms(k6_tp_plain, (x, *ws0, go, total)),
-           worst, ffn_flops(rows, C, Hr, K, 8, 3),
-           moved_bytes(x, *ws0, go, total, *got) + 2 * moved_bytes(dys[0]))
-    del x, go, w, w32, bufs, bufs32, total, total32, out, ref, one, dys, grads, k6, got, full
+    # ---- K5's TP form at the width-384 denoiser's training shape, on the
+    # forward's workspace from the K4 TP form ----
+    Bt, Lt, C, H = TP_DENOISER_384
+    x, go = rnd(Bt, Lt, C), rnd(Bt, Lt, C)
+    w32 = [t.float() for t in ffn(C, H)]
+    splits = tp_slices(H)
+    total = sum(sw.swiglu_tp_partial_cuda(x, *cut(w32, sp)[:5], H, TP_RANKS) for sp in splits)
+    total32 = sum(sw.swiglu_tp_partial_plain(x.float(), *cut(w32, sp)[:5]) for sp in splits)
+    swiglu_bwd_tp_case("swiglu_bwd_full_tp", True, x, go, w32, splits, total, total32, H,
+                       f"B{Bt} L{Lt} C{C} H{H} on 2 slices")
+    del x, go, w32, total, total32
     torch.cuda.empty_cache()
 
     # ---- K2 and K3 at the latent stage's four levels ----
@@ -2054,7 +2145,7 @@ def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi:
                moved_bytes(*b_args, *got) + 2 * moved_bytes(dys[0]))
         del args, f32args, x, go, w, bufs, bufs32, ys, total, total32, out, ref, dys, got, k3
     torch.cuda.empty_cache()
-    log(f"phase 1e: the four TP forms checked [{smi}]")
+    log(f"phase 1e: the five TP forms checked [{smi}]")
 
 
 # phase 10: tensor parallelism on two ranks, placed as phase 9's: (a)
@@ -2068,6 +2159,14 @@ TP_STEPS = 6
 TP_LATENT_STEPS = 4
 TP_DENOISER_LAUNCHES = {"swiglu_tp": 8, "swiglu_bwd_tp": 8, "fused_attention_fwd": 8,
                         "fused_attention_bwd": 8}
+# (c) the width-384 denoiser at tp 2 (512 of 1024 hidden units a rank): its
+# one-rank SwiGLU backward is K5, so a slice's is K5's TP form
+TP_DENOISER_384_LAUNCHES = {"swiglu_tp": 8, "swiglu_bwd_full_tp": 8, "fused_attention_fwd": 8,
+                            "fused_attention_bwd": 8}
+# the one-step checks' widths: the shipped 512 (K6's TP form), 384 (K5's)
+# and 144, whose one-rank backward is the plain version (C % 32 != 0), so a
+# slice's is the plain TP form on the card
+TP_CHECK_WIDTHS = (512, 384, 144)
 TP_LATENT_LAUNCHES = {"film_layer_tp": 88, "film_layer_bwd_tp": 88}
 
 
@@ -2083,7 +2182,7 @@ def tp_model(model, devices: list[str], batch_size: int):
 
     par = build_parallelism(ParallelArgs(tp=2), batch_size, devices)
     sliced = copy.deepcopy(model)
-    if shard_tensor_parallel(sliced, par, devices[dist.get_rank()]) is None:
+    if shard_tensor_parallel(sliced, par) is None:
         raise RuntimeError("phase 10: nothing of the model was split")
     return sliced, par
 
@@ -2099,11 +2198,13 @@ def whole_grads(model, grads) -> list:
 
 
 def denoiser_tp_check(cfg: dict, devices: list[str]) -> None:
-    """phase 10's one-step check of the denoiser at full width (B128 L152):
-    the tp 2 step's loss terms and gradients (gathered), within
-    PARALLEL_RATIO of the one-process kernel step's error against the f32
-    plain step on the same random full-strength weights, batch, t and x0
-    (in each rank; rank 0 compares)"""
+    """phase 10's one-step check of the denoiser at ``cfg``'s width (B128
+    L152): the tp 2 step launches the SwiGLU TP forms ``swiglu_tp_route``
+    names (8 each; none for the plain backward), and its loss terms and
+    gradients (gathered) stay within PARALLEL_RATIO of the one-process
+    kernel step's error against the f32 plain step on the same random
+    full-strength weights, batch, t and x0 (in each rank; rank 0
+    compares)"""
     import torch
     import torch.distributed as dist
 
@@ -2111,6 +2212,8 @@ def denoiser_tp_check(cfg: dict, devices: list[str]) -> None:
     from osu_dreamer_tpu_torch.models.diffusion.train import (
         DiffusionTrainArgs, LatentBatch, step_gradients,
     )
+    from osu_dreamer_tpu_torch.ops import _build
+    from osu_dreamer_tpu_torch.ops.swiglu import swiglu_tp_route
     from osu_dreamer_tpu_torch.train.state import stratified_logit_normal_t
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict
 
@@ -2136,18 +2239,30 @@ def denoiser_tp_check(cfg: dict, devices: list[str]) -> None:
                 torch.cat([g.flatten().float() for g in grads]))
 
     sliced, par = tp_model(bf16_model, devices, Bt)
+    before = dict(_build.launches)
     metrics, grads = step_gradients(sliced, par.shard_batch(batch), train_args, None, t_inj,
                                     x0_inj, par)
     spread = flat(metrics, whole_grads(sliced, grads))
+    launched = {k: n - before[k] for k, n in _build.launches.items() if n != before[k]}
     del sliced, grads
+    width = md["backbone_dim"]
+    what = f"phase 10 fit-denoiser tp 2, width {width}"
+    hidden = int(width * md["backbone"]["expand"] * 2 / 3)
+    route = swiglu_tp_route(width, 2 * md["backbone"]["radius"] + 1, hidden, 2, dev)
+    want = {"full": "swiglu_bwd_full_tp", "partial": "swiglu_bwd_tp", "plain": None}[route[1]]
+    bwd = {k: launched.get(k, 0) for k in ("swiglu_bwd_tp", "swiglu_bwd_full_tp")}
+    if route[0] != "kernel" or launched.get("swiglu_tp") != 8 or bwd != {
+            k: 8 if k == want else 0 for k in bwd}:
+        raise RuntimeError(f"{what}: the TP step launched {launched} on the route {route}")
     if dist.get_rank() == 0:
+        log(f"{what}: the TP step's SwiGLU route {route}, launches {launched}")
         f32_model = DiffusionModel(model_args, torch.float32).to(dev)
         f32_model.load_state_dict(bf16_model.state_dict())
         with plain_ops():
             ref = flat(*step_gradients(f32_model, batch, train_args, None, t_inj, x0_inj))
         del f32_model
         one = flat(*step_gradients(bf16_model, batch, train_args, None, t_inj, x0_inj))
-        check_step("phase 10 fit-denoiser tp 2", names, ref, spread, one,
+        check_step(what, names, ref, spread, one,
                    ratios=(PARALLEL_RATIO, PARALLEL_RATIO),
                    labels=("tp 2 ranks", "one-process kernels"))
     del bf16_model
@@ -2234,7 +2349,8 @@ def reload_one_process(what: str, state, last: Path, steps: int) -> None:
 def tp_rank(workdir: str, latent_cfg: dict, denoiser_cfg: dict, devices: list[str]) -> None:
     """phase 10 (b) and the one-step checks, in each of two ranks: the tp 2
     latent stage through its ``fit.run`` (finding the process group joined),
-    rank 0's checkpoint read back, then the checks"""
+    rank 0's checkpoint read back, then the checks (the denoiser at each of
+    TP_CHECK_WIDTHS)"""
     import torch
     import torch.distributed as dist
 
@@ -2255,7 +2371,9 @@ def tp_rank(workdir: str, latent_cfg: dict, denoiser_cfg: dict, devices: list[st
                            Path(latent_cfg["fit"]["run_dir"]) / "last",
                            latent_cfg["fit"]["max_steps"])
     dist.barrier()
-    denoiser_tp_check(denoiser_cfg, devices)
+    for width in TP_CHECK_WIDTHS:
+        denoiser_tp_check({**denoiser_cfg, "model": {**denoiser_cfg["model"],
+                                                     "backbone_dim": width}}, devices)
     latent_tp_check(latent_cfg, devices)
 
 
@@ -2328,6 +2446,25 @@ def tp_phase(dev, smi: str) -> dict[str, int]:
     launches = read_probe(workdir / "probe_denoiser", "fit-denoiser tp 2", TP_STEPS,
                           TP_DENOISER_LAUNCHES, smi)
 
+    # (c) the width-384 denoiser at tp 2 through fit.run: K5's TP form
+    t0 = time.perf_counter()
+    cfg384 = {**denoiser_cfg, "model": {**denoiser_cfg["model"], "backbone_dim": 384},
+              "fit": {**denoiser_cfg["fit"], "run_dir": str(workdir / "runs_denoiser_384")}}
+    state = diffusion_fit.run(cfg384, device=dev, devices=devices,
+                              on_step=functools.partial(rank_probe,
+                                                        str(workdir / "probe_denoiser_384")))
+    if state.step != TP_STEPS or not all(bool(torch.isfinite(p).all())
+                                         for p in state.model.parameters()):
+        raise RuntimeError(f"fit-denoiser tp 2 at width 384 ended at step {state.step} or not "
+                           "finite")
+    log(f"phase 10 (c) fit-denoiser tp 2 at width 384 (512 of 1024 hidden units a rank, K5's "
+        f"TP form): {TP_STEPS} steps, {time.perf_counter() - t0:.1f} s wall with the spawn")
+    del state
+    torch.cuda.empty_cache()
+    for k, n in read_probe(workdir / "probe_denoiser_384", "fit-denoiser tp 2, width 384",
+                           TP_STEPS, TP_DENOISER_384_LAUNCHES, smi).items():
+        launches[k] += n
+
     # (b) the latent stage at tp 2, then the one-step checks, in one spawn
     t0 = time.perf_counter()
     launch(tp_rank, (str(workdir), latent_cfg, denoiser_cfg, devices), devices, 2, deadline_s=900)
@@ -2336,7 +2473,7 @@ def tp_phase(dev, smi: str) -> dict[str, int]:
                            "fit-latent tp 2 (B32 x L2052, 171/170 of 341 hidden units a rank)",
                            TP_LATENT_STEPS, TP_LATENT_LAUNCHES, smi).items():
         launches[k] += n
-    for run_dir in ("runs_denoiser", "runs_latent"):
+    for run_dir in ("runs_denoiser", "runs_denoiser_384", "runs_latent"):
         if not (workdir / run_dir / "last" / "state.pt").exists():
             raise RuntimeError(f"phase 10: rank 0 wrote no {run_dir}/last")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -2754,9 +2891,10 @@ STREAM_LENGTHS = ((8, "B2 L257", 2, 257), (8, "B2 L320", 2, 320), (8, "B2 L512",
 STREAM_TIMED = ((8, 96, "B64 L320", 64, 320), (8, 64, "B64 L512", 64, 512))
 STREAM_SOURCE = "osu_dreamer_tpu_torch/csrc/attention_stream.cu"
 # the launches of the streamed kernels by their names (this tree's and the
-# parent's); "other" is every other kernel of the call (the wrapper's pads
-# and its sum of the gamma partials)
-STREAM_LAUNCHES = {"prep": r"attention_prep_kernel",
+# parent's); "other" is every other kernel of the call (the wrapper's pads,
+# its sum of the gamma partials, the long backward's cut and cast of dq and
+# dk)
+STREAM_LAUNCHES = {"prep": r"attention_prep_kernel", "delta": r"attention_delta_kernel",
                    "forward": r"attention_stream\w*_fwd_kernel",
                    "dK/dV": r"attention_stream\w*_bwd_kv_kernel",
                    "dQ": r"attention_stream\w*_bwd_q_kernel",
@@ -2958,6 +3096,102 @@ def head_dim_kernels(gen, dev, smi: str) -> dict:
         f"{[c[2] for c in STREAM_TIMED]} checked in {time.perf_counter() - t0:.1f} s [{smi}]")
     stream_split(gen, dev, smi)
     return out
+
+
+# phase 1g: the long attention backward (csrc/attention_stream.cu
+# odt_attention_stream_bwd, the training counterpart of K7/K8 past the JAX
+# gate) on the streamed forward's q, k, v and lse, by phase 1's rules
+# (GRAD_REL against the f32 autograd of the plain version, bit-identical
+# reruns): first the shipped 16 x 64 heads at B64 L320 (phase 4f's step),
+# then each head dim at each length, timed at L 320 (and 64 at L 2500)
+# beside the plain version's autograd backward, the bound and torch's
+# scaled_dot_product_attention backward (its forward + backward logged too)
+LONG_BWD_MAIN = (16, 64, 64, 320)  # H, D, B, L
+LONG_BWD_HEADS = {8: 16, 12: 32, 64: 16, 96: 8, 128: 8, 256: 4, 384: 2}  # D: H
+LONG_BWD_LENGTHS = {65: 8, 320: 8, 759: 2, 2500: 1}  # L: B
+LONG_BWD_TIMED = ((64, 2500),)  # (D, L) timed besides L 320
+
+
+def long_bwd_kernels(gen, dev, smi: str) -> tuple[dict, dict]:
+    """phase 1g -> (the kernel's JSON numbers at LONG_BWD_MAIN, {head dim:
+    its numbers at L 320})"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import long_attention as la
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+    def case(H, D, B, L, timed: bool):
+        label = f"{H} x {D} B{B} L{L}"
+        q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        grad = torch.randn(B, L, H * D, generator=gen, device=dev).to(torch.bfloat16)
+        out, lse, rows = la.attention_fwd_cuda(q, k, v)
+        args = (*rows, out, lse, grad, D)
+        got = la.attention_bwd_cuda(*args)
+        worst = 0.0
+        ref = la.attention_bwd_plain(q.float(), k.float(), v.float(), grad.float())
+        plain = la.attention_bwd_plain(q, k, v, grad)
+        for name, g, r, pl in zip(("dq", "dk", "dv"), got, ref, plain):
+            g, r, pl = g.float(), r.float(), pl.float()
+            err, scale = (g - r).abs().max().item(), r.abs().max().item()
+            log(f"long_attention_bwd {label} {name}: max_abs_err {err:.4g} vs f32 (plain bf16 "
+                f"{(pl - r).abs().max().item():.4g}; tolerance {GRAD_REL * scale:.4g})")
+            if not (bool(torch.isfinite(g).all()) and err <= GRAD_REL * scale):
+                raise RuntimeError(f"long_attention_bwd {label} {name}: kernel gradient "
+                                   "disagrees with the plain one")
+            worst = max(worst, err)
+        if not all(torch.equal(a, b) for a, b in zip(got, la.attention_bwd_cuda(*args))):
+            raise RuntimeError(f"long_attention_bwd {label}: two launches differ")
+        del ref, plain
+        numbers = {"max_abs_err": worst}
+        if timed:
+            flops = 10 * B * H * L * L * D
+            b = bound(flops, moved_bytes(q, k, v, out, lse, grad, *got))
+            go4 = grad.view(B, L, H, D).transpose(1, 2)
+            ms = graph_ms(la.attention_bwd_cuda, args)
+            plain_ms = graph_grad_ms(la.attention_plain, (q, k, v), grad)
+            lib_ms = graph_grad_ms(sdpa, (q, k, v), go4)
+            fwd_ms, lib_fwd_ms = graph_ms(la.attention_fwd_cuda, (q, k, v)), graph_ms(sdpa, (q, k, v))
+            log(f"long_attention_bwd {label}: kernel {ms:.4f} ms, plain (autograd) "
+                f"{plain_ms:.4f} ms, torch scaled_dot_product_attention backward {lib_ms:.4f} "
+                f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); kernel "
+                f"{flops / ms / 1e9:.1f} TFLOP/s of {BF16_PEAK / 1e12:.0f}; forward + backward: "
+                f"streamed K7 with lse {fwd_ms:.4f} + {ms:.4f} = {fwd_ms + ms:.4f} ms, SDPA "
+                f"{lib_fwd_ms:.4f} + {lib_ms:.4f} = {lib_fwd_ms + lib_ms:.4f} ms (CUDA-graph "
+                f"replays) [{smi}]")
+            numbers.update(shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+        del q, k, v, grad, out, lse, rows, args, got
+        torch.cuda.empty_cache()
+        return numbers
+
+    t0 = time.perf_counter()
+    first = case(*LONG_BWD_MAIN, True)
+    H, D, B, L = LONG_BWD_MAIN
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    out, lse, rows = la.attention_fwd_cuda(q, k, v)
+    grad = torch.randn(B, L, H * D, generator=gen, device=dev).to(torch.bfloat16)
+    split = launch_split(la.attention_bwd_cuda, (*rows, out, lse, grad, D))
+    log(f"stream split long_attention_bwd {H} x {D} B{B} L{L}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f" (device ms a call by launch, torch.profiler over {SPLIT_REPS} calls) [{smi}]")
+    del q, k, v, out, lse, rows, grad
+    by_dim: dict = {}
+    for D, H in LONG_BWD_HEADS.items():
+        for L, B in LONG_BWD_LENGTHS.items():
+            numbers = case(H, D, B, L, L == 320 or (D, L) in LONG_BWD_TIMED)
+            entry = by_dim.setdefault(str(D), {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], numbers.pop("max_abs_err"))
+            if L == 320:
+                entry.update(numbers)
+    first["max_abs_err"] = max([first["max_abs_err"]]
+                               + [e["max_abs_err"] for e in by_dim.values()])
+    log(f"phase 1g: the long attention backward at head dims {list(LONG_BWD_HEADS)} and lengths "
+        f"{list(LONG_BWD_LENGTHS)} checked in {time.perf_counter() - t0:.1f} s [{smi}]")
+    return first, by_dim
 
 
 def main() -> int:
@@ -3335,6 +3569,9 @@ def main() -> int:
     # ---- 1f. the attention kernels at head dims 32 and 128 ----
     head_dims = head_dim_kernels(gen, dev, smi)
 
+    # ---- 1g. the long attention backward ----
+    results["long_attention_bwd"], long_bwd_dims = long_bwd_kernels(gen, dev, smi)
+
     # ---- 2. small slice: through the kernels vs through the plain versions ----
     args = LDMArgs()
     model = init_random(args, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -3506,8 +3743,8 @@ def main() -> int:
     # ---- 3b. 8 x 64 heads at L 300: inside the JAX gate, so K9 (the
     # streamed kernels past L 256) answers; 16 x 64 at L 300 is past it, so
     # inference normalises and rotates in torch and takes the flash
-    # attention (K7), and training refuses before step 1 ----
-    from osu_dreamer_tpu_torch.models.diffusion.fit import check_attention_shape
+    # attention (K7), and under autograd the streamed forward and the long
+    # attention backward ----
     from osu_dreamer_tpu_torch.nn.attention import RoPEAttention
 
     xa = rnd(2, 300, 512)
@@ -3531,14 +3768,19 @@ def main() -> int:
                 or not ek.max() <= SLICE_MAX_RATIO * ep.max()):
             raise RuntimeError(f"{heads} x 64 heads at L 300 did not answer through {kernel} "
                                "within tolerance")
+        if heads == 16:  # past the gate under autograd: K7 with lse, the long backward
+            _build.reset_launches()
+            with no_plain_attention():
+                grads = torch.autograd.grad(attn(xa).float().square().mean(),
+                                            list(attn.parameters()))
+            launched = {k: n for k, n in _build.launches.items() if n}
+            log(f"16 x 64 heads at B2 L300 under autograd: launches {launched}")
+            if (launched != {"flash_attention": 1, "long_attention_bwd": 1}
+                    or not all(bool(torch.isfinite(g).all()) for g in grads)):
+                raise RuntimeError("16 x 64 heads at L 300 did not train through K7 and the "
+                                   "long attention backward")
+            del grads
         del attn, attn_f32
-    check_attention_shape(300, 8, 64)
-    try:
-        check_attention_shape(300, 16, 64)
-    except NotImplementedError as e:
-        log(f"fit-denoiser at 16 x 64 heads, seq_len 300 refuses: {e}")
-    else:
-        raise RuntimeError("training at 16 x 64 heads and seq_len 300 was not refused")
 
     # ---- 4. full-width denoiser training through fit.run ----
     from osu_dreamer_tpu_torch.data.synth import write_latent_corpus
@@ -3671,6 +3913,31 @@ def main() -> int:
                                    "kernel step, not 8")
     log(f"phase 4d wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
+    # ---- 4f. the shipped denoiser (16 x 64 heads) at seq_len 320, batch 64
+    # through fit.run: past the JAX gate, so the streamed K7 with lse and
+    # the long attention backward; then the one-step check there ----
+    t_phase = time.perf_counter()
+    lcfg = denoiser_config(512)
+    lcfg["data"].update(seq_len=320, batch_size=64)
+    shutil.rmtree(workdir / "runs", ignore_errors=True)
+    with no_plain_attention():
+        launches_long, ms_long, _ = fit_timed(
+            "fit-denoiser, 16 x 64 heads, seq_len 320", diffusion_fit.run, lcfg, dev, smi,
+            workdir, "depth 8, width 512, 16 x 64 heads, B64 x L320, bf16", LONG_TRAINING_KERNELS,
+            denoiser_losses, denoiser_losses, timed=HEADS_TIMED,
+            absent=PROLOGUE_KERNELS + ("swiglu_bwd_full", "fused_attention_fwd",
+                                       "fused_attention_bwd"),
+            per_step=dict.fromkeys(LONG_TRAINING_KERNELS, 8))
+    log(f"denoiser train step (B64 x L320, 20,480 tokens): 16 x 64 heads (K7 + long attention "
+        f"backward) {ms_long:.2f} ms/step, 8 x 96 heads (K9/K10, phase 4d) {ms_96:.2f} ms/step "
+        f"[{smi}]")
+    _build.reset_launches()
+    denoiser_step("fit-denoiser, 16 x 64 heads, B64 x L320", lcfg, 64, 320)
+    step_long = dict(_build.launches)
+    if step_long["flash_attention"] != 8 or step_long["long_attention_bwd"] != 8:
+        raise RuntimeError(f"fit-denoiser at L 320: the kernel step launched {step_long}")
+    log(f"phase 4f wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
     # ---- 4e. predict at 8 x 96 heads: a 120 s song (K7) and a 30 s one (K9) ----
     launches_96_predict = head_dim_predict(dev, smi, 8, 96)
 
@@ -3718,8 +3985,8 @@ def main() -> int:
 
     paths = (launches_infer, launches_prologue, launches_predict, launches_sharded,
              launches_train, launches_heads, launches_heads_predict, launches_96,
-             launches_96_predict, launches_latent, launches_prologue_train, launches_pipeline,
-             launches_serve, launches_parallel, launches_tp)
+             launches_96_predict, launches_long, launches_latent, launches_prologue_train,
+             launches_pipeline, launches_serve, launches_parallel, launches_tp)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:
@@ -3748,6 +4015,12 @@ def main() -> int:
             for key, numbers in head_dims[entry["name"]].items():
                 entry["head_dims"][key] = {
                     "launches": path_launches.get(key, {}).get(entry["name"], 0), **numbers}
+    # the long attention backward by head dim at L 320 (its own numbers are
+    # phase 4f's 16 x 64 B64 L320; only head dim 64 runs on a main path)
+    for entry in kernels:
+        if entry["name"] == "long_attention_bwd":
+            entry["head_dims"] = {key: {"launches": entry["launches"] if key == "64" else 0,
+                                        **numbers} for key, numbers in long_bwd_dims.items()}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,13 @@
 // are a denoiser of 8 x 96 heads: its training at L 320 (K9, K10), its
 // sampler at L 759 (K7); and 8 x 64 heads trained at L 257..512.
 //
+// The long attention backward (odt_attention_stream_bwd) is the training
+// counterpart of K7/K8 past the JAX fused-attention gate, where the JAX
+// package differentiates its Pallas forward with an XLA backward
+// (long_attention.py `_vjp_bwd`): the shipped 16 x 64 heads at L 320. It is
+// K10's dK/dV and dQ launches on q, k and v as the forward read them,
+// after a delta pass of its own and with no post pass.
+//
 // What bounds them on the H100: 4 L^2 D operations per (batch row, head)
 // in the forward, 10 L^2 D in the backward, on the tensor cores, against a
 // few L D rows of bf16 (the backward also writes and reads f32 gradients
@@ -1679,6 +1686,47 @@ attention_post_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
   }
 }
 
+// The long attention backward's row pass (q and k arrive normalised and
+// rotated, so no norm and no RoPE): a group of G lanes (`delta_lanes`) a
+// (row, head) of the (B L) rows, delta = rowsum(dO O) in f32 into (B, H, L)
+// and, where rdo is given, dO copied padded to Dp columns. Rows are read 8
+// bf16 (16 bytes) a lane where D % 8 == 0, else one value at a time.
+__global__ void __launch_bounds__(kStPrepWarps * 32)
+attention_delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
+                       bf16* __restrict__ rdo, float* __restrict__ delta, int BL, int L, int H,
+                       int D, int Dp, int G) {
+  const int lane = threadIdx.x % 32, li = lane % G;
+  const size_t units = (size_t)BL * H;
+  const size_t first = ((size_t)blockIdx.x * kStPrepWarps + threadIdx.x / 32) * (32 / G);
+  if (first >= units) return;  // whole warps only: the group sums shuffle over all 32 lanes
+  const size_t unit = first + lane / G;
+  const bool live = unit < units;  // a tail group computes the last unit again and stores nothing
+  const size_t u = min(unit, units - 1);
+  const bf16* g = dout + u * D;
+  const bf16* oo = o + u * D;
+  float d = 0.f;
+  if (D % 8 == 0) {
+    for (int j = li * 8; j < D; j += G * 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(g + j);
+      const uint4 b = *reinterpret_cast<const uint4*>(oo + j);
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 fa = __bfloat1622float2(pa[e]), fb = __bfloat1622float2(pb[e]);
+        d += fa.x * fb.x + fa.y * fb.y;
+      }
+    }
+  } else {
+    for (int j = li; j < D; j += G) d += ldf(g + j) * ldf(oo + j);
+  }
+  d = group_sum(d, G);
+  if (!live) return;
+  const int row = (int)(u / H), h = (int)(u % H);
+  if (li == 0) delta[((size_t)(row / L) * H + h) * L + row % L] = d;
+  if (rdo != nullptr) copy_row(g, rdo + u * Dp, D, Dp, li, G);
+}
+
 // ------------------------------------------------------------------- host --
 
 namespace {
@@ -1840,6 +1888,15 @@ int prep_launch(const void* qkv, const void* gq, const void* gk, const void* cos
                      (float*)delta, B * L, L, H, D, Dp, lanes);
 }
 
+// the delta pass's lanes a (row, head): about 8 values a lane (16-byte
+// loads) where D % 8 == 0, else 4, as a power of two up to a warp
+int delta_lanes(int D) {
+  const int per = D % 8 == 0 ? 8 : 4;
+  int g = 1;
+  while (g < 32 && g * per < D) g *= 2;
+  return g;
+}
+
 }  // namespace
 
 }  // namespace odt
@@ -1917,4 +1974,39 @@ extern "C" int odt_fused_attention_stream_bwd(
                      st, (const bf16*)qkv, (const bf16*)gq, (const bf16*)gk, (const bf16*)cos_t,
                      (const bf16*)sin_t, (const float*)dq, (const float*)dk, (bf16*)dqkv,
                      (float*)dg, B * L, L, H, D, Dp);
+}
+
+// The long attention backward (the training counterpart of K7/K8, whose q
+// and k arrive normalised and rotated: no prep pass and no post pass): q,
+// k, v (B, L, H, Dp) bf16 as the streamed forward read them (zero past D),
+// out and dout (B, L, H D) bf16, lse (B, H, L) f32 from that forward. The
+// delta pass into delta (B, H, L) f32 and dO padded into rdo (B, L, H, Dp)
+// unless rdo is null, which needs Dp == D; the dK/dV launch into dk (B, L,
+// H, Dp) f32 scratch and dV (bf16) into the v columns of dqkv (B, L, 3 H De,
+// De = D rounded up to even: the launch stores column pairs; its q and k
+// columns and a column past an odd D are not written); the dQ launch into
+// dq (as dk)
+extern "C" int odt_attention_stream_bwd(const void* q, const void* k, const void* v,
+                                        const void* out, const void* dout, const void* lse,
+                                        void* delta, void* rdo, void* dq, void* dk, void* dqkv,
+                                        int B, int L, int H, int D, int Dp, float scale,
+                                        void* stream) {
+  using namespace odt;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (B < 1 || L < 1 || H < 1 || D < 1 || Dp < D || Dp % 8 || (rdo == nullptr && Dp != D))
+    return (int)cudaErrorInvalidValue;
+  const int lanes = delta_lanes(D);
+  const size_t warps = ((size_t)B * L * H * lanes + 31) / 32;
+  int err = (int)launch(attention_delta_kernel,
+                        dim3((unsigned)((warps + kStPrepWarps - 1) / kStPrepWarps)),
+                        dim3(kStPrepWarps * 32), 0, st, (const bf16*)dout, (const bf16*)out,
+                        (bf16*)rdo, (float*)delta, B * L, L, H, D, Dp, lanes);
+  if (err != 0) return err;
+  CUtensorMap maps[4];
+  const void* bases[4] = {q, k, v, rdo != nullptr ? rdo : dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t e = stream_map(&maps[i], bases[i], Dp, H, L, B);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return stream_bwd(maps, lse, delta, dq, dk, dqkv, B, L, H, D + (D & 1), Dp, scale, st);
 }

@@ -30,6 +30,12 @@
 // 128-column groups across CTAs), the finish (the
 // transposed conv, 80 rows a CTA, 48 past C 512, and the column partials).
 // K6 takes C % 32 == 0 up to 640, K5 up to 512 (ops/swiglu.py bwd_route).
+//
+// Tensor parallelism: odt_swiglu_bwd_tp is K6's TP form, odt_swiglu_bwd_full_tp
+// K5's (the same phases on a rank's slice of the hidden units, phase 0 also
+// computing the slice's weight gradients on gemm_tn.cuh, as K5 does); a TP
+// slice takes the form its one-rank route names (ops/swiglu.py
+// swiglu_tp_route).
 #include "ffn_bwd_core.cuh"
 #include "gemm_tn.cuh"
 
@@ -144,4 +150,32 @@ extern "C" int odt_swiglu_bwd_tp(const void* x, const void* go, const void* dww,
   if (phase != 1) return (int)cudaErrorInvalidValue;
   if (SB > 1) a.dy = (float*)dysum, a.SB = 1;
   return ffn_backward<false>(a, wmaps, s, kBwdFinish);
+}
+
+// The K5 TP form: the K6 TP form's phases on a rank's slice, phase 0 then
+// computing the slice's weight gradients in the same call as K5 does (the
+// two products on csrc/gemm_tn.cuh, fixed-order chunk sums): dwvg (C, 2 Hp)
+// = y^T dvg and dwout (Hp, C) = hn^T go from the chunk partials pvg
+// (S_vg, C, 2 Hp) and pout (S_out, Hp, C), f32 in the padded layout. The
+// other arguments as odt_swiglu_bwd_tp's; C at most 512, as K5.
+extern "C" int odt_swiglu_bwd_full_tp(const void* x, const void* go, const void* dww,
+                                      const void* dwb, const void* bvg, const void* wmaps,
+                                      void* dx, void* ws, void* ss, void* y_s, void* rows,
+                                      void* dvg_s, void* hn_s, void* dbvg, void* dy, void* dysum,
+                                      void* fin, void* pvg, void* pout, void* dwvg, void* dwout,
+                                      int B, int L, int C, int H, int Hp, int Hm, int K, int nwg,
+                                      int SA, int SB, int frows, int S_vg, int S_out, int phase,
+                                      void* stream) {
+  using namespace odt;
+  if (C > 512) return (int)cudaErrorInvalidValue;
+  int err = odt_swiglu_bwd_tp(x, go, dww, dwb, bvg, wmaps, dx, ws, ss, y_s, rows, dvg_s, hn_s,
+                              dbvg, dy, dysum, fin, B, L, C, H, Hp, Hm, K, nwg, SA, SB, frows,
+                              phase, stream);
+  if (err != 0 || phase != 0) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = (int)gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)dvg_s, 2 * Hp, B * L, C, 2 * Hp,
+                            S_vg, (float*)pvg, (float*)dwvg, s);
+  if (err != 0) return err;
+  return (int)gemm_tn_splitk((const bf16*)hn_s, Hp, (const bf16*)go, C, B * L, Hp, C, S_out,
+                             (float*)pout, (float*)dwout, s);
 }

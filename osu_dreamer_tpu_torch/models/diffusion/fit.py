@@ -10,11 +10,12 @@ The ``parallel:`` block (parallel/config.py): ``dp`` trains on that many
 ranks, one a device, each on its rows of every global batch; ``sp`` shards
 the window length over sp ranks (ring attention, halo'd convs); ``tp``
 splits the attention heads and the FFN hidden units over model groups of tp
-ranks (parallel/tp.py). Out of scope, raising: ``backbone.dropout > 0``, and
-windows that ``attention_route`` sends off the fused attention outside
-sequence parallelism (no attention backward kernel there: beyond the JAX
-``fused_attention_fits``, and on the card beyond the kernels' head dim 64
-and L <= 256).
+ranks (parallel/tp.py). Every window trains: where ``attention_route``
+sends the attention off the fused kernels (beyond the JAX
+``fused_attention_fits``), the long attention's forward and backward
+kernels take it, as the JAX package differentiates its long attention
+there. Refused before step 1, as the JAX train step fails there too (it
+passes no dropout PRNG): ``backbone.dropout > 0``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from ...data.pipeline import (
     batched, count_latent_windows, hold_out_mapsets, latent_windows, prefetch,
 )
 from ...nn.schedule import lr_at
-from ...ops.fused_attention import attention_route
 from ...train.checkpoint import restore_train_state
 from ...train.loop import FitArgs, Stage, fit, parallel_context
 from ...train.state import TrainState
@@ -51,19 +51,6 @@ class DiffusionDataArgs:
     max_val_frac: float = 0.3
     max_per_map: int = 1
     shuffle_buffer: int = 512
-
-
-def check_attention_shape(seq_len: int, n_heads: int, head_dim: int) -> None:
-    """refuse a training window that ``attention_route`` sends off the fused
-    attention, which is beyond the JAX ``fused_attention_fits``: there is no
-    attention backward at that shape (on the card K9/K10 take every shape
-    inside the gate)"""
-    if attention_route(seq_len, n_heads, head_dim) != "fused":
-        raise NotImplementedError(
-            f"seq_len {seq_len} with {n_heads} x {head_dim} heads is beyond "
-            "fused_attention_fits (L x H x D <= 262,144, an even head dim, H x D a multiple of "
-            "128): there is no attention backward at that shape"
-        )
 
 
 def run(
@@ -112,9 +99,9 @@ def run(
                 "parallel.sp"
             )
     if bb.dropout > 0:
-        raise NotImplementedError("backbone.dropout > 0 is not ported")
-    if par.sp_axis is None:  # sequence parallelism takes ring attention at any length
-        check_attention_shape(data_args.seq_len, bb.n_heads, bb.head_dim)
+        raise NotImplementedError(
+            "backbone.dropout > 0 does not train: the JAX train step applies the model with "
+            "no dropout PRNG and fails there too (flax InvalidRngError)")
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     if par.needs_launch:
         par.launch(run, cfg, resume_from, device, on_step, devices)

@@ -148,7 +148,7 @@ def init_diffusion_training(
     tensor-parallel rank keeps its slices); the steps' generator lives on
     ``device``, seeded ``seed + 1``"""
     model = DiffusionModel(model_args, dtype).init_params(torch.Generator().manual_seed(seed))
-    shard_tensor_parallel(model, par, device)
+    shard_tensor_parallel(model, par)
     model = model.to(device)
     ema = copy.deepcopy(model).requires_grad_(False)
     state = TrainState(

@@ -7,9 +7,13 @@ threshold-free onset soft-Dice, cursor velocity R^2, their harmonic-mean
 ``eval/score`` (the checkpoint monitor, max mode), cursor pixel MAE, label MAE
 (on ``decode``'s clipped labels) and the smallest per-dimension z variance.
 The ``parallel:`` block's ``dp`` trains on that many ranks, one a device
-(parallel/config.py; the MMD over the global batch); ``parallel.sp`` raises
-as in the JAX package, ``tp`` as not ported. Out of scope: the per-epoch
-reconstruction figure.
+(parallel/config.py; the MMD over the global batch), ``tp`` splits the
+FilmStacks' hidden units over model groups (parallel/tp.py);
+``parallel.sp`` raises as in the JAX package. After each validation
+``on_validation`` logs the reconstruction figure of the first held-out map
+(``reconstruction``: the chart, its reconstruction, their difference and
+the up-sampled latent under the spectrogram, data/plot.py), skipped with a
+log line where matplotlib cannot be imported.
 """
 
 from __future__ import annotations
@@ -81,6 +85,24 @@ def val_metrics(model: LatentModel, spec: torch.Tensor, chart: torch.Tensor,
         "label_mae": (pred_labels.float() - labels).abs().mean(),
         "z_var_min": z.float().var(dim=(0, 1), unbiased=False).min(),
     }
+
+
+@torch.no_grad()
+def reconstruction(model: LatentModel, sample, bucket: int, chunk_size: int, device
+                   ) -> tuple[np.ndarray, list[np.ndarray]]:
+    """the JAX ``on_validation``'s arrays for one full map (``sample``, a
+    ``signal_windows`` item), bucket-padded as in validation: (the
+    spectrogram (A, L), [the chart x, its reconstruction p, x - p, the
+    latent z repeated ``chunk_size`` times a frame], each (C, L) f32)"""
+    spec, chart = (torch.from_numpy(pad_to_multiple(a, bucket))[None].to(device)
+                   for a in (sample.audio, sample.chart))
+    z, s = model.encode_chart(chart)
+    pred, _ = model.decode(z, s, spec=spec)
+    L = sample.audio.shape[0]
+    x = chart[0, :L].float().cpu().numpy().T
+    p = pred[0, :L].float().cpu().numpy().T
+    z_up = np.repeat(z[0].float().cpu().numpy(), chunk_size, axis=0)[:L].T
+    return sample.audio.T, [x, p, x - p, z_up]
 
 
 def run(
@@ -164,6 +186,29 @@ def run(
             **{f"eval/{k}": float(np.mean(v)) for k, v in per_map.items()},
         }
 
+    def on_validation(state: TrainState, step: int, logger) -> None:
+        """the reconstruction figure of the first val map, where matplotlib
+        imports (every validating rank runs the forward, which is collective
+        under tensor parallelism; the writer draws and logs it)"""
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            if logger.write:
+                print(f"[latent] step {step}: no reconstruction figure (matplotlib cannot be "
+                      "imported)")
+            return
+        sample = next(signal_windows(val_sets, None, flip_augment=False), None)
+        if sample is None:
+            return
+        audio, signals = reconstruction(state.model, sample, bucket, model_args.chunk_size,
+                                        device)
+        if not logger.write:
+            return
+        from ...data.plot import plot_signals
+
+        with plot_signals(audio, signals) as fig:
+            logger.figure("samples", fig, step)
+
     stage = Stage(
         name="latent",
         hparams={"model": cfg.get("model", {}), "train": cfg.get("train", {})},
@@ -171,6 +216,7 @@ def run(
         train_step=train_step,
         train_stream=train_stream,
         validate=validate,
+        on_validation=on_validation,
         lr_schedule=lambda step: lr_at(step, train_args.opt.lr, train_args.opt.schedule),
         on_step=on_step,
     )

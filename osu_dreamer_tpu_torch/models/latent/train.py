@@ -259,7 +259,7 @@ def init_latent_training(
     generator lives on ``device``, seeded ``seed + 1``; no EMA model; a
     tensor-parallel rank keeps its slices"""
     model = LatentModel(model_args, dtype).init_params(torch.Generator().manual_seed(seed))
-    shard_tensor_parallel(model, par, device)
+    shard_tensor_parallel(model, par)
     model = model.to(device)
     state = TrainState(
         step=0,

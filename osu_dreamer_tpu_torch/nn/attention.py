@@ -8,8 +8,9 @@ embedding, softmax attention, output projection. ``attention_route``
 ``fused_attention_fits`` holds the attention goes straight off the packed
 projection through ``fused_norm_rope_attention`` (forward and backward
 kernels on the card, at every head dim and length the gate admits);
-elsewhere it normalises and rotates here and takes the forward-only
-``long_flash_attention`` (ops/long_attention.py, a kernel at any shape).
+elsewhere it normalises and rotates here (autograd differentiates that)
+and takes ``long_flash_attention`` (ops/long_attention.py: forward and
+backward kernels at any shape), as the JAX package does.
 With a sequence-parallel group (``sp``) the route is not asked: q and k are
 normalised and rotated here at the shard's global offset and go through
 ``ring_attention`` (ops/ring_attention.py), as in the JAX package. On

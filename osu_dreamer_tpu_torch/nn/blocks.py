@@ -21,9 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.film_layer import check_film_layer_tp, film_layer, film_layer_tp
+from ..ops.film_layer import film_layer, film_layer_tp
 from ..ops.ring_attention import halo_exchange
-from ..ops.swiglu import check_swiglu_tp, swiglu, swiglu_tp
+from ..ops.swiglu import swiglu, swiglu_tp
 from ..parallel.tp import TPLayout, shard_model
 from .norm import RMSNorm
 
@@ -190,28 +190,12 @@ class FilmStack(nn.Module):
         return self.out_norm(x)
 
 
-def check_tp_forms(model: nn.Module) -> None:
-    """raise, before a step, unless every FFN slice of a tensor-parallel
-    ``model`` fits its kernels' TP forms on the card: the film layer's in a
-    ``FilmStack``, the SwiGLU's elsewhere (a slice never runs the plain
-    version there)"""
-    film_ffns = {id(getattr(m, f"ffn{i}")) for m in model.modules()
-                 if isinstance(m, FilmStack) for i in range(m.n_layers)}
-    for m in model.modules():
-        if isinstance(m, SwiGLU) and m.tp is not None:
-            check = check_film_layer_tp if id(m) in film_ffns else check_swiglu_tp
-            check(m.dw_kernel.shape[1], m.dw_kernel.shape[0], m.tp.units, m.tp.size)
-
-
-def shard_tensor_parallel(model: nn.Module, par, device: torch.device | str
-                          ) -> TPLayout | None:
+def shard_tensor_parallel(model: nn.Module, par) -> TPLayout | None:
     """this rank's slices of ``model`` (the whole model, initialised) under
-    ``par``'s tensor parallelism, checked against the kernels' TP forms when
-    it will train on the card -> its layout (None: no tensor parallelism,
-    or nothing to split)"""
+    ``par``'s tensor parallelism -> its layout (None: no tensor parallelism,
+    or nothing to split). Every slice runs the TP forms, routed as the
+    one-rank ops (ops/swiglu.py ``swiglu_tp_route``, ops/film_layer.py
+    ``film_layer_tp_route``)"""
     if par is None or par.tp <= 1:
         return None
-    layout = shard_model(model, par.model_group, par.model_rank, par.tp)
-    if layout is not None and torch.device(device).type == "cuda":
-        check_tp_forms(model)
-    return layout
+    return shard_model(model, par.model_group, par.model_rank, par.tp)

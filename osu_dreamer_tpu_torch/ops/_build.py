@@ -40,7 +40,7 @@ NVCC_FLAGS = [
 KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
            "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd", "swiglu_bwd_full",
            "film_qkv_fwd", "film_qkv_bwd", "swiglu_tp", "swiglu_bwd_tp", "film_layer_tp",
-           "film_layer_bwd_tp")
+           "film_layer_bwd_tp", "long_attention_bwd", "swiglu_bwd_full_tp")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
 
@@ -66,6 +66,8 @@ _SIGNATURES = {
     "odt_attention_stream_fwd": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_fused_attention_stream_fwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_fused_attention_stream_bwd": [_P] * 17 + [_I] * 5 + [ctypes.c_float, _P],
+    "odt_attention_stream_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
+    "odt_swiglu_bwd_full_tp": [_P] * 21 + [_I] * 14 + [_P],
 }
 
 

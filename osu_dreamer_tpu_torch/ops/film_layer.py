@@ -20,15 +20,16 @@ runs ``film_layer_plain`` on the card, and a CPU tensor ``film_layer_plain``,
 both differentiated by autograd.
 
 Tensor parallelism (``film_layer_tp``, parallel/tp.py): a rank holds a slice
-of the FFN's hidden units. ``FilmLayerTPFunction`` runs the K2 TP form
+of the FFN's hidden units. ``FilmLayerTPFunction`` runs the TP forms: the
 forward (the pre-norm, FiLM and conv on the whole x and the slice's f32
-partials, their sum over the model group, then K2's finish: 1 / rms over the
+partials, their sum over the model group, then the finish: 1 / rms over the
 whole hidden width, b_out once, the block norm and the gated residual) and
-the K3 TP form backward (the block norm's backward and n, m from the
-forward's summed partials, pass B on the slice, the dY sum over the model
-group, then the FiLM finish). Each piece is the kernel's phase on a CUDA
-tensor and its plain version on a CPU tensor; on the card a width the forms
-do not take raises (``check_film_layer_tp``).
+the backward (the block norm's backward and n, m from the forward's summed
+partials, pass B on the slice, the dY sum over the model group, then the
+FiLM finish). A slice is routed as the one-rank op (``film_layer_tp_route``):
+on the card the K2 TP form where the forward core takes the largest slice,
+then the K3 TP form where ``bwd_kernel_fits`` holds; elsewhere, and on the
+CPU, the plain versions of the forms.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from ..nn.norm import rms_norm
 from ..parallel.collectives import group_size, tp_all_reduce_
 from ._build import check_cuda, run
 from .swiglu import (
-    _BM_ROWS, _cpu_only, bwd_plan, check_ffn_shapes, depthwise_conv, device_sms, ffn_fwd_inputs,
+    _BM_ROWS, bwd_plan, check_ffn_shapes, depthwise_conv, device_sms, ffn_fwd_inputs,
     fwd_kernel_fits, gemm_splits, grads_of, packed_ffn_weights, packed_out_bias, split_partials,
     swiglu_plain, tp_bwd_plan, tp_dy, tp_fwd_plan, tp_hidden_pads, tp_out_plain,
     tp_partial_plain, tp_slice_grads, tp_workspace, tp_workspace_grads,
@@ -243,13 +244,24 @@ def film_layer(
 # ------------------------------------------------------ tensor parallelism ----
 
 
-def check_film_layer_tp(C: int, K: int, H: int, tp: int) -> None:
-    """raise unless the K2 and K3 TP forms take width C, K taps and H hidden
-    units over tp ranks"""
-    hp_max = tp_hidden_pads(H, tp)[1]
-    if not fwd_kernel_fits(C, K, hp_max) or not bwd_kernel_fits(C, K):
-        raise ValueError(f"the K2/K3 TP forms do not take C {C}, {K} taps, {hp_max} hidden "
-                         f"units a rank (C one of {BWD_WIDTHS}, fwd_kernel_fits)")
+def film_layer_tp_route(C: int, K: int, H: int, tp: int, device: torch.device
+                       ) -> tuple[str, str]:
+    """(forward, backward) of a TP slice of H hidden units over tp ranks on
+    ``device``, as one-rank ``film_layer`` routes: on the card "kernel" (the
+    K2 TP form) where ``fwd_kernel_fits`` holds at the largest slice's padded
+    width, then "kernel" (the K3 TP form) where ``bwd_kernel_fits`` holds,
+    else "plain"; elsewhere ("plain", "plain"), as on the CPU"""
+    if device.type == "cpu":
+        return "plain", "plain"
+    if device.type != "cuda":
+        raise ValueError(f"film_layer_tp: no implementation for device {device}")
+    if not fwd_kernel_fits(C, K, tp_hidden_pads(H, tp)[1]):
+        return "plain", "plain"
+    return "kernel", "kernel" if bwd_kernel_fits(C, K) else "plain"
+
+
+def _tp_route(x, dw_kernel, H: int, tp: int) -> tuple[str, str]:
+    return film_layer_tp_route(x.shape[-1], dw_kernel.shape[0], H, tp, x.device)
 
 
 def film_tp_out_plain(buf, x, gate, g2, out_bias, H: int) -> torch.Tensor:
@@ -259,14 +271,14 @@ def film_tp_out_plain(buf, x, gate, g2, out_bias, H: int) -> torch.Tensor:
 
 def film_layer_tp_partial(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
                           out_kernel, H: int, tp: int):
-    """the K2 TP form's first phase on this rank's slice -> (the flat f32
+    """the TP form's first phase on this rank's slice (the K2 TP form or its
+    plain version, as ``film_layer_tp_route`` says) -> (the flat f32
     workspace to sum over the model group, the conv output y for the
     backward: the kernel's, None in the plain version, which recomputes
     it)"""
-    if x.is_cuda:
+    if _tp_route(x, dw_kernel, H, tp)[0] == "kernel":
         return film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
                                           vg_kernel, vg_bias, out_kernel, H, tp)
-    _cpu_only("film_layer_tp", x)
     return film_layer_tp_partial_plain(x, scale, shift, g1, dw_kernel, dw_bias, vg_kernel,
                                        vg_bias, out_kernel), None
 
@@ -278,25 +290,28 @@ def film_layer_tp_partial_plain(x, scale, shift, g1, dw_kernel, dw_bias, vg_kern
     return tp_partial_plain(y, vg_kernel, vg_bias, out_kernel)
 
 
-def film_layer_tp_finish(buf, x, gate, g2, out_bias, H: int) -> torch.Tensor:
-    """the K2 TP form's second phase, on the summed workspace -> (B, L, C)"""
-    if x.is_cuda:
+def film_layer_tp_finish(buf, x, gate, g2, out_bias, H: int, kernel: bool = False
+                         ) -> torch.Tensor:
+    """the TP form's second phase, on the summed workspace -> (B, L, C): the
+    K2 TP form's where ``kernel`` (the forward took it), else its plain
+    version"""
+    if kernel:
         return film_layer_tp_finish_cuda(buf, x, gate, g2, out_bias, H)
-    _cpu_only("film_layer_tp", x)
     return film_tp_out_plain(buf, x, gate, g2, out_bias, H)
 
 
 def film_layer_tp_bwd(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
                       out_kernel, out_bias, grad_out, buf, y, H: int, tp: int):
-    """the K3 TP form's first phase -> (this rank's dY partial (1, B L, C) f32
-    to sum over the model group, (d vg_kernel, d vg_bias, d out_kernel) of
-    the slice, (dgate, dg2, d out_bias), finish); ``finish()`` on the summed
-    dY -> (dx, dscale, dshift, dg1, d dw_kernel, d dw_bias)"""
-    if x.is_cuda:
+    """the TP form's backward first phase (the K3 TP form where
+    ``film_layer_tp_route`` says so and the forward kernel stored y, else the
+    plain version) -> (this rank's dY partial (1, B L, C) f32 to sum over the
+    model group, (d vg_kernel, d vg_bias, d out_kernel) of the slice, (dgate,
+    dg2, d out_bias), finish); ``finish()`` on the summed dY -> (dx, dscale,
+    dshift, dg1, d dw_kernel, d dw_bias)"""
+    if y is not None and _tp_route(x, dw_kernel, H, tp)[1] == "kernel":
         return film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
                                       vg_kernel, vg_bias, out_kernel, out_bias, grad_out, buf, y,
                                       H, tp)
-    _cpu_only("film_layer_tp", x)
     return film_layer_tp_bwd_plain(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
                                    vg_bias, out_kernel, out_bias, grad_out, buf, H)
 
@@ -332,7 +347,9 @@ def film_layer_tp_partial_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias
                      out_kernel.new_empty(x.shape[-1]))
     B, L, C = x.shape
     K = dw_kernel.shape[0]
-    check_film_layer_tp(C, K, H, tp)
+    if film_layer_tp_route(C, K, H, tp, x.device)[0] != "kernel":
+        raise ValueError(f"the K2 TP form does not take C {C}, {K} taps, "
+                         f"{tp_hidden_pads(H, tp)[1]} hidden units a rank (fwd_kernel_fits)")
     film = _film_inputs(x, scale, shift, gate, g1, g2)
     pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
     _, S = tp_fwd_plan(B * L, C, H, tp, device_sms(x.device), film=True)
@@ -370,7 +387,9 @@ def film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg
     check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias)
     B, L, C = x.shape
     K, BL, dev = dw_kernel.shape[0], B * L, x.device
-    check_film_layer_tp(C, K, H, tp)
+    if film_layer_tp_route(C, K, H, tp, dev) != ("kernel", "kernel"):
+        raise ValueError(f"the K3 TP form does not take C {C}, {K} taps (C one of "
+                         f"{BWD_WIDTHS}, fwd_kernel_fits at {tp_hidden_pads(H, tp)[1]} units)")
     check_cuda("y", y, torch.bfloat16, 3)
     go = grad_out.to(torch.bfloat16).contiguous()
     film = _film_inputs(x, scale, shift, gate, g1, g2)
@@ -408,9 +427,10 @@ def film_layer_tp_bwd_cuda(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg
 
 
 class FilmLayerTPFunction(torch.autograd.Function):
-    """the K2 TP form forward and the K3 TP form backward of one rank's
-    slice, their partial sums all-reduced over the model group ``group``
-    between the phases; H the whole hidden width"""
+    """the TP forms of one rank's slice, routed as ``film_layer_tp_route``
+    says (on the card the K2 TP form forward, then the K3 TP form or the
+    plain version backward), their partial sums all-reduced over the model
+    group ``group`` between the phases; H the whole hidden width"""
 
     @staticmethod
     def forward(ctx, x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
@@ -421,7 +441,7 @@ class FilmLayerTPFunction(torch.autograd.Function):
         ctx.save_for_backward(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel,
                               vg_bias, out_kernel, out_bias, buf, y)
         ctx.H, ctx.group = H, group
-        return film_layer_tp_finish(buf, x, gate, g2, out_bias, H)
+        return film_layer_tp_finish(buf, x, gate, g2, out_bias, H, y is not None)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -437,7 +457,7 @@ class FilmLayerTPFunction(torch.autograd.Function):
 def film_layer_tp(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias, vg_kernel, vg_bias,
                   out_kernel, out_bias, H: int, group) -> torch.Tensor:
     """the film layer on a tensor-parallel rank holding a slice of the FFN's
-    H hidden units: the TP forms on the card, their plain versions for CPU
-    tensors; the model group ``group`` sums the partials"""
+    H hidden units: the TP forms routed as the one-rank op
+    (``film_layer_tp_route``); the model group ``group`` sums the partials"""
     return FilmLayerTPFunction.apply(x, scale, shift, gate, g1, g2, dw_kernel, dw_bias,
                                      vg_kernel, vg_bias, out_kernel, out_bias, H, group)

@@ -58,8 +58,9 @@ def attention_route(L: int, n_heads: int, head_dim: int) -> str:
     and the same on every device type: "fused" (``fused_norm_rope_attention``:
     K9 forward, K10 backward on the card) exactly where the JAX gate
     ``fused_attention_fits`` holds, else "long" (norm and RoPE in torch,
-    then the forward-only ``long_flash_attention``, K7 on the card). The
-    kernels take every head dim and length, so no shape raises here"""
+    then ``long_flash_attention``: K7 on the card, and under autograd the
+    streamed forward and the long attention backward). The kernels take
+    every head dim and length, so no shape raises here"""
     return "fused" if fused_attention_fits(L, n_heads, head_dim) else "long"
 
 

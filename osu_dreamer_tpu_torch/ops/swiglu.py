@@ -29,16 +29,17 @@ parameters in place) forces a repack. The forward and backward cores read
 the same pack, so a training step holds one pack a layer.
 
 Tensor parallelism (``swiglu_tp``, parallel/tp.py): a rank holds a slice of
-the hidden units. ``SwiGLUTPFunction`` runs the K4 TP form forward (the
+the hidden units. ``SwiGLUTPFunction`` runs the TP forms: the forward (the
 slice's f32 partial s W_out and row sums of s^2, ``swiglu_tp_partial``; their
 sum over the model group; ``swiglu_tp_finish``: 1 / rms over the whole
-hidden width, b_out once) and the K6 TP form backward (``swiglu_tp_bwd``: the
+hidden width, b_out once) and the backward (``swiglu_tp_bwd``: the
 forward's summed partials give n and m, the slice gives its dY partial and
 weight gradients; the dY sum over the model group; the finish: the
 transposed conv, dx and the conv and out-bias gradients, equal on every
-rank). Each piece is the kernel's phase on a CUDA tensor and its plain
-version on a CPU tensor. On the card a width the forms do not take raises
-(``check_swiglu_tp``), as does K5's range, whose TP form is not ported.
+rank). A slice is routed as the one-rank op (``swiglu_tp_route``): on the
+card the K4 TP form where the forward core takes the largest slice, its
+backward as ``bwd_route`` names it (K5's TP form, K6's, or the plain
+version); elsewhere, and on the CPU, the plain versions of the forms.
 """
 
 from __future__ import annotations
@@ -545,22 +546,19 @@ def tp_bwd_plan(rows: int, C: int, H: int, tp: int, sms: int, film: bool) -> tup
     return nwg, min(sb, hp_min // 64)
 
 
-def check_swiglu_tp(C: int, K: int, H: int, tp: int) -> None:
-    """raise unless the K4 and K6 TP forms take width C, K taps and H hidden
-    units over tp ranks: the forward core at the largest slice, K6's core
-    (C % 32 == 0 up to 640). Where the one-rank backward is K5 (``bwd_route``
-    "full") the TP form is not ported"""
-    hp_max = tp_hidden_pads(H, tp)[1]
-    if not fwd_kernel_fits(C, K, hp_max):
-        raise ValueError(f"the K4 TP form does not take C {C}, {K} taps, {hp_max} hidden "
-                         "units a rank (fwd_kernel_fits)")
-    if C % 32 or C > 640 or K > 9:
-        raise ValueError(f"the K6 TP form takes C a multiple of 32 up to 640 and at most 9 "
-                         f"taps, not C {C}, {K} taps")
-    if bwd_route(C, H, K) == "full":
-        raise NotImplementedError(
-            f"C {C}, H {H}: the one-rank backward there is K5, whose TP form is not ported "
-            "(ROADMAP.md Queue 2)")
+def swiglu_tp_route(C: int, K: int, H: int, tp: int, device: torch.device) -> tuple[str, str]:
+    """(forward, backward) of a TP slice of H hidden units over tp ranks on
+    ``device``, as one-rank ``swiglu`` routes: on the card "kernel" (the K4
+    TP form) where ``fwd_kernel_fits`` holds at the largest slice's padded
+    width, then the backward ``bwd_route`` names ("full": the K5 TP form,
+    "partial": K6's, "plain"); else ("plain", "plain"), as on the CPU"""
+    if device.type == "cpu":
+        return "plain", "plain"
+    if device.type != "cuda":
+        raise ValueError(f"swiglu_tp: no implementation for device {device}")
+    if not fwd_kernel_fits(C, K, tp_hidden_pads(H, tp)[1]):
+        return "plain", "plain"
+    return "kernel", bwd_route(C, H, K)
 
 
 def tp_workspace(S: int, rows: int, C: int, device):
@@ -640,13 +638,17 @@ def tp_slice_grads(y, vg_kernel, vg_bias, out_kernel, dP, dSS):
     return (grads[0].float(), *grads[1:])
 
 
+def _tp_route(x, dw_kernel, H: int, tp: int) -> tuple[str, str]:
+    return swiglu_tp_route(x.shape[-1], dw_kernel.shape[0], H, tp, x.device)
+
+
 def swiglu_tp_partial(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H: int, tp: int
                       ) -> torch.Tensor:
-    """the K4 TP form's first phase on this rank's slice -> the flat f32
-    workspace (``split_partials``) to sum over the model group"""
-    if x.is_cuda:
+    """the TP form's first phase on this rank's slice (the K4 TP form or its
+    plain version, as ``swiglu_tp_route`` says) -> the flat f32 workspace
+    (``split_partials``) to sum over the model group"""
+    if _tp_route(x, dw_kernel, H, tp)[0] == "kernel":
         return swiglu_tp_partial_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H, tp)
-    _cpu_only("swiglu_tp", x)
     return swiglu_tp_partial_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel)
 
 
@@ -655,26 +657,28 @@ def swiglu_tp_partial_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kerne
     return tp_partial_plain(depthwise_conv(x, dw_kernel, dw_bias), vg_kernel, vg_bias, out_kernel)
 
 
-def swiglu_tp_finish(buf, x, out_bias, H: int) -> torch.Tensor:
-    """the K4 TP form's second phase, on the summed workspace -> (B, L, C)"""
-    if x.is_cuda:
+def swiglu_tp_finish(buf, x, out_bias, H: int, kernel: bool = False) -> torch.Tensor:
+    """the TP form's second phase, on the summed workspace -> (B, L, C):
+    the K4 TP form's where ``kernel`` (the forward took it), else its plain
+    version"""
+    if kernel:
         return swiglu_tp_finish_cuda(buf, x, out_bias, H)
-    _cpu_only("swiglu_tp", x)
     return tp_out_plain(buf, x.shape, out_bias, H, x.dtype)
 
 
 def swiglu_tp_bwd(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, buf, H: int,
                   tp: int):
-    """the K6 TP form's first phase -> (this rank's dY partial (1, B L, C)
-    f32 to sum over the model group, (d vg_kernel, d vg_bias, d out_kernel)
-    of the slice, finish); ``finish()`` on the summed dY -> (dx, d dw_kernel,
-    d dw_bias, d out_bias)"""
-    if x.is_cuda:
-        return swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out,
-                                  buf, H, tp)
-    _cpu_only("swiglu_tp", x)
-    return swiglu_tp_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out,
-                               buf, H)
+    """the TP form's backward first phase (the K5 or K6 TP form or the plain
+    version, as ``swiglu_tp_route`` says) -> (this rank's dY partial (1,
+    B L, C) f32 to sum over the model group, (d vg_kernel, d vg_bias,
+    d out_kernel) of the slice, finish); ``finish()`` on the summed dY ->
+    (dx, d dw_kernel, d dw_bias, d out_bias)"""
+    route = _tp_route(x, dw_kernel, H, tp)[1]
+    if route == "plain":
+        return swiglu_tp_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
+                                   grad_out, buf, H)
+    return swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out,
+                              buf, H, tp, full=route == "full")
 
 
 def swiglu_tp_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, buf,
@@ -696,11 +700,6 @@ def swiglu_tp_bwd_plain(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, g
     return dy, tuple(slice_grads), finish
 
 
-def _cpu_only(name: str, x: torch.Tensor) -> None:
-    if x.device.type != "cpu":
-        raise ValueError(f"{name}: no implementation for device {x.device}")
-
-
 def swiglu_tp_partial_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H: int,
                            tp: int) -> torch.Tensor:
     """K4 TP phase 0, csrc/swiglu.cu ``odt_swiglu_fwd_tp``: the core in its
@@ -711,7 +710,9 @@ def swiglu_tp_partial_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel
                      out_kernel.new_empty(x.shape[-1]))
     B, L, C = x.shape
     K = dw_kernel.shape[0]
-    check_swiglu_tp(C, K, H, tp)
+    if swiglu_tp_route(C, K, H, tp, x.device)[0] != "kernel":
+        raise ValueError(f"the K4 TP form does not take C {C}, {K} taps, "
+                         f"{tp_hidden_pads(H, tp)[1]} hidden units a rank (fwd_kernel_fits)")
     pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
     nc, S = tp_fwd_plan(B * L, C, H, tp, device_sms(x.device))
     buf, ws, ss, fold = tp_workspace(S, B * L, C, x.device)
@@ -735,17 +736,22 @@ def swiglu_tp_finish_cuda(buf, x, out_bias, H: int) -> torch.Tensor:
 
 
 def swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, grad_out, buf,
-                       H: int, tp: int):
-    """K6 TP, csrc/swiglu_bwd.cu ``odt_swiglu_bwd_tp``: phase 0 (the conv,
-    the row statistics from the forward's summed workspace, pass B on the
-    slice) and the slice's two weight products as torch matmuls, as K6;
-    ``finish`` runs phase 1 on the summed dY"""
+                       H: int, tp: int, full: bool = False):
+    """the K6 TP form (``full`` False), csrc/swiglu_bwd.cu ``odt_swiglu_bwd_tp``:
+    phase 0 (the conv, the row statistics from the forward's summed
+    workspace, pass B on the slice) and the slice's two weight products as
+    torch matmuls, as K6; or the K5 TP form, ``odt_swiglu_bwd_full_tp``:
+    the same phase 0 and the two products on csrc/gemm_tn.cuh in the same
+    call, as K5. ``finish`` runs phase 1 on the summed dY"""
     check_cuda("x", x, torch.bfloat16, 3)
     check_ffn_shapes(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel,
                      out_kernel.new_empty(x.shape[-1]))
     B, L, C = x.shape
     K, BL, dev = dw_kernel.shape[0], B * L, x.device
-    check_swiglu_tp(C, K, H, tp)
+    route = swiglu_tp_route(C, K, H, tp, dev)
+    if route != ("kernel", "full" if full else "partial"):
+        raise ValueError(f"C {C}, {K} taps, H {H} over {tp} ranks routes to {route}, not the "
+                         f"{'K5' if full else 'K6'} TP form")
     go = grad_out.to(torch.bfloat16).contiguous()
     pack = packed_ffn_weights(dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, x.dtype)
     Hr, Hp = pack.H, pack.Hp
@@ -760,13 +766,24 @@ def swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, gr
     dbvg = torch.empty(-(-BL // (64 * nwg)) * nwg, 2 * Hp, **f32)
     dy, dysum = tp_dy(sb, BL, C, dev)
     fin = torch.empty(B, -(-L // frows), 2 + K, C, **f32)
-    args = [x.data_ptr(), go.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(),
+    ptrs = [x.data_ptr(), go.data_ptr(), pack.dww.data_ptr(), pack.dwb.data_ptr(),
             pack.bvg.data_ptr(), pack.weight_maps(), dx.data_ptr(), ws.data_ptr(), ss.data_ptr(),
-            *(t.data_ptr() for t in (y, rows, dvg, hn, dbvg, dy, dysum, fin)),
-            B, L, C, Hr, Hp, H, K, nwg, ws.shape[0], sb, frows]
-    run("odt_swiglu_bwd_tp", "swiglu_bwd_tp", dev, *args, 0)
-    dwvg = torch.mm(y.t(), dvg, out_dtype=torch.float32)
-    dwout = torch.mm(hn.t(), go.reshape(BL, C), out_dtype=torch.float32)
+            *(t.data_ptr() for t in (y, rows, dvg, hn, dbvg, dy, dysum, fin))]
+    dims = [B, L, C, Hr, Hp, H, K, nwg, ws.shape[0], sb, frows]
+    if full:
+        s_vg, s_out = gemm_splits(BL, C, 2 * Hp), gemm_splits(BL, Hp, C)
+        prods = [torch.empty(s_vg, C, 2 * Hp, **f32), torch.empty(s_out, Hp, C, **f32),
+                 torch.empty(C, 2 * Hp, **f32), torch.empty(Hp, C, **f32)]
+        fn, kernel = "odt_swiglu_bwd_full_tp", "swiglu_bwd_full_tp"
+        args = [*ptrs, *(t.data_ptr() for t in prods), *dims, s_vg, s_out]
+    else:
+        fn, kernel, args = "odt_swiglu_bwd_tp", "swiglu_bwd_tp", [*ptrs, *dims]
+    run(fn, kernel, dev, *args, 0)
+    if full:
+        dwvg, dwout = prods[2:]
+    else:
+        dwvg = torch.mm(y.t(), dvg, out_dtype=torch.float32)
+        dwout = torch.mm(hn.t(), go.reshape(BL, C), out_dtype=torch.float32)
     db = dbvg.sum(0)
     slice_grads = (torch.cat([dwvg[:, :Hr], dwvg[:, Hp : Hp + Hr]], 1),
                    torch.cat([db[:Hr], db[Hp : Hp + Hr]]), dwout[:Hr])
@@ -774,7 +791,7 @@ def swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, gr
     def finish(held=(x, go, pack, buf, y, rows, dvg, hn, dbvg, dy, dysum)):
         """phase 1 (``held``: the tensors behind ``args``, alive until it
         has read them)"""
-        run("odt_swiglu_bwd_tp", "swiglu_bwd_tp", dev, *args, 1, count=False)
+        run(fn, kernel, dev, *args, 1, count=False)
         sums = fin.sum((0, 1))  # d dw_bias, d out_bias, the taps
         return dx, sums[2:], sums[0], sums[1]
 
@@ -782,18 +799,20 @@ def swiglu_tp_bwd_cuda(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, gr
 
 
 class SwiGLUTPFunction(torch.autograd.Function):
-    """the K4 TP form forward and the K6 TP form backward of one rank's
-    slice, their partial sums all-reduced over the model group ``group``
-    between the phases; H the whole hidden width"""
+    """the TP forms of one rank's slice, routed as ``swiglu_tp_route`` says
+    (on the card the K4 TP form forward, then the K5 or K6 TP form or the
+    plain version backward), their partial sums all-reduced over the model
+    group ``group`` between the phases; H the whole hidden width"""
 
     @staticmethod
     def forward(ctx, x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, H, group):
-        buf = swiglu_tp_partial(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H,
-                                group_size(group))
+        tp = group_size(group)
+        buf = swiglu_tp_partial(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, H, tp)
         tp_all_reduce_(buf, group)
         ctx.save_for_backward(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, buf)
         ctx.H, ctx.group = H, group
-        return swiglu_tp_finish(buf, x, out_bias, H)
+        kernel = _tp_route(x, dw_kernel, H, tp)[0] == "kernel"
+        return swiglu_tp_finish(buf, x, out_bias, H, kernel)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -811,8 +830,8 @@ class SwiGLUTPFunction(torch.autograd.Function):
 def swiglu_tp(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias, H: int, group
               ) -> torch.Tensor:
     """SwiGLU on a tensor-parallel rank holding a slice of the H hidden units
-    (``vg_kernel`` (C, 2 H_r), ``out_kernel`` (H_r, C)): the TP forms on the
-    card, their plain versions for CPU tensors; the model group ``group``
-    sums the partials"""
+    (``vg_kernel`` (C, 2 H_r), ``out_kernel`` (H_r, C)): the TP forms routed
+    as the one-rank op (``swiglu_tp_route``); the model group ``group`` sums
+    the partials"""
     return SwiGLUTPFunction.apply(x, dw_kernel, dw_bias, vg_kernel, vg_bias, out_kernel, out_bias,
                                   H, group)

@@ -1,6 +1,6 @@
-"""Metrics logging: TensorBoard scalars through tensorboardX when it can be
-imported, else lines on stderr (counterpart of
-osu_dreamer_tpu/train/logging.py)."""
+"""Metrics logging: TensorBoard scalars and figures through tensorboardX when
+it can be imported, else scalars as lines on stderr and no figures
+(counterpart of osu_dreamer_tpu/train/logging.py)."""
 
 from __future__ import annotations
 
@@ -36,6 +36,11 @@ class MetricsLogger:
                 self._writer.add_scalar(tag, v, step)
             else:
                 print(f"[{step}] {tag} = {v:.5f}", file=sys.stderr)
+
+    def figure(self, tag: str, fig, step: int) -> None:
+        """a matplotlib figure under ``tag`` (nothing without tensorboardX)"""
+        if self._writer is not None:
+            self._writer.add_figure(tag, fig, step)
 
     def flush(self) -> None:
         if self._writer is not None:

@@ -2,14 +2,16 @@
 
 Counterpart of osu_dreamer_tpu/train/loop.py: per-step logging (train/
 prefix), validation every ``val_every`` epochs (and on the final one),
+followed by the stage's ``on_validation`` hook (the latent stage's figure),
 best-by-metric checkpointing with a rolling ``last``, early stopping, exact
 resume from the stored stream position. ``max_steps`` stops a run after that
 many steps.
 
 In a run spread over ranks (``par``) every rank runs the loop in lockstep:
-rank 0 alone validates (with the rest of its model group under tensor
-parallelism, whose forward is collective; rank 0's metrics are broadcast, so
-early stopping agrees) and writes the logs and checkpoints, the others
+rank 0 alone validates and runs the stage's ``on_validation`` (with the rest
+of its model group under tensor parallelism, whose forward is collective;
+rank 0's metrics are broadcast, so early stopping agrees) and writes the
+logs, figures and checkpoints, the others
 waiting at a barrier after each write; under tensor parallelism every rank
 first gathers the whole state (train/state.py), which rank 0 writes in the
 one-process layout; every rank resumes from the same checkpoint; at the end
@@ -66,6 +68,8 @@ class Stage:
     train_step: Callable[[TrainState, Any], dict]   # updates the state in place
     train_stream: Callable[[int], Iterable]          # epoch -> batches
     validate: Optional[Callable[[TrainState], dict[str, float]]] = None
+    # (state, step, logger) after validation, e.g. validation figures
+    on_validation: Optional[Callable[[TrainState, int, MetricsLogger], None]] = None
     lr_schedule: Optional[Callable[[int], float]] = None
     # (step, metrics) after every train step, e.g. for a caller's timing
     on_step: Optional[Callable[[int, dict], None]] = None
@@ -171,6 +175,8 @@ def fit(stage: Stage, args: FitArgs, resume_from: Optional[str] = None,
                 if spread:
                     val_metrics = par.broadcast(val_metrics)
                 logger.scalars(val_metrics, state.step)
+            if run_val and stage.on_validation is not None and (par is None or par.validates):
+                stage.on_validation(state, state.step, logger)
             # after a completed epoch e a restart begins cleanly at epoch e+1;
             # a max_steps stop mid-epoch keeps the mid-epoch position
             if epoch_complete:

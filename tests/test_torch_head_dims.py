@@ -145,22 +145,31 @@ def test_denoiser_at_8_by_96_heads(L):
 def test_train_step_gradients_inside_the_gate(H, D, L):
     """one f32 training step's loss terms and every gradient leaf of the
     narrow denoiser at 8 x 96 heads, L 320 and 8 x 64 heads, L 512 (both
-    inside the JAX gate, so fit.run trains them on the card) against the JAX
+    inside the JAX gate, so the card trains them on K9/K10) against the JAX
     step on transplanted parameters, the draws injected (the tolerances of
     tests/test_torch_train.py)"""
+    from osu_dreamer_tpu_torch.ops.fused_attention import attention_route
+
+    assert attention_route(L, H, D) == "fused"
+    train_step_against_jax(H, D, L)
+
+
+def train_step_against_jax(H: int, D: int, L: int) -> None:
+    """one f32 training step of the narrow denoiser (backbone width 32) at H
+    x D heads over L frames: the loss terms within 1e-5 and every gradient
+    leaf within 2e-5 of the largest of the JAX step on transplanted
+    parameters, the draws injected"""
     import jax
 
     from osu_dreamer_tpu.models.diffusion.model import DiffusionModel as JDiff
     from osu_dreamer_tpu.models.diffusion.train import LatentBatch as JBatch
     from osu_dreamer_tpu.models.diffusion.train import diffusion_loss as jloss
     from osu_dreamer_tpu.train.state import stratified_logit_normal_t
-    from osu_dreamer_tpu_torch.models.diffusion.fit import check_attention_shape
     from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel as TDiff
     from osu_dreamer_tpu_torch.models.diffusion.train import LatentBatch, diffusion_loss
     from osu_dreamer_tpu_torch.models.inference.artifact import _flatten
     from test_torch_train import _args
 
-    check_attention_shape(L, H, D)  # the card trains this shape
     (ja, jt), (ta, tt) = _args("jax"), _args("torch")
     ja, ta = (dataclasses.replace(a, backbone_dim=32, backbone=dataclasses.replace(
         a.backbone, n_heads=H, head_dim=D)) for a in (ja, ta))

@@ -762,3 +762,131 @@ def test_fused_attention_streamed_kernels_match_plain_on_gpu(B, L, H, D):
                                                                 qg, kg, H))
     again = fused_attention.fused_attention_bwd_cuda(qkv, grad, *res, qg, kg, H)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ---- training past the JAX fused-attention gate: the long attention backward ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [5, 8, 12, 64, 96, 128, 256, 384])
+@pytest.mark.parametrize("B,L", [(1, 1), (2, 65), (1, 300), (1, 2500)])
+def test_long_attention_bwd_matches_plain_on_gpu(B, L, D):
+    """the streamed forward with lse (4 ulp) and the long attention backward
+    (dq, dk, dv within GRAD_REL of the f32 autograd of the plain version;
+    at L 1 dq and dk exactly 0), rerunning bit-identically; D 5 and 12 are
+    padded to Dp 8 and 16"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(B * L + D)
+    H = 2
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    grad = torch.randn(B, L, H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse, rows = long_attention.attention_fwd_cuda(q, k, v)
+    want = long_attention.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    assert (out.float() - want).abs().max().item() <= _ulp_tol(want)
+    got = long_attention.attention_bwd_cuda(*rows, out, lse, grad, D)
+    assert all(g.shape == (B, L, H, D) and g.dtype == torch.bfloat16 for g in got)
+    _grads_close(got, long_attention.attention_bwd_plain(q.float(), k.float(), v.float(),
+                                                         grad.float()))
+    if L == 1:
+        assert not got[0].any() and not got[1].any()
+    again = long_attention.attention_bwd_cuda(*rows, out, lse, grad, D)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_attention_trains_past_the_gate_through_the_kernels_on_gpu(monkeypatch):
+    """16 x 64 heads at L 300 under autograd: one streamed forward (counted
+    as K7) and one long attention backward, no plain attention, the q/k/v
+    and gain gradients within GRAD_REL of the f32 plain layer's"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    from osu_dreamer_tpu_torch.nn import attention as attn_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    attn = attn_mod.RoPEAttention(512, 16, 64, 512, torch.bfloat16).cuda()
+    with torch.no_grad():
+        for prm in attn.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen, device="cuda") * prm.shape[0] ** -0.5
+                      if prm.dim() == 2 else 1 + 0.1 * torch.randn(prm.shape, generator=gen,
+                                                                   device="cuda"))
+    ref_attn = attn_mod.RoPEAttention(512, 16, 64, 512, torch.float32).cuda()
+    ref_attn.load_state_dict(attn.state_dict())
+    x = torch.randn(2, 300, 512, generator=gen, device="cuda").to(torch.bfloat16)
+    go = torch.randn(2, 300, 512, generator=gen, device="cuda")
+    before = dict(_build.launches)
+    got = torch.autograd.grad(attn(x), list(attn.parameters()), go.to(torch.bfloat16))
+    assert _build.launches["flash_attention"] == before["flash_attention"] + 1
+    assert _build.launches["long_attention_bwd"] == before["long_attention_bwd"] + 1
+    assert _build.launches["fused_attention_bwd"] == before["fused_attention_bwd"]
+    # the f32 reference through the plain attention (the kernels are bf16)
+    monkeypatch.setattr(attn_mod, "long_flash_attention", long_attention.attention_plain)
+    _grads_close(got, torch.autograd.grad(ref_attn(x.float()), list(ref_attn.parameters()), go))
+
+
+def _tp_slices(w, H: int, tp: int = 2):
+    """each rank's (vg_kernel, vg_bias, out_kernel) of H hidden units split
+    evenly, and their bounds"""
+    from osu_dreamer_tpu_torch.parallel.tp import even_split
+
+    out = []
+    for r in range(tp):
+        lo, hi = even_split(H, tp, r)
+        out.append(((lo, hi), (torch.cat([w[2][:, lo:hi], w[2][:, H + lo:H + hi]], 1),
+                               torch.cat([w[3][lo:hi], w[3][H + lo:H + hi]]), w[4][lo:hi])))
+    return out
+
+
+def _tp_swiglu_grads(x, w, go, H: int):
+    """the TP forms of two slices run in one process, their partials summed
+    as the model group would -> the one-rank gradient tuple"""
+    parts = _tp_slices(w, H)
+    buf = sum(swiglu.swiglu_tp_partial(x, w[0], w[1], *p, H, 2) for _, p in parts)
+    outs = [swiglu.swiglu_tp_bwd(x, w[0], w[1], *p, go, buf, H, 2) for _, p in parts]
+    dy = sum(o[0] for o in outs)
+    for o in outs:
+        o[0].copy_(dy)
+    dx, ddw, ddwb, dbout = [o[2]() for o in outs][0]
+    dvgk, dvgb, doutk = torch.zeros_like(w[2]), torch.zeros_like(w[3]), torch.zeros_like(w[4])
+    for ((lo, hi), _), o in zip(parts, outs):
+        a, b, c = o[1]
+        n = hi - lo
+        dvgk[:, lo:hi], dvgk[:, H + lo:H + hi] = a[:, :n], a[:, n:]
+        dvgb[lo:hi], dvgb[H + lo:H + hi] = b[:n], b[n:]
+        doutk[lo:hi] = c
+    return dx, ddw, ddwb, dvgk, dvgb, doutk, dbout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,C,H,route", [(2, 70, 384, 1024, "full"), (1, 33, 128, 341, "full"),
+                                           (2, 45, 512, 1365, "partial"),
+                                           (2, 40, 144, 384, "plain")])
+def test_swiglu_tp_forms_follow_the_one_rank_route_on_gpu(B, L, C, H, route):
+    """two slices' TP forms on the card, routed as the one-rank backward:
+    K5's TP form at C 384 and 128 (its dW on csrc/gemm_tn.cuh, counted as
+    swiglu_bwd_full_tp), K6's at 512, the plain version at 144; the sums
+    through the finish within GRAD_REL of the f32 one-rank plain gradients,
+    the kernel forms rerunning bit-identically"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    assert swiglu.swiglu_tp_route(C, 5, H, 2, torch.device("cuda")) == ("kernel", route)
+    gen = torch.Generator(device="cuda").manual_seed(C + L)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x, go = rnd(B, L, C).to(torch.bfloat16), rnd(B, L, C).to(torch.bfloat16)
+    w = [rnd(5, C, scale=0.4), rnd(C, scale=0.1), rnd(C, 2 * H, scale=C**-0.5),
+         rnd(2 * H, scale=0.1), rnd(H, C, scale=H**-0.5)]
+    before = dict(_build.launches)
+    got = _tp_swiglu_grads(x, w, go, H)
+    counted = {k: _build.launches[k] - before[k] for k in _build.KERNELS}
+    kernel = {"full": "swiglu_bwd_full_tp", "partial": "swiglu_bwd_tp", "plain": None}[route]
+    assert counted["swiglu_tp"] == 2
+    assert {k: n for k, n in counted.items() if n and k != "swiglu_tp"} == (
+        {kernel: 2} if kernel else {})
+    _grads_close(got, swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))
+    if kernel:
+        assert all(torch.equal(a, b) for a, b in zip(got, _tp_swiglu_grads(x, w, go, H)))

@@ -475,3 +475,99 @@ def test_encode_latents_matches_jax(tmp_path):
                 np.testing.assert_allclose(got["z"], np.asarray(z)[0, :n_latent], atol=1e-4)
                 np.testing.assert_allclose(got["s"], np.asarray(s)[0], atol=1e-4)
                 np.testing.assert_array_equal(got["labels"], labels)
+
+
+# ------------------------------------------------ reconstruction figure ----
+
+
+def _stage_of(monkeypatch, module, *args, **kwargs):
+    """the Stage ``module.run`` builds, its ``fit`` stood in by a catch"""
+    caught = {}
+    monkeypatch.setattr(module, "fit", lambda stage, *a, **k: caught.setdefault("stage", stage))
+    module.run(*args, **kwargs)
+    return caught["stage"]
+
+
+class _Figures:
+    """a logger that keeps what ``figure`` is given"""
+    write = True
+
+    def __init__(self):
+        self.logged = []
+
+    def figure(self, tag, fig, step):
+        self.logged.append((tag, fig, step))
+
+
+def test_reconstruction_figure_matches_jax(tmp_path, monkeypatch):
+    """the latent stage's ``on_validation`` on transplanted weights, both
+    packages in f32: the arrays it draws (the spectrogram, the chart x, its
+    reconstruction p, x - p and the up-sampled z of the first val map)
+    equal the JAX callback's (1e-4, as encode-latents), logged under
+    "samples" at the step given"""
+    from contextlib import contextmanager
+    from types import SimpleNamespace
+
+    import osu_dreamer_tpu.data.plot as jplot
+    import osu_dreamer_tpu.models.latent.fit as jfit
+    import osu_dreamer_tpu_torch.data.plot as tplot
+    import osu_dreamer_tpu_torch.models.latent.fit as tfit
+
+    drawn = {}
+
+    def catch(name):
+        @contextmanager
+        def plot(audio, signals):
+            drawn[name] = (np.asarray(audio), [np.asarray(s) for s in signals])
+            yield name
+
+        return plot
+
+    monkeypatch.setattr(jplot, "plot_signals", catch("jax"))
+    monkeypatch.setattr(tplot, "plot_signals", catch("port"))
+    cfg = _fit_config(tmp_path, "fig", 1)
+    path = tmp_path / "cfg.yml"
+    path.write_text(json.dumps({**cfg, "parallel": {}}))
+    jm, tree = _jax_tree(13)
+    # the JAX stage's model is the f32 one (its fit draws no state here:
+    # the transplanted tree stands in)
+    monkeypatch.setattr(jfit, "init_latent_training", lambda *a: (jm, None, None))
+    jstage = _stage_of(monkeypatch, jfit, str(path))
+    tstage = _stage_of(monkeypatch, tfit, cfg, device="cpu")
+    tstage.state.model.load_state_dict(from_flax_params(tree, tstage.state.model))
+    jlog, tlog = _Figures(), _Figures()
+    jstage.on_validation(SimpleNamespace(params=tree), 3, jlog)
+    tstage.on_validation(tstage.state, 3, tlog)
+    assert jlog.logged == [("samples", "jax", 3)] and tlog.logged == [("samples", "port", 3)]
+    (ja, js), (ta, ts) = drawn["jax"], drawn["port"]
+    np.testing.assert_array_equal(ta, ja)
+    assert len(ts) == len(js) == 4
+    for name, t, j in zip(("x", "p", "x - p", "z"), ts, js):
+        assert t.shape == j.shape and t.shape[1] == ta.shape[1], name
+        np.testing.assert_allclose(t, j, atol=1e-4, err_msg=name)
+
+
+def test_fit_latent_logs_the_reconstruction_figure(tmp_path, monkeypatch, capsys):
+    """``fit.run`` calls the stage's ``on_validation`` after validation: a
+    matplotlib figure reaches ``MetricsLogger.figure`` at the final step;
+    where matplotlib cannot be imported the stage trains all the same and
+    says, in one line, that it drew no figure"""
+    import sys
+
+    pytest.importorskip("matplotlib")
+    from matplotlib.figure import Figure
+
+    from osu_dreamer_tpu_torch.models.latent.fit import run
+    from osu_dreamer_tpu_torch.train.logging import MetricsLogger
+
+    logged = []
+    monkeypatch.setattr(MetricsLogger, "figure",
+                        lambda self, tag, fig, step: logged.append((tag, type(fig), step)))
+    run(_fit_config(tmp_path, "a", 2), device="cpu")
+    assert logged == [("samples", Figure, 2)]
+    capsys.readouterr()
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    state = run(_fit_config(tmp_path, "b", 2), device="cpu")
+    assert state.step == 2 and logged == [("samples", Figure, 2)]
+    lines = [line for line in capsys.readouterr().out.splitlines() if "figure" in line]
+    assert lines == ["[latent] step 2: no reconstruction figure (matplotlib cannot be imported)"]

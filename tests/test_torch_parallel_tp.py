@@ -5,7 +5,9 @@ ops/swiglu.py and ops/film_layer.py) on the CPU, in f32:
 - one step of the denoiser and of the latent stage on two gloo ranks equals
   the port's one-process step and the JAX package's unsharded step on the
   same weights and draws (the clip engaging and not), also dp 2 x tp 2 on
-  four ranks;
+  four ranks; and at the widths whose one-rank SwiGLU backward is K5
+  (384) or the plain version (144), which the card routes to K5's TP form
+  and the plain TP forms, equals the one-process step;
 - (tests/test_torch_parallel_tp_fit.py: two coordinator processes, the
   fits' checkpoints, resume and export, ``fit-style``).
 
@@ -154,10 +156,11 @@ def test_shard_model_splits_only_ruled_modules():
 # ----------------------------------------------------------- one step ----
 
 
-def _init(stage: str, par, seed: int, grad_clip: float):
+def _init(stage: str, par, seed: int, grad_clip: float, width: int | None = None):
     """the stage's train state under ``par`` holding the one-process
     weights drawn from ``seed`` (``randomize_``): the whole model is drawn,
-    then loaded, which slices it on a tensor-parallel rank"""
+    then loaded, which slices it on a tensor-parallel rank; ``width``: the
+    denoiser's backbone width in place of the tiny config's"""
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict
 
     if stage == "denoiser":
@@ -165,6 +168,8 @@ def _init(stage: str, par, seed: int, grad_clip: float):
         from osu_dreamer_tpu_torch.models.diffusion.train import DiffusionTrainArgs as TArgs
         from osu_dreamer_tpu_torch.models.diffusion.train import init_diffusion_training as init
         model, opt = TINY_DIFFUSION, {"schedule": {"warmup_init": 0.3, "warmup_steps": 10}}
+        if width is not None:
+            model = {**model, "backbone_dim": width}
     else:
         from osu_dreamer_tpu_torch.models.latent.model import LatentModelArgs as MArgs
         from osu_dreamer_tpu_torch.models.latent.train import LatentTrainArgs as TArgs
@@ -198,14 +203,14 @@ def _batch(stage: str, seed: int, B: int):
 
 
 def _step(stage: str, par, seed: int, grad_clip: float, batch_np, draws_np,
-          host_rows: slice | None = None) -> dict:
+          host_rows: slice | None = None, width: int | None = None) -> dict:
     """one step of ``stage`` under ``par`` (None: one process) on the global
     batch ``batch_np`` (``host_rows``: the rows this host loads) with the
     injected global draws -> its metrics, whole gradients and whole state"""
     from osu_dreamer_tpu_torch.models.diffusion.train import LatentBatch
     from osu_dreamer_tpu_torch.models.latent.train import Batch, LatentDraws
 
-    state, train_step, targs = _init(stage, par, seed, grad_clip)
+    state, train_step, targs = _init(stage, par, seed, grad_clip, width)
     norms = []  # the norm the optimizer clips by, as AdamW.step returns it
     opt_step = state.opt.step
     state.opt.step = lambda grads, norm=None: norms.append(opt_step(grads, norm)) or norms[-1]
@@ -234,11 +239,11 @@ def _step(stage: str, par, seed: int, grad_clip: float, batch_np, draws_np,
 
 
 def _step_rank(out: str, stage: str, args: dict, seed: int, grad_clip: float, batch_np,
-               draws_np) -> None:
+               draws_np, width: int | None = None) -> None:
     par = build_parallelism(ParallelArgs(**args), batch_np[0].shape[0],
                             ["cpu"] * (args.get("tp", 1) * args.get("dp", 1)),
                             timeout_s=COLLECTIVE_S)
-    got = _step(stage, par, seed, grad_clip, batch_np, draws_np)
+    got = _step(stage, par, seed, grad_clip, batch_np, draws_np, width=width)
     torch.save({**got, "rank": par.rank, "model_group": par.model_rank},
                Path(out) / f"rank{par.rank}.pt")
 
@@ -433,3 +438,41 @@ def test_dp2_tp2_step_on_four_ranks(tmp_path):
     ref = _step("denoiser", None, seed, grad_clip, batch_np, draws_np)
     _check_step(ranks, ref, jax_metrics, jax_params, 3e-4 * 0.3, ("loss", "osl", "del"),
                 jax_grads)
+
+
+@pytest.mark.parametrize("width, route", [(384, "full"), (144, "plain")])
+def test_tp_step_at_every_width_one_rank_training_takes(tmp_path, width, route):
+    """tensor parallelism refuses no width that one-rank training takes: a
+    denoiser of backbone width 384 (the one-rank SwiGLU backward is K5, so
+    a slice on the card takes K5's TP form) and of width 144 (C % 32 != 0:
+    the one-rank backward is the plain version, so is the slice's) trains
+    one step on two gloo ranks equal to the one-process step: the loss
+    terms 1e-5 relative, the gradient norm 1e-5 relative, every gradient
+    within 1e-5 of the largest, the ranks' whole states equal bit for bit
+    and the params within 1e-5 of the largest plus one step's rate"""
+    from osu_dreamer_tpu_torch.ops.swiglu import swiglu_tp_route
+
+    H = int(width * TINY_DIFFUSION["backbone"]["expand"] * 2 / 3)
+    assert swiglu_tp_route(width, 5, H, 2, torch.device("cuda"))[1] == route
+    seed, grad_clip = 7, 1.0
+    batch_np = _batch("denoiser", seed, B_DENOISER)
+    rng = np.random.default_rng(seed)
+    draws_np = (rng.uniform(0.05, 0.95, B_DENOISER).astype(np.float32),
+                rng.standard_normal((B_DENOISER, L_DENOISER, 6)).astype(np.float32))
+    spawn(_step_rank, str(tmp_path), "denoiser", {"tp": 2}, seed, grad_clip, batch_np, draws_np,
+          width)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    assert ranks[0]["sharded"]
+    ref = _step("denoiser", None, seed, grad_clip, batch_np, draws_np, width=width)
+    for name in ("loss", "osl", "del"):
+        for rank in ranks:
+            _close(rank["metrics"][name], ref["metrics"][name], name)
+    gmax = max(float(g.abs().max()) for g in ref["grads"].values())
+    for rank in ranks:
+        np.testing.assert_allclose(rank["norm"], ref["norm"], rtol=1e-5, err_msg="norm")
+        for name, want in ref["grads"].items():
+            _close(rank["grads"][name], want, f"gradient {name}", rtol=0.0, atol=1e-5 * gmax)
+    for part in ("params", "ema_params"):
+        for k, v in ranks[0]["state"][part].items():
+            assert torch.equal(ranks[1]["state"][part][k], v), (part, k)
+            _close(v, ref["state"][part][k], f"{part} {k}", atol=1.05 * 3e-4 * 0.3)

@@ -5,10 +5,10 @@ tests/test_end_to_end.py drives the JAX package (its ``TINY_*_CFG``):
 ``encode-latents`` -> ``fit-denoiser`` -> ``fit-style`` ->
 ``export-inference`` -> ``predict``, every command through the port's CLI
 with ``--device cpu``. Models are tiny and runs a few steps: structure is
-asserted, not quality. The denoiser's backbone is widened to 2 x 64 heads
-(width 128): the port trains attention only where the fused attention's
-backward exists (``check_attention_shape``), and the JAX tiny config's
-2 x 8 heads are outside it. The .osz must hold the WAV and one .osu a row,
+asserted, not quality. The denoiser runs the JAX tiny config as it is: its
+2 x 8 heads (H D 16) are outside the fused attention's gate, so it trains
+through the long attention, as the JAX package does. The .osz must hold the
+WAV and one .osu a row,
 each carrying the .osu sections and parsing with the port's ``Beatmap``,
 or failing only as tests/test_end_to_end.py allows: a hold of barely
 trained weights can span the next onset, which the strict parser refuses
@@ -31,9 +31,6 @@ torch.set_num_threads(1)
 
 N_MAPSETS = 4
 SECONDS = 12.0
-DENOISER_CFG = {**TINY_DIFFUSION_CFG, "model": {
-    **TINY_DIFFUSION_CFG["model"], "backbone_dim": 128,
-    "backbone": {**TINY_DIFFUSION_CFG["model"]["backbone"], "head_dim": 64}}}
 
 
 def _config(tmp: Path, name: str, cfg: dict, data_dir: Path, run_dir: Path) -> Path:
@@ -64,12 +61,12 @@ def test_pipeline_from_audio_to_osz(tmp_path, capsys):
     main(["encode-latents", "--latent-ckpt-path", str(runs / "latent" / "best"),
           "--data-dir", str(data), "--device", "cpu"])
     assert len(list(data.rglob("*.latent.npz"))) == N_MAPSETS * DIFFS_PER_MAPSET
-    main(["fit-denoiser", "-c", str(_config(tmp_path, "diff", DENOISER_CFG, data,
+    main(["fit-denoiser", "-c", str(_config(tmp_path, "diff", TINY_DIFFUSION_CFG, data,
                                             runs / "denoiser")), "--device", "cpu"])
     main(["fit-style", "-c", str(_config(tmp_path, "style", TINY_STYLE_CFG, data,
                                          runs / "style")), "--device", "cpu"])
     out = capsys.readouterr().out
-    for stage, cfg in (("latent", TINY_LATENT_CFG), ("denoiser", DENOISER_CFG),
+    for stage, cfg in (("latent", TINY_LATENT_CFG), ("denoiser", TINY_DIFFUSION_CFG),
                        ("style", TINY_STYLE_CFG)):
         assert f"[{stage}] epoch 0" in out and f"{cfg['fit']['monitor']}=" in out, stage
         for ckpt in ("best", "last"):

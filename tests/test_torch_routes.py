@@ -11,6 +11,7 @@ rule at expand 4, radius 2: H = int(C * 4 * 2 / 3), K = 5.
 from __future__ import annotations
 
 import pytest
+import torch
 
 from osu_dreamer_tpu.ops import film_layer as jfl
 from osu_dreamer_tpu.ops import film_qkv as jfq
@@ -18,7 +19,6 @@ from osu_dreamer_tpu.ops import swiglu as jsw
 from osu_dreamer_tpu.ops._tiles import shrink_tile_to_budget
 from osu_dreamer_tpu.ops.fused_attention import fused_attention_fits as jfused_fits
 from osu_dreamer_tpu.ops.long_attention import long_attention_fits as jlong_fits
-from osu_dreamer_tpu_torch.models.diffusion.fit import check_attention_shape
 from osu_dreamer_tpu_torch.nn.attention import prologue_ok
 from osu_dreamer_tpu_torch.ops import film_layer as fl
 from osu_dreamer_tpu_torch.ops import film_qkv as fq
@@ -64,22 +64,26 @@ def test_attention_route_pins_the_jax_gate(L, H, D):
 
 
 def test_training_refuses_attention_beyond_the_kernels():
-    """fit.run's check, through the same route: training refuses before step
-    1, with the shape named, only beyond the JAX gate (16 x 64 heads at L
-    300: L H D 307,200), the same on every device; 8 x 64 at L 300 and
-    4 x 96 at L 152 pass"""
-    with pytest.raises(NotImplementedError, match="seq_len 300 with 16 x 64 heads"):
-        check_attention_shape(300, 16, 64)
-    check_attention_shape(300, 8, 64)
-    check_attention_shape(152, 16, 64)
-    check_attention_shape(152, 8, 128)
-    check_attention_shape(152, 32, 32)
-    check_attention_shape(152, 4, 96)
-    check_attention_shape(320, 8, 96)
-    check_attention_shape(512, 8, 64)
-    check_attention_shape(152, 32, 12)
-    with pytest.raises(NotImplementedError, match="seq_len 513 with 8 x 64 heads"):
-        check_attention_shape(513, 8, 64)
+    """nothing refuses: every window trains, through the same route. Past
+    the JAX gate (16 x 64 heads at L 300: L H D 307,200; 8 x 64 at L 513)
+    the long attention takes the forward and the backward (autograd of the
+    plain version here, the streamed forward and the long attention
+    backward on the card), as the JAX package differentiates its long
+    attention; inside it (8 x 64 at L 300, 4 x 96 at L 152, ...) the fused
+    attention's K9/K10"""
+    from osu_dreamer_tpu_torch.models.diffusion import fit
+    from osu_dreamer_tpu_torch.ops.long_attention import long_flash_attention
+
+    assert not hasattr(fit, "check_attention_shape")
+    for L, H, D in ((300, 8, 64), (152, 16, 64), (152, 8, 128), (152, 32, 32), (152, 4, 96),
+                    (320, 8, 96), (512, 8, 64), (152, 32, 12)):
+        assert fa.attention_route(L, H, D) == "fused", (L, H, D)
+    for L, H, D in ((300, 16, 64), (513, 8, 64)):
+        assert fa.attention_route(L, H, D) == "long", (L, H, D)
+        q, k, v = (torch.randn(1, L, H, D, generator=torch.Generator().manual_seed(i),
+                               requires_grad=True) for i in range(3))
+        grads = torch.autograd.grad(long_flash_attention(q, k, v).square().sum(), (q, k, v))
+        assert all(g.shape == (1, L, H, D) and bool(torch.isfinite(g).all()) for g in grads)
 
 
 def _jax_swiglu_fwd_pallas(C: int, H: int) -> bool:
@@ -137,3 +141,30 @@ def test_prologue_route_pins_the_jax_gate(C, monkeypatch):
             assert C % 64 == 0 and C <= fq.MAX_C and F % 128 == 0
     monkeypatch.setenv("OSU_DREAMER_FUSED_PROLOGUE", "0")
     assert not prologue_ok(C, 3072)
+
+
+@pytest.mark.parametrize("C", WIDTHS + [144, 200])
+@pytest.mark.parametrize("tp", [2, 3])
+def test_tp_routes_follow_the_one_rank_routes(C, tp):
+    """a tensor-parallel slice is routed as the one-rank op, never refused:
+    the SwiGLU TP forms run the K4 TP form where the forward core takes the
+    largest slice (where it takes the whole H too), then the backward
+    ``bwd_route`` names (K5's TP form at the widths whose one-rank backward
+    is K5); the film layer's K2 TP form likewise, then K3's where
+    ``bwd_kernel_fits``; the plain versions elsewhere and on the CPU"""
+    H = _hidden(C)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    hp_max = sw.tp_hidden_pads(H, tp)[1]
+    fwd = "kernel" if sw.fwd_kernel_fits(C, K, hp_max) else "plain"
+    if sw.fwd_kernel_fits(C, K, H):
+        assert fwd == "kernel"
+    want = (fwd, sw.bwd_route(C, H, K) if fwd == "kernel" else "plain")
+    assert sw.swiglu_tp_route(C, K, H, tp, cuda) == want
+    assert sw.swiglu_tp_route(C, K, H, tp, cpu) == ("plain", "plain")
+    film_bwd = "kernel" if fwd == "kernel" and fl.bwd_kernel_fits(C, K) else "plain"
+    assert fl.film_layer_tp_route(C, K, H, tp, cuda) == (fwd, film_bwd)
+    assert fl.film_layer_tp_route(C, K, H, tp, cpu) == ("plain", "plain")
+    if C == 384:  # the width-384 denoiser: K5 one-rank, so K5's TP form
+        assert want == ("kernel", "full")
+    if C == 144:  # C % 32 != 0: the one-rank backward is the plain version
+        assert want == ("kernel", "plain")

@@ -317,8 +317,8 @@ def test_resume_is_exact(tmp_path):
 def test_fit_denoiser_cli_and_refusals(tmp_path, capsys):
     """the CLI trains on the CPU when asked and writes both checkpoints; a
     CUDA run without a card, parallel blocks the one CPU device cannot hold
-    (tensor parallelism among them), dropout and windows beyond the
-    fused-attention gate raise instead of running something else"""
+    (tensor parallelism among them) and dropout raise instead of running
+    something else; a window beyond the fused-attention gate trains"""
     import json
 
     from osu_dreamer_tpu_torch.cli import main
@@ -346,5 +346,41 @@ def test_fit_denoiser_cli_and_refusals(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="dropout"):
         run({**cfg, "model": {**cfg["model"], "backbone": {**cfg["model"]["backbone"],
                                                            "dropout": 0.1}}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_attention_fits"):
-        run({**cfg, "data": {**cfg["data"], "seq_len": 2100}}, device="cpu")
+    # a window past the fused-attention gate (2 x 64 heads at L 2100: L H D
+    # 268,800) trains through the long attention, as in the JAX package
+    long_data = tmp_path / "long_data"
+    write_latent_corpus(long_data, 4, 2, 2100, 16, 6, 8, seed=2)
+    state = run({**cfg, "data": {**cfg["data"], "data_dir": str(long_data), "seq_len": 2100},
+                 "fit": {**cfg["fit"], "run_dir": str(tmp_path / "long"), "max_steps": 1}},
+                device="cpu")
+    assert state.step == 1
+    assert all(bool(torch.isfinite(p).all()) for p in state.model.parameters())
+
+
+def test_dropout_trains_in_neither_package(tmp_path):
+    """``backbone.dropout > 0``: the JAX train step applies the model with
+    ``train=True`` and no dropout PRNG, so flax raises InvalidRngError; the
+    port's ``fit.run`` refuses before step 1, naming the finding"""
+    import flax
+
+    from osu_dreamer_tpu.models.diffusion.model import DiffusionModel as JDiff
+    from osu_dreamer_tpu.models.diffusion.train import LatentBatch as JBatch
+    from osu_dreamer_tpu.models.diffusion.train import diffusion_loss as jloss
+    from osu_dreamer_tpu_torch.models.diffusion.fit import run
+
+    ja, jt = _args("jax")
+    ja = dataclasses.replace(ja, backbone=dataclasses.replace(ja.backbone, dropout=0.1))
+    B, L = 2, 8
+    rng = np.random.default_rng(0)
+    batch = JBatch(rng.random((B, L, 16), dtype=np.float32),
+                   rng.standard_normal((B, L, 6)).astype(np.float32),
+                   rng.standard_normal((B, 8)).astype(np.float32),
+                   rng.uniform(0, 10, (B, 5)).astype(np.float32))
+    jm = JDiff(ja, F32)
+    params = jax.jit(jm.init)(KEY, batch.h, batch.s, batch.z)
+    with pytest.raises(flax.errors.InvalidRngError, match="dropout"):
+        jax.jit(jax.value_and_grad(lambda p: jloss(jm, p, KEY, batch, jt), has_aux=True))(params)
+    cfg = _fit_config(tmp_path, "dropout", 1)
+    with pytest.raises(NotImplementedError, match="InvalidRngError"):
+        run({**cfg, "model": {**cfg["model"], "backbone": {**cfg["model"]["backbone"],
+                                                           "dropout": 0.1}}}, device="cpu")
