@@ -8,8 +8,8 @@ nothing of JAX; without a card it exits nonzero and prints no result.
 
 1. Builds the CUDA kernels from osu_dreamer_tpu_torch/csrc/ (one nvcc
    per source, in parallel; printing the build seconds: the twelve ported
-   TPU kernels in eleven entries, the TP forms of K4, K6, K5, K2 and K3,
-   and the long attention backward)
+   TPU kernels in eleven entries, the TP forms of K4, K6, K5, K2, K3, K11
+   and K12, and the long attention backward)
    and holds each against its plain PyTorch version on the card (bf16; f32 for the
    resonator; TF32 off; the SwiGLU and film-layer forward kernels against
    the plain version in f32, within 1.1x mean / 1.5x max of the plain bf16
@@ -46,11 +46,13 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    Then K4 under five plans (output columns a CTA holds x hidden slices) at
    B4 L759 and B128 L152: graph-replay ms, the core kernel and the
    reduction of the split plans timed apart by torch.profiler. Then (1e)
-   the five TP forms (parallel/tp.py) on two slices of the hidden units:
+   the seven TP forms (parallel/tp.py) on two slices of the hidden units
+   (the prologue's on two slices of the heads):
    K4's and K6's at B128 L152 C512 (H 683 and 682), K5's at the width-384
    denoiser's B128 L152 C384 (H 512 and 512), K2's and K3's at the
    latent stage's four levels B64 L1026, L342, L114, L38 C128 (H 171 and
-   170): each slice's first phase against its plain version in f32 (its
+   170), K11's and K12's at B128 L152 C512 on 8 of 16 x 64 heads a slice
+   (1536 qkv columns): each slice's first phase against its plain version in f32 (its
    f32 workspace, or dY partial and weight gradients, within GRAD_REL),
    the slices' sums through the second phase against the f32 plain
    one-rank function (the forwards within the f32 rule, beside the
@@ -190,6 +192,12 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    warm-up step runs under torch.profiler (device-busy ms, K12's and K11's ms and
    launches, as phase 4 gives K6's); each followed by the one-step check of
    4.
+6b. Radius 0 (the JAX FFN without its depthwise conv, which the port runs
+   on the FFN kernels with a unit tap): one step of the width-512 denoiser
+   at ``radius: 0`` and one of the latent stage at ``stack.radius: 0``
+   (its shipped B32 x L2052) through the kernels and through the plain versions, each
+   held to the f32 plain step as in 4 and 5; the kernel steps must call K4
+   and K6 8 times, K2 and K3 88 times, each with one tap.
 7. Drives the training pipeline from audio through the functions the CLI
    commands call. build_library writes 12 synthetic mapsets of 60 s (3
    difficulties each) as 16,384 Hz WAV under build/; generate-data
@@ -253,12 +261,16 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    ``tp: 2`` (171/170 of 341), 4 steps, in one spawn of the script's own
    ranks with the one-step checks; (c) ``fit-denoiser`` at width 384 with
    ``tp: 2`` through ``fit.run`` (512 of 1024 hidden units a rank), 6
-   steps. Every step of every rank must launch exactly the K4 and K6 TP
-   forms (at width 384 K4's and K5's) and K9/K10 8 times each (no one-rank
-   K4/K6), the K2 and K3 TP forms 88 times in the latent step, and
+   steps; (d) ``fit-denoiser`` at the shipped config with ``tp: 2`` and
+   OSU_DREAMER_FUSED_PROLOGUE=1 through ``fit.run``, 6 steps. Every step of
+   every rank must launch exactly the K4 and K6 TP forms (at width 384
+   K4's and K5's) and K9/K10 8 times each (no one-rank K4/K6), in (d) also
+   the K11 and K12 TP forms 8 times each (no one-rank K11/K12, no torch
+   prologue), the K2 and K3 TP forms 88 times in the latent step, and
    nothing else; the denoiser's one-step checks run at widths 512, 384
    and 144 (the plain TP backward on the card, the one-rank route there),
-   each launching the SwiGLU TP forms its route names; the ranks' losses must be equal, each fit checks its
+   each launching the SwiGLU TP forms its route names, and at 512 with the
+   prologue on (K11's and K12's TP forms 8 each); the ranks' losses must be equal, each fit checks its
    replicas (the whole-model leaves on every rank, the slices across the
    data group), and one step of each on random full-strength weights is
    held to the f32 plain one-process step within PARALLEL_RATIO of the
@@ -358,6 +370,9 @@ KERNEL_META = {
                            "osu_dreamer_tpu/ops/long_attention.py:316"),
     "swiglu_bwd_full_tp": ("osu_dreamer_tpu_torch/csrc/swiglu_bwd.cu",
                            "osu_dreamer_tpu/ops/swiglu.py:313"),
+    "film_qkv_tp": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:122"),
+    "film_qkv_bwd_tp": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu",
+                        "osu_dreamer_tpu/ops/film_qkv.py:235"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
@@ -816,6 +831,30 @@ def plain_ops():
          spectrogram.resonate_frames) = saved
 
 
+@contextmanager
+def tap_counts():
+    """{(kernel, taps of its depthwise kernel): calls} of the FFN kernels'
+    wrappers (K4, K6, K5, K2, K3) while the context is open"""
+    from osu_dreamer_tpu_torch.ops import film_layer, swiglu
+
+    seen: dict = {}
+    wrapped = [(swiglu, name, 1) for name in ("swiglu_cuda", "swiglu_bwd_cuda",
+                                              "swiglu_bwd_full_cuda")]
+    wrapped += [(film_layer, name, 6) for name in ("film_layer_cuda", "film_layer_bwd_cuda")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+    for (mod, name, at), (_, _, fn) in zip(wrapped, saved):
+        def counted(*args, _fn=fn, _name=name, _at=at):
+            key = (_name, args[_at].shape[0])
+            seen[key] = seen.get(key, 0) + 1
+            return _fn(*args)
+        setattr(mod, name, counted)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def randomize_(model, gen) -> None:
     """random full-strength weights in place: fan-in scaled normal kernels,
     1 + 0.1 N gains, 0.1 N other vectors (flax's zero-initialised layers
@@ -836,15 +875,17 @@ def randomize_(model, gen) -> None:
 
 def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False,
                ratios: tuple[float, float] = (SLICE_MEAN_RATIO, SLICE_MAX_RATIO),
-               labels: tuple[str, str] = ("kernels", "plain bf16")) -> None:
+               labels: tuple[str, str] = ("kernels", "plain bf16"),
+               gate_terms: bool = True) -> None:
     """one train step's (loss terms, flat gradients) through the kernels and
     through the plain versions (bf16), each held to the plain f32 step: the
     kernels' gradients within ``ratios`` (mean, max: by default
     SLICE_MEAN_RATIO / SLICE_MAX_RATIO) of the plain path's error; their loss
     terms each within the max ratio of the plain path's error or LOSS_FLOOR
     of the f32 value, or with ``pool_terms`` the terms' relative errors
-    (floored at LOSS_FLOOR) pooled under the gradients' mean / max rule.
-    ``labels`` name the two paths in the log and the errors"""
+    (floored at LOSS_FLOOR) pooled under the gradients' mean / max rule
+    (``gate_terms`` False: the terms logged only). ``labels`` name the two
+    paths in the log and the errors"""
     import torch
 
     mean_ratio, max_ratio = ratios
@@ -861,7 +902,7 @@ def check_step(what: str, names, ref, kernels, plain, pool_terms: bool = False,
         f"gradients ({ref_grads.numel()} values, max |f32| {ref_grads.abs().max().item():.4g}) "
         f"{a} mean {kg.mean().item():.4g} max {kg.max().item():.4g}, {b} mean "
         f"{pg.mean().item():.4g} max {pg.max().item():.4g}")
-    if not terms_ok:
+    if gate_terms and not terms_ok:
         raise RuntimeError(f"{what}: the {a} path's loss is farther from the f32 step than "
                            f"the {b} path's")
     if not (kg.mean() <= mean_ratio * pg.mean() and kg.max() <= max_ratio * pg.max()):
@@ -957,6 +998,55 @@ def fit_timed(what: str, run, cfg: dict, dev, smi: str, workdir: Path, shape: st
     return launches, ms_step, peak_gib
 
 
+def latent_step(what: str, cfg: dict, dev, gate_terms: bool = True) -> None:
+    """one latent step (``cfg``'s model, batch and window) through the
+    kernels and through the plain versions (bf16), each against a plain f32
+    step on the same random full-strength weights, batch and draws, the
+    components normalised by themselves as on the first step (``gate_terms``
+    False: the gradients held, the loss terms logged)"""
+    import torch
+
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModel, LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import (
+        LOSS_COMPONENTS, LOSS_WEIGHTS, Batch, LatentTrainArgs, draw_latent, latent_loss,
+    )
+    from osu_dreamer_tpu_torch.utils import dataclass_from_dict
+
+    model_args = dataclass_from_dict(LatentModelArgs, cfg["model"])
+    train_args = dataclass_from_dict(LatentTrainArgs, cfg["train"])
+    bf16_model = LatentModel(model_args, torch.bfloat16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    randomize_(bf16_model, gen)
+    f32_model = LatentModel(model_args, torch.float32).to(dev)
+    f32_model.load_state_dict(bf16_model.state_dict())
+    Bt, Lt = cfg["data"]["batch_size"], cfg["data"]["seq_len"]
+    batch = Batch(audio=torch.rand(Bt, Lt, 72, generator=gen, device=dev),
+                  chart=torch.rand(Bt, Lt, 9, generator=gen, device=dev),
+                  labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+    draws = draw_latent(2 * Bt, model_args.style_dim, Lt // 2 // model_args.chunk_size,
+                        model_args.emb_dim, gen, dev)
+    weights = torch.from_numpy(LOSS_WEIGHTS).to(dev)
+
+    def loss_and_grads(model, plain: bool):
+        with plain_ops() if plain else nullcontext():
+            comps, _, s_reg = latent_loss(model, batch, train_args, draws=draws)
+            total = (weights * comps / comps.detach().clamp_min(1e-8)).sum()
+            total = total + train_args.s_reg_weight * s_reg
+            grads = torch.autograd.grad(total, list(model.parameters()), materialize_grads=True)
+        terms = torch.cat([comps.detach().float(), torch.stack([s_reg, total]).detach().float()])
+        return terms, torch.cat([g.flatten().float() for g in grads])
+
+    # 13 loss terms, each set by the forward alone (K2 here, the plain bf16
+    # forward there) through 64 film layers of random full-strength weights:
+    # each term's bf16 error is a draw of about 1 % of its value, so one
+    # term compared with one term is chance; they are pooled
+    check_step(what, (*LOSS_COMPONENTS, "s_reg", "loss"), loss_and_grads(f32_model, True),
+               loss_and_grads(bf16_model, False), loss_and_grads(bf16_model, True),
+               pool_terms=True, gate_terms=gate_terms)
+    del bf16_model, f32_model
+    torch.cuda.empty_cache()
+
+
 def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, int],
                  workdir: Path) -> dict[str, int]:
     """phase 5: ``cfg`` (the fit-latent config) trained through ``fit.run``
@@ -970,10 +1060,8 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
     from osu_dreamer_tpu_torch.data.synth import write_signal_corpus
     from osu_dreamer_tpu_torch.models.latent import fit as latent_fit
     from osu_dreamer_tpu_torch.models.latent.encode import encode_latents
-    from osu_dreamer_tpu_torch.models.latent.model import LatentModel, LatentModelArgs
-    from osu_dreamer_tpu_torch.models.latent.train import (
-        LOSS_COMPONENTS, LOSS_WEIGHTS, Batch, LatentTrainArgs, draw_latent, latent_loss,
-    )
+    from osu_dreamer_tpu_torch.models.latent.model import LatentModelArgs
+    from osu_dreamer_tpu_torch.models.latent.train import LOSS_COMPONENTS
     from osu_dreamer_tpu_torch.ops import _build
     from osu_dreamer_tpu_torch.train.logging import MetricsLogger
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict
@@ -1021,42 +1109,7 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
             f"step {figures[0][1]}; " + ("written to TensorBoard" if figures[0][2] else
                                          "not written: tensorboardX cannot be imported"))
 
-    # one step through the kernels and through the plain versions (bf16),
-    # each against a plain f32 step on the same batch and draws, the
-    # components normalised by themselves as on the first step
-    model_args = dataclass_from_dict(LatentModelArgs, model)
-    train_args = dataclass_from_dict(LatentTrainArgs, cfg["train"])
-    bf16_model = LatentModel(model_args, torch.bfloat16).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    randomize_(bf16_model, gen)
-    f32_model = LatentModel(model_args, torch.float32).to(dev)
-    f32_model.load_state_dict(bf16_model.state_dict())
-    Bt, Lt = data["batch_size"], data["seq_len"]
-    batch = Batch(audio=torch.rand(Bt, Lt, 72, generator=gen, device=dev),
-                  chart=torch.rand(Bt, Lt, 9, generator=gen, device=dev),
-                  labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
-    draws = draw_latent(2 * Bt, model_args.style_dim, Lt // 2 // model_args.chunk_size,
-                        model_args.emb_dim, gen, dev)
-    weights = torch.from_numpy(LOSS_WEIGHTS).to(dev)
-
-    def loss_and_grads(model, plain: bool):
-        with plain_ops() if plain else nullcontext():
-            comps, _, s_reg = latent_loss(model, batch, train_args, draws=draws)
-            total = (weights * comps / comps.detach().clamp_min(1e-8)).sum()
-            total = total + train_args.s_reg_weight * s_reg
-            grads = torch.autograd.grad(total, list(model.parameters()), materialize_grads=True)
-        terms = torch.cat([comps.detach().float(), torch.stack([s_reg, total]).detach().float()])
-        return terms, torch.cat([g.flatten().float() for g in grads])
-
-    # 13 loss terms, each set by the forward alone (K2 here, the plain bf16
-    # forward there) through 64 film layers of random full-strength weights:
-    # each term's bf16 error is a draw of about 1 % of its value, so one
-    # term compared with one term is chance; they are pooled
-    check_step("fit-latent", (*LOSS_COMPONENTS, "s_reg", "loss"),
-               loss_and_grads(f32_model, True), loss_and_grads(bf16_model, False),
-               loss_and_grads(bf16_model, True), pool_terms=True)
-    del bf16_model, f32_model
-    torch.cuda.empty_cache()
+    latent_step("fit-latent", cfg, dev)
 
     # encode-latents on the card, read back by the latent pipeline
     _build.reset_launches()
@@ -1070,6 +1123,7 @@ def train_latent(dev, smi: str, plain_ops, cfg: dict, corpus: tuple[int, int, in
         raise RuntimeError(f"encode-latents encoded {n_maps} maps, launches {launches_encode}")
     sets, _ = hold_out_mapsets(workdir / "data", "*.latent.npz", 0, 0.0)
     samples = list(latent_windows(sets, None))
+    model_args = dataclass_from_dict(LatentModelArgs, model)
     n_latent = -(-length // model_args.chunk_size)
     want = {"h": (n_latent, model_args.h_dim), "z": (n_latent, model_args.emb_dim),
             "s": (model_args.style_dim,)}
@@ -1833,7 +1887,7 @@ def parallel_phase(dev, smi: str) -> dict[str, int]:
 # and one rank's form (both phases, its own partials unsummed) timed by
 # graph replay
 TP_FORMS = ("swiglu_tp", "swiglu_bwd_tp", "film_layer_tp", "film_layer_bwd_tp",
-            "swiglu_bwd_full_tp")
+            "swiglu_bwd_full_tp", "film_qkv_tp", "film_qkv_bwd_tp")
 TP_RANKS = 2
 TP_DENOISER = (128, 152, 512, 1365)  # B, L, C, H
 # the width-384 denoiser's, where the one-rank SwiGLU backward is K5 and so
@@ -1847,6 +1901,9 @@ TP_DENOISER_384 = (128, 152, 384, 1024)
 # path's max error there at 0.70x its mean, so the rule holds each stage.)
 WORKSPACE = ("s W_out partial", "sums of s^2 partial")
 TP_LATENT = (128, 341, ((64, 1026), (64, 342), (64, 114), (64, 38)))  # C, H, (B, L) a level
+# the fused prologue's TP forms at the denoiser's training shape: B, L, C,
+# heads, head dim (8 of the 16 heads a rank: 1536 of the 3072 qkv columns)
+TP_PROLOGUE = (128, 152, 512, 16, 64)
 
 
 def tp_slices(H: int, tp: int = TP_RANKS):
@@ -1887,7 +1944,7 @@ def workspace_rule(what: str, rows: int, C: int, got, plain, ref) -> None:
 
 
 def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi: str) -> None:
-    """phase 1e: the five TP forms (see TP_FORMS above); fills ``results``
+    """phase 1e: the seven TP forms (see TP_FORMS above); fills ``results``
     with each form's first shape"""
     import torch
 
@@ -2145,7 +2202,103 @@ def tp_forms_phase(rnd, ffn, film_args, check_grads, record, results: dict, smi:
                moved_bytes(*b_args, *got) + 2 * moved_bytes(dys[0]))
         del args, f32args, x, go, w, bufs, bufs32, ys, total, total32, out, ref, dys, got, k3
     torch.cuda.empty_cache()
-    log(f"phase 1e: the five TP forms checked [{smi}]")
+    tp_prologue_forms(rnd, check_grads, record, equal_all, same_finish, summed)
+    log(f"phase 1e: the seven TP forms checked [{smi}]")
+
+
+def tp_prologue_forms(rnd, check_grads, record, equal_all, same_finish, summed) -> None:
+    """phase 1e's K11 and K12 TP forms at TP_PROLOGUE, on both ranks'
+    heads: K11's on each rank's columns within 4 ulp of its plain version,
+    rerunning bit-identically; K12's phase 0 on each rank against its plain
+    version (GRAD_REL of f32), the dy partials summed, every rank's phase 1
+    the same bit for bit, the gradients put together within GRAD_REL of the
+    f32 one-rank backward (and beside the one-rank K12); one rank's forms
+    timed by graph replay"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import film_qkv as fq
+    from osu_dreamer_tpu_torch.parallel.tp import Split, even_split
+
+    Bt, Lt, C, heads, D = TP_PROLOGUE
+    F, rows = 3 * heads * D, Bt * Lt
+    args = (rnd(Bt, Lt, C), rnd(Bt, C, scale=0.3), rnd(Bt, C, scale=0.3),
+            rnd(Bt, Lt, C, scale=0.5), rnd(C, F, scale=C**-0.5).float(), rnd(F, scale=0.1).float())
+    go = rnd(Bt, Lt, F)
+    splits = []
+    for r in range(TP_RANKS):
+        lo, hi = even_split(heads, TP_RANKS, r)
+        splits.append((Split(1, 3, D, heads, lo, hi), Split(0, 3, D, heads, lo, hi)))
+
+    def rank_args(sk, sb):
+        """a rank's inputs: the replicated x, scale, shift, add and its
+        columns of the kernel, bias and output gradient"""
+        return ((*args[:4], sk.take(args[4]), sb.take(args[5])),
+                sk.take(go.reshape(rows, F)).reshape(Bt, Lt, -1))
+
+    label = f"B{Bt} L{Lt} C{C} {heads} x {D} heads on 2 slices"
+    outs, dys, parts, finishes, worst_fwd = [], [], [], [], 0.0
+    for r, (sk, sb) in enumerate(splits):
+        sargs, g_r = rank_args(sk, sb)
+        out = fq.film_qkv_tp_fwd_cuda(*sargs)
+        want = fq.film_qkv_plain(*sargs).float()
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+        log(f"film_qkv_tp {label} slice {r} (F{sargs[4].shape[1]}): max_abs_err {err:.3g} "
+            f"(tolerance {tol:.3g})")
+        if not (bool(torch.isfinite(out).all()) and err <= tol):
+            raise RuntimeError(f"film_qkv_tp slice {r}: the form disagrees with its plain version")
+        if not torch.equal(fq.film_qkv_tp_fwd_cuda(*sargs), out):
+            raise RuntimeError(f"film_qkv_tp slice {r}: two launches differ")
+        worst_fwd = max(worst_fwd, err)
+        dy, sg, fin = fq.film_qkv_tp_bwd_cuda(*sargs, g_r)
+        dy32, sg32, _ = fq.film_qkv_tp_bwd_plain(*(t.float() for t in sargs), g_r.float())
+        dyp, sgp, _ = fq.film_qkv_tp_bwd_plain(*sargs, g_r)
+        check_grads(f"film_qkv_bwd_tp {label} slice {r} first phase",
+                    ("dy partial", "dkernel", "dbias"), (dy, *sg), (dy32, *sg32), (dyp, *sgp))
+        again = fq.film_qkv_tp_bwd_cuda(*sargs, g_r)
+        if not (torch.equal(again[0], dy) and equal_all(again[1], sg)):
+            raise RuntimeError(f"film_qkv_bwd_tp slice {r}: two launches differ")
+        outs.append(out)
+        dys.append(dy)
+        parts.append(sg)
+        finishes.append(fin)
+    summed(dys)
+    done = [tuple(t.clone() for t in fin()) for fin in finishes]
+    same_finish(f"film_qkv_bwd_tp {label}", done, finishes[0]())
+    dw, db = torch.zeros_like(args[4]), torch.zeros_like(args[5])
+    for (sk, sb), (dw_r, db_r) in zip(splits, parts):
+        sk.put(dw, dw_r)
+        sb.put(db, db_r)
+    got = (*done[0], dw, db)
+    names = ("dx", "dscale", "dshift", "dadd", "dkernel", "dbias")
+    worst = check_grads(f"film_qkv_bwd_tp {label}, summed and finished", names, got,
+                        fq.film_qkv_bwd_plain(*(t.float() for t in args), go.float()),
+                        fq.film_qkv_bwd_plain(*args, go))
+    one = fq.film_qkv_bwd_cuda(*args, go)
+    log(f"film_qkv_bwd_tp {label}: max |diff| to the one-rank K12 " + ", ".join(
+        f"{n} {(a.float() - b.float()).abs().max().item():.4g}"
+        for n, a, b in zip(names, got, one)))
+    sargs, g_0 = rank_args(*splits[0])
+    Fr = sargs[4].shape[1]
+
+    def k12_tp(*a):
+        _, sg, fin = fq.film_qkv_tp_bwd_cuda(*a)
+        return (*sg, *fin())
+
+    def k12_tp_plain(*a):
+        _, sg, fin = fq.film_qkv_tp_bwd_plain(*a)
+        return (*sg, *fin())
+
+    record("film_qkv_tp", f"{label} (one rank's form: slice F{Fr})", 0,
+           graph_ms(fq.film_qkv_tp_fwd_cuda, sargs), graph_ms(fq.film_qkv_plain, sargs),
+           worst_fwd, 2 * rows * C * Fr, moved_bytes(*sargs, outs[0]))
+    record("film_qkv_bwd_tp", f"{label} (one rank's form: slice F{Fr}, its own dy)", 0,
+           graph_ms(k12_tp, (*sargs, g_0)), graph_ms(k12_tp_plain, (*sargs, g_0)), worst,
+           4 * rows * C * Fr,
+           moved_bytes(*sargs, g_0, *done[0], *parts[0]) + 2 * moved_bytes(dys[0]))
+    del args, go, outs, dys, parts, finishes, done, got, one
+    torch.cuda.empty_cache()
 
 
 # phase 10: tensor parallelism on two ranks, placed as phase 9's: (a)
@@ -2163,6 +2316,10 @@ TP_DENOISER_LAUNCHES = {"swiglu_tp": 8, "swiglu_bwd_tp": 8, "fused_attention_fwd
 # one-rank SwiGLU backward is K5, so a slice's is K5's TP form
 TP_DENOISER_384_LAUNCHES = {"swiglu_tp": 8, "swiglu_bwd_full_tp": 8, "fused_attention_fwd": 8,
                             "fused_attention_bwd": 8}
+# (d) the shipped denoiser at tp 2 with OSU_DREAMER_FUSED_PROLOGUE=1: the
+# prologue's TP forms in every layer (1536 qkv columns a rank), no one-rank
+# K11/K12 and no torch prologue
+TP_DENOISER_PROLOGUE_LAUNCHES = {**TP_DENOISER_LAUNCHES, "film_qkv_tp": 8, "film_qkv_bwd_tp": 8}
 # the one-step checks' widths: the shipped 512 (K6's TP form), 384 (K5's)
 # and 144, whose one-rank backward is the plain version (C % 32 != 0), so a
 # slice's is the plain TP form on the card
@@ -2197,14 +2354,15 @@ def whole_grads(model, grads) -> list:
     return [layout.gather(n, g) for n, g in zip(names, grads)]
 
 
-def denoiser_tp_check(cfg: dict, devices: list[str]) -> None:
+def denoiser_tp_check(cfg: dict, devices: list[str], prologue: bool = False) -> None:
     """phase 10's one-step check of the denoiser at ``cfg``'s width (B128
     L152): the tp 2 step launches the SwiGLU TP forms ``swiglu_tp_route``
-    names (8 each; none for the plain backward), and its loss terms and
-    gradients (gathered) stay within PARALLEL_RATIO of the one-process
-    kernel step's error against the f32 plain step on the same random
-    full-strength weights, batch, t and x0 (in each rank; rank 0
-    compares)"""
+    names (8 each; none for the plain backward) and, with ``prologue``
+    (called under OSU_DREAMER_FUSED_PROLOGUE=1), K11's and K12's TP forms 8
+    each (none otherwise), and its loss terms and gradients (gathered) stay
+    within PARALLEL_RATIO of the one-process kernel step's error against
+    the f32 plain step on the same random full-strength weights, batch, t
+    and x0 (in each rank; rank 0 compares)"""
     import torch
     import torch.distributed as dist
 
@@ -2246,13 +2404,14 @@ def denoiser_tp_check(cfg: dict, devices: list[str]) -> None:
     launched = {k: n - before[k] for k, n in _build.launches.items() if n != before[k]}
     del sliced, grads
     width = md["backbone_dim"]
-    what = f"phase 10 fit-denoiser tp 2, width {width}"
+    what = f"phase 10 fit-denoiser tp 2, width {width}" + (", fused prologue" if prologue else "")
     hidden = int(width * md["backbone"]["expand"] * 2 / 3)
     route = swiglu_tp_route(width, 2 * md["backbone"]["radius"] + 1, hidden, 2, dev)
     want = {"full": "swiglu_bwd_full_tp", "partial": "swiglu_bwd_tp", "plain": None}[route[1]]
     bwd = {k: launched.get(k, 0) for k in ("swiglu_bwd_tp", "swiglu_bwd_full_tp")}
+    forms = {k: launched.get(k, 0) for k in ("film_qkv_tp", "film_qkv_bwd_tp")}
     if route[0] != "kernel" or launched.get("swiglu_tp") != 8 or bwd != {
-            k: 8 if k == want else 0 for k in bwd}:
+            k: 8 if k == want else 0 for k in bwd} or forms != dict.fromkeys(forms, 8 * prologue):
         raise RuntimeError(f"{what}: the TP step launched {launched} on the route {route}")
     if dist.get_rank() == 0:
         log(f"{what}: the TP step's SwiGLU route {route}, launches {launched}")
@@ -2374,6 +2533,8 @@ def tp_rank(workdir: str, latent_cfg: dict, denoiser_cfg: dict, devices: list[st
     for width in TP_CHECK_WIDTHS:
         denoiser_tp_check({**denoiser_cfg, "model": {**denoiser_cfg["model"],
                                                      "backbone_dim": width}}, devices)
+    with fused_prologue():
+        denoiser_tp_check(denoiser_cfg, devices, prologue=True)
     latent_tp_check(latent_cfg, devices)
 
 
@@ -2465,6 +2626,29 @@ def tp_phase(dev, smi: str) -> dict[str, int]:
                            TP_STEPS, TP_DENOISER_384_LAUNCHES, smi).items():
         launches[k] += n
 
+    # (d) the shipped denoiser at tp 2 with the fused prologue through
+    # fit.run: the TP forms of K11 and K12 in every layer
+    t0 = time.perf_counter()
+    cfg_on = {**denoiser_cfg, "fit": {**denoiser_cfg["fit"],
+                                      "run_dir": str(workdir / "runs_denoiser_prologue")}}
+    with fused_prologue():
+        state = diffusion_fit.run(cfg_on, device=dev, devices=devices,
+                                  on_step=functools.partial(
+                                      rank_probe, str(workdir / "probe_denoiser_prologue")))
+    if state.step != TP_STEPS or not all(bool(torch.isfinite(p).all())
+                                         for p in state.model.parameters()):
+        raise RuntimeError(f"fit-denoiser tp 2 with the fused prologue ended at step "
+                           f"{state.step} or not finite")
+    log(f"phase 10 (d) fit-denoiser tp 2, OSU_DREAMER_FUSED_PROLOGUE=1 (8 of 16 x 64 heads a "
+        f"rank: K11's and K12's TP forms on 1536 of the 3072 qkv columns): {TP_STEPS} steps, "
+        f"{time.perf_counter() - t0:.1f} s wall with the spawn")
+    del state
+    torch.cuda.empty_cache()
+    for k, n in read_probe(workdir / "probe_denoiser_prologue",
+                           "fit-denoiser tp 2, OSU_DREAMER_FUSED_PROLOGUE=1", TP_STEPS,
+                           TP_DENOISER_PROLOGUE_LAUNCHES, smi).items():
+        launches[k] += n
+
     # (b) the latent stage at tp 2, then the one-step checks, in one spawn
     t0 = time.perf_counter()
     launch(tp_rank, (str(workdir), latent_cfg, denoiser_cfg, devices), devices, 2, deadline_s=900)
@@ -2473,7 +2657,7 @@ def tp_phase(dev, smi: str) -> dict[str, int]:
                            "fit-latent tp 2 (B32 x L2052, 171/170 of 341 hidden units a rank)",
                            TP_LATENT_STEPS, TP_LATENT_LAUNCHES, smi).items():
         launches[k] += n
-    for run_dir in ("runs_denoiser", "runs_denoiser_384", "runs_latent"):
+    for run_dir in ("runs_denoiser", "runs_denoiser_384", "runs_denoiser_prologue", "runs_latent"):
         if not (workdir / run_dir / "last" / "state.pt").exists():
             raise RuntimeError(f"phase 10: rank 0 wrote no {run_dir}/last")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -3971,6 +4155,55 @@ def main() -> int:
             f"width {w} prologue on {ms:.2f} ms/step, peak {peak:.2f} GiB"
             for w, (ms, peak) in steps_on.items()) + f" [{smi}]")
 
+    # ---- 6b. radius 0 (the JAX FFN without its depthwise conv): one
+    # denoiser step (width 512: K4 and K6) and one latent step (K2 and K3)
+    # through the kernels with the unit tap, against the f32 plain step ----
+    t_phase = time.perf_counter()
+    r0cfg = denoiser_config(512)
+    r0cfg["model"]["backbone"]["radius"] = 0
+    latent_r0 = load_yaml_config(latent_fit.CONFIG)
+    latent_r0["model"]["stack"]["radius"] = 0
+    # K2 and K3 with the unit tap at the radius-0 latent stage's four levels
+    # (B32, L 2052 / 3^k, C128 H341), by phase 1's rules
+    unit_tap = [torch.ones(1, 128, dtype=torch.bfloat16, device=dev),
+                torch.zeros(128, dtype=torch.bfloat16, device=dev)]
+    for Lt in (2052, 684, 228, 76):
+        args = film_args(32, Lt, False)
+        args = (*args[:6], *unit_tap, *args[8:])
+        label = f"film_layer unit tap B32 L{Lt} C128 H341"
+        f32_rule(label, film_layer.film_layer_cuda(*args),
+                 film_layer.film_layer_plain(*args),
+                 film_layer.film_layer_plain(*(t.float() for t in args)))
+        go = rnd(32, Lt, 128)
+        check_grads(f"film_layer_bwd unit tap B32 L{Lt}", film_grads,
+                    film_layer.film_layer_bwd_cuda(*args, go),
+                    film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float()),
+                    film_layer.film_layer_bwd_plain(*args, go))
+        del args, go
+    # the latent step's 13 loss terms are logged, not held: where the unit
+    # tap leaves the kernels no conv to keep in f32, the kernel and plain
+    # paths' term errors are draws of one size (tools/radius0_terms.py, 4
+    # weight draws: 0.73-2.00x the plain path's mean at radius 0, 0.39-1.07x
+    # at radius 2), while each layer's kernels stay closer to f32 than the
+    # plain versions (held above) and so do the step's gradients (held)
+    launches_radius0 = dict.fromkeys(_build.KERNELS, 0)
+    for what, step, want in (
+            ("fit-denoiser, radius 0", lambda: denoiser_step("fit-denoiser, radius 0", r0cfg),
+             {("swiglu_cuda", 1): 8, ("swiglu_bwd_cuda", 1): 8}),
+            ("fit-latent, radius 0", lambda: latent_step("fit-latent, radius 0", latent_r0, dev,
+                                                          gate_terms=False),
+             {("film_layer_cuda", 1): 88, ("film_layer_bwd_cuda", 1): 88})):
+        _build.reset_launches()
+        with tap_counts() as taps:
+            step()
+        log(f"{what}: the kernel step's FFN kernels by (wrapper, taps): {taps}; launches "
+            f"{ {k: n for k, n in _build.launches.items() if n} }")
+        if taps != want:
+            raise RuntimeError(f"{what}: the FFN kernels ran {taps}, not {want}")
+        for k, n in _build.launches.items():
+            launches_radius0[k] += n
+    log(f"phase 6b wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
     # ---- 7. the training pipeline from audio to a .osz ----
     launches_pipeline = pipeline_phase(dev, smi)
 
@@ -3986,7 +4219,7 @@ def main() -> int:
     paths = (launches_infer, launches_prologue, launches_predict, launches_sharded,
              launches_train, launches_heads, launches_heads_predict, launches_96,
              launches_96_predict, launches_long, launches_latent, launches_prologue_train,
-             launches_pipeline, launches_serve, launches_parallel, launches_tp)
+             launches_radius0, launches_pipeline, launches_serve, launches_parallel, launches_tp)
     launches = {k: sum(path[k] for path in paths) for k in _build.KERNELS}
     never = [k for k, n in launches.items() if n == 0]
     if never:

@@ -527,6 +527,7 @@ struct FqbArgs {
   const float* rinv;  // (B L): 1 / rms of each row, from the y pass
   float* part_film;   // (8 tiles, S, 2C): [dscale | dshift] of each (warp, batch row of its rows)
   float* part_db;     // (2 tiles, F): column sums of g, each half tile
+  float* dyp;         // (B L, C) f32: dy itself, where the row pass stops there (PART)
   int BL, L, C, F, S, n, stages;
 };
 
@@ -564,7 +565,9 @@ __device__ __forceinline__ void fqb_mma(float (&d)[NB * 32], uint64_t a, uint64_
   else hopper::wgmma_m64n64k16_ss(d, a, b, scale);
 }
 
-template <int NB>
+// PART (the TP form's phase 0): dy leaves in f32 to a.dyp after the
+// products, with no x boxes loaded and no epilogue
+template <int NB, bool PART>
 __global__ void __launch_bounds__(384, 1)
 film_qkv_bwd_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_s,
@@ -625,7 +628,8 @@ film_qkv_bwd_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_const
           for (int j = 0; j < NB; ++j)
             tma_load_3d(dst + (2 + j) * kFqbTile, &tm_w, &full[st], ks * 64, c0 + j * 64, 0);
         }
-        for (int e = 0; e < kE; ++e) {  // the x boxes inside C, then the scale boxes
+        // the x boxes inside C, then the scale boxes (none in PART)
+        for (int e = 0; e < (PART ? 0 : kE); ++e) {
           int real = 0;
           for (int j = e * kXper; j < min(NB, (e + 1) * kXper); ++j) real += c0 + 64 * j < a.C;
           const int boxes = (c0 + 64 * NB <= a.C ? NB : (a.C - c0) / 64);
@@ -706,6 +710,25 @@ film_qkv_bwd_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_const
     fence_regs(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[(it - 1) % nst]);
+    if constexpr (PART) {
+      // dy in f32 at the thread's rows and column pairs (32-byte row segments)
+      const int ra = tile * kFqbRows + 64 * wg + r0, rb = ra + 8;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (c0 + 64 * j >= a.C) continue;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = c0 + 64 * j + 8 * q + cq;
+          if (ra < a.BL)
+            *reinterpret_cast<float2*>(a.dyp + (size_t)ra * a.C + col) =
+                make_float2(acc[32 * j + 4 * q], acc[32 * j + 4 * q + 1]);
+          if (rb < a.BL)
+            *reinterpret_cast<float2*>(a.dyp + (size_t)rb * a.C + col) =
+                make_float2(acc[32 * j + 4 * q + 2], acc[32 * j + 4 * q + 3]);
+        }
+      }
+      continue;
+    }
     // the tile's x boxes
     const int xst = it % nst;  // the x stages: xst, xst + 1, .. (mod nst)
 #pragma unroll
@@ -904,6 +927,140 @@ fq_reduce_kernel(const float* __restrict__ part, int T, int n, float* __restrict
   }
 }
 
+// the row pass on persistent clusters, as many as the device holds at once
+// (queried once a kernel and cluster width)
+template <int NB, bool PART>
+cudaError_t fqb_launch(const CUtensorMap& mg, const CUtensorMap& mw, const CUtensorMap& mx,
+                       const CUtensorMap& ms, const FqbArgs& a, int ntiles, cudaStream_t s) {
+  const auto kernel = film_qkv_bwd_kernel<NB, PART>;
+  const size_t smem = FqbLayout(NB, a.stages).total;
+  static int held[kFqbMaxCluster + 1] = {};
+  if (held[a.n] == 0) held[a.n] = hopper::max_active_clusters(kernel, dim3(384), a.n, smem);
+  if (held[a.n] < 1) return cudaErrorInvalidConfiguration;
+  const int clusters = ntiles < held[a.n] ? ntiles : held[a.n];
+  return hopper::launch_cluster(kernel, dim3(clusters * a.n), dim3(384), a.n, smem, s, mg, mw, mx,
+                                ms, a);
+}
+
+template <bool PART>
+cudaError_t fqb_row_pass(const CUtensorMap& mg, const CUtensorMap& mw, const CUtensorMap& mx,
+                         const CUtensorMap& ms, const FqbArgs& a, int nb, int ntiles,
+                         cudaStream_t s) {
+  switch (nb) {
+    case 1: return fqb_launch<1, PART>(mg, mw, mx, ms, a, ntiles, s);
+    case 2: return fqb_launch<2, PART>(mg, mw, mx, ms, a, ntiles, s);
+    case 3: return fqb_launch<3, PART>(mg, mw, mx, ms, a, ntiles, s);
+    default: return fqb_launch<4, PART>(mg, mw, mx, ms, a, ntiles, s);
+  }
+}
+
+// ---- K12's TP form (a rank's slice of the qkv columns) ----
+//
+// Every term after dy = g W^T is linear in dy, so the form splits there:
+// phase 0 runs the y pass and the row pass on the slice (film_qkv_bwd_kernel
+// <NB, true>: dy leaves in f32, no epilogue), and the slice's dW and db;
+// the model group sums the dy planes; phase 1 (fq_tp_rows_kernel) runs the
+// row pass's epilogue on the sum: dadd = dy, dx = inv dxn - inv^3 x
+// mean_C(dxn x) with dxn = dy (1 + scale), and per CTA the partial sums of
+// dshift = dy and dscale = dy x inv over its rows, summed in order by
+// fq_tp_film_kernel. A CTA takes kFqtRows rows of one batch row, a warp a
+// row at a time, a lane 4 columns of every 128. At B128 L152 C512 and a
+// rank's 1536 columns (8 of 16 x 64 heads) the form's two products (dy
+// and dW) are 61.2 GFLOP (0.0619 ms), and the f32 dy plane it writes and
+// reads again (40 MB each way) makes bytes its bound (0.0675 ms); both
+// phases took 0.2615 ms by graph replay (chip_smoke.py phase 1e; NVIDIA
+// H100 80GB HBM3, 700 W). K11 needs no TP form of its own: its inputs are
+// replicated and its output columns the rank's, so it runs unchanged on
+// the rank's columns.
+
+constexpr int kFqtRows = 32;
+
+template <int MaxV>
+__global__ void __launch_bounds__(256)
+fq_tp_rows_kernel(const float* __restrict__ dy, const bf16* __restrict__ x,
+                  const bf16* __restrict__ scale, const float* __restrict__ rinv,
+                  bf16* __restrict__ dx, bf16* __restrict__ dadd, float* __restrict__ part, int L,
+                  int C) {
+  extern __shared__ float red[];  // (8 warps, 2C): each warp's [dscale | dshift]
+  const int b = blockIdx.y, t0 = blockIdx.x * kFqtRows, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, nv = C / 4, t1 = min(L, t0 + kFqtRows);
+  float4 s1[MaxV], ds[MaxV], dh[MaxV];
+#pragma unroll
+  for (int j = 0; j < MaxV; ++j) {
+    const int v = lane + 32 * j;
+    ds[j] = dh[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (v < nv) {
+      const bf16* sc = scale + (size_t)b * C + 4 * v;
+      s1[j] = make_float4(1.f + ldf(sc), 1.f + ldf(sc + 1), 1.f + ldf(sc + 2), 1.f + ldf(sc + 3));
+    }
+  }
+  for (int t = t0 + warp; t < t1; t += 8) {
+    const size_t row = (size_t)b * L + t;
+    const float inv = rinv[row];
+    float4 d[MaxV], xv[MaxV];
+    float pm = 0.f;
+#pragma unroll
+    for (int j = 0; j < MaxV; ++j) {
+      const int v = lane + 32 * j;
+      if (v >= nv) break;
+      d[j] = *reinterpret_cast<const float4*>(dy + row * C + 4 * v);
+      const uint2 raw = *reinterpret_cast<const uint2*>(x + row * C + 4 * v);
+      const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      xv[j] = make_float4(x01.x, x01.y, x23.x, x23.y);
+      pm += d[j].x * s1[j].x * xv[j].x;
+      pm += d[j].y * s1[j].y * xv[j].y;
+      pm += d[j].z * s1[j].z * xv[j].z;
+      pm += d[j].w * s1[j].w * xv[j].w;
+    }
+    const float m = warp_sum(pm) / C, i3 = inv * inv * inv;
+#pragma unroll
+    for (int j = 0; j < MaxV; ++j) {
+      const int v = lane + 32 * j;
+      if (v >= nv) break;
+      const float4 e = d[j], xe = xv[j], se = s1[j];
+      __nv_bfloat162 o[2] = {__floats2bfloat162_rn(e.x, e.y), __floats2bfloat162_rn(e.z, e.w)};
+      *reinterpret_cast<uint2*>(dadd + row * C + 4 * v) = *reinterpret_cast<const uint2*>(o);
+      o[0] = __floats2bfloat162_rn(inv * (e.x * se.x) - i3 * xe.x * m,
+                                   inv * (e.y * se.y) - i3 * xe.y * m);
+      o[1] = __floats2bfloat162_rn(inv * (e.z * se.z) - i3 * xe.z * m,
+                                   inv * (e.w * se.w) - i3 * xe.w * m);
+      *reinterpret_cast<uint2*>(dx + row * C + 4 * v) = *reinterpret_cast<const uint2*>(o);
+      dh[j].x += e.x;
+      dh[j].y += e.y;
+      dh[j].z += e.z;
+      dh[j].w += e.w;
+      ds[j].x += e.x * (xe.x * inv);
+      ds[j].y += e.y * (xe.y * inv);
+      ds[j].z += e.z * (xe.z * inv);
+      ds[j].w += e.w * (xe.w * inv);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MaxV; ++j) {
+    const int v = lane + 32 * j;
+    if (v >= nv) break;
+    *reinterpret_cast<float4*>(red + (size_t)warp * 2 * C + 4 * v) = ds[j];
+    *reinterpret_cast<float4*>(red + (size_t)warp * 2 * C + C + 4 * v) = dh[j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C; i += 256) {
+    float acc = 0.f;
+    for (int w = 0; w < 8; ++w) acc += red[w * 2 * C + i];
+    part[((size_t)b * gridDim.x + blockIdx.x) * 2 * C + i] = acc;
+  }
+}
+
+// film[b][i] = the sum of batch row b's nch CTA partials, in order
+__global__ void __launch_bounds__(256)
+fq_tp_film_kernel(const float* __restrict__ part, int nch, int n, float* __restrict__ out) {
+  const int i = blockIdx.x * 256 + threadIdx.x, b = blockIdx.y;
+  if (i >= n) return;
+  float acc = 0.f;
+  for (int k = 0; k < nch; ++k) acc += part[((size_t)b * nch + k) * n + i];
+  out[(size_t)b * n + i] = acc;
+}
+
 }  // namespace odt
 
 // x, add (B, L, C), scale, shift (B, C), w (C, F), bias (F) bf16 -> out
@@ -965,24 +1122,9 @@ extern "C" int odt_film_qkv_bwd(const void* x, const void* scale, const void* sh
   if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&ms, scale, C, B, 1, 64, kFqbScaleRows);
   if (err != cudaSuccess) return (int)err;
   const FqbArgs args{(const bf16*)scale, (bf16*)dx, (bf16*)dadd, (const float*)rinv,
-                     (float*)part_film, (float*)part_db,
+                     (float*)part_film, (float*)part_db, nullptr,
                      BL, L, C, F, fqb_segments(L), n, stages};
-  const size_t smem = FqbLayout(nb, stages).total;
-  auto row_pass = [&](auto kernel) {
-    // as many clusters as the device holds at once (queried once a width class)
-    static int held[kFqbMaxCluster + 1] = {};
-    if (held[n] == 0) held[n] = hopper::max_active_clusters(kernel, dim3(384), n, smem);
-    if (held[n] < 1) return cudaErrorInvalidConfiguration;
-    const int clusters = ntiles < held[n] ? ntiles : held[n];
-    return hopper::launch_cluster(kernel, dim3(clusters * n), dim3(384), n, smem, s, mg, mw, mx,
-                                  ms, args);
-  };
-  switch (nb) {
-    case 1: err = row_pass(film_qkv_bwd_kernel<1>); break;
-    case 2: err = row_pass(film_qkv_bwd_kernel<2>); break;
-    case 3: err = row_pass(film_qkv_bwd_kernel<3>); break;
-    default: err = row_pass(film_qkv_bwd_kernel<4>); break;
-  }
+  err = fqb_row_pass<false>(mg, mw, mx, ms, args, nb, ntiles, s);
   if (err != cudaSuccess) return (int)err;
   err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)g, F, BL, C, F, S, (float*)part_w,
                        (float*)dw, s);
@@ -990,6 +1132,64 @@ extern "C" int odt_film_qkv_bwd(const void* x, const void* scale, const void* sh
   fq_film_reduce_kernel<<<dim3((2 * C + 255) / 256, B), 256, 0, s>>>(
       (const float*)part_film, L, fqb_segments(L), 2 * C, (float*)film);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fq_reduce_kernel<<<(F + 31) / 32, 256, 0, s>>>((const float*)part_db, 2 * ntiles, F,
+                                                  (float*)db);
+  return (int)cudaGetLastError();
+}
+
+// K12's TP form on a rank's slice: w (C, F) and g (B, L, F) hold the rank's
+// qkv columns. phase 0: the y pass (y_s, rinv), the row pass's products to
+// dyp (B L, C) f32 (this rank's partial dy, which the model group sums),
+// and the slice's dw (C, F) and db (F) f32 (scratch part_w, part_db as
+// odt_film_qkv_bwd's); phase 1, on the summed dyp and phase 0's rinv: dx,
+// dadd (B, L, C) bf16 and film (B, 2C) = [dscale | dshift] f32 (scratch
+// part_film (B, ceil(L / 32), 2C)). Phase 1 reads only x, scale, rinv and
+// dyp of the other arguments.
+extern "C" int odt_film_qkv_bwd_tp(const void* x, const void* scale, const void* shift,
+                                   const void* add, const void* w, const void* g, void* dx,
+                                   void* dadd, void* y_s, void* rinv, void* dyp, void* part_film,
+                                   void* part_db, void* part_w, void* dw, void* db, void* film,
+                                   int B, int L, int C, int F, int S, int phase, void* stream) {
+  using namespace odt;
+  if (B < 1 || L < 1 || C < 64 || C % 64 || C > 1024 || F < 128 || F % 128 || S < 1 ||
+      (phase != 0 && phase != 1))
+    return (int)cudaErrorInvalidValue;
+  const int BL = B * L;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (phase == 1) {
+    const dim3 grid((L + kFqtRows - 1) / kFqtRows, B);
+    const size_t smem = (size_t)8 * 2 * C * sizeof(float);
+    auto rows = [&](auto kernel) {
+      return launch(kernel, grid, dim3(256), smem, s, (const float*)dyp, (const bf16*)x,
+                    (const bf16*)scale, (const float*)rinv, (bf16*)dx, (bf16*)dadd,
+                    (float*)part_film, L, C);
+    };
+    cudaError_t err = C <= 512 ? rows(fq_tp_rows_kernel<4>) : rows(fq_tp_rows_kernel<8>);
+    if (err != cudaSuccess) return (int)err;
+    fq_tp_film_kernel<<<dim3((2 * C + 255) / 256, B), 256, 0, s>>>((const float*)part_film,
+                                                                   grid.x, 2 * C, (float*)film);
+    return (int)cudaGetLastError();
+  }
+  const int ntiles = (BL + kFqbRows - 1) / kFqbRows;
+  const int n = fqb_cluster(C), nb = fqb_boxes(C), stages = fqb_stages(nb);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  fq_y_kernel<<<(BL + 7) / 8, 256, 0, s>>>((const bf16*)x, (const bf16*)add, (const bf16*)scale,
+                                           (const bf16*)shift, (bf16*)y_s, (float*)rinv, BL, L, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mg, mw, mx, ms;
+  err = hopper::tma_map_bf16_3d(&mg, g, F, BL, 1, 64, kFqbRows);
+  if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&mw, w, F, C, 1, 64, 64);
+  if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&mx, x, C, BL, 1, 64, kFqbRows);
+  if (err == cudaSuccess) err = hopper::tma_map_bf16_3d(&ms, scale, C, B, 1, 64, kFqbScaleRows);
+  if (err != cudaSuccess) return (int)err;
+  const FqbArgs args{(const bf16*)scale, nullptr, nullptr, (const float*)rinv, nullptr,
+                     (float*)part_db, (float*)dyp, BL, L, C, F, fqb_segments(L), n, stages};
+  err = fqb_row_pass<true>(mg, mw, mx, ms, args, nb, ntiles, s);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_tn_splitk((const bf16*)y_s, C, (const bf16*)g, F, BL, C, F, S, (float*)part_w,
+                       (float*)dw, s);
   if (err != cudaSuccess) return (int)err;
   fq_reduce_kernel<<<(F + 31) / 32, 256, 0, s>>>((const float*)part_db, 2 * ntiles, F,
                                                   (float*)db);

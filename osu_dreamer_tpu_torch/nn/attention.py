@@ -23,8 +23,11 @@ Under tensor parallelism (parallel/tp.py) the module holds its rank's heads
 of ``out``. The projection's input enters the model group (``enter_model``),
 the attention runs on the rank's heads (the same routes), and the out
 projection's f32 partial leaves through ``leave_model``, its bias added once
-after the sum. The prologue is off on a TP rank, as the JAX gate is under
-GSPMD.
+after the sum. Where ``prologue_tp_ok`` holds, the prologue runs its TP forms
+(ops/film_qkv.py ``film_qkv_tp``: K11 on the rank's columns, K12 split at
+its dy), whose backward sums the input gradient itself, so the input does
+not enter the model group. (The JAX gate is off under GSPMD, which cannot
+partition a TPU custom call; one rank a device has no such limit.)
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import os
 import torch
 from torch import nn
 
-from ..ops.film_qkv import feasible_bwd_tile, feasible_fwd_tile, film_qkv
+from ..ops.film_qkv import feasible_bwd_tile, feasible_fwd_tile, film_qkv, film_qkv_tp
 from ..ops.fused_attention import attention_route, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
 from ..ops.ring_attention import ring_attention
@@ -43,15 +46,24 @@ from .blocks import Dense
 from .norm import rms_norm
 
 
-def prologue_ok(C: int, F: int, sharded: bool = False) -> bool:
+def prologue_ok(C: int, F: int) -> bool:
     """the JAX ``_prologue_ok`` (osu_dreamer_tpu/nn/attention.py), read on
     every call: ``OSU_DREAMER_FUSED_PROLOGUE=1``, lane-aligned widths and its
-    forward and backward footprints (the copied rule), and off on a
-    tensor-parallel rank (``sharded``), where the JAX gate reads GSPMD's
-    sharding. Its TPU backend test has no counterpart here"""
-    return os.environ.get("OSU_DREAMER_FUSED_PROLOGUE", "0") == "1" and not sharded \
+    forward and backward footprints (the copied rule). Its TPU backend test
+    has no counterpart here"""
+    return os.environ.get("OSU_DREAMER_FUSED_PROLOGUE", "0") == "1" \
         and C % 128 == 0 and F % 128 == 0 and feasible_fwd_tile(C, F) is not None \
         and feasible_bwd_tile(C, F) is not None
+
+
+def prologue_tp_ok(C: int, heads: int, head_dim: int, tp: int) -> bool:
+    """the prologue's TP forms on a model group of ``tp`` ranks holding
+    ``heads`` heads split as parallel/tp.py ``even_split`` splits them:
+    ``prologue_ok`` on every rank's qkv width 3 x heads_r x head_dim (the
+    widths of the largest and the smallest share), so that every rank of
+    the group takes the same route and the backward's sums pair up"""
+    shares = {heads // tp, -(-heads // tp)}
+    return all(prologue_ok(C, 3 * n * head_dim) for n in shares)
 
 
 class _MmF32(torch.autograd.Function):
@@ -127,9 +139,11 @@ class RoPEAttention(nn.Module):
         H, D = self.n_heads, self.head_dim
         if self.tp is not None:
             H = self.tp.hi - self.tp.lo
-        if film is not None and prologue_ok(C, 3 * H * D, sharded=self.tp is not None):
+        if film is not None and (prologue_ok(C, 3 * H * D) if self.tp is None else
+                                 prologue_tp_ok(C, self.tp.units, D, self.tp.size)):
             a = x.new_zeros(B, L, C, dtype=dt) if add is None else add.to(dt)
-            qkv = film_qkv(x.to(dt), *film, a, self.qkv.kernel, self.qkv.bias)
+            args = (x.to(dt), *film, a, self.qkv.kernel, self.qkv.bias)
+            qkv = film_qkv(*args) if self.tp is None else film_qkv_tp(*args, self.tp.group)
         else:
             if film is None:
                 h = x.to(dt)

@@ -103,21 +103,26 @@ class DepthwiseConv(nn.Module):
 class SwiGLU(nn.Module):
     """depthwise-conv gated FFN (ops/swiglu.py) with hidden width
     int(dim * expand * 2 / 3); ``tp``: this rank's share of the hidden units
-    (None: all of them)"""
+    (None: all of them). At ``radius`` 0 the JAX module declares no conv
+    and runs none: here the FFN runs with a unit tap (a (1, dim) kernel of
+    ones and a zero bias, held as buffers outside the state dict and never
+    trained), ``x * 1 + 0 = x`` exactly, so the kernels compute the
+    conv-free function"""
 
     def __init__(self, dim: int, expand: int, radius: int, dtype: torch.dtype):
         super().__init__()
-        if radius < 1:
-            raise ValueError("SwiGLU without its depthwise conv (radius 0) is not ported")
         h = int(dim * expand * 2 / 3)
-        K = 1 + 2 * radius
-        self.dw_kernel = nn.Parameter(torch.zeros(K, dim))
-        self.dw_bias = nn.Parameter(torch.zeros(dim))
+        if radius > 0:
+            self.dw_kernel = nn.Parameter(torch.zeros(1 + 2 * radius, dim))
+            self.dw_bias = nn.Parameter(torch.zeros(dim))
+        else:
+            self.register_buffer("dw_kernel", torch.ones(1, dim), persistent=False)
+            self.register_buffer("dw_bias", torch.zeros(dim), persistent=False)
         self.vg_kernel = nn.Parameter(torch.zeros(dim, 2 * h))
         self.vg_bias = nn.Parameter(torch.zeros(2 * h))
         self.out_kernel = nn.Parameter(torch.zeros(h, dim))
         self.out_bias = nn.Parameter(torch.zeros(dim))
-        self.dtype = dtype
+        self.radius, self.dtype = radius, dtype
         self.tp = None
 
     def tp_units(self) -> tuple[int, int]:
@@ -125,11 +130,16 @@ class SwiGLU(nn.Module):
         return self.out_kernel.shape[0] if self.tp is None else self.tp.units, 1
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """lecun_normal kernels (a (K, C) conv kernel has fan_in K), zero biases"""
+        """lecun_normal kernels (a (K, C) conv kernel has fan_in K), zero
+        biases; nothing drawn for the unit tap of radius 0"""
+        kernels, biases = [self.vg_kernel, self.out_kernel], [self.vg_bias, self.out_bias]
+        if self.radius > 0:
+            kernels.insert(0, self.dw_kernel)
+            biases.insert(0, self.dw_bias)
         with torch.no_grad():
-            for kernel in (self.dw_kernel, self.vg_kernel, self.out_kernel):
+            for kernel in kernels:
                 lecun_normal_(kernel, kernel.shape[0], generator)
-            for bias in (self.dw_bias, self.vg_bias, self.out_bias):
+            for bias in biases:
                 bias.zero_()
 
     def weights(self) -> tuple[torch.Tensor, ...]:
@@ -139,15 +149,15 @@ class SwiGLU(nn.Module):
     def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
         """``sp``: the sequence-parallel group ``x``'s length is sharded
         over. The kernel then runs on the shard with ``radius`` halo frames
-        from each neighbour (``halo_exchange``) and the shard's rows are
-        kept: every stage after the depthwise conv is per frame, so they are
-        the unsharded rows"""
+        from each neighbour (``halo_exchange``; none at radius 0) and the
+        shard's rows are kept: every stage after the depthwise conv is per
+        frame, so they are the unsharded rows"""
         x = x.to(self.dtype)
         if self.tp is not None:
             return swiglu_tp(x, *self.weights(), self.tp.units, self.tp.group)
-        if sp is None:
+        r = self.radius
+        if sp is None or r == 0:
             return swiglu(x, *self.weights())
-        r = (self.dw_kernel.shape[0] - 1) // 2
         return swiglu(halo_exchange(x, r, sp), *self.weights())[:, r:r + x.shape[1]]
 
 

@@ -40,7 +40,8 @@ NVCC_FLAGS = [
 KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
            "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd", "swiglu_bwd_full",
            "film_qkv_fwd", "film_qkv_bwd", "swiglu_tp", "swiglu_bwd_tp", "film_layer_tp",
-           "film_layer_bwd_tp", "long_attention_bwd", "swiglu_bwd_full_tp")
+           "film_layer_bwd_tp", "long_attention_bwd", "swiglu_bwd_full_tp", "film_qkv_tp",
+           "film_qkv_bwd_tp")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
 
@@ -68,6 +69,7 @@ _SIGNATURES = {
     "odt_fused_attention_stream_bwd": [_P] * 17 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_attention_stream_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_swiglu_bwd_full_tp": [_P] * 21 + [_I] * 14 + [_P],
+    "odt_film_qkv_bwd_tp": [_P] * 17 + [_I] * 6 + [_P],
 }
 
 

@@ -14,14 +14,25 @@ backward is ``film_qkv_bwd`` there (K12) (bf16 only; anything else raises); a
 CPU tensor to ``film_qkv_plain``, differentiated by autograd. nn/attention.py
 takes this path only where the JAX package's own setting asks for it
 (``OSU_DREAMER_FUSED_PROLOGUE=1``).
+
+Tensor parallelism (``film_qkv_tp``, parallel/tp.py): a rank holds its
+heads' q, k and v columns of the projection; x, scale, shift and add are
+replicated. ``FilmQKVTPFunction`` runs the TP forms: the forward is K11 on
+the rank's columns (nothing to sum); the backward splits K12 where dy =
+g W^T is formed: phase 0 (the y pass, the row pass's products left as this
+rank's f32 dy partial, the slice's dW and db), the dy sum over the model
+group, phase 1 (dx, dadd and the FiLM gradients from the summed dy, equal
+on every rank, so they are not summed again). On the CPU the plain versions
+split at the same seam.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import tp_all_reduce_
 from ._build import check_cuda, run
-from .swiglu import _MAX_SMEM, gemm_splits, shrink_tile_to_budget
+from .swiglu import _MAX_SMEM, gemm_splits, grads_of, shrink_tile_to_budget
 
 # the widest C the kernels take (csrc/film_qkv.cu: the forward's y tile,
 # the backward's four-CTA clusters)
@@ -39,6 +50,8 @@ BWD_ROWS = 128
 _BWD_MAX_BOXES = 4
 _BWD_MAX_CLUSTER = 4
 _BWD_WARPS = 8
+# and its TP form's phase 1 (``kFqtRows``): rows of one batch row a CTA
+TP_ROWS = 32
 
 
 def fwd_plan(B: int, L: int, C: int, F: int, sms: int = 132) -> dict[str, int]:
@@ -137,11 +150,16 @@ def film_qkv_plain(
     """``film_qkv_reference``: f32 row statistics, then each op in x's dtype
     in its order; the product rounded to x's dtype before the bias is added"""
     dt = x.dtype
+    return film_y_plain(x, scale, shift, add) @ kernel.to(dt) + bias.to(dt)
+
+
+def film_y_plain(x, scale, shift, add) -> torch.Tensor:
+    """the y the projection multiplies: rms(x) (1 + scale) + shift + add"""
+    dt = x.dtype
     xf = x.float()
     inv = torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
     y = (xf * inv).to(dt) * (1 + scale[:, None, :].to(dt))
-    y = y + shift[:, None, :].to(dt) + add.to(dt)
-    return y @ kernel.to(dt) + bias.to(dt)
+    return y + shift[:, None, :].to(dt) + add.to(dt)
 
 
 def film_qkv_bwd_plain(x, scale, shift, add, kernel, bias, grad_out):
@@ -183,9 +201,11 @@ def _check_y_out(y_out: torch.Tensor, B: int, L: int, C: int) -> None:
 
 
 def film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias,
-                      y_out: torch.Tensor | None = None) -> torch.Tensor:
+                      y_out: torch.Tensor | None = None, counter: str = "film_qkv_fwd"
+                      ) -> torch.Tensor:
     """K11, csrc/film_qkv.cu: bf16 (B, L, C) -> (B, L, F). ``y_out`` (B L, C)
-    bf16, a test hook: the kernel writes there the y it multiplies"""
+    bf16, a test hook: the kernel writes there the y it multiplies;
+    ``counter``: the launch count it adds to"""
     scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias)
     B, L, C = x.shape
     F = kernel.shape[1]
@@ -193,7 +213,7 @@ def film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias,
         _check_y_out(y_out, B, L, C)
     out = torch.empty(B, L, F, dtype=x.dtype, device=x.device)
     run(
-        "odt_film_qkv_fwd", "film_qkv_fwd", x.device,
+        "odt_film_qkv_fwd", counter, x.device,
         *(t.data_ptr() for t in (x, scale, shift, add, kernel, bias, out)),
         0 if y_out is None else y_out.data_ptr(), B, L, C, F,
     )
@@ -267,3 +287,105 @@ def film_qkv(x, scale, shift, add, kernel, bias) -> torch.Tensor:
     if x.device.type != "cpu":
         raise ValueError(f"film_qkv: no implementation for device {x.device}")
     return film_qkv_plain(x, scale, shift, add, kernel, bias)
+
+
+# ------------------------------------------------------ tensor parallelism ----
+
+
+def film_qkv_tp_fwd_cuda(x, scale, shift, add, kernel, bias) -> torch.Tensor:
+    """K11's TP form: K11 on the rank's columns (``kernel`` (C, F_r),
+    ``bias`` (F_r,)); its inputs are replicated and its output columns the
+    rank's own, so nothing is summed. Counted as ``film_qkv_tp``"""
+    return film_qkv_fwd_cuda(x, scale, shift, add, kernel, bias, counter="film_qkv_tp")
+
+
+def film_qkv_tp_bwd_cuda(x, scale, shift, add, kernel, bias, grad_out):
+    """K12's TP form, csrc/film_qkv.cu ``odt_film_qkv_bwd_tp``, on the rank's
+    columns: phase 0 now (the y pass; the row pass's products left as this
+    rank's dy partial; the slice's dW on csrc/gemm_tn.cuh and db, fixed-order
+    sums) -> (the dy partial (B L, C) f32 to sum over the model group,
+    (dkernel, dbias) of the slice f32, finish); ``finish()`` runs phase 1 on
+    the summed dy -> (dx, dscale, dshift, dadd), dx and dadd bf16"""
+    scale, shift, add, kernel, bias = _check_inputs(x, scale, shift, add, kernel, bias)
+    B, L, C = x.shape
+    F = kernel.shape[1]
+    g = grad_out.to(torch.bfloat16).contiguous()
+    if g.shape != (B, L, F) or g.device != x.device:
+        raise ValueError(f"grad_out must be {(B, L, F)} on {x.device}, "
+                         f"got {tuple(g.shape)} on {g.device}")
+    if g.data_ptr() % 16:
+        g = g.clone()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    splits = gemm_splits(B * L, C, F)
+    dx, dadd = torch.empty_like(x), torch.empty_like(x)
+    y_s, rinv = torch.empty(B * L, C, dtype=torch.bfloat16, device=dev), torch.empty(B * L, **f32)
+    dy = torch.empty(B * L, C, **f32)
+    part_film = torch.empty(B, -(-L // TP_ROWS), 2 * C, **f32)
+    part_db = torch.empty(2 * -(-(B * L) // BWD_ROWS), F, **f32)
+    part_w = torch.empty(splits, C, F, **f32)
+    dw, db, film = torch.empty(C, F, **f32), torch.empty(F, **f32), torch.empty(B, 2 * C, **f32)
+    args = [*(t.data_ptr() for t in (x, scale, shift, add, kernel, g, dx, dadd, y_s, rinv, dy,
+                                      part_film, part_db, part_w, dw, db, film)),
+            B, L, C, F, splits]
+    run("odt_film_qkv_bwd_tp", "film_qkv_bwd_tp", dev, *args, 0)
+
+    def finish(held=(x, scale, rinv, dy, part_film)):
+        """phase 1 (``held``: the tensors it reads, alive until it has)"""
+        run("odt_film_qkv_bwd_tp", "film_qkv_bwd_tp", dev, *args, 1, count=False)
+        return dx, film[:, :C], film[:, C:], dadd
+
+    return dy, (dw, db), finish
+
+
+def film_qkv_tp_bwd_plain(x, scale, shift, add, kernel, bias, grad_out):
+    """the plain version of ``film_qkv_tp_bwd_cuda``, split at the same
+    seam: dy = g W^T of the rank's columns accumulated in f32, the slice's
+    dW = y^T g and db; ``finish()``: autograd of y on the summed dy"""
+    dt = x.dtype
+    B, L, C = x.shape
+    F = kernel.shape[1]
+    g = grad_out.to(dt).reshape(B * L, F).float()
+    y = film_y_plain(x, scale, shift, add).reshape(B * L, C).float()
+    dy = g @ kernel.to(dt).float().t()
+
+    def finish():
+        return grads_of(film_y_plain, (x, scale, shift, add), dy.view(B, L, C).to(dt))
+
+    return dy, (y.t() @ g, g.sum(0)), finish
+
+
+def film_qkv_tp_bwd(x, scale, shift, add, kernel, bias, grad_out):
+    """K12's TP form for a CUDA tensor, its plain version for a CPU tensor"""
+    fn = film_qkv_tp_bwd_cuda if x.is_cuda else film_qkv_tp_bwd_plain
+    return fn(x, scale, shift, add, kernel, bias, grad_out)
+
+
+class FilmQKVTPFunction(torch.autograd.Function):
+    """the TP forms on one rank's columns: K11's forward (the plain version
+    on the CPU); K12's phase 0, the model group's sum of the dy partials,
+    phase 1"""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, add, kernel, bias, group):
+        inputs = (x, scale, shift, add, kernel, bias)
+        ctx.save_for_backward(*inputs)
+        ctx.group = group
+        return film_qkv_tp_fwd_cuda(*inputs) if x.is_cuda else film_qkv_plain(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = ctx.saved_tensors
+        dy, (dw, db), finish = film_qkv_tp_bwd(*inputs, grad_out)
+        tp_all_reduce_(dy, ctx.group)
+        grads = (*finish(), dw, db)
+        return (*(g.to(t.dtype) for g, t in zip(grads, inputs)), None)
+
+
+def film_qkv_tp(x, scale, shift, add, kernel, bias, group) -> torch.Tensor:
+    """the prologue on a tensor-parallel rank holding its heads' columns of
+    the projection (``kernel`` (C, F_r), ``bias`` (F_r,)); the model group
+    ``group`` sums the backward's dy partials"""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"film_qkv_tp: no implementation for device {x.device}")
+    return FilmQKVTPFunction.apply(x, scale, shift, add, kernel, bias, group)

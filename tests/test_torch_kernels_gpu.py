@@ -890,3 +890,119 @@ def test_swiglu_tp_forms_follow_the_one_rank_route_on_gpu(B, L, C, H, route):
     _grads_close(got, swiglu.swiglu_bwd_plain(x.float(), *w, go.float()))
     if kernel:
         assert all(torch.equal(a, b) for a, b in zip(got, _tp_swiglu_grads(x, w, go, H)))
+
+
+def _qkv_slices(heads: int, D: int, tp: int):
+    """per rank the splits of the packed [q|k|v] kernel's columns and bias"""
+    from osu_dreamer_tpu_torch.parallel.tp import Split, even_split
+
+    out = []
+    for r in range(tp):
+        lo, hi = even_split(heads, tp, r)
+        out.append((Split(1, 3, D, heads, lo, hi), Split(0, 3, D, heads, lo, hi)))
+    return out
+
+
+def _tp_prologue(args, go, heads: int, D: int, tp: int):
+    """K11's and K12's TP forms on every rank's columns in one process, the
+    dy partials summed as the model group would -> (each rank's output,
+    the one-rank gradient tuple, each rank's finish)"""
+    x, scale, shift, add, kernel, bias = args
+    F = kernel.shape[1]
+    outs, parts = [], []
+    for sk, sb in _qkv_slices(heads, D, tp):
+        kr, br = sk.take(kernel), sb.take(bias)
+        gr = sk.take(go.reshape(-1, F)).reshape(*go.shape[:2], -1)
+        outs.append(film_qkv.film_qkv_tp_fwd_cuda(x, scale, shift, add, kr, br))
+        parts.append(film_qkv.film_qkv_tp_bwd_cuda(x, scale, shift, add, kr, br, gr))
+    dy = sum(p[0] for p in parts)
+    for p in parts:
+        p[0].copy_(dy)
+    finished = [tuple(t.clone() for t in p[2]()) for p in parts]
+    dw, db = torch.zeros_like(kernel), torch.zeros_like(bias)
+    for (sk, sb), p in zip(_qkv_slices(heads, D, tp), parts):
+        sk.put(dw, p[1][0])
+        sb.put(db, p[1][1])
+    return outs, (*finished[0], dw, db), finished
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,C,heads,D,tp", [(3, 65, 512, 16, 64, 2), (2, 77, 384, 8, 64, 2),
+                                               (3, 129, 1024, 8, 128, 4), (4, 1, 640, 4, 64, 2),
+                                               (2, 152, 512, 12, 64, 3)])
+def test_film_qkv_tp_forms_match_plain_on_gpu(B, L, C, heads, D, tp):
+    """K11's TP form on each rank's [q|k|v] columns within 4 ulp of the
+    plain version there; K12's TP form on every rank, the dy partials
+    summed: the finish equal on every rank bit for bit, the gradients put
+    together within GRAD_REL of f32 autograd of the one-rank plain version,
+    a rerun bit-identical; one launch of each form a rank counted"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _prologue_case(B, L, C, 3 * heads * D, C + L)
+    before = dict(_build.launches)
+    outs, got, finished = _tp_prologue(args, go, heads, D, tp)
+    counted = {k: _build.launches[k] - before[k] for k in _build.KERNELS}
+    assert {k: n for k, n in counted.items() if n} == {"film_qkv_tp": tp, "film_qkv_bwd_tp": tp}
+    for (sk, sb), out in zip(_qkv_slices(heads, D, tp), outs):
+        want = film_qkv.film_qkv_plain(*args[:4], sk.take(args[4]), sb.take(args[5])).float()
+        assert bool(torch.isfinite(out).all())
+        assert (out.float() - want).abs().max().item() <= _ulp_tol(want)
+    for f in finished[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(f, finished[0]))
+    _grads_close(got, film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()))
+    again = _tp_prologue(args, go, heads, D, tp)[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_film_qkv_tp_function_builds_its_graph_on_gpu():
+    """``film_qkv_tp`` on CUDA tensors (a model group of one: the sum is the
+    partial itself) builds its graph through the two TP forms and equals
+    the one-rank kernels' gradients within GRAD_REL of f32 autograd"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    args, go = _prologue_case(2, 70, 512, 1536, 3)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    before = dict(_build.launches)
+    out = film_qkv.film_qkv_tp(*leaves, None)
+    assert type(out.grad_fn).__name__ == "FilmQKVTPFunctionBackward"
+    grads = torch.autograd.grad(out, leaves, go)
+    assert _build.launches["film_qkv_tp"] == before["film_qkv_tp"] + 1
+    assert _build.launches["film_qkv_bwd_tp"] == before["film_qkv_bwd_tp"] + 1
+    _grads_close(grads, film_qkv.film_qkv_bwd_plain(*(t.float() for t in args), go.float()))
+
+
+def _unit_tap(w: list[torch.Tensor]) -> list[torch.Tensor]:
+    """an FFN's weights with radius 0's unit tap in place of the conv"""
+    C = w[2].shape[0]
+    return [torch.ones(1, C, device="cuda"), torch.zeros(C, device="cuda"), *w[2:]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("C,H", [(128, 341), (384, 1024), (512, 1365)])
+def test_unit_tap_runs_the_ffn_kernels_on_gpu(C, H, film):
+    """radius 0 (the JAX FFN without its conv) on the FFN kernels with one
+    unit tap: K4 / K2 by the f32 rule against the plain version, and the
+    backward the one-rank route names (K5 at 128 and 384, K6 at 512; K3
+    where it takes the width) within GRAD_REL of f32 autograd, with K = 1"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    kernel, plain, args = _ffn_case(2, 77, C, H, C, film)
+    w0 = len(args) - 6
+    args = [*args[:w0], *_unit_tap(args[w0:])]
+    got = kernel(*args)
+    _f32_rule(got.float(), plain(*args).float(), plain(*(t.float() for t in args)).float())
+    go = torch.randn(got.shape, device="cuda").to(torch.bfloat16)
+    if film:
+        if not film_layer.bwd_kernel_fits(C, 1):
+            return
+        grads = film_layer.film_layer_bwd_cuda(*args, go)
+        want = film_layer.film_layer_bwd_plain(*(t.float() for t in args), go.float())
+    else:
+        route = swiglu.bwd_route(C, H, 1)
+        assert route == ("partial" if C == 512 else "full")
+        fn = swiglu.swiglu_bwd_cuda if route == "partial" else swiglu.swiglu_bwd_full_cuda
+        grads = fn(*args[:6], go)
+        want = swiglu.swiglu_bwd_plain(*(t.float() for t in args[:6]), go.float())
+    _grads_close(grads, want)

@@ -135,20 +135,19 @@ def test_halo_exchange_refuses_a_shard_shorter_than_the_radius():
 # -------------------------------------------------------------- denoiser ----
 
 
-def _model(tree_np: dict):
+def _model(tree_np: dict, cfg: dict = TINY_DIFFUSION):
     from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel, DiffusionModelArgs
     from osu_dreamer_tpu_torch.models.inference.artifact import from_flax_params
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict
 
-    model = DiffusionModel(dataclass_from_dict(DiffusionModelArgs, TINY_DIFFUSION),
-                           torch.float32)
+    model = DiffusionModel(dataclass_from_dict(DiffusionModelArgs, cfg), torch.float32)
     model.load_state_dict(from_flax_params(tree_np, model))
     return model
 
 
-def _jax_case(seed: int):
-    """the tiny flax denoiser with every leaf refilled, its batch (h, z, s,
-    labels) and the step key's draws (t, x0)"""
+def _jax_case(seed: int, cfg: dict = TINY_DIFFUSION):
+    """the tiny flax denoiser (``cfg``) with every leaf refilled, its batch
+    (h, z, s, labels) and the step key's draws (t, x0)"""
     import jax
 
     from osu_dreamer_tpu.models.diffusion.model import DiffusionModel as JDiff
@@ -162,7 +161,7 @@ def _jax_case(seed: int):
              rng.standard_normal((B, L, 6)).astype(np.float32),
              rng.standard_normal((B, 8)).astype(np.float32),
              rng.uniform(0, 10, (B, 5)).astype(np.float32))
-    jm = JDiff(dataclass_from_dict(DiffusionModelArgs, TINY_DIFFUSION), jax.numpy.float32)
+    jm = JDiff(dataclass_from_dict(DiffusionModelArgs, cfg), jax.numpy.float32)
     tree = fill_tree(jax.jit(jm.init)(KEY, batch[0], batch[2], batch[1]), seed)
     step_rng = jax.random.PRNGKey(seed)
     k_t, k_noise = jax.random.split(step_rng)
@@ -209,7 +208,8 @@ def test_sp_denoiser_forward_and_sample_match_jax(tmp_path):
                                    atol=2e-4)
 
 
-def _step_rank(out: str, args: dict, tree_np: dict, batch, t, x0) -> None:
+def _step_rank(out: str, args: dict, tree_np: dict, batch, t, x0,
+               cfg: dict = TINY_DIFFUSION) -> None:
     from osu_dreamer_tpu_torch.models.diffusion.train import (
         DiffusionTrainArgs, LatentBatch, init_diffusion_training, step_gradients,
     )
@@ -221,11 +221,10 @@ def _step_rank(out: str, args: dict, tree_np: dict, batch, t, x0) -> None:
     local = par.shard_batch(LatentBatch(*map(torch.from_numpy, batch)), seq_fields=(0, 1))
     t, x0 = torch.from_numpy(t), torch.from_numpy(x0)
     targs = DiffusionTrainArgs()
-    model = _model(tree_np)
+    model = _model(tree_np, cfg)
     metrics, grads = step_gradients(model, local, targs, None, t, x0, par)
     state, train_step = init_diffusion_training(
-        dataclass_from_dict(DiffusionModelArgs, TINY_DIFFUSION), targs, 0, "cpu", torch.float32,
-        par)
+        dataclass_from_dict(DiffusionModelArgs, cfg), targs, 0, "cpu", torch.float32, par)
     state.model.load_state_dict(model.state_dict())
     state.ema_model.load_state_dict(model.state_dict())
     train_step(state, local, t, x0)

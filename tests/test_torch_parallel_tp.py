@@ -156,18 +156,21 @@ def test_shard_model_splits_only_ruled_modules():
 # ----------------------------------------------------------- one step ----
 
 
-def _init(stage: str, par, seed: int, grad_clip: float, width: int | None = None):
+def _init(stage: str, par, seed: int, grad_clip: float, width: int | None = None,
+          model: dict | None = None):
     """the stage's train state under ``par`` holding the one-process
     weights drawn from ``seed`` (``randomize_``): the whole model is drawn,
     then loaded, which slices it on a tensor-parallel rank; ``width``: the
-    denoiser's backbone width in place of the tiny config's"""
+    denoiser's backbone width in place of the tiny config's; ``model``: the
+    denoiser's model config in place of the tiny one"""
     from osu_dreamer_tpu_torch.utils import dataclass_from_dict
 
     if stage == "denoiser":
         from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModelArgs as MArgs
         from osu_dreamer_tpu_torch.models.diffusion.train import DiffusionTrainArgs as TArgs
         from osu_dreamer_tpu_torch.models.diffusion.train import init_diffusion_training as init
-        model, opt = TINY_DIFFUSION, {"schedule": {"warmup_init": 0.3, "warmup_steps": 10}}
+        model, opt = model or TINY_DIFFUSION, {"schedule": {"warmup_init": 0.3,
+                                                            "warmup_steps": 10}}
         if width is not None:
             model = {**model, "backbone_dim": width}
     else:
@@ -203,14 +206,15 @@ def _batch(stage: str, seed: int, B: int):
 
 
 def _step(stage: str, par, seed: int, grad_clip: float, batch_np, draws_np,
-          host_rows: slice | None = None, width: int | None = None) -> dict:
+          host_rows: slice | None = None, width: int | None = None,
+          model: dict | None = None) -> dict:
     """one step of ``stage`` under ``par`` (None: one process) on the global
     batch ``batch_np`` (``host_rows``: the rows this host loads) with the
     injected global draws -> its metrics, whole gradients and whole state"""
     from osu_dreamer_tpu_torch.models.diffusion.train import LatentBatch
     from osu_dreamer_tpu_torch.models.latent.train import Batch, LatentDraws
 
-    state, train_step, targs = _init(stage, par, seed, grad_clip, width)
+    state, train_step, targs = _init(stage, par, seed, grad_clip, width, model)
     norms = []  # the norm the optimizer clips by, as AdamW.step returns it
     opt_step = state.opt.step
     state.opt.step = lambda grads, norm=None: norms.append(opt_step(grads, norm)) or norms[-1]
@@ -239,18 +243,20 @@ def _step(stage: str, par, seed: int, grad_clip: float, batch_np, draws_np,
 
 
 def _step_rank(out: str, stage: str, args: dict, seed: int, grad_clip: float, batch_np,
-               draws_np, width: int | None = None) -> None:
+               draws_np, width: int | None = None, model: dict | None = None) -> None:
     par = build_parallelism(ParallelArgs(**args), batch_np[0].shape[0],
                             ["cpu"] * (args.get("tp", 1) * args.get("dp", 1)),
                             timeout_s=COLLECTIVE_S)
-    got = _step(stage, par, seed, grad_clip, batch_np, draws_np, width=width)
+    got = _step(stage, par, seed, grad_clip, batch_np, draws_np, width=width, model=model)
     torch.save({**got, "rank": par.rank, "model_group": par.model_rank},
                Path(out) / f"rank{par.rank}.pt")
 
 
-def _jax_denoiser(whole_sd: dict, batch_np, grad_clip: float, step_key: int):
-    """the JAX package's unsharded step on the same weights -> (draws (t,
-    x0) as numpy, metrics, the params after the step as port names)"""
+def _jax_denoiser(whole_sd: dict, batch_np, grad_clip: float, step_key: int,
+                  model: dict | None = None):
+    """the JAX package's unsharded step on the same weights (``model``: the
+    model config, by default the tiny one) -> (draws (t, x0) as numpy,
+    metrics, the params after the step as port names)"""
     import jax
     import optax
 
@@ -264,7 +270,7 @@ def _jax_denoiser(whole_sd: dict, batch_np, grad_clip: float, step_key: int):
     )
     from osu_dreamer_tpu.utils import dataclass_from_dict
 
-    ja = dataclass_from_dict(JArgs, TINY_DIFFUSION)
+    ja = dataclass_from_dict(JArgs, model or TINY_DIFFUSION)
     jt = dataclass_from_dict(JTrain, {"opt": {"schedule": {"warmup_init": 0.3,
                                                            "warmup_steps": 10},
                                               "grad_clip": grad_clip}})

@@ -19,11 +19,12 @@ from osu_dreamer_tpu.ops import swiglu as jsw
 from osu_dreamer_tpu.ops._tiles import shrink_tile_to_budget
 from osu_dreamer_tpu.ops.fused_attention import fused_attention_fits as jfused_fits
 from osu_dreamer_tpu.ops.long_attention import long_attention_fits as jlong_fits
-from osu_dreamer_tpu_torch.nn.attention import prologue_ok
+from osu_dreamer_tpu_torch.nn.attention import prologue_ok, prologue_tp_ok
 from osu_dreamer_tpu_torch.ops import film_layer as fl
 from osu_dreamer_tpu_torch.ops import film_qkv as fq
 from osu_dreamer_tpu_torch.ops import fused_attention as fa
 from osu_dreamer_tpu_torch.ops import swiglu as sw
+from osu_dreamer_tpu_torch.parallel.tp import even_split
 
 WIDTHS = [64, 128, 256, 384, 512, 640, 768, 1024]
 K = 5
@@ -129,18 +130,25 @@ def test_film_layer_route_pins_the_jax_dispatch(C):
 
 @pytest.mark.parametrize("C", WIDTHS)
 def test_prologue_route_pins_the_jax_gate(C, monkeypatch):
-    """the JAX ``_prologue_ok`` at every width, and off on a tensor-parallel
-    rank (``sharded``) as the JAX gate is under GSPMD"""
+    """the JAX ``_prologue_ok`` at every width; on a tensor-parallel model
+    group the same rule on every rank's share of the heads, one route for
+    the whole group (where the JAX gate is off under GSPMD, the port's
+    ranks run the TP forms of K11 and K12)"""
     monkeypatch.setenv("OSU_DREAMER_FUSED_PROLOGUE", "1")
     for F in range(384, 8065, 384):
         jax_ok = (C % 128 == 0 and F % 128 == 0 and jfq.feasible_fwd_tile(C, F) is not None
                   and jfq.feasible_bwd_tile(C, F) is not None)
         assert prologue_ok(C, F) == jax_ok, (C, F)
-        assert not prologue_ok(C, F, sharded=True)
         if jax_ok:  # K11 and K12 take the shape (csrc/film_qkv.cu)
             assert C % 64 == 0 and C <= fq.MAX_C and F % 128 == 0
+    for heads, D in ((16, 64), (8, 128), (12, 64), (32, 32)):
+        for tp in (1, 2, 3, 4):
+            shares = [hi - lo for lo, hi in (even_split(heads, tp, r) for r in range(tp))]
+            assert prologue_tp_ok(C, heads, D, tp) == all(
+                prologue_ok(C, 3 * n * D) for n in shares), (heads, D, tp)
     monkeypatch.setenv("OSU_DREAMER_FUSED_PROLOGUE", "0")
     assert not prologue_ok(C, 3072)
+    assert not prologue_tp_ok(C, 16, 64, 2)
 
 
 @pytest.mark.parametrize("C", WIDTHS + [144, 200])
