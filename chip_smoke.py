@@ -76,13 +76,17 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    launch (prep, forward, dK/dV, dQ, post) under torch.profiler: K9 and K10
    at 8 x 96 B64 L320 and 8 x 64 B64 L512, K7 at 8 x 96 B4 L759. Then (1g)
    the long attention backward (the training counterpart of K7/K8 past the
-   JAX gate) on the streamed forward's rows and lse: the shipped 16 x 64
-   heads at B64 L320 (phase 4f's step), then head dims 8, 12, 64, 96, 128,
-   256 and 384 at L 65, 320, 759 and 2500, each within GRAD_REL of the f32
-   autograd of the plain version and bit-identical on rerun; timed at L 320
-   (and D 64 at L 2500) by graph replay beside the plain version's autograd
-   backward, the bound and torch's scaled_dot_product_attention backward,
-   with both forward + backward sums logged.
+   JAX gate; csrc/long_attention_bwd.cu's one pass to padded head dim 128,
+   attention_stream.cu's launches past it) on the streamed forward's rows
+   and lse: the shipped 16 x 64 heads at B64 L320 (phase 4f's step), then
+   head dims 8, 12, 64, 96, 128, 256 and 384 at L 65, 320, 759 and 2500,
+   each within GRAD_REL of the f32 autograd of the plain version and
+   bit-identical on rerun; timed at L 320 (and D 64 at L 2500) by graph
+   replay beside the plain version's autograd backward, the bound, torch's
+   scaled_dot_product_attention backward and, to head dim 128, the
+   two-launch design it replaced (its recorded times logged too), with both
+   forward + backward sums logged; then both designs' device ms by launch
+   at 16 x 64 B64 L320.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -366,7 +370,7 @@ KERNEL_META = {
                           "osu_dreamer_tpu/ops/film_layer.py:443"),
     # the backward of the JAX long attention's custom_vjp (its XLA vjp of
     # _xla_reference; its forward is the Pallas kernel K7/K8 replaced)
-    "long_attention_bwd": ("osu_dreamer_tpu_torch/csrc/attention_stream.cu",
+    "long_attention_bwd": ("osu_dreamer_tpu_torch/csrc/long_attention_bwd.cu",
                            "osu_dreamer_tpu/ops/long_attention.py:316"),
     "swiglu_bwd_full_tp": ("osu_dreamer_tpu_torch/csrc/swiglu_bwd.cu",
                            "osu_dreamer_tpu/ops/swiglu.py:313"),
@@ -3074,15 +3078,16 @@ STREAM_LENGTHS = ((8, "B2 L257", 2, 257), (8, "B2 L320", 2, 320), (8, "B2 L512",
                   (2, "B1 L2048", 1, 2048))
 STREAM_TIMED = ((8, 96, "B64 L320", 64, 320), (8, 64, "B64 L512", 64, 512))
 STREAM_SOURCE = "osu_dreamer_tpu_torch/csrc/attention_stream.cu"
-# the launches of the streamed kernels by their names (this tree's and the
-# parent's); "other" is every other kernel of the call (the wrapper's pads,
-# its sum of the gamma partials, the long backward's cut and cast of dq and
-# dk)
+# the launches of the streamed kernels and the long backward by their names
+# (this tree's and the parent's); "other" is every other kernel of the call
+# (the wrapper's pads, its sum of the gamma partials, the two-launch long
+# backward's cut and cast of dq and dk)
 STREAM_LAUNCHES = {"prep": r"attention_prep_kernel", "delta": r"attention_delta_kernel",
                    "forward": r"attention_stream\w*_fwd_kernel",
                    "dK/dV": r"attention_stream\w*_bwd_kv_kernel",
                    "dQ": r"attention_stream\w*_bwd_q_kernel",
-                   "post": r"attention_post_kernel"}
+                   "post": r"attention_post_kernel",
+                   "one pass": r"long_attention_bwd_kernel"}
 SPLIT_REPS = 10
 
 
@@ -3282,18 +3287,53 @@ def head_dim_kernels(gen, dev, smi: str) -> dict:
     return out
 
 
-# phase 1g: the long attention backward (csrc/attention_stream.cu
-# odt_attention_stream_bwd, the training counterpart of K7/K8 past the JAX
-# gate) on the streamed forward's q, k, v and lse, by phase 1's rules
-# (GRAD_REL against the f32 autograd of the plain version, bit-identical
-# reruns): first the shipped 16 x 64 heads at B64 L320 (phase 4f's step),
-# then each head dim at each length, timed at L 320 (and 64 at L 2500)
-# beside the plain version's autograd backward, the bound and torch's
+# phase 1g: the long attention backward (the training counterpart of K7/K8
+# past the JAX gate: csrc/long_attention_bwd.cu to padded head dim 128,
+# csrc/attention_stream.cu odt_attention_stream_bwd past it) on the
+# streamed forward's q, k, v and lse, by phase 1's rules (GRAD_REL against
+# the f32 autograd of the plain version, bit-identical reruns): first the
+# shipped 16 x 64 heads at B64 L320 (phase 4f's step), then each head dim
+# at each length, timed at L 320 (and 64 at L 2500) beside the plain
+# version's autograd backward, the bound, torch's
 # scaled_dot_product_attention backward (its forward + backward logged too)
+# and, to head dim 128, the two-launch design the one pass replaced
 LONG_BWD_MAIN = (16, 64, 64, 320)  # H, D, B, L
 LONG_BWD_HEADS = {8: 16, 12: 32, 64: 16, 96: 8, 128: 8, 256: 4, 384: 2}  # D: H
 LONG_BWD_LENGTHS = {65: 8, 320: 8, 759: 2, 2500: 1}  # L: B
 LONG_BWD_TIMED = ((64, 2500),)  # (D, L) timed besides L 320
+# the two-launch design's graph-replay ms at each timed shape as PERF.md
+# section 6 records them (NVIDIA H100 80GB HBM3, 700.00 W), logged beside
+# this run's
+LONG_BWD_RECORDED_MS = {"16 x 64 B64 L320": 0.6698, "16 x 8 B8 L320": 0.0580,
+                    "32 x 12 B8 L320": 0.1337, "16 x 64 B8 L320": 0.0964,
+                    "8 x 96 B8 L320": 0.0721, "8 x 128 B8 L320": 0.0840,
+                    "4 x 256 B8 L320": 0.0961, "2 x 384 B8 L320": 0.1620,
+                    "16 x 64 B1 L2500": 0.5054}
+
+
+def two_launch_bwd(q, k, v, out, lse, grad, D: int):
+    """the long backward's two-launch design at any head dim, timed
+    beside the one pass in the same call: the delta pass, K10's streamed
+    dK/dV and dQ launches (csrc/attention_stream.cu
+    odt_attention_stream_bwd; not counted as a launch of the path), then
+    torch's cut and cast of the f32 dq and dk; arguments as
+    long_attention.attention_bwd_cuda's"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import _build
+
+    B, L, H, Dp = q.shape
+    dev, De = q.device, D + D % 2
+    delta = torch.empty(B, H, L, dtype=torch.float32, device=dev)
+    rdo = None if Dp == D else torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev)
+    dq, dk = (torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(2))
+    dqkv = torch.empty(B, L, 3 * H * De, dtype=torch.bfloat16, device=dev)
+    _build.run("odt_attention_stream_bwd", "long_attention_bwd", dev, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), grad.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               None if rdo is None else rdo.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+               dqkv.data_ptr(), B, L, H, D, Dp, D**-0.5, count=False)
+    dv = dqkv[..., 2 * H * De:].view(B, L, H, De)[..., :D]
+    return dq[..., :D].to(torch.bfloat16), dk[..., :D].to(torch.bfloat16), dv
 
 
 def long_bwd_kernels(gen, dev, smi: str) -> tuple[dict, dict]:
@@ -3346,6 +3386,17 @@ def long_bwd_kernels(gen, dev, smi: str) -> tuple[dict, dict]:
                 f"streamed K7 with lse {fwd_ms:.4f} + {ms:.4f} = {fwd_ms + ms:.4f} ms, SDPA "
                 f"{lib_fwd_ms:.4f} + {lib_ms:.4f} = {lib_fwd_ms + lib_ms:.4f} ms (CUDA-graph "
                 f"replays) [{smi}]")
+            rec = LONG_BWD_RECORDED_MS.get(label)
+            then = (f"; the two launches as recorded {rec:.4f} ms ({ms / rec:.3f}x, NVIDIA H100 "
+                    "80GB HBM3, 700.00 W)" if rec else "")
+            if rows[0].shape[-1] <= la.ONE_PASS_DIM:
+                two_ms = graph_ms(two_launch_bwd, args)
+                log(f"long_attention_bwd {label}: one pass {ms:.4f} ms, the two-launch design "
+                    f"{two_ms:.4f} ms in this call ({ms / two_ms:.3f}x){then} (CUDA-graph "
+                    f"replays) [{smi}]")
+                numbers["two_launch_ms"] = two_ms
+            elif then:
+                log(f"long_attention_bwd {label}: {ms:.4f} ms (the two launches){then} [{smi}]")
             numbers.update(shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
         del q, k, v, grad, out, lse, rows, args, got
         torch.cuda.empty_cache()
@@ -3358,16 +3409,20 @@ def long_bwd_kernels(gen, dev, smi: str) -> tuple[dict, dict]:
                for _ in range(3))
     out, lse, rows = la.attention_fwd_cuda(q, k, v)
     grad = torch.randn(B, L, H * D, generator=gen, device=dev).to(torch.bfloat16)
-    split = launch_split(la.attention_bwd_cuda, (*rows, out, lse, grad, D))
-    log(f"stream split long_attention_bwd {H} x {D} B{B} L{L}: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in split.items())
-        + f" (device ms a call by launch, torch.profiler over {SPLIT_REPS} calls) [{smi}]")
+    for what, fn in (("long_attention_bwd", la.attention_bwd_cuda),
+                     ("long_attention_bwd, the two-launch design", two_launch_bwd)):
+        split = launch_split(fn, (*rows, out, lse, grad, D))
+        log(f"stream split {what} {H} x {D} B{B} L{L}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items())
+            + f" (device ms a call by launch, torch.profiler over {SPLIT_REPS} calls) [{smi}]")
     del q, k, v, out, lse, rows, grad
     by_dim: dict = {}
     for D, H in LONG_BWD_HEADS.items():
         for L, B in LONG_BWD_LENGTHS.items():
             numbers = case(H, D, B, L, L == 320 or (D, L) in LONG_BWD_TIMED)
-            entry = by_dim.setdefault(str(D), {"max_abs_err": 0.0})
+            entry = by_dim.setdefault(str(D), {"max_abs_err": 0.0, "source": (
+                KERNEL_META["long_attention_bwd"][0] if la.stream_dim(D) <= la.ONE_PASS_DIM
+                else STREAM_SOURCE)})
             entry["max_abs_err"] = max(entry["max_abs_err"], numbers.pop("max_abs_err"))
             if L == 320:
                 entry.update(numbers)

@@ -108,6 +108,7 @@
 // recomputed) into dqkv, and one f32 gamma partial per (64-row chunk, head,
 // column) that the wrapper sums in a fixed order: no float atomics, a rerun
 // is bit-identical. At L = 1 dS is exactly 0.
+#include "attention_rows.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -152,24 +153,6 @@ constexpr int ring_stages(uint32_t held, uint32_t stage, uint32_t fixed) {
                 (int)((kStTileCap - held_copies(held, stage, fixed) * held - fixed) / stage));
 }
 
-// the dynamic shared memory base rounded up to the 1024-byte swizzle atom
-// by an offset, not through an integer, so that every pointer derived from
-// it stays in the shared space (ld.shared / st.shared)
-__device__ __forceinline__ unsigned char* st_smem(unsigned char* raw) {
-  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ uint32_t st_pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the MUFU unit alone (a denormal result flushes to 0, -inf gives 0)
-__device__ __forceinline__ float st_ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float st_quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -179,18 +162,6 @@ __device__ __forceinline__ float st_quad_max(float x) {
 __device__ __forceinline__ float st_quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// one warp's arrival on a barrier once all its lanes are done
-__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-template <int NB>
-__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
-#pragma unroll
-  for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
 }
 
 // d[0..15] (the 64 x 32 accumulator, the first 32 columns of a 64-column
@@ -418,26 +389,6 @@ __device__ __forceinline__ void store_f32(const float (&acc)[32], float* __restr
       if (col < width)
         *reinterpret_cast<float2*>(p + col) =
             make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
-    }
-  }
-}
-
-// an accumulator's two rows (r, r + 8 of the box) into rows of a bf16
-// array `ld` elements apart at columns col0.. (an even count `width` of
-// them, each pair 4-byte aligned), skipping rows past `rows`
-__device__ __forceinline__ void store_bf16(const float (&acc)[32], bf16* __restrict__ dst,
-                                           int row, int rows, size_t ld, int width, int col0,
-                                           int lane) {
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (row + 8 * hr >= rows) continue;
-    bf16* p = dst + (size_t)(row + 8 * hr) * ld;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + j * 8 + (lane % 4) * 2;
-      if (col < width)
-        *reinterpret_cast<__nv_bfloat162*>(p + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
     }
   }
 }
@@ -1491,12 +1442,6 @@ __host__ __device__ constexpr int pair_lanes(int half, int pairs, int least) {
   return g;
 }
 
-// the sum over an aligned group of g lanes (a power of two)
-__device__ __forceinline__ float group_sum(float v, int g) {
-  for (int o = g >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // a lane's term of a row's squares at the rotary pair (j, j + half)
 __device__ __forceinline__ float pair_squares(float a, float b) { return a * a + b * b; }
 
@@ -1509,12 +1454,6 @@ __device__ __forceinline__ __nv_bfloat162 norm_rope_pair(float x1, float x2, flo
                                                          float g2, float c, float s) {
   const float n1 = bfr(bfr(x1 * inv) * g1), n2 = bfr(bfr(x2 * inv) * g2);
   return __floats2bfloat162_rn(bfr(n1 * c) - bfr(n2 * s), bfr(n1 * s) + bfr(n2 * c));
-}
-
-// a row of D values into Dp columns, zero past D, by the g lanes of a group
-__device__ __forceinline__ void copy_row(const bf16* __restrict__ x, bf16* __restrict__ y, int D,
-                                         int Dp, int li, int g) {
-  for (int j = li; j < Dp; j += g) y[j] = __float2bfloat16(j < D ? ldf(x + j) : 0.f);
 }
 
 }  // namespace
@@ -1686,73 +1625,9 @@ attention_post_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
   }
 }
 
-// The long attention backward's row pass (q and k arrive normalised and
-// rotated, so no norm and no RoPE): a group of G lanes (`delta_lanes`) a
-// (row, head) of the (B L) rows, delta = rowsum(dO O) in f32 into (B, H, L)
-// and, where rdo is given, dO copied padded to Dp columns. Rows are read 8
-// bf16 (16 bytes) a lane where D % 8 == 0, else one value at a time.
-__global__ void __launch_bounds__(kStPrepWarps * 32)
-attention_delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
-                       bf16* __restrict__ rdo, float* __restrict__ delta, int BL, int L, int H,
-                       int D, int Dp, int G) {
-  const int lane = threadIdx.x % 32, li = lane % G;
-  const size_t units = (size_t)BL * H;
-  const size_t first = ((size_t)blockIdx.x * kStPrepWarps + threadIdx.x / 32) * (32 / G);
-  if (first >= units) return;  // whole warps only: the group sums shuffle over all 32 lanes
-  const size_t unit = first + lane / G;
-  const bool live = unit < units;  // a tail group computes the last unit again and stores nothing
-  const size_t u = min(unit, units - 1);
-  const bf16* g = dout + u * D;
-  const bf16* oo = o + u * D;
-  float d = 0.f;
-  if (D % 8 == 0) {
-    for (int j = li * 8; j < D; j += G * 8) {
-      const uint4 a = *reinterpret_cast<const uint4*>(g + j);
-      const uint4 b = *reinterpret_cast<const uint4*>(oo + j);
-      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 fa = __bfloat1622float2(pa[e]), fb = __bfloat1622float2(pb[e]);
-        d += fa.x * fb.x + fa.y * fb.y;
-      }
-    }
-  } else {
-    for (int j = li; j < D; j += G) d += ldf(g + j) * ldf(oo + j);
-  }
-  d = group_sum(d, G);
-  if (!live) return;
-  const int row = (int)(u / H), h = (int)(u % H);
-  if (li == 0) delta[((size_t)(row / L) * H + h) * L + row % L] = d;
-  if (rdo != nullptr) copy_row(g, rdo + u * Dp, D, Dp, li, G);
-}
-
 // ------------------------------------------------------------------- host --
 
 namespace {
-
-// the 4-D tensor map (D, H, L, B) of the heads at `base` whose rows lie
-// `row` elements apart, in 64 x 64 boxes with 128-byte swizzle: a (B, L,
-// H, D) array (row H D), or v inside the packed qkv rows (row 3 H D)
-cudaError_t stream_map_rows(CUtensorMap* map, const void* base, int D, int H, int L, int B,
-                            size_t row) {
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, row * 2, (cuuint64_t)L * row * 2};
-  const cuuint32_t box[4] = {64, 1, kStRows, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// the tensor map of a (B, L, H, Dp) bf16 array
-cudaError_t stream_map(CUtensorMap* map, const void* base, int Dp, int H, int L, int B) {
-  return stream_map_rows(map, base, Dp, H, L, B, (size_t)H * Dp);
-}
 
 // v's map: rv, or the v columns of qkv where rv is null (Dp == D)
 cudaError_t v_map(CUtensorMap* map, const void* qkv, const void* rv, int D, int Dp, int H, int L,
@@ -1888,15 +1763,6 @@ int prep_launch(const void* qkv, const void* gq, const void* gk, const void* cos
                      (float*)delta, B * L, L, H, D, Dp, lanes);
 }
 
-// the delta pass's lanes a (row, head): about 8 values a lane (16-byte
-// loads) where D % 8 == 0, else 4, as a power of two up to a warp
-int delta_lanes(int D) {
-  const int per = D % 8 == 0 ? 8 : 4;
-  int g = 1;
-  while (g < 32 && g * per < D) g *= 2;
-  return g;
-}
-
 }  // namespace
 
 }  // namespace odt
@@ -1995,12 +1861,7 @@ extern "C" int odt_attention_stream_bwd(const void* q, const void* k, const void
   const cudaStream_t st = (cudaStream_t)stream;
   if (B < 1 || L < 1 || H < 1 || D < 1 || Dp < D || Dp % 8 || (rdo == nullptr && Dp != D))
     return (int)cudaErrorInvalidValue;
-  const int lanes = delta_lanes(D);
-  const size_t warps = ((size_t)B * L * H * lanes + 31) / 32;
-  int err = (int)launch(attention_delta_kernel,
-                        dim3((unsigned)((warps + kStPrepWarps - 1) / kStPrepWarps)),
-                        dim3(kStPrepWarps * 32), 0, st, (const bf16*)dout, (const bf16*)out,
-                        (bf16*)rdo, (float*)delta, B * L, L, H, D, Dp, lanes);
+  const int err = delta_launch(dout, out, rdo, delta, nullptr, 0, B, L, H, D, Dp, st);
   if (err != 0) return err;
   CUtensorMap maps[4];
   const void* bases[4] = {q, k, v, rdo != nullptr ? rdo : dout};

@@ -68,6 +68,7 @@ _SIGNATURES = {
     "odt_fused_attention_stream_fwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_fused_attention_stream_bwd": [_P] * 17 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_attention_stream_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
+    "odt_long_attention_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_swiglu_bwd_full_tp": [_P] * 21 + [_I] * 14 + [_P],
     "odt_film_qkv_bwd_tp": [_P] * 17 + [_I] * 6 + [_P],
 }

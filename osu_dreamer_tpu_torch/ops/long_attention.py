@@ -14,10 +14,12 @@ kernel (bf16, any head dim and length). Where no gradient will be taken:
 ``csrc/attention_stream.cu`` at every other (q, k and v padded to a
 multiple of 8 columns where TMA cannot map the head stride). Under
 autograd, ``LongFlashAttention``: the streamed forward at every head dim,
-writing the f32 log-sum-exp of each query row, and the hand-written
-backward ``odt_attention_stream_bwd`` (a delta pass, then the dK/dV and dQ
-launches of the streamed K10). A CPU tensor goes to ``attention_plain``,
-differentiated by autograd.
+writing the f32 log-sum-exp of each query row, and a hand-written backward:
+``csrc/long_attention_bwd.cu`` (a delta pass, then one pass that forms S
+and dP once per tile pair and writes dq, dk and dv in bf16) where the
+padded head dim is at most ``ONE_PASS_DIM``, else ``odt_attention_stream_bwd``
+(a delta pass, then the dK/dV and dQ launches of the streamed K10). A CPU
+tensor goes to ``attention_plain``, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from ._build import check_cuda, run
 # the head dims csrc/flash_attention.cu (and fused_attention.cu's resident
 # kernels) are instantiated for; every other runs on csrc/attention_stream.cu
 TEMPLATED_HEAD_DIMS = (32, 64, 128)
+# the widest padded head dim csrc/long_attention_bwd.cu takes: its dK and dV
+# of 64 keys a warpgroup beside S^T and dP^T fill a consumer's registers
+ONE_PASS_DIM = 128
 
 
 def stream_dim(D: int) -> int:
@@ -105,13 +110,14 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def attention_bwd_cuda(q, k, v, out, lse, grad, D: int):
-    """the long attention backward, csrc/attention_stream.cu
-    ``odt_attention_stream_bwd``: q, k, v (B, L, H, Dp) as
+    """the long attention backward: q, k, v (B, L, H, Dp) as
     ``attention_fwd_cuda`` returns them, its out and lse, grad (B, L, H*D)
-    -> (dq, dk, dv), each (B, L, H, D) bf16 (dq and dk the kernels' f32
-    rows cut to D; dv a view of the v columns of a packed (B, L, 3 H De)
-    buffer, De = D rounded up to even, the layout the dK/dV launch
-    writes)"""
+    -> (dq, dk, dv), each (B, L, H, D) bf16. At Dp <= ONE_PASS_DIM
+    csrc/long_attention_bwd.cu ``odt_long_attention_bwd`` writes all three
+    into one packed (B, L, 3 H De) buffer (De = D rounded up to even), of
+    which they are views; past it csrc/attention_stream.cu
+    ``odt_attention_stream_bwd`` writes dv there and dq and dk as f32 rows,
+    cut to D and cast here"""
     _check_qkv(q, k, v)
     B, L, H, Dp = q.shape
     if Dp != stream_dim(D):
@@ -126,17 +132,24 @@ def attention_bwd_cuda(q, k, v, out, lse, grad, D: int):
     dev = q.device
     delta = torch.empty(B, H, L, dtype=torch.float32, device=dev)
     rdo = None if Dp == D else torch.empty(B, L, H, Dp, dtype=torch.bfloat16, device=dev)
-    dq, dk = (torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(2))
     De = D + D % 2
     dqkv = torch.empty(B, L, 3 * H * De, dtype=torch.bfloat16, device=dev)
-    run(
-        "odt_attention_stream_bwd", "long_attention_bwd", dev,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), None if rdo is None else rdo.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dqkv.data_ptr(), B, L, H, D, Dp, D**-0.5,
-    )
-    dv = dqkv[..., 2 * H * De:].view(B, L, H, De)[..., :D]
-    return dq[..., :D].to(torch.bfloat16), dk[..., :D].to(torch.bfloat16), dv
+    views = dqkv.view(B, L, 3, H, De)[..., :D].unbind(2)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), None if rdo is None else rdo.data_ptr())
+    if Dp <= ONE_PASS_DIM:
+        # per (batch row, head, 64-row query tile): the dQ accumulator's
+        # 64 x (Dp rounded up to 64) f32 and its key-block counter
+        tiles = B * H * -(-L // 64)
+        acc = torch.empty(tiles * 64 * 64 * -(-Dp // 64), dtype=torch.float32, device=dev)
+        counters = torch.empty(tiles, dtype=torch.int32, device=dev)
+        run("odt_long_attention_bwd", "long_attention_bwd", dev, *common, acc.data_ptr(),
+            counters.data_ptr(), dqkv.data_ptr(), B, L, H, D, Dp, D**-0.5)
+        return views
+    dq, dk = (torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(2))
+    run("odt_attention_stream_bwd", "long_attention_bwd", dev, *common, dq.data_ptr(),
+        dk.data_ptr(), dqkv.data_ptr(), B, L, H, D, Dp, D**-0.5)
+    return dq[..., :D].to(torch.bfloat16), dk[..., :D].to(torch.bfloat16), views[2]
 
 
 def attention_bwd_plain(q, k, v, grad):

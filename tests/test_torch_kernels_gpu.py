@@ -797,6 +797,39 @@ def test_long_attention_bwd_matches_plain_on_gpu(B, L, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H,D", [(16, 8), (32, 12), (16, 64), (8, 96), (8, 128)])
+@pytest.mark.parametrize("B,L", [(1, 1), (2, 65), (8, 320), (1, 2500)])
+def test_one_pass_long_attention_bwd_on_gpu(B, L, H, D):
+    """csrc/long_attention_bwd.cu at phase 1g's heads of head dim up to 128
+    (its B8 L320) and at L 1, 65 and 2500: one counted launch; dq, dk and
+    dv bf16 views of one packed (B, L, 3 H De) buffer (no f32 array
+    returned) within GRAD_REL of the f32 autograd of the plain version (at
+    L 1 dq and dk exactly 0); a rerun bit-identical"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    gen = torch.Generator(device="cuda").manual_seed(B * L + H * D)
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    grad = torch.randn(B, L, H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse, rows = long_attention.attention_fwd_cuda(q, k, v)
+    before = _build.launches["long_attention_bwd"]
+    got = long_attention.attention_bwd_cuda(*rows, out, lse, grad, D)
+    assert _build.launches["long_attention_bwd"] == before + 1
+    De = D + D % 2
+    base = got[0].untyped_storage()
+    for g in got:
+        assert g.shape == (B, L, H, D) and g.dtype == torch.bfloat16
+        assert g.untyped_storage().data_ptr() == base.data_ptr()
+    assert base.nbytes() == B * L * 3 * H * De * 2
+    _grads_close(got, long_attention.attention_bwd_plain(q.float(), k.float(), v.float(),
+                                                         grad.float()))
+    if L == 1:
+        assert not got[0].any() and not got[1].any()
+    again = long_attention.attention_bwd_cuda(*rows, out, lse, grad, D)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
 def test_attention_trains_past_the_gate_through_the_kernels_on_gpu(monkeypatch):
     """16 x 64 heads at L 300 under autograd: one streamed forward (counted
     as K7) and one long attention backward, no plain attention, the q/k/v

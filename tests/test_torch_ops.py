@@ -201,7 +201,7 @@ _ENTRY_POINTS = ["odt_resonate", "odt_film_layer_fwd", "odt_swiglu_fwd", "odt_fl
                  "odt_film_layer_fwd_tp", "odt_swiglu_bwd_tp", "odt_film_layer_bwd_tp",
                  "odt_attention_stream_fwd", "odt_fused_attention_stream_fwd",
                  "odt_fused_attention_stream_bwd", "odt_attention_stream_bwd",
-                 "odt_swiglu_bwd_full_tp", "odt_film_qkv_bwd_tp"]
+                 "odt_swiglu_bwd_full_tp", "odt_film_qkv_bwd_tp", "odt_long_attention_bwd"]
 
 
 def test_c_entry_points_are_the_bound_ones():

@@ -32,7 +32,14 @@ It prints the card's name and power limit, then:
   denoiser step (B128 x L152, width 512), also with
   OSU_DREAMER_FUSED_PROLOGUE=1, on a random batch, seeded, after two
   warm-up steps, under torch.profiler: device-busy ms and the FFN
-  backward's kernel ms (with the prologue on, K11's and K12's too).
+  backward's kernel ms (with the prologue on, K11's and K12's too);
+- (section "long") phase 4f's denoiser step at 16 x 64 heads, B64 x L320
+  (past the JAX gate: the streamed K7 with lse and the long attention
+  backward), with the long backward of this tree and, where the checkout's
+  chip_smoke.py has it, its two-launch design (``two_launch_bwd``) in
+  turns (one pass, two launches, one pass, two launches): host ms a step
+  over LONG_STEPS synchronised steps, then one step under torch.profiler
+  (device busy, the long backward's and K7's ms).
 """
 
 from __future__ import annotations
@@ -49,7 +56,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 SEED = 0
 SECTIONS = ("K1", "K11", "K12", "K3", "K5", "K6", "K9", "K10", "latent", "denoiser",
-            "prologue")
+            "prologue", "long")
+# section "long": phase 4f's denoiser step (16 x 64 heads, B64 x L320, past
+# the JAX gate), its long attention backward by the one pass and by the
+# two-launch design in turns; host ms over LONG_STEPS steps each turn
+LONG_STEPS = 10
+LONG_FAMILIES = {"long backward": r"long_attention_bwd_kernel|attention_delta_kernel"
+                                  r"|attention_stream_bwd",
+                 "K7 streamed": r"attention_stream_fwd_kernel"}
 
 
 def main() -> int:
@@ -220,6 +234,47 @@ def main() -> int:
                             labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
         with env():
             profile(f"{what} (B{Bt} x L{Lt})", state, step, batch, families)
+        del state, step, batch
+        torch.cuda.empty_cache()
+
+    if "long" in wanted:
+        import time
+
+        from osu_dreamer_tpu_torch.ops import long_attention
+
+        cfg = load_yaml_config(diffusion_fit.CONFIG)
+        md = cfg["model"]
+        state, step = init_diffusion_training(
+            dataclass_from_dict(DiffusionModelArgs, md),
+            dataclass_from_dict(DiffusionTrainArgs, cfg["train"]), SEED, dev, torch.bfloat16)
+        smoke.randomize_(state.model, gen)
+        Bt, Lt = 64, 320
+        z = torch.randn(Bt, Lt, md["emb_dim"], generator=gen, device=dev)
+        batch = LatentBatch(h=torch.rand(Bt, Lt, md["a_dim"], generator=gen, device=dev),
+                            z=z / z.square().mean(-1, keepdim=True).sqrt(),
+                            s=torch.randn(Bt, md["style_dim"], generator=gen, device=dev),
+                            labels=torch.rand(Bt, 5, generator=gen, device=dev) * 10)
+        one_pass = long_attention.attention_bwd_cuda
+        designs = [("one pass", one_pass)]
+        if hasattr(smoke, "two_launch_bwd"):
+            designs.append(("two launches", smoke.two_launch_bwd))
+        try:
+            for what, bwd in designs * 2:
+                long_attention.attention_bwd_cuda = bwd
+                for _ in range(2):
+                    step(state, batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(LONG_STEPS):
+                    step(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / LONG_STEPS * 1e3
+                print(f"denoiser step 16 x 64 heads B{Bt} x L{Lt}, long backward {what}: "
+                      f"{ms:.2f} ms/step over {LONG_STEPS} steps [{smi}]", flush=True)
+                profile(f"denoiser step 16 x 64 heads (B{Bt} x L{Lt}), long backward {what}",
+                        state, step, batch, LONG_FAMILIES)
+        finally:
+            long_attention.attention_bwd_cuda = one_pass
         del state, step, batch
         torch.cuda.empty_cache()
     return 0
