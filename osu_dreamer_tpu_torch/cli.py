@@ -108,10 +108,12 @@ def run_predict(
     the sharded path. The .osu decoding (peak picking, the
     MAP slider fit, text) fans out over ``serialize_workers`` spawned
     processes (default up to 4; 1 decodes in this process). With
-    ``OSU_DREAMER_TIMING`` set, prints the host-phase totals."""
-    import time
-    from collections import defaultdict, deque
-    from contextlib import contextmanager, nullcontext
+    ``OSU_DREAMER_TIMING`` set, turns the spans of train/profiling.py on
+    and prints two lines from their host totals: the predict phases
+    (``[timing] host-phase totals:``) and the sampler's stages (``[timing]
+    sampler host issue:``, the host's enqueue; the card runs behind it)."""
+    from collections import deque
+    from contextlib import nullcontext
 
     import torch
 
@@ -120,10 +122,12 @@ def run_predict(
     from .audio.decode import load_wave
     from .audio.spectrogram import prep_wave_for_model
     from .models.inference.sampler import (
-        build_batch_sampler, build_sharded_sampler, dequantize_chart, gather_shards,
+        STAGES, build_batch_sampler, build_sharded_sampler, dequantize_chart, gather_shards,
     )
     from .parallel.replicas import replica_devices, replicate
     from .signal.serialize import decode_osu_entry
+    from .train import profiling
+    from .train.profiling import span
     from .utils.device import resolve_device
     from .utils.procpool import spawn_serialize_pool
 
@@ -161,16 +165,6 @@ def run_predict(
         print(f"[parallel] sharding {batch_songs}-song batches over {n_dev} "
               f"of {len(devices)} devices")
 
-    timers: dict = defaultdict(float)
-
-    @contextmanager
-    def phase(name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            timers[name] += time.perf_counter() - t0
-
     done: list[PredictedSong] = []
     queued: deque = deque()  # (PredictedSong without its .osz, [async results])
 
@@ -186,9 +180,9 @@ def run_predict(
             for i, (row, sig) in enumerate(zip(song.labels, signals))
         ]
         if pool is None:
-            with phase("decode"):
+            with span("predict.decode"):
                 entries = [decode_osu_entry(*j) for j in jobs]
-            with phase("zip"):
+            with span("predict.zip"):
                 write(song, entries)
         else:
             queued.append((song, [pool.apply_async(decode_osu_entry, j) for j in jobs]))
@@ -222,7 +216,7 @@ def run_predict(
         return batch, host, ready
 
     def enqueue_batch(batch: list, out, ready) -> None:
-        with phase("fetch"):
+        with span("predict.fetch"):
             if sharded is not None:
                 hit_u8, xy_i16, pred = gather_shards(out)
             else:
@@ -237,51 +231,63 @@ def run_predict(
 
     def sample_batch(batch: list, batch_i: int, pending):
         print(f"  sampling {len(batch)} song(s) x {D} difficulties at {sample_steps} steps...")
-        with phase("upload_dispatch"):
+        with span("predict.upload_dispatch"):
             out = dispatch(batch, batch_i)
         if pending is not None:
             enqueue_batch(*pending)  # overlaps the device's work on this batch
             flush(block=False)
         return out
 
-    with pool or nullcontext():
-        pending = None
-        batch: list = []
-        batch_i = 0
-        for i, audio_file in enumerate(audio_files):
-            song_title, song_artist = _resolve_metadata(audio_file, title, artist)
-            print(f"[{i + 1}/{len(audio_files)}] {audio_file.name}: featurizing...")
-            with phase("load_wave"):
-                wave = load_wave(audio_file)
-            frames = max(1, -(-len(wave) // HOP_LEN))
-            with phase("prep"):
-                buf, real_frames, n_frames, out_frames = prep_wave_for_model(wave, chunk)
-                wave_t, real_t = torch.from_numpy(buf), torch.tensor([real_frames])
-                if cuda and sharded is None:
-                    # the transfers run while the host decodes the last batch
-                    wave_t = wave_t.pin_memory().to(device, non_blocking=True)
-                    real_t = real_t.pin_memory().to(device, non_blocking=True)
-            entry = (audio_file, song_title, song_artist, frames, wave_t, real_t, n_frames,
-                     out_frames)
-            # a bucket change or a full batch sends the current one
-            if batch and (len(batch) == batch_songs
-                          or (batch[0][6], batch[0][7]) != (n_frames, out_frames)):
+    timing = bool(os.environ.get("OSU_DREAMER_TIMING"))
+    spans_were_on = profiling.enable() if timing else False
+    before = profiling.totals()
+    try:
+        with pool or nullcontext():
+            pending = None
+            batch: list = []
+            batch_i = 0
+            for i, audio_file in enumerate(audio_files):
+                song_title, song_artist = _resolve_metadata(audio_file, title, artist)
+                print(f"[{i + 1}/{len(audio_files)}] {audio_file.name}: featurizing...")
+                with span("predict.load_wave"):
+                    wave = load_wave(audio_file)
+                frames = max(1, -(-len(wave) // HOP_LEN))
+                with span("predict.prep"):
+                    buf, real_frames, n_frames, out_frames = prep_wave_for_model(wave, chunk)
+                    wave_t, real_t = torch.from_numpy(buf), torch.tensor([real_frames])
+                    if cuda and sharded is None:
+                        # the transfers run while the host decodes the last batch
+                        wave_t = wave_t.pin_memory().to(device, non_blocking=True)
+                        real_t = real_t.pin_memory().to(device, non_blocking=True)
+                entry = (audio_file, song_title, song_artist, frames, wave_t, real_t, n_frames,
+                         out_frames)
+                # a bucket change or a full batch sends the current one
+                if batch and (len(batch) == batch_songs
+                              or (batch[0][6], batch[0][7]) != (n_frames, out_frames)):
+                    pending = sample_batch(batch, batch_i, pending)
+                    batch_i += 1
+                    batch = []
+                batch.append(entry)
+            if batch:
                 pending = sample_batch(batch, batch_i, pending)
-                batch_i += 1
-                batch = []
-            batch.append(entry)
-        if batch:
-            pending = sample_batch(batch, batch_i, pending)
-        if pending is not None:
-            enqueue_batch(*pending)
-        flush(block=True)
+            if pending is not None:
+                enqueue_batch(*pending)
+            flush(block=True)
+    finally:
+        profiling.enable(spans_were_on)
     if sharded is not None:
         sharded.close()
-    if os.environ.get("OSU_DREAMER_TIMING"):
-        total = sum(timers.values())
-        parts = " ".join(f"{k}={v * 1e3:.0f}ms" for k, v in sorted(timers.items()))
-        print(f"[timing] host-phase totals: {parts} (sum {total * 1e3:.0f}ms;"
+    if timing:
+        spent = {k: (n - before.get(k, (0, 0))[0], ns - before.get(k, (0, 0))[1])
+                 for k, (n, ns) in profiling.totals().items()}
+        phases = {k.removeprefix("predict."): ns / 1e6 for k, (n, ns) in sorted(spent.items())
+                  if n and k.startswith("predict.")}
+        parts = " ".join(f"{k}={v:.0f}ms" for k, v in phases.items())
+        print(f"[timing] host-phase totals: {parts} (sum {sum(phases.values()):.0f}ms;"
               " device compute overlaps upload_dispatch/fetch waits)")
+        stages = " ".join(f"{k}={spent[k][1] / 1e6:.0f}ms" for k in STAGES
+                          if spent.get(k, (0, 0))[0])
+        print(f"[timing] sampler host issue: {stages} (enqueue time; the card runs behind it)")
     return done
 
 

@@ -33,6 +33,7 @@ import torch
 from ...nn.blocks import shard_tensor_parallel
 from ...parallel.collectives import all_reduce_sum, group_size
 from ...parallel.tp import layout_of
+from ...train.profiling import span
 from ...train.state import (
     OptimizerArgs, TrainState, ema_update, make_optimizer, stratified_logit_normal_t,
 )
@@ -113,8 +114,10 @@ def step_gradients(model: DiffusionModel, batch: LatentBatch, args: DiffusionTra
     """one step's metrics (averaged over the data ranks) and parameter
     gradients (averaged over the ranks, parallel/config.py
     ``average_gradients``) -> (metrics, gradients)"""
-    loss, aux = diffusion_loss(model, batch, args, generator, t, x0, par=par)
-    grads = list(torch.autograd.grad(loss, list(model.parameters())))
+    with span("train.loss"):
+        loss, aux = diffusion_loss(model, batch, args, generator, t, x0, par=par)
+    with span("train.grad"):
+        grads = list(torch.autograd.grad(loss, list(model.parameters())))
     if par is None:
         return {k: v.detach() for k, v in aux.items()}, grads
     return par.mean_over_data(aux), par.average_gradients(grads, layout_of(model))
@@ -125,6 +128,7 @@ def make_train_step(args: DiffusionTrainArgs, par=None):
     state in place (loss gradient, clip + AdamW, EMA, step + 1); under
     ``par`` ``batch`` is this rank's share and ``t``/``x0`` are global"""
 
+    @span("train.step")
     def train_step(state: TrainState, batch: LatentBatch, t=None, x0=None) -> dict:
         metrics, grads = step_gradients(state.model, batch, args, state.generator, t, x0, par)
         state.opt.step(grads, par.grad_norm(grads, layout_of(state.model)) if par else None)

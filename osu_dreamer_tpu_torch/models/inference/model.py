@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 import torch
 from torch import nn
 
+from ...train.profiling import span
 from ..diffusion.model import DiffusionModel, DiffusionModelArgs
 from ..latent.model import LatentModel, LatentModelArgs
 from ..style.model import StyleModel, StyleModelArgs
@@ -52,7 +53,8 @@ class LDM(nn.Module):
         samplers' mean over the rows (a shard of a batch split over replicas
         takes the whole batch's)."""
         S = spec.shape[0]
-        skips, h = self.latent.encode_audio(spec)
+        with span("latent.encode"):
+            skips, h = self.latent.encode_audio(spec)
         per_song = labels.dim() == 3
         D = labels.shape[1] if per_song else labels.shape[0]
         if per_song:
@@ -62,8 +64,11 @@ class LDM(nn.Module):
         if S > 1:
             h, *skips = (t[:, None].expand(S, D, *t.shape[1:]).reshape(S * D, *t.shape[1:])
                          for t in (h, *skips))
-        s = self.style.sample(labels, style_steps, style_guidance, s0=s0, generator=generator,
-                              batch_mean=batch_mean)
-        z = self.diffusion.sample(h, s, num_steps, x0=x0, generator=generator,
-                                  batch_mean=batch_mean)
-        return self.latent.decode(z, s, skips=skips)
+        with span("style.sample"):
+            s = self.style.sample(labels, style_steps, style_guidance, s0=s0,
+                                  generator=generator, batch_mean=batch_mean)
+        with span("diffusion.sample"):
+            z = self.diffusion.sample(h, s, num_steps, x0=x0, generator=generator,
+                                      batch_mean=batch_mean)
+        with span("latent.decode"):
+            return self.latent.decode(z, s, skips=skips)

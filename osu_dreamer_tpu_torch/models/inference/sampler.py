@@ -21,6 +21,7 @@ import torch
 from ...audio.spectrogram import spec_for_model_batch
 from ...parallel.replicas import song_shards
 from ...signal.constants import HIT_DIM
+from ...train.profiling import span
 from .model import LDM
 
 # quantized chart transfer: hit channels as uint8 on the round(x*255) grid,
@@ -46,6 +47,10 @@ def dequantize_chart(hit_u8, xy_i16) -> np.ndarray:
     return np.concatenate([hit, xy], axis=-1)
 
 
+# the spans a batch records inside its ``sample`` span, in the order they run
+STAGES = ("featurize", "latent.encode", "style.sample", "diffusion.sample", "latent.decode")
+
+
 def build_batch_sampler(model: LDM) -> Callable:
     """-> ``sample(waves_i16, real_frames, labels, generator, n_frames,
     out_frames, steps, guidance, s0=None, x0=None)`` returning device
@@ -54,12 +59,15 @@ def build_batch_sampler(model: LDM) -> Callable:
     waves_i16 (S, len) int16, real_frames (S,) integer and labels (D, 5) or
     (S, D, 5) f32 all live on the model's device; ``n_frames`` and
     ``out_frames`` come from ``prep_wave_for_model``. ``s0``/``x0`` inject the
-    samplers' starting noise (see ``LDM.forward``)."""
+    samplers' starting noise (see ``LDM.forward``). A call is one ``sample``
+    span (train/profiling.py) around the ``STAGES`` spans."""
 
     @torch.inference_mode()
+    @span("sample")
     def sample(waves_i16, real_frames, labels, generator, n_frames, out_frames, steps,
                guidance, s0=None, x0=None, batch_mean=None):
-        spec = spec_for_model_batch(waves_i16, real_frames, n_frames, out_frames)
+        with span("featurize"):
+            spec = spec_for_model_batch(waves_i16, real_frames, n_frames, out_frames)
         chart, out_labels = model(
             spec, labels, steps, style_guidance=guidance, s0=s0, x0=x0, generator=generator,
             batch_mean=batch_mean,

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..nn.schedule import LRScheduleArgs, make_lr_schedule
 from ..parallel.tp import layout_of
+from .profiling import span
 
 
 @dataclass
@@ -58,6 +59,7 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in params]
 
     @torch.no_grad()
+    @span("train.optimizer")
     def step(self, grads: list[torch.Tensor], norm: torch.Tensor | None = None) -> torch.Tensor:
         """apply one update from ``grads`` (one per parameter, same order),
         clipped by ``norm`` (by default theirs: a tensor-parallel rank passes
@@ -103,6 +105,7 @@ def make_optimizer(params: list[torch.Tensor], args: OptimizerArgs) -> AdamW:
 
 
 @torch.no_grad()
+@span("train.ema")
 def ema_update(ema: nn.Module, model: nn.Module, decay: float = 0.99) -> None:
     """ema <- decay * ema + (1 - decay) * params, in place"""
     e, p = list(ema.parameters()), list(model.parameters())

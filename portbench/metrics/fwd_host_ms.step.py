@@ -1,0 +1,12 @@
+"""fwd_host_ms.step: host ms a train step inside the program's
+``train.loss`` span, the median over the traced steps from the program's
+span store: the forward's and the loss's enqueue, the profiler's cost on the
+host included."""
+
+from portbench.program_spans import host_ms, ranges
+
+RANGES = ranges("train.loss")
+
+
+def read(run):
+    return host_ms(run, "train.step", ["train.loss"])

@@ -7,7 +7,7 @@ tests/test_end_to_end.py drives the JAX command:
 - bulk with ``--batch-songs 2 --serialize-workers 2``: one .osz a song, D
   entries each, each entry's text equal to ``decode_osu_entry`` run here on
   the quantized chart ``run_predict`` fetched, a seeded rerun writing the
-  same texts, and the ``OSU_DREAMER_TIMING`` line;
+  same texts, and the two ``OSU_DREAMER_TIMING`` lines;
 - without ``--device`` and without a card, ``predict`` raises;
 - the device part held to the JAX package: the JAX ``build_batch_sampler``
   on the same .odt and the port's with the JAX draws injected as ``s0``/``x0``
@@ -114,6 +114,11 @@ def test_predict_bulk_batched(tmp_path, monkeypatch, capsys, odt):
     assert len(timing) == 2
     for phase in ("load_wave", "prep", "upload_dispatch", "fetch"):
         assert re.search(rf"\b{phase}=\d+ms", timing[0]), timing[0]
+    stages = re.findall(r"^\[timing\] sampler host issue: (.*)$", printed, re.M)
+    assert len(stages) == 2
+    for stage in ("featurize", "latent.encode", "style.sample", "diffusion.sample",
+                  "latent.decode"):
+        assert re.search(rf"(^| ){re.escape(stage)}=\d+ms", stages[1]), stages[1]
 
     texts = []
     for done, song in zip(runs[0], songs):
