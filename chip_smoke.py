@@ -86,7 +86,12 @@ nothing of JAX; without a card it exits nonzero and prints no result.
    scaled_dot_product_attention backward and, to head dim 128, the
    two-launch design it replaced (its recorded times logged too), with both
    forward + backward sums logged; then both designs' device ms by launch
-   at 16 x 64 B64 L320.
+   at 16 x 64 B64 L320. Then (1h) the long route's q/k norm and RoPE
+   (the streamed prep and post passes) at 16 x 64 heads, B40 L759 and B64 L320: the forward
+   pass against the plain chain (4 ulp, v's copy exact), the backward pass
+   from views of one packed gradient against the f32 autograd of the chain
+   (GRAD_REL), both bit-identical on rerun, timed by graph replay beside the
+   chain and its autograd backward.
 2. Runs a small slice (2 short songs x 2 difficulties) through the kernels
    and through the plain versions in bf16, and holds both to the plain
    versions in f32. Its denoiser runs at L <= 256, so through the fused
@@ -377,6 +382,12 @@ KERNEL_META = {
     "film_qkv_tp": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu", "osu_dreamer_tpu/ops/film_qkv.py:122"),
     "film_qkv_bwd_tp": ("osu_dreamer_tpu_torch/csrc/film_qkv.cu",
                         "osu_dreamer_tpu/ops/film_qkv.py:235"),
+    # the long route's q/k norm and RoPE, which XLA fuses in the JAX
+    # package (no pallas_call): forward and backward
+    "qk_prep": ("osu_dreamer_tpu_torch/csrc/attention_stream.cu",
+                "osu_dreamer_tpu/nn/attention.py:225"),
+    "qk_post": ("osu_dreamer_tpu_torch/csrc/attention_stream.cu",
+                "osu_dreamer_tpu/nn/attention.py:225"),
 }
 INFERENCE_KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention")
 # kernels timed by CUDA-graph replay (device time) rather than by a loop of
@@ -406,9 +417,11 @@ FLASH_PER_REQUEST = 8 * (STEPS + 1)
 PROLOGUE_PER_REQUEST = 8 * (STEPS + 1)
 RESONATOR_PER_REQUEST = 1
 TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "fused_attention_fwd", "fused_attention_bwd")
-# phase 4f: the shipped denoiser past the JAX gate (L 320): the streamed
-# forward with lse (counted as K7) and the long attention backward
-LONG_TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "flash_attention", "long_attention_bwd")
+# phase 4f: the shipped denoiser past the JAX gate (L 320): the q/k norm
+# and RoPE pass each way, the streamed forward with lse (counted as K7) and
+# the long attention backward
+LONG_TRAINING_KERNELS = ("swiglu", "swiglu_bwd", "flash_attention", "long_attention_bwd",
+                         "qk_prep", "qk_post")
 LATENT_KERNELS = ("film_layer", "film_layer_bwd")
 PROLOGUE_KERNELS = ("film_qkv_fwd", "film_qkv_bwd")
 # phase 6: the kernels that must launch and those that must not, per width
@@ -733,6 +746,8 @@ def predict_phase(model, dev, smi: str) -> dict[str, int]:
         expected["swiglu"] += SWIGLU_PER_REQUEST
         expected["fused_attention_fwd" if route == "fused" else "flash_attention"] += \
             FLASH_PER_REQUEST
+        if route == "long":
+            expected["qk_prep"] += FLASH_PER_REQUEST
 
     def run(files, **options):
         cwd = os.getcwd()
@@ -816,14 +831,15 @@ def plain_ops():
     from osu_dreamer_tpu_torch.audio import spectrogram
     from osu_dreamer_tpu_torch.nn import attention, blocks
     from osu_dreamer_tpu_torch.ops import (
-        film_layer, film_qkv, fused_attention, long_attention, resonator, swiglu,
+        film_layer, film_qkv, fused_attention, long_attention, norm_rope, resonator, swiglu,
     )
 
     saved = (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
-             attention.fused_norm_rope_attention, attention.film_qkv,
+             attention.norm_rope_qkv, attention.fused_norm_rope_attention, attention.film_qkv,
              spectrogram.resonate_frames)
     blocks.film_layer, blocks.swiglu = film_layer.film_layer_plain, swiglu.swiglu_plain
     attention.long_flash_attention = long_attention.attention_plain
+    attention.norm_rope_qkv = norm_rope.norm_rope_qkv_plain
     attention.fused_norm_rope_attention = fused_attention.rope_attention_plain
     attention.film_qkv = film_qkv.film_qkv_plain
     spectrogram.resonate_frames = resonator.resonate_plain
@@ -831,7 +847,7 @@ def plain_ops():
         yield
     finally:
         (blocks.film_layer, blocks.swiglu, attention.long_flash_attention,
-         attention.fused_norm_rope_attention, attention.film_qkv,
+         attention.norm_rope_qkv, attention.fused_norm_rope_attention, attention.film_qkv,
          spectrogram.resonate_frames) = saved
 
 
@@ -1300,6 +1316,8 @@ def pipeline_phase(dev, smi: str) -> dict[str, int]:
     expected.update(resonator=RESONATOR_PER_REQUEST, film_layer=FILM_PER_REQUEST,
                     swiglu=SWIGLU_PER_REQUEST)
     expected["fused_attention_fwd" if route == "fused" else "flash_attention"] = FLASH_PER_REQUEST
+    if route == "long":
+        expected["qk_prep"] = FLASH_PER_REQUEST
     workdir = root / "predict"
     workdir.mkdir()
     cwd = os.getcwd()
@@ -1540,6 +1558,8 @@ def serve_phase(odt: Path, dev, smi: str) -> dict[str, int]:
             expected["swiglu"] += SWIGLU_PER_REQUEST
             expected["fused_attention_fwd" if route == "fused" else "flash_attention"] += \
                 FLASH_PER_REQUEST
+            if route == "long":
+                expected["qk_prep"] += FLASH_PER_REQUEST
         log(f"serve launches over {len(routes)} dispatches (latent L, attention) {routes}: "
             f"{launched}")
         if launched != expected:
@@ -2673,9 +2693,10 @@ def tp_phase(dev, smi: str) -> dict[str, int]:
 def no_plain_attention():
     """the plain attention versions raise on a CUDA tensor: a path run
     inside takes the kernels or fails"""
-    from osu_dreamer_tpu_torch.ops import fused_attention, long_attention
+    from osu_dreamer_tpu_torch.ops import fused_attention, long_attention, norm_rope
 
-    saved = long_attention.attention_plain, fused_attention.rope_attention_plain
+    saved = (long_attention.attention_plain, fused_attention.rope_attention_plain,
+             norm_rope.norm_rope_qkv_plain)
 
     def guarded(plain):
         def call(x, *rest):
@@ -2686,10 +2707,12 @@ def no_plain_attention():
 
     long_attention.attention_plain = guarded(saved[0])
     fused_attention.rope_attention_plain = guarded(saved[1])
+    norm_rope.norm_rope_qkv_plain = guarded(saved[2])
     try:
         yield
     finally:
-        long_attention.attention_plain, fused_attention.rope_attention_plain = saved
+        (long_attention.attention_plain, fused_attention.rope_attention_plain,
+         norm_rope.norm_rope_qkv_plain) = saved
 
 
 def request_launches(model, out_frames: list[int], requests: list[int] | None = None) -> dict:
@@ -2710,6 +2733,8 @@ def request_launches(model, out_frames: list[int], requests: list[int] | None = 
         expected["swiglu"] += SWIGLU_PER_REQUEST * n
         expected["fused_attention_fwd" if route == "fused" else "flash_attention"] += \
             FLASH_PER_REQUEST * n
+        if route == "long":
+            expected["qk_prep"] += FLASH_PER_REQUEST * n
     return expected
 
 
@@ -3433,6 +3458,93 @@ def long_bwd_kernels(gen, dev, smi: str) -> tuple[dict, dict]:
     return first, by_dim
 
 
+# phase 1h: the long route's q/k norm and RoPE (csrc/attention_stream.cu's
+# prep and post passes, ``odt_qk_prep`` and ``odt_qk_post``), the
+# forward pass against the plain chain (4 ulp on q and k, v exact) and the
+# backward pass against the f32 autograd of the plain chain (GRAD_REL), from
+# dq, dk and dv as views of one packed buffer (as the long attention
+# backward hands them over), both bit-identical on rerun; timed by graph
+# replay beside the plain chain forward and its autograd backward, at the
+# sampler's B40 L759 and the l320 training step's B64 L320, 16 x 64 heads
+QK_SHAPES = ((40, 759, 16, 64), (64, 320, 16, 64))  # B, L, H, D
+
+
+def qk_norm_rope_kernels(gen, dev, smi: str) -> tuple[dict, dict]:
+    """phase 1h -> (the forward pass's JSON numbers, the backward's), each
+    at QK_SHAPES' first shape, the second's under its "B<n> L<n>" key"""
+    import torch
+
+    from osu_dreamer_tpu_torch.ops import norm_rope as nr
+
+    t0 = time.perf_counter()
+    out: tuple[dict, dict] = ({}, {})
+    for B, L, H, D in QK_SHAPES:
+        label = f"{H} x {D} B{B} L{L}"
+        qkv = (torch.randn(B, L, 3 * H * D, generator=gen, device=dev) * 0.7).to(torch.bfloat16)
+        qg, kg = (1 + 0.3 * torch.randn(D, generator=gen, device=dev) for _ in range(2))
+        got = nr.qk_prep_cuda(qkv, qg, kg, H)
+        want = nr.norm_rope_qkv_plain(qkv, qg, kg, H)
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got[:2], want[:2]))
+        tol = BF16_ULPS * 2.0 ** (np.floor(np.log2(max(w.float().abs().max().item()
+                                                       for w in want[:2]))) - 7)
+        if not err <= tol or not torch.equal(got[2], want[2]):
+            raise RuntimeError(f"qk_prep {label}: max abs err {err:.4g} against the plain chain "
+                               f"(tolerance {tol:.4g}), v copied exactly: "
+                               f"{torch.equal(got[2], want[2])}")
+        if not all(torch.equal(a, b) for a, b in zip(got, nr.qk_prep_cuda(qkv, qg, kg, H))):
+            raise RuntimeError(f"qk_prep {label}: two launches differ")
+        packed = torch.randn(B, L, 3, H, D, generator=gen, device=dev).to(torch.bfloat16)
+        grads = packed.unbind(2)
+        post = nr.qk_post_cuda(qkv, *grads, qg, kg, H)
+        ref = nr.qk_post_plain(qkv.float(), *(g.float() for g in grads), qg, kg, H)
+        plain = nr.qk_post_plain(qkv, *grads, qg, kg, H)
+        worst = 0.0
+        for name, g, r, pl in zip(("dqkv", "dq_gamma", "dk_gamma"), post, ref, plain):
+            g, r, pl = g.float(), r.float(), pl.float()
+            e, scale = (g - r).abs().max().item(), r.abs().max().item()
+            log(f"qk_post {label} {name}: max_abs_err {e:.4g} vs f32 (plain bf16 "
+                f"{(pl - r).abs().max().item():.4g}; tolerance {GRAD_REL * scale:.4g})")
+            if not (bool(torch.isfinite(g).all()) and e <= GRAD_REL * scale):
+                raise RuntimeError(f"qk_post {label} {name}: kernel gradient disagrees with the "
+                                   "plain one")
+            worst = max(worst, e)
+        if not all(torch.equal(a, b) for a, b in zip(post, nr.qk_post_cuda(qkv, *grads, qg, kg,
+                                                                            H))):
+            raise RuntimeError(f"qk_post {label}: two launches differ")
+        del ref, plain
+        # bytes: q and k read and written, v's copy read and written, the
+        # tables and gains; the backward reads q and k raw, dq, dk, dv and
+        # writes dqkv (its f32 gain partials besides)
+        n = B * L * H * D
+        small = 2 * (2 * L * (D // 2) + 2 * D)
+        prep_b = bound(0, 2 * 6 * n + small)
+        post_b = bound(0, 2 * 8 * n + small + 4 * 2 * D * -(-B * L // nr.POST_CHUNK))
+        prep_ms = graph_ms(nr.qk_prep_cuda, (qkv, qg, kg, H))
+        plain_ms = graph_ms(nr.norm_rope_qkv_plain, (qkv, qg, kg, H))
+        post_ms = graph_ms(nr.qk_post_cuda, (qkv, *grads, qg, kg, H))
+        plain_grad_ms = graph_grad_ms(lambda *t: nr.norm_rope_qkv_plain(*t, H), (qkv, qg, kg),
+                                      grads)
+        log(f"qk_prep {label}: kernel {prep_ms:.4f} ms, plain chain {plain_ms:.4f} ms; bound "
+            f"{prep_b['bound_ms']:.4f} ms ({prep_b['bound_by']}, v's copy counted) [{smi}]")
+        log(f"qk_post {label}: kernel {post_ms:.4f} ms, plain chain's autograd backward "
+            f"{plain_grad_ms:.4f} ms; bound {post_b['bound_ms']:.4f} ms ({post_b['bound_by']}); "
+            f"forward + backward {prep_ms + post_ms:.4f} ms against {plain_ms + plain_grad_ms:.4f} "
+            f"ms (CUDA-graph replays) [{smi}]")
+        for numbers, ms, p_ms, b, e in ((out[0], prep_ms, plain_ms, prep_b, err),
+                                        (out[1], post_ms, plain_grad_ms, post_b, worst)):
+            entry = {"shape": label, "ms": ms, "plain_ms": p_ms, "library_ms": None, **b,
+                     "max_abs_err": e}
+            if numbers:
+                numbers[f"B{B} L{L}"] = entry
+            else:
+                numbers.update(entry)
+        del qkv, got, want, packed, grads, post
+        torch.cuda.empty_cache()
+    log(f"phase 1h: the q/k norm and RoPE passes checked in {time.perf_counter() - t0:.1f} s "
+        f"[{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3811,6 +3923,9 @@ def main() -> int:
     # ---- 1g. the long attention backward ----
     results["long_attention_bwd"], long_bwd_dims = long_bwd_kernels(gen, dev, smi)
 
+    # ---- 1h. the long route's q/k norm and RoPE, each way ----
+    results["qk_prep"], results["qk_post"] = qk_norm_rope_kernels(gen, dev, smi)
+
     # ---- 2. small slice: through the kernels vs through the plain versions ----
     args = LDMArgs()
     model = init_random(args, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -3904,6 +4019,7 @@ def main() -> int:
     if missing or stray:
         raise RuntimeError(f"the inference path never launched {missing} or launched {stray}")
     for name, per_request in (("flash_attention", FLASH_PER_REQUEST),
+                              ("qk_prep", FLASH_PER_REQUEST),
                               ("swiglu", SWIGLU_PER_REQUEST), ("film_layer", FILM_PER_REQUEST),
                               ("resonator", RESONATOR_PER_REQUEST)):
         if launches_infer[name] != per_request * len(runs):
@@ -3987,7 +4103,8 @@ def main() -> int:
     from osu_dreamer_tpu_torch.nn.attention import RoPEAttention
 
     xa = rnd(2, 300, 512)
-    for heads, kernel in ((8, "fused_attention_fwd"), (16, "flash_attention")):
+    for heads, kernels in ((8, {"fused_attention_fwd": 1}),
+                           (16, {"flash_attention": 1, "qk_prep": 1})):
         attn = RoPEAttention(512, heads, 64, 512, torch.bfloat16).to(dev)
         randomize_(attn, torch.Generator(device=dev).manual_seed(SEED + 5))
         attn_f32 = RoPEAttention(512, heads, 64, 512, torch.float32).to(dev)
@@ -4002,19 +4119,21 @@ def main() -> int:
         log(f"{heads} x 64 heads at B2 L300: launches {launched}; vs f32 kernel mean "
             f"{ek.mean().item():.4g} max {ek.max().item():.4g}, plain bf16 mean "
             f"{ep.mean().item():.4g} max {ep.max().item():.4g}")
-        if (launched != {kernel: 1} or not bool(torch.isfinite(got).all())
+        if (launched != kernels or not bool(torch.isfinite(got).all())
                 or not ek.mean() <= SLICE_MEAN_RATIO * ep.mean()
                 or not ek.max() <= SLICE_MAX_RATIO * ep.max()):
-            raise RuntimeError(f"{heads} x 64 heads at L 300 did not answer through {kernel} "
-                               "within tolerance")
-        if heads == 16:  # past the gate under autograd: K7 with lse, the long backward
+            raise RuntimeError(f"{heads} x 64 heads at L 300 did not answer through "
+                               f"{list(kernels)} within tolerance")
+        if heads == 16:
+            # past the gate under autograd: both q/k passes, K7 with lse, the long backward
             _build.reset_launches()
             with no_plain_attention():
                 grads = torch.autograd.grad(attn(xa).float().square().mean(),
                                             list(attn.parameters()))
             launched = {k: n for k, n in _build.launches.items() if n}
             log(f"16 x 64 heads at B2 L300 under autograd: launches {launched}")
-            if (launched != {"flash_attention": 1, "long_attention_bwd": 1}
+            if (launched != {"flash_attention": 1, "long_attention_bwd": 1, "qk_prep": 1,
+                             "qk_post": 1}
                     or not all(bool(torch.isfinite(g).all()) for g in grads)):
                 raise RuntimeError("16 x 64 heads at L 300 did not train through K7 and the "
                                    "long attention backward")
@@ -4173,7 +4292,8 @@ def main() -> int:
     _build.reset_launches()
     denoiser_step("fit-denoiser, 16 x 64 heads, B64 x L320", lcfg, 64, 320)
     step_long = dict(_build.launches)
-    if step_long["flash_attention"] != 8 or step_long["long_attention_bwd"] != 8:
+    if any(step_long[k] != 8 for k in ("flash_attention", "long_attention_bwd", "qk_prep",
+                                       "qk_post")):
         raise RuntimeError(f"fit-denoiser at L 320: the kernel step launched {step_long}")
     log(f"phase 4f wall {time.perf_counter() - t_phase:.1f} s [{smi}]")
 

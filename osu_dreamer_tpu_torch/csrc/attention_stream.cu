@@ -17,7 +17,11 @@
 // package differentiates its Pallas forward with an XLA backward
 // (long_attention.py `_vjp_bwd`): the shipped 16 x 64 heads at L 320. It is
 // K10's dK/dV and dQ launches on q, k and v as the forward read them,
-// after a delta pass of its own and with no post pass.
+// after a delta pass of its own and with no post pass. Ahead of it, and of
+// K7, the long route normalises and rotates q and k with K9's prep pass at
+// Dp = D (odt_qk_prep, which also copies v), and takes their gradients
+// back with K10's post pass on the long backward's bf16 gradients
+// (odt_qk_post, which also copies dv into packed dqkv).
 //
 // What bounds them on the H100: 4 L^2 D operations per (batch row, head)
 // in the forward, 10 L^2 D in the backward, on the tensor cores, against a
@@ -124,8 +128,8 @@ constexpr int kStMaxStages = 4;
 // shared memory for tiles and ring: a block's, less the base's alignment
 // and room for the barriers
 constexpr uint32_t kStTileCap = (uint32_t)kMaxSmem - 1024 - 256;
-constexpr int kStPrepWarps = 4;                           // warps a block of the prep pass
-constexpr int kStChunk = 64;                              // rows a block of the post pass
+constexpr int kStPrepWarps = 8;                           // warps a block of the prep pass
+constexpr int kStChunk = 32;                              // rows a block of the post pass
 constexpr float kStNeg = -1e30f;
 constexpr float kStLog2e = 1.4426950408889634f;
 // the wide kernels (nbox > 4): consumer warpgroups and a producer warp (or
@@ -1412,57 +1416,146 @@ attention_stream_wide_bwd_q_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // -------------------------------------------------------- prep and post --
 //
-// Both are bound by the loads in flight, not by their bytes: each step of
-// a lane waits on the last. So a (row, head) takes a group of only as many
-// lanes (`pair_lanes`) as give each a few rotary pairs, and a warp holds 32
-// / that many rows' loads in flight at once (a whole warp a row where a
-// launch is one wave at most); the prep pass sums the squares of q and k
-// and the dO O products in one sweep over the pairs, the post pass sweeps
-// each row once from memory (the second sweep hits L1). The rounding is the
-// plain version's; a row's squares are summed in one order for a shape
-// (the group's lanes strided over the pairs, then the group's tree), and
-// the forward and the backward run the same prep pass at the same shape,
-// so the backward's rq/rk are the forward's bit for bit.
+// Both are bound by the loads in flight, not by their bytes. So a lane
+// loads V values at a time (16 bytes at V 8, V the widest of 8, 4, 2, 1
+// that divides D/2 and every stride and base, `vec_width`) at the rotary
+// pair halves j and j + D/2, and a (row, head) takes a group of only as
+// many lanes as it has vectors (`vec_lanes`, at most a warp), so a warp
+// holds 32 / G rows' loads in flight at once. The prep pass sums the
+// squares of q and k (and the dO O products) in one sweep, then writes from
+// the registers it read; the post pass sweeps each row once for its sums,
+// then writes its own vector. The rounding is the plain version's; a row's
+// squares are summed in one order for a shape (each lane's vectors in
+// turn, then the group's tree), and the forward and the backward run the
+// same prep pass on the same qkv, so the backward's rq/rk are the
+// forward's bit for bit.
 
 namespace {
 
-constexpr int kStPostWarps = 4;                       // warps a block of the post pass
-constexpr int kStPostRows = kStChunk / kStPostWarps;  // rows a warp of the post pass
-// lanes a (row, head) takes: a power of two from `least` to 32 giving each
-// lane about `pairs` of the D/2 rotary pairs (measured at 8 x 64 and 8 x
-// 96 heads: more lanes leave a warp too few rows in flight, fewer lanes too
-// many steps a row)
-constexpr int kStPrepPairs = 8, kStPrepLanes = 8;  // the prep pass
-constexpr int kStPostPairs = 4, kStPostLanes = 4;  // the post pass, also a column block's pairs a lane
-static_assert(kStChunk % kStPostWarps == 0, "whole rows a warp");
+constexpr int kStPostWarps = 8;  // warps a block of the post pass
 
-__host__ __device__ constexpr int pair_lanes(int half, int pairs, int least) {
-  int g = least;
-  while (g < 32 && g * pairs < half) g *= 2;
-  return g;
+// the post pass's gradients dq, dk, dv: element (r, h, j) of gradient i
+// at r row[i] + h head[i] + j
+struct PostStrides {
+  long long row[3], head[3];
+};
+
+template <int V>
+struct alignas(2 * V) Pack {
+  bf16 v[V];
+};
+
+template <int V>
+__device__ __forceinline__ void load(const bf16* __restrict__ p, float (&out)[V]) {
+  const Pack<V> pk = *reinterpret_cast<const Pack<V>*>(p);
+#pragma unroll
+  for (int i = 0; i < V; ++i) out[i] = __bfloat162float(pk.v[i]);
 }
 
-// a lane's term of a row's squares at the rotary pair (j, j + half)
-__device__ __forceinline__ float pair_squares(float a, float b) { return a * a + b * b; }
+// f32 gradients (K10's dQ and dK launches) in 16-byte loads where V allows
+template <int V>
+__device__ __forceinline__ void load(const float* __restrict__ p, float (&out)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + i);
+      out[i] = f.x, out[i + 1] = f.y, out[i + 2] = f.z, out[i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = p[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(bf16* __restrict__ p, const float (&in)[V]) {
+  Pack<V> pk;
+#pragma unroll
+  for (int i = 0; i < V; ++i) pk.v[i] = __float2bfloat16(in[i]);
+  *reinterpret_cast<Pack<V>*>(p) = pk;
+}
+
+template <int V>
+__device__ __forceinline__ void copy(const bf16* __restrict__ x, bf16* __restrict__ y) {
+  *reinterpret_cast<Pack<V>*>(y) = *reinterpret_cast<const Pack<V>*>(x);
+}
+
+// a row of D values into Dp columns, zero past D, by the g lanes of a
+// group, V at a time to D
+template <int V>
+__device__ __forceinline__ void copy_row(const bf16* __restrict__ x, bf16* __restrict__ y, int D,
+                                         int Dp, int li, int g) {
+  for (int c = li; c < D / V; c += g) copy<V>(x + c * V, y + c * V);
+  for (int j = D + li; j < Dp; j += g) y[j] = __float2bfloat16(0.f);
+}
 
 __device__ __forceinline__ float inv_rms(float ss, int D) { return 1.f / sqrtf(ss / D + 1e-6f); }
 
-// the normalised and rotated pair (j, j + D/2) of a raw row in the plain
+// a row's vectors at the pair halves (x1 at j, x2 at j + D/2), widened to f32
+template <int V>
+struct Halves {
+  float a[V], b[V];
+  template <typename T>
+  __device__ __forceinline__ void read(const T* __restrict__ x, int half) {
+    load<V>(x, a);
+    load<V>(x + half, b);
+  }
+  __device__ __forceinline__ float squares() const {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) s += a[i] * a[i] + b[i] * b[i];
+    return s;
+  }
+  __device__ __forceinline__ float dot(const Halves& o) const {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) s += a[i] * o.a[i] + b[i] * o.b[i];
+    return s;
+  }
+};
+
+// the normalised, scaled and rotated halves of x into y in the plain
 // version's rounding order: bf16(x / rms), bf16(* gamma), then bf16 rotary
 // products and their bf16 sums
-__device__ __forceinline__ __nv_bfloat162 norm_rope_pair(float x1, float x2, float inv, float g1,
-                                                         float g2, float c, float s) {
-  const float n1 = bfr(bfr(x1 * inv) * g1), n2 = bfr(bfr(x2 * inv) * g2);
-  return __floats2bfloat162_rn(bfr(n1 * c) - bfr(n2 * s), bfr(n1 * s) + bfr(n2 * c));
+template <int V>
+__device__ __forceinline__ void norm_rope(const Halves<V>& x, float inv, const bf16* __restrict__ g,
+                                          const float (&c)[V], const float (&s)[V], int half,
+                                          bf16* __restrict__ y) {
+  Halves<V> gg;
+  float y1[V], y2[V];
+  gg.read(g, half);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float n1 = bfr(bfr(x.a[i] * inv) * gg.a[i]), n2 = bfr(bfr(x.b[i] * inv) * gg.b[i]);
+    y1[i] = bfr(n1 * c[i]) - bfr(n2 * s[i]);
+    y2[i] = bfr(n1 * s[i]) + bfr(n2 * c[i]);
+  }
+  store<V>(y, y1);
+  store<V>(y + half, y2);
+}
+
+// the gradient of the gamma-scaled normalised pair halves: the rotated
+// rows' gradient d taken back through the rotation
+template <int V>
+__device__ __forceinline__ void unrotate(const Halves<V>& d, const float (&c)[V],
+                                         const float (&s)[V], Halves<V>& gn) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    gn.a[i] = d.a[i] * c[i] + d.b[i] * s[i];
+    gn.b[i] = d.b[i] * c[i] - d.a[i] * s[i];
+  }
 }
 
 }  // namespace
 
-// A group of G lanes (`prep_lanes`) a (row, head) of the (B L) rows: q
+// A group of G lanes (`vec_lanes`) a (row, head) of the (B L) rows: q
 // and k normalised and rotated into the padded (B L, H, Dp) arrays rq, rk,
 // v copied into rv where given (the kernels read v from qkv where Dp == D);
 // with dout (the backward): delta = rowsum(dO O) into (B, H, L) and, where
-// rdo is given, dO copied padded
+// rdo is given, dO copied padded. A lane's first vector stays in registers
+// between the sums and the output; further ones (D / 2 > G V) are read
+// again (from L1).
+template <int V>
 __global__ void __launch_bounds__(kStPrepWarps * 32)
 attention_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
                       const bf16* __restrict__ gk, const bf16* __restrict__ cos_t,
@@ -1471,157 +1564,197 @@ attention_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
                       const bf16* __restrict__ dout, const bf16* __restrict__ o,
                       bf16* __restrict__ rdo, float* __restrict__ delta, int BL, int L, int H,
                       int D, int Dp, int G) {
-  const int lane = threadIdx.x % 32, half = D / 2, li = lane % G;
+  const int lane = threadIdx.x % 32, li = lane % G, half = D / 2, nv = half / V;
   const size_t units = (size_t)BL * H;
   const size_t first = ((size_t)blockIdx.x * kStPrepWarps + threadIdx.x / 32) * (32 / G);
-  if (first >= units) return;
+  if (first >= units) return;  // the whole warp: no lane is left for the shuffles
   const size_t unit = first + lane / G;
   const bool live = unit < units;  // a tail group computes the last unit again and stores nothing
-  const int row = (int)(min(unit, units - 1) / H), h = (int)(min(unit, units - 1) % H);
-  const int pos = row % L;
-  const size_t HD = (size_t)H * D, dst = ((size_t)row * H + h) * Dp;
+  const size_t u = live ? unit : units - 1;
+  const int row = (int)(u / H), h = (int)(u % H), pos = row % L;
+  const size_t HD = (size_t)H * D, dst = u * Dp;
   const bf16* xq = qkv + (size_t)row * 3 * HD + (size_t)h * D;
   const bf16* xk = xq + HD;
   const bf16* g = dout == nullptr ? nullptr : dout + (size_t)row * HD + (size_t)h * D;
   const bf16* oo = dout == nullptr ? nullptr : o + (size_t)row * HD + (size_t)h * D;
+  Halves<V> hq, hk;
   float sq = 0.f, sk = 0.f, d = 0.f;
-#pragma unroll 4
-  for (int j = li; j < half; j += G) {
-    sq += pair_squares(ldf(xq + j), ldf(xq + j + half));
-    sk += pair_squares(ldf(xk + j), ldf(xk + j + half));
-    if (g != nullptr) d += ldf(g + j) * ldf(oo + j) + ldf(g + j + half) * ldf(oo + j + half);
+  for (int c = li; c < nv; c += G) {
+    Halves<V> eq, ek;
+    eq.read(xq + c * V, half);
+    ek.read(xk + c * V, half);
+    sq += eq.squares();
+    sk += ek.squares();
+    if (c == li) {
+      hq = eq;
+      hk = ek;
+    }
+    if (g != nullptr) {
+      Halves<V> eg, eo;
+      eg.read(g + c * V, half);
+      eo.read(oo + c * V, half);
+      d += eg.dot(eo);
+    }
   }
   const float iq = inv_rms(group_sum(sq, G), D), ik = inv_rms(group_sum(sk, G), D);
   if (g != nullptr) d = group_sum(d, G);
   if (!live) return;
   const bf16* cr = cos_t + (size_t)pos * half;
   const bf16* sr = sin_t + (size_t)pos * half;
-#pragma unroll 4
-  for (int j = li; j < half; j += G) {
-    const float c = ldf(cr + j), sn = ldf(sr + j);
-    const __nv_bfloat162 yq =
-        norm_rope_pair(ldf(xq + j), ldf(xq + j + half), iq, ldf(gq + j), ldf(gq + j + half), c, sn);
-    const __nv_bfloat162 yk =
-        norm_rope_pair(ldf(xk + j), ldf(xk + j + half), ik, ldf(gk + j), ldf(gk + j + half), c, sn);
-    rq[dst + j] = yq.x;
-    rq[dst + j + half] = yq.y;
-    rk[dst + j] = yk.x;
-    rk[dst + j + half] = yk.y;
+  for (int c = li; c < nv; c += G) {
+    float cs[V], sn[V];
+    load<V>(cr + c * V, cs);
+    load<V>(sr + c * V, sn);
+    if (c != li) {
+      hq.read(xq + c * V, half);
+      hk.read(xk + c * V, half);
+    }
+    norm_rope<V>(hq, iq, gq + c * V, cs, sn, half, rq + dst + c * V);
+    norm_rope<V>(hk, ik, gk + c * V, cs, sn, half, rk + dst + c * V);
   }
   for (int j = D + li; j < Dp; j += G) rq[dst + j] = rk[dst + j] = __float2bfloat16(0.f);
-  if (rv != nullptr) copy_row(xq + 2 * HD, rv + dst, D, Dp, li, G);
+  if (rv != nullptr) copy_row<V>(xq + 2 * HD, rv + dst, D, Dp, li, G);
   if (g != nullptr) {
     if (li == 0) delta[((size_t)(row / L) * H + h) * L + pos] = d;
-    if (rdo != nullptr) copy_row(g, rdo + dst, D, Dp, li, G);
+    if (rdo != nullptr) copy_row<V>(g, rdo + dst, D, Dp, li, G);
   }
 }
 
-// One block of kStPostWarps warps a (chunk of kStChunk rows, head, block
-// of kStPostPairs G rotary pairs, G = pair_lanes(D / 2, ...)), each warp
-// kStPostRows of the rows, 32 / G at a time (a group of G lanes a row): a
-// row's squares and sum of gh x (gh the gradient of the gamma-scaled
-// normalised row) over the whole row in one sweep, then its f32 gradients
-// dq and dk of the rotated rows back through the inverse rotation and the
-// gamma-scaled RMS norm into dqkv's q and k columns (bf16) at the block's
-// pairs, read again from L1; the gamma gradients of the chunk's rows at the
-// block's pairs as one f32 partial a column in row (chunk, h) of dg, q's D
-// columns then k's (each group's rows in order, then the groups, then the
-// warps in order).
-// Past D 256 each column block sweeps the whole rows again for their sums.
+// One block of kStPostWarps warps a (chunk of kStChunk rows, column block
+// of G vectors), its warps taking the chunk's (row, head) units 32 / G at a
+// time (a group of G lanes a unit, lane li at vector G blockIdx.y + li): a
+// unit's squares and sum of gh x (gh the gradient of the gamma-scaled
+// normalised row) over the whole row, then its gradients dq and dk of the
+// rotated rows (T: f32 from K10's launches, bf16 from the long attention
+// backward) back through the inverse rotation and the gamma-scaled RMS
+// norm in f32 into dqkv's q and k columns (bf16) at the lane's vector, and,
+// where dv is given, its columns copied into dqkv's v columns; the lane's
+// gamma gradients summed over its units, then the groups of a warp
+// (shuffles) and the warps in order into one f32 partial a chunk:
+// dg[chunk][q or k][column]. Past G = 32 vectors (D > 512 at V 8) each
+// column block sweeps the whole rows again for their sums.
+template <typename T, int V>
 __global__ void __launch_bounds__(kStPostWarps * 32)
 attention_post_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gq,
                       const bf16* __restrict__ gk, const bf16* __restrict__ cos_t,
-                      const bf16* __restrict__ sin_t, const float* __restrict__ dq,
-                      const float* __restrict__ dk, bf16* __restrict__ dqkv,
-                      float* __restrict__ dg_part, int BL, int L, int H, int D, int Dp) {
-  constexpr int K = kStPostPairs;
-  __shared__ float red[kStPostWarps][32][2][K][2];  // (warp, lane, q or k, pair, pair half)
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int half = D / 2, G = pair_lanes(half, K, kStPostLanes), li = lane % G, per = 32 / G;
-  const int nblk = (half + K * G - 1) / (K * G);
-  const int chunk = blockIdx.x / (H * nblk), h = blockIdx.x / nblk % H;
-  const int j0 = blockIdx.x % nblk * K * G;
+                      const bf16* __restrict__ sin_t, const T* __restrict__ dq,
+                      const T* __restrict__ dk, const bf16* __restrict__ dv, PostStrides st,
+                      bf16* __restrict__ dqkv, float* __restrict__ dg, int BL, int L, int H,
+                      int D, int G) {
+  __shared__ float red[kStPostWarps][2][2][32 * V];  // (warp, q or k, pair half, lane's vector)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, li = lane % G, per = 32 / G;
+  const int half = D / 2, nv = half / V;
+  const int own = blockIdx.y * G + li;  // the lane's vector
+  const bool mine = own < nv;
+  const int row0 = blockIdx.x * kStChunk;
+  const int units = min(kStChunk, BL - row0) * H;
   const size_t HD = (size_t)H * D;
-  float gam[2][K][2];  // the lane's gammas at its pairs of the block
+  const bf16* gam[2] = {gq, gk};
+  const T* grad[2] = {dq, dk};
+  Halves<V> gm[2];          // the lane's gains
+  float acc[2][2][V] = {};  // its gain gradients: (q or k, pair half, element)
+  if (mine) {
 #pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int j = j0 + k * G + li;
-      const bf16* g = t ? gk : gq;
-      gam[t][k][0] = j < half ? ldf(g + j) : 0.f;
-      gam[t][k][1] = j < half ? ldf(g + j + half) : 0.f;
-    }
-  float dg[2][K][2] = {};  // this lane's gamma partials, as gam
-  for (int r0 = 0; r0 < kStPostRows; r0 += per) {
-    const int row = chunk * kStChunk + warp * kStPostRows + r0 + lane / G;
-    const bool live = row < BL && r0 + lane / G < kStPostRows;
-    const int rr = min(row, BL - 1);
-    const bf16* cr = cos_t + (size_t)(rr % L) * half;
-    const bf16* sr = sin_t + (size_t)(rr % L) * half;
+    for (int t = 0; t < 2; ++t) gm[t].read(gam[t] + own * V, half);
+  }
+  for (int u0 = warp * per; u0 < units; u0 += kStPostWarps * per) {
+    const int uu = u0 + lane / G;
+    const bool live = uu < units;
+    const int ur = live ? uu : units - 1;
+    const int row = row0 + ur / H, h = ur % H, pos = row % L;
+    const bf16* cr = cos_t + (size_t)pos * half;
+    const bf16* sr = sin_t + (size_t)pos * half;
     const bf16* x[2];
-    const float* d[2];
+    const T* d[2];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      x[t] = qkv + (size_t)rr * 3 * HD + t * HD + (size_t)h * D;
-      d[t] = (t ? dk : dq) + ((size_t)rr * H + h) * Dp;
+      x[t] = qkv + (size_t)row * 3 * HD + t * HD + (size_t)h * D;
+      d[t] = grad[t] + row * st.row[t] + h * st.head[t];
     }
+    // the lane's own vector: raw halves, the normalised rows' gradients
+    Halves<V> xo[2], gn[2];
     float ss[2] = {0.f, 0.f}, m[2] = {0.f, 0.f};
-#pragma unroll 4
-    for (int j = li; j < half; j += G) {
-      const float c = ldf(cr + j), s = ldf(sr + j);
+    if (mine) {
+      float cs[V], sn[V];
+      load<V>(cr + own * V, cs);
+      load<V>(sr + own * V, sn);
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
-        const bf16* g = t ? gk : gq;
-        const float x1 = ldf(x[t] + j), x2 = ldf(x[t] + j + half);
-        const float d1 = d[t][j], d2 = d[t][j + half];
-        ss[t] += pair_squares(x1, x2);
-        m[t] += (d1 * c + d2 * s) * ldf(g + j) * x1 + (d2 * c - d1 * s) * ldf(g + j + half) * x2;
+        Halves<V> dd;
+        xo[t].read(x[t] + own * V, half);
+        dd.read(d[t] + own * V, half);
+        unrotate<V>(dd, cs, sn, gn[t]);
+        ss[t] = xo[t].squares();
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          m[t] += gn[t].a[i] * gm[t].a[i] * xo[t].a[i] + gn[t].b[i] * gm[t].b[i] * xo[t].b[i];
       }
     }
+    // the rest of the row, where it spans more than one column block
+    for (int c = li; c < nv; c += G) {
+      if (c == own) continue;
+      float c2[V], s2[V];
+      load<V>(cr + c * V, c2);
+      load<V>(sr + c * V, s2);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        Halves<V> xe, de, ge, ne;
+        xe.read(x[t] + c * V, half);
+        de.read(d[t] + c * V, half);
+        ge.read(gam[t] + c * V, half);
+        unrotate<V>(de, c2, s2, ne);
+        ss[t] += xe.squares();
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          m[t] += ne.a[i] * ge.a[i] * xe.a[i] + ne.b[i] * ge.b[i] * xe.b[i];
+      }
+    }
+    float iv[2], i3m[2];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      const float iv = inv_rms(group_sum(ss[t], G), D);
-      const float i3m = iv * iv * iv * (group_sum(m[t], G) / D);
-      if (!live) continue;
-      bf16* y = dqkv + (size_t)rr * 3 * HD + t * HD + (size_t)h * D;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int j = j0 + k * G + li;
-        if (j >= half) continue;
-        const float c = ldf(cr + j), s = ldf(sr + j);
-        const float d1 = d[t][j], d2 = d[t][j + half];
-        const float x1 = ldf(x[t] + j), x2 = ldf(x[t] + j + half);
-        const float gn1 = d1 * c + d2 * s, gn2 = d2 * c - d1 * s;
-        dg[t][k][0] += gn1 * x1 * iv;
-        dg[t][k][1] += gn2 * x2 * iv;
-        y[j] = __float2bfloat16(gn1 * gam[t][k][0] * iv - x1 * i3m);
-        y[j + half] = __float2bfloat16(gn2 * gam[t][k][1] * iv - x2 * i3m);
-      }
+      iv[t] = inv_rms(group_sum(ss[t], G), D);
+      i3m[t] = iv[t] * iv[t] * iv[t] * (group_sum(m[t], G) / D);
     }
+    if (!live || !mine) continue;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      float y1[V], y2[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        acc[t][0][i] += gn[t].a[i] * xo[t].a[i] * iv[t];
+        acc[t][1][i] += gn[t].b[i] * xo[t].b[i] * iv[t];
+        y1[i] = gn[t].a[i] * gm[t].a[i] * iv[t] - xo[t].a[i] * i3m[t];
+        y2[i] = gn[t].b[i] * gm[t].b[i] * iv[t] - xo[t].b[i] * i3m[t];
+      }
+      bf16* y = dqkv + (size_t)row * 3 * HD + t * HD + (size_t)h * D + own * V;
+      store<V>(y, y1);
+      store<V>(y + half, y2);
+    }
+    if (dv == nullptr) continue;
+    const bf16* gv = dv + row * st.row[2] + h * st.head[2] + own * V;
+    bf16* yv = dqkv + (size_t)row * 3 * HD + 2 * HD + (size_t)h * D + own * V;
+    copy<V>(gv, yv);
+    copy<V>(gv + half, yv + half);
   }
+  // the groups of a warp, then the warps in order
 #pragma unroll
   for (int t = 0; t < 2; ++t)
 #pragma unroll
-    for (int k = 0; k < K; ++k)
+    for (int e = 0; e < 2; ++e)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) red[warp][lane][t][k][e] = dg[t][k][e];
+      for (int i = 0; i < V; ++i) {
+        float s = acc[t][e][i];
+        for (int o = G; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane < G) red[warp][t][e][lane * V + i] = s;
+      }
   __syncthreads();
-  if (warp < 2 && lane < G) {  // warp t sums the block's partials of q (0) or k (1)
-    float* part = dg_part + ((size_t)chunk * H + h) * 2 * D + warp * D;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int j = j0 + k * G + lane;
-      if (j >= half) continue;
-      float s1 = 0.f, s2 = 0.f;
-      for (int w = 0; w < kStPostWarps; ++w)
-        for (int p = 0; p < per; ++p) {
-          s1 += red[w][p * G + lane][warp][k][0];
-          s2 += red[w][p * G + lane][warp][k][1];
-        }
-      part[j] = s1;
-      part[j + half] = s2;
-    }
+  for (int idx = threadIdx.x; idx < 2 * 2 * G * V; idx += kStPostWarps * 32) {
+    const int t = idx / (2 * G * V), e = idx / (G * V) % 2, w = idx % (G * V);
+    const int col = blockIdx.y * G * V + w;  // the column inside the pair half
+    if (col >= half) continue;
+    float s = 0.f;
+    for (int wp = 0; wp < kStPostWarps; ++wp) s += red[wp][t][e][w];
+    dg[((size_t)blockIdx.x * 2 + t) * D + e * half + col] = s;
   }
 }
 
@@ -1740,27 +1873,106 @@ int stream_bwd(const CUtensorMap* maps, const void* lse, const void* delta, void
                      (const float*)delta, (float*)dq, L, H, Dp, scale);
 }
 
-// the prep pass's lanes a (row, head): a whole warp where the launch then
-// still fits one wave (a tiny grid is set by one warp's time), else
-// pair_lanes; a function of the shape alone, so the forward's and the
-// backward's passes sum each row's squares alike
-int prep_lanes(int B, int L, int H, int D) {
-  if ((size_t)B * L * H * 32 <= (size_t)device_sms() * 2048) return 32;
-  return pair_lanes(D / 2, kStPrepPairs, kStPrepLanes);
+// lanes a (row, head) in the prep and post passes: its vectors rounded up
+// to a power of two, at most a warp
+int vec_lanes(int vectors) {
+  int g = 1;
+  while (g < 32 && g < vectors) g *= 2;
+  return g;
 }
 
+// the widest of 8, 4, 2, 1 elements dividing D / 2 and every stride (in
+// elements), with every bf16 base aligned to that many elements and every
+// f32 base (read 4 at a time from 4 up) to 16 bytes or one element
+int vec_width(int half, const long long* strides, int nstrides, const void* const* bases,
+              int nbases, const void* const* fbases, int nfbases) {
+  int v = 8;
+  for (; v > 1; v /= 2) {
+    bool ok = half % v == 0;
+    for (int i = 0; ok && i < nstrides; ++i) ok = strides[i] % v == 0;
+    for (int i = 0; ok && i < nbases; ++i) ok = (size_t)bases[i] % (2 * v) == 0;
+    for (int i = 0; ok && i < nfbases; ++i) ok = (size_t)fbases[i] % (v >= 4 ? 16 : 4) == 0;
+    if (ok) break;
+  }
+  return v;
+}
+
+template <int V>
+int prep_launch_v(const void* qkv, const void* gq, const void* gk, const void* cos_t,
+                  const void* sin_t, void* rq, void* rk, void* rv, const void* dout,
+                  const void* o, void* rdo, void* delta, int B, int L, int H, int D, int Dp,
+                  cudaStream_t stream) {
+  const int G = vec_lanes(D / 2 / V);
+  const size_t units = (size_t)B * L * H, per_block = (size_t)kStPrepWarps * (32 / G);
+  const dim3 grid((unsigned)((units + per_block - 1) / per_block));
+  return (int)launch(attention_prep_kernel<V>, grid, dim3(kStPrepWarps * 32), 0, stream,
+                     (const bf16*)qkv, (const bf16*)gq, (const bf16*)gk, (const bf16*)cos_t,
+                     (const bf16*)sin_t, (bf16*)rq, (bf16*)rk, (bf16*)rv, (const bf16*)dout,
+                     (const bf16*)o, (bf16*)rdo, (float*)delta, B * L, L, H, D, Dp, G);
+}
+
+// the prep pass; its width and lanes follow from the shape and the bases,
+// which the forward and the backward share but for dO and O (as aligned)
 int prep_launch(const void* qkv, const void* gq, const void* gk, const void* cos_t,
                 const void* sin_t, void* rq, void* rk, void* rv, const void* dout,
                 const void* o, void* rdo, void* delta, int B, int L, int H, int D, int Dp,
                 cudaStream_t stream) {
-  const int lanes = prep_lanes(B, L, H, D);
-  const size_t warps = ((size_t)B * L * H * lanes + 31) / 32;
-  return (int)launch(attention_prep_kernel,
-                     dim3((unsigned)((warps + kStPrepWarps - 1) / kStPrepWarps)),
-                     dim3(kStPrepWarps * 32), 0, stream, (const bf16*)qkv, (const bf16*)gq,
-                     (const bf16*)gk, (const bf16*)cos_t, (const bf16*)sin_t, (bf16*)rq,
-                     (bf16*)rk, (bf16*)rv, (const bf16*)dout, (const bf16*)o, (bf16*)rdo,
-                     (float*)delta, B * L, L, H, D, Dp, lanes);
+  const long long dp = Dp;
+  const void* bases[] = {qkv, gq, gk, cos_t, sin_t, rq, rk, rv, dout, o, rdo};
+  switch (vec_width(D / 2, &dp, 1, bases, 11, nullptr, 0)) {
+    case 8:
+      return prep_launch_v<8>(qkv, gq, gk, cos_t, sin_t, rq, rk, rv, dout, o, rdo, delta, B, L,
+                              H, D, Dp, stream);
+    case 4:
+      return prep_launch_v<4>(qkv, gq, gk, cos_t, sin_t, rq, rk, rv, dout, o, rdo, delta, B, L,
+                              H, D, Dp, stream);
+    case 2:
+      return prep_launch_v<2>(qkv, gq, gk, cos_t, sin_t, rq, rk, rv, dout, o, rdo, delta, B, L,
+                              H, D, Dp, stream);
+    default:
+      return prep_launch_v<1>(qkv, gq, gk, cos_t, sin_t, rq, rk, rv, dout, o, rdo, delta, B, L,
+                              H, D, Dp, stream);
+  }
+}
+
+template <typename T, int V>
+int post_launch_v(const T* dq, const T* dk, const bf16* dv, PostStrides strides, const void* qkv,
+                  const void* gq, const void* gk, const void* cos_t, const void* sin_t,
+                  void* dqkv, void* dg, int B, int L, int H, int D, cudaStream_t stream) {
+  const int nv = D / 2 / V, G = vec_lanes(nv);
+  const dim3 grid((unsigned)((B * L + kStChunk - 1) / kStChunk), (unsigned)((nv + G - 1) / G));
+  return (int)launch(attention_post_kernel<T, V>, grid, dim3(kStPostWarps * 32), 0, stream,
+                     (const bf16*)qkv, (const bf16*)gq, (const bf16*)gk, (const bf16*)cos_t,
+                     (const bf16*)sin_t, dq, dk, dv, strides, (bf16*)dqkv, (float*)dg, B * L, L,
+                     H, D, G);
+}
+
+// the post pass into dqkv's q and k columns (and v's, where dv is given)
+// and the gamma partials dg (ceil(B L / kStChunk), 2, D) f32
+template <typename T>
+int post_launch(const T* dq, const T* dk, const bf16* dv, PostStrides strides, const void* qkv,
+                const void* gq, const void* gk, const void* cos_t, const void* sin_t, void* dqkv,
+                void* dg, int B, int L, int H, int D, cudaStream_t stream) {
+  constexpr bool f32 = sizeof(T) == 4;
+  const long long s[] = {strides.row[0], strides.row[1], strides.row[2],
+                         strides.head[0], strides.head[1], strides.head[2]};
+  const void* bases[] = {qkv, gq, gk, cos_t, sin_t, dv, dqkv, f32 ? nullptr : dq,
+                         f32 ? nullptr : dk};
+  const void* fbases[] = {dq, dk};
+  switch (vec_width(D / 2, s, 6, bases, 9, fbases, f32 ? 2 : 0)) {
+    case 8:
+      return post_launch_v<T, 8>(dq, dk, dv, strides, qkv, gq, gk, cos_t, sin_t, dqkv, dg, B, L,
+                                 H, D, stream);
+    case 4:
+      return post_launch_v<T, 4>(dq, dk, dv, strides, qkv, gq, gk, cos_t, sin_t, dqkv, dg, B, L,
+                                 H, D, stream);
+    case 2:
+      return post_launch_v<T, 2>(dq, dk, dv, strides, qkv, gq, gk, cos_t, sin_t, dqkv, dg, B, L,
+                                 H, D, stream);
+    default:
+      return post_launch_v<T, 1>(dq, dk, dv, strides, qkv, gq, gk, cos_t, sin_t, dqkv, dg, B, L,
+                                 H, D, stream);
+  }
 }
 
 }  // namespace
@@ -1810,7 +2022,7 @@ extern "C" int odt_fused_attention_stream_fwd(const void* qkv, const void* gq, c
 // and dO padded into rdo unless rdo is null, which needs Dp == D), the dK/dV
 // launch into dk (B, L, H, Dp) f32 scratch and dV's columns of dqkv, the dQ
 // launch into dq (the same as dk), and the post pass into dqkv's q and k
-// columns and the gamma partials dg (ceil(B L / 64) H, 2 D) f32: q's D
+// columns and the gamma partials dg (ceil(B L / 32), 2 D) f32: q's D
 // columns, then k's
 extern "C" int odt_fused_attention_stream_bwd(
     const void* qkv, const void* dout, const void* out, const void* lse, const void* gq,
@@ -1833,13 +2045,9 @@ extern "C" int odt_fused_attention_stream_bwd(
   if (e != cudaSuccess) return (int)e;
   err = stream_bwd(maps, lse, delta, dq, dk, dqkv, B, L, H, D, Dp, scale, st);
   if (err != 0) return err;
-  // a post block's rotary pairs
-  const int pairs = kStPostPairs * pair_lanes(D / 2, kStPostPairs, kStPostLanes);
-  const size_t blocks = (size_t)((B * L + kStChunk - 1) / kStChunk) * H * ((D / 2 + pairs - 1) / pairs);
-  return (int)launch(attention_post_kernel, dim3((unsigned)blocks), dim3(kStPostWarps * 32), 0,
-                     st, (const bf16*)qkv, (const bf16*)gq, (const bf16*)gk, (const bf16*)cos_t,
-                     (const bf16*)sin_t, (const float*)dq, (const float*)dk, (bf16*)dqkv,
-                     (float*)dg, B * L, L, H, D, Dp);
+  const long long row = (long long)H * Dp;
+  return post_launch((const float*)dq, (const float*)dk, nullptr, {{row, row, 0}, {Dp, Dp, 0}},
+                     qkv, gq, gk, cos_t, sin_t, dqkv, dg, B, L, H, D, st);
 }
 
 // The long attention backward (the training counterpart of K7/K8, whose q
@@ -1870,4 +2078,33 @@ extern "C" int odt_attention_stream_bwd(const void* q, const void* k, const void
     if (e != cudaSuccess) return (int)e;
   }
   return stream_bwd(maps, lse, delta, dq, dk, dqkv, B, L, H, D + (D & 1), Dp, scale, st);
+}
+
+// The long route's q/k norm and RoPE ahead of K7 (ops/norm_rope.py), the
+// JAX package's `rope(rms_norm(q, q_gamma))` and `rope(rms_norm(k,
+// k_gamma))` before `long_flash_attention`, which XLA fuses: K9's prep pass
+// at Dp = D, qkv (B, L, 3 H D) bf16 -> q, k and v's copy (B, L, H, D) bf16
+extern "C" int odt_qk_prep(const void* qkv, const void* gq, const void* gk, const void* cos_t,
+                           const void* sin_t, void* q, void* k, void* v, int B, int L, int H,
+                           int D, void* stream) {
+  using namespace odt;
+  if (B < 1 || L < 1 || H < 1 || D < 2 || D % 2) return (int)cudaErrorInvalidValue;
+  return prep_launch(qkv, gq, gk, cos_t, sin_t, q, k, v, nullptr, nullptr, nullptr, nullptr, B, L,
+                     H, D, D, (cudaStream_t)stream);
+}
+
+// Its backward: K10's post pass on dq, dk, dv (B, L, H, D) bf16 whose
+// element (b, l, h, j) lies at (b L + l) row + h head + j (strides in
+// elements, one pair each) -> dqkv (B, L, 3 H D) bf16, v's columns copied,
+// and the gamma partials dg (ceil(B L / 32), 2, D) f32 (q's, then k's)
+extern "C" int odt_qk_post(const void* qkv, const void* gq, const void* gk, const void* cos_t,
+                           const void* sin_t, const void* dq, const void* dk, const void* dv,
+                           long long dq_row, long long dq_head, long long dk_row,
+                           long long dk_head, long long dv_row, long long dv_head, void* dqkv,
+                           void* dg, int B, int L, int H, int D, void* stream) {
+  using namespace odt;
+  if (B < 1 || L < 1 || H < 1 || D < 2 || D % 2) return (int)cudaErrorInvalidValue;
+  return post_launch((const bf16*)dq, (const bf16*)dk, (const bf16*)dv,
+                     {{dq_row, dk_row, dv_row}, {dq_head, dk_head, dv_head}}, qkv, gq, gk, cos_t,
+                     sin_t, dqkv, dg, B, L, H, D, (cudaStream_t)stream);
 }

@@ -8,9 +8,10 @@ embedding, softmax attention, output projection. ``attention_route``
 ``fused_attention_fits`` holds the attention goes straight off the packed
 projection through ``fused_norm_rope_attention`` (forward and backward
 kernels on the card, at every head dim and length the gate admits);
-elsewhere it normalises and rotates here (autograd differentiates that)
-and takes ``long_flash_attention`` (ops/long_attention.py: forward and
-backward kernels at any shape), as the JAX package does.
+elsewhere q and k are normalised and rotated by ``norm_rope_qkv``
+(ops/norm_rope.py: one pass each way on the card) and go to
+``long_flash_attention`` (ops/long_attention.py: forward and backward
+kernels at any shape), as the JAX package does.
 With a sequence-parallel group (``sp``) the route is not asked: q and k are
 normalised and rotated here at the shard's global offset and go through
 ``ring_attention`` (ops/ring_attention.py), as in the JAX package. On
@@ -40,6 +41,7 @@ from torch import nn
 from ..ops.film_qkv import feasible_bwd_tile, feasible_fwd_tile, film_qkv, film_qkv_tp
 from ..ops.fused_attention import attention_route, fused_norm_rope_attention, rope
 from ..ops.long_attention import long_flash_attention
+from ..ops.norm_rope import norm_rope_qkv
 from ..ops.ring_attention import ring_attention
 from ..parallel.collectives import enter_model, group_rank, leave_model
 from .blocks import Dense
@@ -163,8 +165,5 @@ class RoPEAttention(nn.Module):
             return self.out(ring_attention(q, k, v, sp).reshape(B, L, H * D))
         if attention_route(L, H, D) == "fused":
             return self._project_out(fused_norm_rope_attention(qkv, self.q_gamma, self.k_gamma, H))
-        q, k, v = qkv.split(H * D, dim=-1)
-        q = rope(rms_norm(q.reshape(B, L, H, D), self.q_gamma))
-        k = rope(rms_norm(k.reshape(B, L, H, D), self.k_gamma))
-        y = long_flash_attention(q, k, v.reshape(B, L, H, D).contiguous())
-        return self._project_out(y)
+        q, k, v = norm_rope_qkv(qkv, self.q_gamma, self.k_gamma, H)
+        return self._project_out(long_flash_attention(q, k, v))

@@ -41,12 +41,13 @@ KERNELS = ("resonator", "film_layer", "swiglu", "flash_attention", "swiglu_bwd",
            "fused_attention_fwd", "fused_attention_bwd", "film_layer_bwd", "swiglu_bwd_full",
            "film_qkv_fwd", "film_qkv_bwd", "swiglu_tp", "swiglu_bwd_tp", "film_layer_tp",
            "film_layer_bwd_tp", "long_attention_bwd", "swiglu_bwd_full_tp", "film_qkv_tp",
-           "film_qkv_bwd_tp")
+           "film_qkv_bwd_tp", "qk_prep", "qk_post")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "odt_resonate": [_P] * 7 + [_I, _I, _P],
     "odt_film_layer_fwd": [_P] * 14 + [_I] * 8 + [_P],
@@ -71,6 +72,8 @@ _SIGNATURES = {
     "odt_long_attention_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "odt_swiglu_bwd_full_tp": [_P] * 21 + [_I] * 14 + [_P],
     "odt_film_qkv_bwd_tp": [_P] * 17 + [_I] * 6 + [_P],
+    "odt_qk_prep": [_P] * 8 + [_I] * 4 + [_P],
+    "odt_qk_post": [_P] * 8 + [_L] * 6 + [_P, _P] + [_I] * 4 + [_P],
 }
 
 

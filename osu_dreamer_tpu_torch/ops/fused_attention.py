@@ -41,9 +41,9 @@ MAX_FUSED_LEN = 256
 # the lengths csrc/fused_attention.cu's kernels hold in shared memory: a
 # head's rows of q, k, v and dO, up to four 64-row tiles each
 RESIDENT_LEN = 256
-# rows a warp of the streamed backward's post pass (csrc/attention_stream.cu
-# kStChunk): one gamma partial per chunk and head
-POST_CHUNK = 64
+# rows a block of the streamed post pass (csrc/attention_stream.cu
+# kStChunk): one gamma partial per chunk of rows, all heads
+POST_CHUNK = 32
 
 
 def fused_attention_fits(L: int, n_heads: int, head_dim: int) -> bool:
@@ -57,10 +57,10 @@ def attention_route(L: int, n_heads: int, head_dim: int) -> str:
     """where RoPE attention over L positions runs, decided before any launch
     and the same on every device type: "fused" (``fused_norm_rope_attention``:
     K9 forward, K10 backward on the card) exactly where the JAX gate
-    ``fused_attention_fits`` holds, else "long" (norm and RoPE in torch,
-    then ``long_flash_attention``: K7 on the card, and under autograd the
-    streamed forward and the long attention backward). The kernels take
-    every head dim and length, so no shape raises here"""
+    ``fused_attention_fits`` holds, else "long" (norm and RoPE by
+    ops/norm_rope.py, then ``long_flash_attention``: K7 on the card, and
+    under autograd the streamed forward and the long attention backward).
+    The kernels take every head dim and length, so no shape raises here"""
     return "fused" if fused_attention_fits(L, n_heads, head_dim) else "long"
 
 
@@ -216,7 +216,7 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
     """K10 (csrc/fused_attention.cu where ``resident``, else
     csrc/attention_stream.cu): -> (dqkv bf16, dq_gamma f32, dk_gamma f32);
     the gamma partials (one per (batch, head) at D 32 and 64, per 64-row
-    tile too at 128, per 64-row chunk and head when streamed, q's and k's
+    tile too at 128, per POST_CHUNK rows when streamed, q's and k's
     in one array) are summed here"""
     B, L, H, D = _check_kernel_shapes(qkv, n_heads)
     dev = qkv.device
@@ -243,7 +243,7 @@ def fused_attention_bwd_cuda(qkv, grad, out, lse, q_gamma, k_gamma, n_heads):
     rows = _stream_rows(B, L, H, D, Dp, dev, with_do=True)
     delta = torch.empty(B, H, L, dtype=torch.float32, device=dev)
     grads = [torch.empty(B, L, H, Dp, dtype=torch.float32, device=dev) for _ in range(2)]
-    dg = torch.empty(-(-B * L // POST_CHUNK) * H, 2, D, dtype=torch.float32, device=dev)
+    dg = torch.empty(-(-B * L // POST_CHUNK), 2, D, dtype=torch.float32, device=dev)
     run(
         "odt_fused_attention_stream_bwd", "fused_attention_bwd", dev,
         *_ptrs((qkv, grad, out, lse, gq, gk, cos, sin, *rows, delta, *grads, dqkv, dg)),

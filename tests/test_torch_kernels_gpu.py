@@ -21,7 +21,7 @@ import torch
 
 from osu_dreamer_tpu_torch.nn.norm import rms_norm
 from osu_dreamer_tpu_torch.ops import (
-    _build, film_layer, film_qkv, fused_attention, long_attention, resonator, swiglu,
+    _build, film_layer, film_qkv, fused_attention, long_attention, norm_rope, resonator, swiglu,
 )
 
 BF16_ULPS = 4
@@ -133,7 +133,7 @@ def test_ffn_core_keeps_batch_rows_apart_on_gpu(film):
 @pytest.mark.gpu
 def test_wide_attention_inference_takes_the_flash_kernel_on_gpu(monkeypatch):
     """16 x 64 heads at L 300: past the JAX gate (L H D > 262,144), so
-    inference runs norm and RoPE in torch and K7, within the f32 rule of
+    inference runs the norm and RoPE pass and K7, within the f32 rule of
     the plain path"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -154,8 +154,10 @@ def test_wide_attention_inference_takes_the_flash_kernel_on_gpu(monkeypatch):
         got = attn(x).float()
         # the f32 reference through the plain attention (the kernels are bf16)
         monkeypatch.setattr(attn_mod, "long_flash_attention", long_attention.attention_plain)
+        monkeypatch.setattr(attn_mod, "norm_rope_qkv", norm_rope.norm_rope_qkv_plain)
         ref = ref_attn(x.float()).float()
     assert _build.launches["flash_attention"] == before["flash_attention"] + 1
+    assert _build.launches["qk_prep"] == before["qk_prep"] + 1
     assert _build.launches["fused_attention_fwd"] == before["fused_attention_fwd"]
     with torch.inference_mode():  # the plain path of the same layer, bf16
         q, k, v = attn.qkv(x).split(1024, dim=-1)
@@ -831,9 +833,10 @@ def test_one_pass_long_attention_bwd_on_gpu(B, L, H, D):
 
 @pytest.mark.gpu
 def test_attention_trains_past_the_gate_through_the_kernels_on_gpu(monkeypatch):
-    """16 x 64 heads at L 300 under autograd: one streamed forward (counted
-    as K7) and one long attention backward, no plain attention, the q/k/v
-    and gain gradients within GRAD_REL of the f32 plain layer's"""
+    """16 x 64 heads at L 300 under autograd: one norm and RoPE pass each
+    way, one streamed forward (counted as K7) and one long attention
+    backward, no plain attention, the q/k/v and gain gradients within
+    GRAD_REL of the f32 plain layer's"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     from osu_dreamer_tpu_torch.nn import attention as attn_mod
@@ -854,8 +857,11 @@ def test_attention_trains_past_the_gate_through_the_kernels_on_gpu(monkeypatch):
     assert _build.launches["flash_attention"] == before["flash_attention"] + 1
     assert _build.launches["long_attention_bwd"] == before["long_attention_bwd"] + 1
     assert _build.launches["fused_attention_bwd"] == before["fused_attention_bwd"]
+    assert _build.launches["qk_prep"] == before["qk_prep"] + 1
+    assert _build.launches["qk_post"] == before["qk_post"] + 1
     # the f32 reference through the plain attention (the kernels are bf16)
     monkeypatch.setattr(attn_mod, "long_flash_attention", long_attention.attention_plain)
+    monkeypatch.setattr(attn_mod, "norm_rope_qkv", norm_rope.norm_rope_qkv_plain)
     _grads_close(got, torch.autograd.grad(ref_attn(x.float()), list(ref_attn.parameters()), go))
 
 

@@ -177,8 +177,8 @@ def test_cuda_wrapper_refuses_cpu_tensors(kernel):
 
 
 def _c_prototypes() -> dict[str, list[str]]:
-    """name -> argument kinds ('pointer', 'int', 'float') of every extern "C"
-    entry point in csrc/*.cu"""
+    """name -> argument kinds ('pointer', 'int', 'float', 'long' for long
+    long) of every extern "C" entry point in csrc/*.cu"""
     import re
 
     from osu_dreamer_tpu_torch.ops import _build
@@ -201,7 +201,8 @@ _ENTRY_POINTS = ["odt_resonate", "odt_film_layer_fwd", "odt_swiglu_fwd", "odt_fl
                  "odt_film_layer_fwd_tp", "odt_swiglu_bwd_tp", "odt_film_layer_bwd_tp",
                  "odt_attention_stream_fwd", "odt_fused_attention_stream_fwd",
                  "odt_fused_attention_stream_bwd", "odt_attention_stream_bwd",
-                 "odt_swiglu_bwd_full_tp", "odt_film_qkv_bwd_tp", "odt_long_attention_bwd"]
+                 "odt_swiglu_bwd_full_tp", "odt_film_qkv_bwd_tp", "odt_long_attention_bwd",
+                 "odt_qk_prep", "odt_qk_post"]
 
 
 def test_c_entry_points_are_the_bound_ones():
@@ -219,7 +220,8 @@ def test_ctypes_signature_matches_c_prototype(name):
 
     from osu_dreamer_tpu_torch.ops import _build
 
-    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float",
+             ctypes.c_longlong: "long"}
     proto = _c_prototypes()[name]
     assert [kinds[t] for t in _build._SIGNATURES[name]] == proto
     assert proto[-1] == "pointer"
