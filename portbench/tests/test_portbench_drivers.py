@@ -25,14 +25,37 @@ def test_driver_units_window_and_check(tiny_cell):
     assert readings and all(math.isfinite(v) and v >= 0 for v in readings.values())
 
 
+def counted(monkeypatch, cell, units: int) -> float:
+    """the driver's clock ticks once a unit issued, so that the window of
+    ``run_cell(..., seconds=units, ...)`` runs exactly ``units`` units,
+    whatever the load on the host -> those seconds"""
+    from portbench import cell as cell_module
+
+    build = cell.driver.build
+
+    def built(*args):
+        c = build(*args)
+        for fn in vars(type(c)).values():
+            scope = getattr(fn, "__globals__", None)
+            if scope is not None and scope.get("now") is cell_module.now:
+                monkeypatch.setitem(scope, "now", lambda: float(c.issued))
+        return c
+
+    monkeypatch.setattr(cell.driver, "build", built)
+    return float(units)
+
+
 @pytest.mark.parametrize("trace", [False, True])
-def test_run_cell_result(tiny_cell, trace):
-    # long enough for the 20 steps a train cell's step-time tail needs
-    result = run_cell(tiny_cell, 2**31 + 6, 3.0, trace, "cpu", time.perf_counter())
+def test_run_cell_result(tiny_cell, trace, monkeypatch):
+    # the 20 steps a train cell's step-time tail reads; two batches of a predict cell
+    steps = "train_step_ms_p95" in tiny_cell.end_to_end
+    seconds = counted(monkeypatch, tiny_cell, 20 if steps else 2)
+    result = run_cell(tiny_cell, 2**31 + 6, seconds, trace, "cpu", time.perf_counter())
     reported = tiny_cell.per_layer if trace else tiny_cell.end_to_end
     assert set(result["metrics"]) <= set(reported)
     if not trace:
         assert "setup_s" in result["metrics"] and len(result["metrics"]) >= 2
+        assert steps == ("train_step_ms_p95" in result["metrics"])
     for m in result["metrics"].values():
         assert set(m) == {"value", "unit"} and math.isfinite(m["value"])
     line = result_line(result, "cpu", 1, trace)

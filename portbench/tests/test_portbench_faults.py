@@ -1,89 +1,23 @@
 """A run whose timed path is broken underneath reads ``correct`` false: each
 fault a cell can have, planted in the program at a tiny size on the CPU,
 driven through the rest of a run (``run_cell``) and judged by the cell's
-own limits. The same tiny run without a fault reads correct."""
+own limits. The same tiny run without a fault reads correct. A driver's
+faults are the ``FAULTS`` list of ``faults/<driver>.py`` beside this file,
+so a driver added as files brings its own."""
 
 from __future__ import annotations
 
 import time
 
 import pytest
-import torch
-from conftest import CELLS, ROOT, tiny
+from conftest import CELLS, ROOT, faults_of, tiny
 
 from portbench.bench import benchmark, resolve
 from portbench.run import run_cell
 
 
-def _unchanged_train(monkeypatch):
-    """a step that returns the state unchanged: no update, no EMA"""
-    from osu_dreamer_tpu_torch.models.diffusion import train
-    from osu_dreamer_tpu_torch.train import state
-
-    monkeypatch.setattr(state.AdamW, "step", lambda self, grads, norm=None: torch.zeros(()))
-    monkeypatch.setattr(train, "ema_update", lambda *a, **k: None)
-
-
-def _half_batch_train(monkeypatch):
-    """the loss over the first half of each batch's rows only"""
-    from osu_dreamer_tpu_torch.models.diffusion import train
-
-    loss = train.diffusion_loss
-
-    def half(model, batch, args, generator=None, t=None, x0=None, **kw):
-        n = batch.z.shape[0] // 2
-        return loss(model, train.LatentBatch(*(f[:n] for f in batch)), args, generator,
-                    t[:n], x0[:n], **kw)
-
-    monkeypatch.setattr(train, "diffusion_loss", half)
-
-
-def _answer_predict(monkeypatch):
-    """one row's hit channels inverted where the chart is quantized"""
-    from osu_dreamer_tpu_torch.models.inference import sampler
-
-    quantize = sampler.quantize_chart
-
-    def altered(chart):
-        hit, xy = quantize(chart)
-        hit = hit.clone()
-        hit[0] = 255 - hit[0]
-        return hit, xy
-
-    monkeypatch.setattr(sampler, "quantize_chart", altered)
-
-
-def _sampler(monkeypatch, fn):
-    from osu_dreamer_tpu_torch.models.diffusion.model import DiffusionModel
-
-    sample = DiffusionModel.sample
-    monkeypatch.setattr(DiffusionModel, "sample",
-                        lambda self, audio, style, num_steps, x0=None, **kw:
-                        fn(sample, self, audio, style, num_steps, x0, **kw))
-
-
-def _unchanged_predict(monkeypatch):
-    """the denoiser's steps leave the sampler's state as it started"""
-    _sampler(monkeypatch, lambda sample, self, audio, style, n, x0, **kw: x0.float())
-
-
-def _half_batch_predict(monkeypatch):
-    """the denoiser samples the first half of the rows, its step size from
-    their mean alone; the other half copies them"""
-    def half(sample, self, audio, style, n, x0, **kw):
-        k = x0.shape[0] // 2
-        x = sample(self, audio[:k], style[:k], n, x0=x0[:k], **kw)
-        return torch.cat([x, x[: x0.shape[0] - k]])
-
-    _sampler(monkeypatch, half)
-
-
-FAULTS = {"predict_batch": [_answer_predict, _unchanged_predict, _half_batch_predict],
-          "denoiser_step": [_unchanged_train, _half_batch_train]}
-
-
 CASES = [(name, fault) for name in CELLS
-         for fault in FAULTS[resolve(benchmark(ROOT), name).wl["driver"]]]
+         for fault in faults_of(resolve(benchmark(ROOT), name).wl["driver"])]
 
 
 def _run(cell):
