@@ -43,6 +43,7 @@ from ...nn.mmd import mmd_imq
 from ...parallel.collectives import all_gather_rows, all_reduce_sum
 from ...parallel.tp import layout_of
 from ...signal.constants import HIT_DIM
+from ...train.profiling import span
 from ...train.state import OptimizerArgs, TrainState, make_optimizer
 from .model import LatentModel, LatentModelArgs
 
@@ -214,8 +215,9 @@ def step_gradients(state: TrainState, batch: Batch, args: LatentTrainArgs,
     normalised by its running magnitude in the state (the raw components on
     the first step) -> (components, metrics, gradients)"""
     params = list(state.model.parameters())
-    components, aux, s_reg = latent_loss(state.model, batch, args, state.generator, True,
-                                         draws, par)
+    with span("train.loss"):
+        components, aux, s_reg = latent_loss(state.model, batch, args, state.generator, True,
+                                             draws, par)
     detached = components.detach()
     ema = torch.where(state.loss_ema_ready, state.loss_ema, detached)
     total = (_loss_weights(detached.device) * components / ema.clamp_min(1e-8)).sum()
@@ -223,7 +225,8 @@ def step_gradients(state: TrainState, batch: Batch, args: LatentTrainArgs,
     aux["loss"] = total
     # the audio encoder's last downsample feeds only encode-latents' h: its
     # gradient is zero, as JAX's
-    grads = list(torch.autograd.grad(total, params, materialize_grads=True))
+    with span("train.grad"):
+        grads = list(torch.autograd.grad(total, params, materialize_grads=True))
     if par is not None:
         grads = par.average_gradients(grads, layout_of(state.model))
     return detached, {k: v.detach() for k, v in aux.items()}, grads
@@ -234,6 +237,7 @@ def make_train_step(args: LatentTrainArgs, par=None):
     in place (loss gradient, clip + AdamW, loss EMA, step + 1); under ``par``
     ``batch`` is this rank's rows and ``draws`` are global"""
 
+    @span("train.step")
     def train_step(state: TrainState, batch: Batch, draws: LatentDraws | None = None) -> dict:
         detached, metrics, grads = step_gradients(state, batch, args, draws, par)
         state.opt.step(grads, par.grad_norm(grads, layout_of(state.model)) if par else None)

@@ -7,8 +7,9 @@
   its own stack, and the store stays whole under many threads;
 - under ``torch.profiler``: one ``user_annotation`` range ``odt.<name>`` a
   record in the Chrome trace, nested as the store says;
-- a tiny predict batch through ``build_batch_sampler`` and a tiny diffusion
-  train step record their stages once each inside one unit span.
+- a tiny predict batch through ``build_batch_sampler``, a tiny diffusion
+  train step and a tiny latent train step record their stages once each
+  inside one unit span.
 """
 
 from __future__ import annotations
@@ -214,4 +215,21 @@ def test_a_train_step_records_its_stages_inside_one_step():
     assert [r.name for r in recs] == ["train.step", "train.loss", "train.grad",
                                       "train.optimizer", "train.ema"]
     assert recs[0].parent is None and all(r.parent == 0 and r.unit == 0 for r in recs[1:])
+    assert state.step == 1
+
+
+def test_a_latent_train_step_records_its_stages_inside_one_step():
+    from osu_dreamer_tpu_torch.models.latent.train import Batch, init_latent_training
+    from test_torch_latent import L_TINY, _args, _batch_np
+
+    model_args, train_args = _args("torch")
+    state, train_step = init_latent_training(model_args, train_args, 0, "cpu", torch.float32)
+    batch = Batch(*(torch.from_numpy(x) for x in _batch_np()))
+    assert batch.chart.shape[1] == L_TINY
+    profiling.enable()
+    train_step(state, batch)
+    recs = profiling.records()
+    assert [r.name for r in recs] == ["train.step", "train.loss", "train.grad", "train.optimizer"]
+    assert recs[0].parent is None and all(r.parent == 0 and r.unit == 0 for r in recs[1:])
+    assert all(r.end_ns is not None for r in recs)
     assert state.step == 1
